@@ -1,0 +1,27 @@
+"""gloc3d_tpu_torch: the PyTorch / CUDA port of gloc3d_tpu for NVIDIA Hopper.
+
+The s2s located query (scan → PointPillar + NetVLAD descriptor → exact
+top-k → FFT BEV registration → 6-DoF pose) on the host-stats serving path.
+The JAX package ``gloc3d_tpu`` is the reference; this package imports no
+JAX. Its framework-free modules (config, native scan loader) are shared by
+file path (``_shared.py``). The one TPU kernel on this path,
+``_cumsum_rows_128``, is the hand-written CUDA kernel
+``csrc/segment_sum.cu`` (``kernels/segment_sum.py``).
+"""
+
+from gloc3d_tpu_torch._shared import config as _config
+from gloc3d_tpu_torch.models.descriptor import build_model, init_params
+from gloc3d_tpu_torch.pipeline import GlobalLocalizer, LocalizationResult
+
+PipelineConfig = _config.PipelineConfig
+BEVConfig = _config.BEVConfig
+VoxelConfig = _config.VoxelConfig
+ModelConfig = _config.ModelConfig
+IndexConfig = _config.IndexConfig
+MatchConfig = _config.MatchConfig
+
+__all__ = [
+    "BEVConfig", "GlobalLocalizer", "IndexConfig", "LocalizationResult",
+    "MatchConfig", "ModelConfig", "PipelineConfig", "VoxelConfig",
+    "build_model", "init_params",
+]

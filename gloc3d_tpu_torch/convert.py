@@ -1,0 +1,137 @@
+"""Flax parameter trees → port ``state_dict``s, and BatchNorm folding.
+
+``flax_to_state_dict`` is the inverse of
+``tools/convert_torch_checkpoint.py::convert_pointpillar_checkpoint``: it
+takes a DescriptorModel's Flax ``{params, batch_stats}`` (numpy or jax
+arrays; the folded tree with ``Conv_0``/``Dense_0`` biases and no
+BatchNorm too) and returns the reference torch names the port uses. Layouts:
+conv HWIO → OIHW; Dense ``(in, out)`` → Conv1d ``(out, in, 1)``; VLAD
+assignment ``(D, K)`` → ``(K, D, 1, 1)``.
+
+``fold_batch_norm`` ports ``gloc3d_tpu/models/fold.py``: each eval-mode BN
+after a conv becomes the conv's scale and bias (same fp32 arithmetic as the
+JAX fold), for the ``fold_bn=True`` serving model.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+_BN_EPS = 1e-5  # flax nn.BatchNorm default, matches torch
+
+_BLOCKS = (("block1", 2), ("block2", 3), ("block3", 3))  # (name, layers)
+_UPS = (("up1", 0), ("up2", 1), ("up3", 1))  # (name, torch conv index)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """DescriptorModel (pointpillar + netvlad pooling) Flax variables → port
+    state_dict; works for both ``fold_bn`` variants."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    enc_p, enc_s = params["encoder"], stats.get("encoder", {})
+    out: Dict[str, torch.Tensor] = {}
+
+    def bn(pnode, snode, dst):
+        if "BatchNorm_0" not in pnode:
+            return  # folded tree
+        out[f"{dst}.weight"] = _t(pnode["BatchNorm_0"]["scale"])
+        out[f"{dst}.bias"] = _t(pnode["BatchNorm_0"]["bias"])
+        out[f"{dst}.running_mean"] = _t(snode["BatchNorm_0"]["mean"])
+        out[f"{dst}.running_var"] = _t(snode["BatchNorm_0"]["var"])
+        out[f"{dst}.num_batches_tracked"] = torch.tensor(0)
+
+    def conv(pnode, snode, dst_conv, dst_bn):
+        c = pnode["Conv_0"]
+        out[f"{dst_conv}.weight"] = _t(c["kernel"]).permute(3, 2, 0, 1
+                                                            ).contiguous()
+        if "bias" in c:
+            out[f"{dst_conv}.bias"] = _t(c["bias"])
+        bn(pnode, snode, dst_bn)
+
+    pn, pn_s = enc_p["pn"], enc_s.get("pn", {})
+    out["encoder.pn.pointnet.0.weight"] = _t(
+        pn["Dense_0"]["kernel"]).t().contiguous()[:, :, None]
+    if "bias" in pn["Dense_0"]:
+        out["encoder.pn.pointnet.0.bias"] = _t(pn["Dense_0"]["bias"])
+    bn(pn, pn_s, "encoder.pn.pointnet.1")
+    for name, n in _BLOCKS:
+        for i in range(n):
+            key = f"ConvBNRelu_{i}"
+            conv(enc_p[name][key], enc_s.get(name, {}).get(key, {}),
+                 f"encoder.{name}.layers.{3 * i}",
+                 f"encoder.{name}.layers.{3 * i + 1}")
+    for name, ci in _UPS:
+        conv(enc_p[name], enc_s.get(name, {}), f"encoder.{name}.{ci}",
+             f"encoder.{name}.{ci + 1}")
+    for j, (ci, bi) in enumerate(((0, 1), (3, 4))):
+        key = f"conv_out_{j}"
+        conv(enc_p[key], enc_s.get(key, {}), f"encoder.conv_out.{ci}",
+             f"encoder.conv_out.{bi}")
+
+    out.update(netvlad_state_dict(params.get("pool", {}), stats.get("pool"),
+                                  prefix="pool."))
+    return out
+
+
+def netvlad_state_dict(pool: Mapping, pool_stats: Optional[Mapping] = None,
+                       prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flax NetVLAD params (+ gating BN stats) → port NetVLAD state_dict
+    (``prefix`` prepended); empty for the max/avg pooling heads."""
+    out: Dict[str, torch.Tensor] = {}
+    if "conv_weight" not in pool:
+        return out
+    out[f"{prefix}conv.weight"] = _t(pool["conv_weight"]).t().contiguous(
+    )[:, :, None, None]
+    if "conv_bias" in pool:
+        out[f"{prefix}conv.bias"] = _t(pool["conv_bias"])
+    out[f"{prefix}centroids"] = _t(pool["centroids"])
+    if "hidden1_weights" in pool:
+        out[f"{prefix}hidden1_weights"] = _t(pool["hidden1_weights"])
+    if "context_gating" in pool:
+        g = pool["context_gating"]
+        g_s = (pool_stats or {})["context_gating"]["bn1"]
+        cg = f"{prefix}context_gating."
+        out[f"{cg}gating_weights"] = _t(g["gating_weights"])
+        out[f"{cg}bn1.weight"] = _t(g["bn1"]["scale"])
+        out[f"{cg}bn1.bias"] = _t(g["bn1"]["bias"])
+        out[f"{cg}bn1.running_mean"] = _t(g_s["mean"])
+        out[f"{cg}bn1.running_var"] = _t(g_s["var"])
+        out[f"{cg}bn1.num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def fold_batch_norm(state_dict: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """Standard-model state_dict → folded-model state_dict.
+
+    Every encoder BatchNorm at Sequential index j folds into the conv at
+    index j−1: ``weight' = weight·γ/√(σ²+ε)``, ``bias' = β − μ·γ/√(σ²+ε)``.
+    The gating BN (``pool.context_gating.bn1``) follows no conv and stays,
+    as in the JAX fold.
+    """
+    out = {k: v.clone() for k, v in state_dict.items()}
+    bns = [k[: -len(".running_mean")] for k in state_dict
+           if k.startswith("encoder.") and k.endswith(".running_mean")]
+    for bn in bns:
+        head, idx = bn.rsplit(".", 1)
+        conv = f"{head}.{int(idx) - 1}"
+        gamma = state_dict[f"{bn}.weight"].numpy().astype(np.float32)
+        beta = state_dict[f"{bn}.bias"].numpy().astype(np.float32)
+        mean = state_dict[f"{bn}.running_mean"].numpy().astype(np.float32)
+        var = state_dict[f"{bn}.running_var"].numpy().astype(np.float32)
+        inv = gamma / np.sqrt(var + np.float32(_BN_EPS))
+        w = state_dict[f"{conv}.weight"].numpy().astype(np.float32)
+        out[f"{conv}.weight"] = torch.from_numpy(
+            w * inv.reshape((-1,) + (1,) * (w.ndim - 1)))
+        out[f"{conv}.bias"] = torch.from_numpy(beta - mean * inv)
+        for suffix in ("weight", "bias", "running_mean", "running_var",
+                       "num_batches_tracked"):
+            out.pop(f"{bn}.{suffix}", None)
+    return out

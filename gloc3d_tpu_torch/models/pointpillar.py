@@ -1,0 +1,188 @@
+"""PointPillar BEV encoder in PyTorch (s2s path).
+
+Port of ``gloc3d_tpu/models/pointpillar.py``: 14-dim per-point features →
+1×1 PointNet → sorted mean into the 140×80 pillar grid (kernel K1) → three
+conv blocks (64/128/256) with FPN upsampling → 448-channel concat →
+128-channel descriptor head. NCHW inside; the public output keeps the JAX
+layout ``(B, gy, gx, 128)``.
+
+Parameter names are the reference torch model's (``encoder.pn.pointnet.0``,
+``encoder.block1.layers.{3i}``, ``up2.1``, ``conv_out.{0,1,3,4}``), so the
+Flax bridge (convert.py) and reference checkpoints map one to one. With
+``fold_bn=True`` each BatchNorm is an ``nn.Identity`` and its conv carries
+the folded bias.
+
+Traps kept from the reference and the Flax model:
+
+- Flax ``padding="SAME"`` pads a stride-2 3×3 conv by (0 low, 1 high), not
+  (1, 1) as ``nn.Conv2d(padding=1)`` does: ``_pad_same`` pads explicitly.
+- PointNet BN sees unmasked rows; the mask applies after the ReLU.
+- The pillar ravel is x-major (H = gx, W = gy), and the head ends with an
+  x↔y swap.
+- The FPN upsample uses align-corners bilinear.
+- Compute dtype: convs run in ``compute_dtype`` (bf16 by default); BN and
+  the folded model's ``relu=False`` head end return fp32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from gloc3d_tpu_torch.kernels.segment_sum import segment_sum_sorted
+from gloc3d_tpu_torch.ops.voxelize import grid_shape, points_to_voxels_hoststats
+
+POINT_FEATURES = 14  # 4 input columns + count + 3 local + 3 centroid + 3 center
+
+
+def _pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+    """Flax/TF ``SAME`` padding for an NCHW input: ceil(in/s) outputs, the
+    odd pad cell on the high side."""
+    pads = []
+    for size in (x.shape[-1], x.shape[-2]):  # F.pad order: W, then H
+        total = max((math.ceil(size / s) - 1) * s + k - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
+
+
+def _bn(channels: int, fold_bn: bool) -> nn.Module:
+    return nn.Identity() if fold_bn else nn.BatchNorm2d(channels)
+
+
+def conv_bn_act(x: torch.Tensor, conv: nn.Conv2d, bn: nn.Module, relu: bool,
+                compute_dtype: torch.dtype) -> torch.Tensor:
+    """One ConvBNRelu of the Flax model (conv in ``compute_dtype``)."""
+    s = conv.stride[0]
+    x = _pad_same(x.to(compute_dtype), conv.kernel_size[0], s)
+    bias = None if conv.bias is None else conv.bias.to(compute_dtype)
+    y = F.conv2d(x, conv.weight.to(compute_dtype), bias, stride=s)
+    if isinstance(bn, nn.Identity):  # folded serving model
+        return F.relu(y) if relu else y.float()
+    y = bn(y.float())
+    return F.relu(y) if relu else y
+
+
+def _conv(cin: int, cout: int, stride: int, fold_bn: bool) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, stride=stride, padding=0, bias=fold_bn)
+
+
+class PillarBlock(nn.Module):
+    """num_layers × (3×3 conv + BN + ReLU); stride on the first conv only."""
+
+    def __init__(self, cin: int, dims: int, num_layers: int, stride: int,
+                 fold_bn: bool):
+        super().__init__()
+        mods = []
+        for i in range(num_layers):
+            mods += [_conv(cin if i == 0 else dims, dims,
+                           stride if i == 0 else 1, fold_bn),
+                     _bn(dims, fold_bn), nn.ReLU()]
+        self.layers = nn.Sequential(*mods)
+
+    def forward(self, x, compute_dtype):
+        for i in range(0, len(self.layers), 3):
+            x = conv_bn_act(x, self.layers[i], self.layers[i + 1], True,
+                            compute_dtype)
+        return x
+
+
+class PointNet(nn.Module):
+    """Per-point 1×1 conv + BN + ReLU, masked after."""
+
+    def __init__(self, idims: int = POINT_FEATURES, odims: int = 64,
+                 fold_bn: bool = False):
+        super().__init__()
+        self.pointnet = nn.Sequential(
+            nn.Conv1d(idims, odims, 1, bias=fold_bn),
+            nn.Identity() if fold_bn else nn.BatchNorm1d(odims),
+            nn.ReLU())
+
+    def forward(self, feats, mask, compute_dtype):
+        conv, bn = self.pointnet[0], self.pointnet[1]
+        bias = None if conv.bias is None else conv.bias.to(compute_dtype)
+        x = F.linear(feats.to(compute_dtype),
+                     conv.weight[:, :, 0].to(compute_dtype), bias).float()
+        if not isinstance(bn, nn.Identity):
+            b, n, c = x.shape
+            x = bn(x.reshape(b * n, c)).reshape(b, n, c)
+        return F.relu(x) * mask[..., None]
+
+
+class PointPillar(nn.Module):
+    """PointPillar backbone + descriptor head.
+
+    ``forward(points (B, N, 4), mask (B, N), voxel_stats=(ids, raw_counts,
+    centroids, starts[, per_point]))`` on pillar-sorted points (the host
+    stats pass) → ``(B, gy, gx, 128)``, the JAX ``mode="vlad"`` output. The
+    ``cluster`` and pose modes come with the training ports.
+    """
+
+    def __init__(self, xbound: Sequence[float] = (-35.0, 35.0, 0.5),
+                 ybound: Sequence[float] = (-20.0, 20.0, 0.5),
+                 zbound: Sequence[float] = (-10.0, 10.0, 20.0),
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 fold_bn: bool = False):
+        super().__init__()
+        self.xbound, self.ybound, self.zbound = xbound, ybound, zbound
+        self.compute_dtype = compute_dtype
+        self.fold_bn = fold_bn
+        self.pn = PointNet(POINT_FEATURES, 64, fold_bn)
+        self.block1 = PillarBlock(64, 64, 2, 1, fold_bn)
+        self.block2 = PillarBlock(64, 128, 3, 2, fold_bn)
+        self.block3 = PillarBlock(128, 256, 3, 2, fold_bn)
+        self.up1 = nn.Sequential(_conv(64, 64, 1, fold_bn), _bn(64, fold_bn),
+                                 nn.ReLU())
+        self.up2 = nn.Sequential(
+            nn.Upsample(scale_factor=2, mode="bilinear", align_corners=True),
+            _conv(128, 128, 1, fold_bn), _bn(128, fold_bn), nn.ReLU())
+        self.up3 = nn.Sequential(
+            nn.Upsample(scale_factor=4, mode="bilinear", align_corners=True),
+            _conv(256, 256, 1, fold_bn), _bn(256, fold_bn), nn.ReLU())
+        self.conv_out = nn.Sequential(
+            _conv(448, 256, 1, fold_bn), _bn(256, fold_bn), nn.ReLU(),
+            _conv(256, 128, 1, fold_bn), _bn(128, fold_bn))
+
+    def forward(self, points, mask, voxel_stats=None):
+        if voxel_stats is None or len(voxel_stats) < 4:
+            raise NotImplementedError(
+                "PointPillar takes pillar-sorted points with host stats "
+                "(ids, raw_counts, centroids, starts[, per_point]); on-device "
+                "binning waits for kernel K2 (ROADMAP Queue 2, slice 3)")
+        cd = self.compute_dtype
+        ids, raw_counts, centroids, starts = voxel_stats[:4]
+        pp = voxel_stats[4] if len(voxel_stats) > 4 else None
+        xyz = points[..., :3]
+        vox = points_to_voxels_hoststats(
+            xyz, mask, ids, raw_counts, centroids,
+            self.xbound, self.ybound, self.zbound, per_point=pp)
+        feats = torch.cat([
+            points,
+            vox["voxel_point_count"][..., None],
+            vox["local_points_xyz"],
+            vox["point_centroids"],
+            xyz - vox["voxel_centers"],
+        ], dim=-1)
+        feats = self.pn(feats, vox["points_mask"], cd)
+
+        sums = segment_sum_sorted(feats.contiguous(), starts.contiguous())
+        pillar = sums / raw_counts.clamp_min(1.0)[..., None]  # (B, V, 64)
+        gx, gy, _ = grid_shape(self.xbound, self.ybound, self.zbound)
+        # x-major ravel: H = gx, W = gy (≙ torch view(B, C, gx, gy))
+        x = pillar.reshape(points.shape[0], gx, gy, 64).permute(0, 3, 1, 2)
+
+        f1 = self.block1(x, cd)
+        f2 = self.block2(f1, cd)
+        f3 = self.block3(f2, cd)
+        f1 = conv_bn_act(f1, self.up1[0], self.up1[1], True, cd)
+        f2 = conv_bn_act(self.up2[0](f2), self.up2[1], self.up2[2], True, cd)
+        f3 = conv_bn_act(self.up3[0](f3), self.up3[1], self.up3[2], True, cd)
+        feat = torch.cat([f1.to(cd), f2.to(cd), f3.to(cd)], dim=1)
+
+        co = self.conv_out
+        h = conv_bn_act(feat, co[0], co[1], True, cd)
+        h = conv_bn_act(h, co[3], co[4], False, cd)  # (B, 128, gx, gy)
+        return h.permute(0, 3, 2, 1)  # x↔y swap → (B, gy, gx, 128)

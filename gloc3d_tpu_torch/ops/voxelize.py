@@ -1,0 +1,98 @@
+"""Pillar features from host-precomputed statistics (s2s serving path).
+
+Port of ``gloc3d_tpu/ops/voxelize.py::points_to_voxels_hoststats``: the
+per-pillar counts, centroids, pillar sort and per-point rows come from the
+host pass (``data/native.py::compute_voxel_stats_host_sorted``), so the
+device does only elementwise math. Reference quirks kept: coordinates
+truncate toward zero (torch ``.int()``), padding and out-of-bounds rows
+alias to pillar 0, and pillar 0's valid count is recovered by one masked
+reduction because its raw count includes the padding.
+
+The unsorted on-device binning (``points_to_voxels`` +
+``scatter_mean_to_grid``) runs on the second TPU kernel and comes with the
+aligned slice (ROADMAP Queue 2, K2).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+Bound = Sequence[float]
+
+
+def grid_shape(xbound: Bound, ybound: Bound, zbound: Bound
+               ) -> Tuple[int, int, int]:
+    return tuple(int(round((b[1] - b[0]) / b[2]))
+                 for b in (xbound, ybound, zbound))
+
+
+def _trunc_int(x: torch.Tensor) -> torch.Tensor:
+    """Truncate toward zero like torch ``.int()`` / C int casts."""
+    return torch.trunc(x).to(torch.int32)
+
+
+def points_to_voxels_hoststats(
+    points_xyz: torch.Tensor,   # (B, N, 3)
+    valid: torch.Tensor,        # (B, N) 1.0 = real decoded row
+    ids: torch.Tensor,          # (B, N) int32 pillar ids (padding/OOB → 0)
+    raw_counts: torch.Tensor,   # (B, V) counts incl. padding at pillar 0
+    centroids: torch.Tensor,    # (B, V, 3)
+    xbound: Bound, ybound: Bound, zbound: Bound,
+    per_point: Optional[torch.Tensor] = None,  # (B, N, 4) host-gathered
+                                               # (count, cx, cy, cz) rows
+) -> Dict[str, torch.Tensor]:
+    """Same keys and values as the JAX function (fp32, exact elementwise)."""
+    dev, dt = points_xyz.device, points_xyz.dtype
+    gx, gy, gz = grid_shape(xbound, ybound, zbound)
+    voxel_size = torch.tensor([xbound[2], ybound[2], zbound[2]], dtype=dt,
+                              device=dev)
+    grid_offset = torch.tensor([xbound[0], ybound[0], zbound[0]], dtype=dt,
+                               device=dev)
+    grid_size = torch.tensor([gx, gy, gz], dtype=torch.int32, device=dev)
+
+    shifted = points_xyz - grid_offset
+    voxel_xyz = shifted / voxel_size
+    coords = _trunc_int(voxel_xyz)
+    padding = (valid < 1.0) | ((coords >= grid_size) | (coords < 0)).any(-1)
+    voxel_centers = (coords.to(dt) + 0.5) * voxel_size + grid_offset
+    coords = torch.where(padding[..., None], 0, coords)
+    voxel_xyz = torch.where(padding[..., None], 0.0, voxel_xyz)
+    valid_f = 1.0 - padding.to(dt)
+
+    # valid-point count: equal to the raw count except at pillar 0
+    in_bin0_valid = torch.sum(valid_f * (ids == 0), dim=-1)  # (B,)
+    points_per_voxel = raw_counts.clone()
+    points_per_voxel[:, 0] = in_bin0_valid
+
+    if per_point is not None:
+        voxel_point_count = per_point[..., 0]
+        point_centroids = per_point[..., 1:]
+    else:
+        table = torch.cat([points_per_voxel[..., None], centroids], dim=-1)
+        g = torch.gather(table, 1, ids.long()[..., None].expand(-1, -1, 4))
+        voxel_point_count = g[..., 0]
+        point_centroids = g[..., 1:]
+
+    return {
+        "local_points_xyz": points_xyz - point_centroids,
+        "shifted_points_xyz": shifted,
+        "point_centroids": point_centroids,
+        "points_xyz": points_xyz,
+        "grid_offset": grid_offset,
+        "voxel_coords": coords,
+        "voxel_centers": voxel_centers,
+        "voxel_indices": ids,
+        "voxel_paddings": padding.to(dt),
+        "points_mask": valid_f,
+        "num_voxels": gx * gy * gz,
+        "grid_size": grid_size,
+        "grid_shape": (gx, gy, gz),
+        "voxel_xyz": voxel_xyz,
+        "voxel_size": voxel_size,
+        "voxel_point_count": voxel_point_count,
+        "points_per_voxel": points_per_voxel,
+        "raw_counts": raw_counts,
+        "voxel_centroids": centroids,
+    }

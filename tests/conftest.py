@@ -21,6 +21,11 @@ jax.config.update("jax_platforms", "cpu")
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips itself without one")
+
+
 @pytest.fixture(scope="session")
 def devices():
     ds = jax.devices()

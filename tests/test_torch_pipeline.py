@@ -1,0 +1,195 @@
+"""The located-query slice as a whole: the JAX GlobalLocalizer(host_stats=
+True) and the port, built from the same bridged weights, with the same
+keyframes and queries.
+
+Equal: top-k ids, success and db_index. Within tolerance: descriptors
+(atol 2e-4 / rtol 2e-3, the bound tests/test_pipeline_hoststats.py holds
+between two JAX paths) and the pose (1e-3 m, 1e-3 rad)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gloc3d_tpu.config import (
+    BEVConfig, IndexConfig, MatchConfig, ModelConfig, PipelineConfig,
+    VoxelConfig,
+)
+from gloc3d_tpu.eval.registration import compose_6dof as jax_compose
+from gloc3d_tpu.models import build_model as jax_build_model
+from gloc3d_tpu.pipeline import GlobalLocalizer as JaxLocalizer
+from gloc3d_tpu_torch import _shared
+from gloc3d_tpu_torch.convert import flax_to_state_dict
+from gloc3d_tpu_torch.eval.registration import compose_6dof
+from gloc3d_tpu_torch.models.descriptor import build_model
+from gloc3d_tpu_torch.pipeline import GlobalLocalizer
+from test_pipeline import scan_at
+
+N_PTS = 2048
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = PipelineConfig(
+    bev=BEVConfig(image_size=128, max_points=N_PTS),
+    voxel=VoxelConfig(max_points=N_PTS),
+    model=ModelConfig(encoder="pointpillar", encoder_dim=128,
+                      compute_dtype="float32"),
+    index=IndexConfig(dim=128, top_k=3, capacity=4),
+    match=MatchConfig(image_size=128, min_score=0.1, min_overlap_pixels=16),
+)
+DB_POSES = [(-30, -30, 0.0), (25, 5, 1.2), (0, 0, 0.0), (5, 0, -0.3),
+            (-10, 10, -1.5), (30, 30, 2.9)]
+QUERIES = [(25, 5, 1.2), (3, -2, 0.35), (-12, 8, -2.0), (27, 4, 1.4),
+           (60, -60, 0.0)]
+
+
+def _scans(poses):
+    scans = [scan_at(*p, n=N_PTS) for p in poses]
+    return np.stack([s[0] for s in scans]), np.stack([s[1] for s in scans])
+
+
+@pytest.fixture(scope="module")
+def localizers():
+    pts, mask = _scans(DB_POSES)
+    model = jax_build_model(CFG.model, CFG.voxel)
+    params = jax.jit(model.init)(jax.random.PRNGKey(0),
+                                 jnp.asarray(pts[:1]), jnp.asarray(mask[:1]))
+    ref = JaxLocalizer(CFG, model, params, host_stats=True)
+    port = GlobalLocalizer(CFG, build_model(CFG.model, CFG.voxel),
+                           flax_to_state_dict(params))
+    # two batches: the port's bank grows past its capacity of 4
+    for sl in (slice(0, 4), slice(4, None)):
+        ref.add_keyframes(pts[sl], mask[sl])
+        port.add_keyframes(pts[sl], mask[sl])
+    return ref, port
+
+
+def test_keyframes_and_descriptors_match(localizers):
+    ref, port = localizers
+    assert len(port.keyframes) == len(ref.keyframes) == len(DB_POSES)
+    for a, b in zip(port.keyframes, ref.keyframes):
+        np.testing.assert_array_equal(a.image, b.image)
+        np.testing.assert_array_equal(a.origin_xy, b.origin_xy)
+    np.testing.assert_allclose(port.bank.data.numpy(),
+                               np.asarray(ref.bank.data), atol=2e-4,
+                               rtol=2e-3)
+
+
+def test_detect_topk_ids_match(localizers):
+    ref, port = localizers
+    pts, mask = _scans(QUERIES)
+    d_t, i_t, bev_t, _ = port.detect(pts, mask)
+    d_j, i_j, bev_j, _ = ref.detect(pts, mask)
+    np.testing.assert_array_equal(i_t, i_j)
+    np.testing.assert_allclose(d_t, d_j, atol=1e-3, rtol=2e-3)
+    np.testing.assert_array_equal(bev_t.image, np.asarray(bev_j.image))
+
+
+@pytest.mark.parametrize("q_pose", QUERIES)
+def test_locate_matches_jax(localizers, q_pose):
+    ref, port = localizers
+    pts, mask = scan_at(*q_pose, n=N_PTS)
+    got = port.locate(pts, mask)
+    want = ref.locate(pts, mask)
+    assert got.success == want.success
+    assert got.db_index == want.db_index
+    np.testing.assert_array_equal(got.candidates, want.candidates)
+    assert got.match_score == pytest.approx(want.match_score, abs=1e-3)
+    if want.success:
+        np.testing.assert_allclose(got.pose.translation,
+                                   np.asarray(want.pose.translation),
+                                   atol=1e-3)
+        dyaw = np.angle(np.exp(1j * (got.match_xy_yaw[2]
+                                     - np.asarray(want.match_xy_yaw)[2])))
+        assert abs(dyaw) < 1e-3
+        np.testing.assert_allclose(got.pose.rotation,
+                                   np.asarray(want.pose.rotation), atol=1e-3)
+
+
+def test_compose_6dof_matches_jax():
+    for xy_yaw in ([1.0, -2.0, 0.3], [0.0, 0.0, -3.1], [5.5, 2.0, 1.7]):
+        got = compose_6dof(torch.tensor(xy_yaw))
+        want = jax_compose(jnp.asarray(xy_yaw, jnp.float32))
+        np.testing.assert_allclose(got.rotation.numpy(),
+                                   np.asarray(want.rotation), atol=1e-6)
+        np.testing.assert_allclose(got.translation.numpy(),
+                                   np.asarray(want.translation), atol=1e-6)
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(host_stats=False), "item 10"), (dict(align_ground=True), "item 10"),
+    (dict(device_keyframes=True), "item 9"), (dict(device_sort=True),
+                                              "item 10"),
+])
+def test_unported_options_raise(kwargs, item):
+    model = build_model(CFG.model, CFG.voxel)
+    with pytest.raises(NotImplementedError, match=item):
+        GlobalLocalizer(CFG, model, **kwargs)
+
+
+def test_shared_config_round_trips_through_json():
+    """The path-loaded config resolves its string annotations (the bank
+    loader depends on it) and reads the JAX package's JSON."""
+    cfg = _shared.config.PipelineConfig.from_json(CFG.to_json())
+    assert cfg.to_json() == CFG.to_json()
+    assert isinstance(cfg.match, _shared.config.MatchConfig)
+    assert cfg.voxel.grid_size == (140, 80, 1)
+
+
+def test_port_runs_without_jax():
+    """Import the port and run a CPU located query with jax and flax
+    blocked: the port never needs JAX."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["flax"] = None
+        import numpy as np
+        import gloc3d_tpu_torch as g
+
+        cfg = g.PipelineConfig(
+            bev=g.BEVConfig(image_size=128, max_points=2048),
+            voxel=g.VoxelConfig(max_points=2048),
+            model=g.ModelConfig(compute_dtype="float32"),
+            index=g.IndexConfig(top_k=2, capacity=4),
+            match=g.MatchConfig(image_size=128, min_score=0.1,
+                                min_overlap_pixels=16))
+        rng = np.random.RandomState(0)
+        walls = []
+        for _ in range(40):
+            x0, y0 = rng.uniform(-40, 40, 2)
+            ang, ts = rng.uniform(0, np.pi), rng.uniform(0, 10, 200)
+            walls.append(np.stack([x0 + np.cos(ang) * ts,
+                                   y0 + np.sin(ang) * ts,
+                                   rng.uniform(0, 3, 200)], 1))
+        world = np.concatenate(walls).astype(np.float32)
+
+        def scan(x, y):
+            p = world[np.linalg.norm(world[:, :2] - [x, y], axis=1) < 35]
+            out = np.zeros((2048, 4), np.float32)
+            m = min(len(p), 2048)
+            out[:m, :3] = p[:m] - [x, y, 0]
+            mask = np.zeros(2048, np.float32)
+            mask[:m] = 1
+            return out, mask
+
+        model = g.init_params(g.build_model(cfg.model, cfg.voxel), seed=0)
+        loc = g.GlobalLocalizer(cfg, model)
+        kf = [scan(0, 0), scan(20, 5)]
+        loc.add_keyframes(np.stack([k[0] for k in kf]),
+                          np.stack([k[1] for k in kf]))
+        res = loc.locate(*scan(20, 5))
+        assert res.success and res.db_index == 1, res
+        assert np.abs(res.pose.translation).max() < 1e-3, res.pose
+        assert "jax" not in {m.split(".")[0] for m in sys.modules
+                             if sys.modules[m] is not None}
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("OK")
