@@ -1,12 +1,16 @@
 """gloc3d_tpu_torch: the PyTorch / CUDA port of gloc3d_tpu for NVIDIA Hopper.
 
 The s2s located query (scan → PointPillar + NetVLAD descriptor → exact
-top-k → FFT BEV registration → 6-DoF pose) on the host-stats serving path.
-The JAX package ``gloc3d_tpu`` is the reference; this package imports no
-JAX. Its framework-free modules (config, native scan loader) are shared by
-file path (``_shared.py``). The one TPU kernel on this path,
-``_cumsum_rows_128``, is the hand-written CUDA kernel
-``csrc/segment_sum.cu`` (``kernels/segment_sum.py``).
+top-k → FFT BEV registration → 6-DoF pose), on the host-stats serving path
+and on the all-device path, plain or gravity-aligned (ground RANSAC on the
+device). The JAX package ``gloc3d_tpu`` is the reference; this package
+imports no JAX. Its framework-free modules (config, native scan loader) are
+shared by file path (``_shared.py``). Both TPU kernels of the JAX package
+are hand-written CUDA kernels here: ``_cumsum_rows_128`` as
+``csrc/segment_sum.cu`` (``kernels/segment_sum.py``, the sorted feature
+mean of the host-stats path) and ``pillar_bin_sums`` as
+``csrc/pillar_bin_sums.cu`` (``kernels/bin_sums.py``, both binnings of the
+all-device path).
 """
 
 from gloc3d_tpu_torch._shared import config as _config

@@ -1,10 +1,11 @@
 """PointPillar BEV encoder in PyTorch (s2s path).
 
 Port of ``gloc3d_tpu/models/pointpillar.py``: 14-dim per-point features →
-1×1 PointNet → sorted mean into the 140×80 pillar grid (kernel K1) → three
-conv blocks (64/128/256) with FPN upsampling → 448-channel concat →
+1×1 PointNet → mean into the 140×80 pillar grid → three conv blocks (64/128/256) with FPN upsampling → 448-channel concat →
 128-channel descriptor head. NCHW inside; the public output keeps the JAX
-layout ``(B, gy, gx, 128)``.
+layout ``(B, gy, gx, 128)``. With host stats (pillar-sorted points) the
+mean runs on kernel K1 (sorted segment sums); without, the pillar
+statistics and the mean are unsorted binnings on kernel K2.
 
 Parameter names are the reference torch model's (``encoder.pn.pointnet.0``,
 ``encoder.block1.layers.{3i}``, ``up2.1``, ``conv_out.{0,1,3,4}``), so the
@@ -34,7 +35,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gloc3d_tpu_torch.kernels.segment_sum import segment_sum_sorted
-from gloc3d_tpu_torch.ops.voxelize import grid_shape, points_to_voxels_hoststats
+from gloc3d_tpu_torch.ops.voxelize import (
+    grid_shape, points_to_voxels, points_to_voxels_hoststats,
+    scatter_mean_to_grid,
+)
 
 POINT_FEATURES = 14  # 4 input columns + count + 3 local + 3 centroid + 3 center
 
@@ -115,9 +119,10 @@ class PointNet(nn.Module):
 class PointPillar(nn.Module):
     """PointPillar backbone + descriptor head.
 
-    ``forward(points (B, N, 4), mask (B, N), voxel_stats=(ids, raw_counts,
-    centroids, starts[, per_point]))`` on pillar-sorted points (the host
-    stats pass) → ``(B, gy, gx, 128)``, the JAX ``mode="vlad"`` output. The
+    ``forward(points (B, N, 4), mask (B, N), voxel_stats=None)`` bins on
+    the device; ``voxel_stats=(ids, raw_counts, centroids, starts[,
+    per_point]))`` takes pillar-sorted points from the host stats pass.
+    Either returns ``(B, gy, gx, 128)``, the JAX ``mode="vlad"`` output. The
     ``cluster`` and pose modes come with the training ports.
     """
 
@@ -147,18 +152,20 @@ class PointPillar(nn.Module):
             _conv(256, 128, 1, fold_bn), _bn(128, fold_bn))
 
     def forward(self, points, mask, voxel_stats=None):
-        if voxel_stats is None or len(voxel_stats) < 4:
-            raise NotImplementedError(
-                "PointPillar takes pillar-sorted points with host stats "
-                "(ids, raw_counts, centroids, starts[, per_point]); on-device "
-                "binning waits for kernel K2 (ROADMAP Queue 2, slice 3)")
         cd = self.compute_dtype
-        ids, raw_counts, centroids, starts = voxel_stats[:4]
-        pp = voxel_stats[4] if len(voxel_stats) > 4 else None
         xyz = points[..., :3]
-        vox = points_to_voxels_hoststats(
-            xyz, mask, ids, raw_counts, centroids,
-            self.xbound, self.ybound, self.zbound, per_point=pp)
+        if voxel_stats is None:
+            vox = points_to_voxels(xyz, mask, self.xbound, self.ybound,
+                                   self.zbound)
+        else:
+            if len(voxel_stats) < 4:
+                raise ValueError("voxel_stats are (ids, raw_counts, "
+                                 "centroids, starts[, per_point])")
+            ids, raw_counts, centroids, starts = voxel_stats[:4]
+            pp = voxel_stats[4] if len(voxel_stats) > 4 else None
+            vox = points_to_voxels_hoststats(
+                xyz, mask, ids, raw_counts, centroids,
+                self.xbound, self.ybound, self.zbound, per_point=pp)
         feats = torch.cat([
             points,
             vox["voxel_point_count"][..., None],
@@ -168,8 +175,13 @@ class PointPillar(nn.Module):
         ], dim=-1)
         feats = self.pn(feats, vox["points_mask"], cd)
 
-        sums = segment_sum_sorted(feats.contiguous(), starts.contiguous())
-        pillar = sums / raw_counts.clamp_min(1.0)[..., None]  # (B, V, 64)
+        if voxel_stats is None:
+            pillar = scatter_mean_to_grid(feats, vox["voxel_indices"],
+                                          vox["num_voxels"],
+                                          counts=vox["raw_counts"])
+        else:
+            sums = segment_sum_sorted(feats.contiguous(), starts.contiguous())
+            pillar = sums / raw_counts.clamp_min(1.0)[..., None]  # (B, V, 64)
         gx, gy, _ = grid_shape(self.xbound, self.ybound, self.zbound)
         # x-major ravel: H = gx, W = gy (≙ torch view(B, C, gx, gy))
         x = pillar.reshape(points.shape[0], gx, gy, 64).permute(0, 3, 1, 2)

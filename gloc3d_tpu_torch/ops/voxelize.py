@@ -1,16 +1,19 @@
-"""Pillar features from host-precomputed statistics (s2s serving path).
+"""Point → pillar binning: host-stats and on-device variants.
 
-Port of ``gloc3d_tpu/ops/voxelize.py::points_to_voxels_hoststats``: the
-per-pillar counts, centroids, pillar sort and per-point rows come from the
-host pass (``data/native.py::compute_voxel_stats_host_sorted``), so the
-device does only elementwise math. Reference quirks kept: coordinates
-truncate toward zero (torch ``.int()``), padding and out-of-bounds rows
-alias to pillar 0, and pillar 0's valid count is recovered by one masked
-reduction because its raw count includes the padding.
+Port of ``gloc3d_tpu/ops/voxelize.py``:
 
-The unsorted on-device binning (``points_to_voxels`` +
-``scatter_mean_to_grid``) runs on the second TPU kernel and comes with the
-aligned slice (ROADMAP Queue 2, K2).
+- ``points_to_voxels_hoststats`` (the s2s serving path): the per-pillar
+  counts, centroids, pillar sort and per-point rows come from the host pass
+  (``data/native.py::compute_voxel_stats_host_sorted``), so the device does
+  only elementwise math;
+- ``points_to_voxels`` + ``scatter_mean_to_grid`` (the all-device path):
+  the pillar statistics and the feature mean are unsorted segment sums on
+  kernel K2 (``kernels/bin_sums.py``).
+
+Reference quirks kept: coordinates truncate toward zero (torch ``.int()``),
+``voxel_centers`` come from the unclamped coordinates, padding and
+out-of-grid rows alias to pillar 0 (so its centroid averages them in and
+its raw count includes them), and the pillar ravel is x-major.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+from gloc3d_tpu_torch.kernels.bin_sums import pillar_bin_sums
 
 Bound = Sequence[float]
 
@@ -96,3 +101,85 @@ def points_to_voxels_hoststats(
         "raw_counts": raw_counts,
         "voxel_centroids": centroids,
     }
+
+
+def points_to_voxels(points_xyz: torch.Tensor, points_mask: torch.Tensor,
+                     xbound: Bound, ybound: Bound, zbound: Bound
+                     ) -> Dict[str, torch.Tensor]:
+    """Assign (B, N, 3) padded points to pillars and compute the per-point
+    and per-pillar statistics on the device: the payload ``[valid, x, y,
+    z]`` and K2's count column in one binning, then one (N, 4) row gather
+    back to the points. Same keys and values as the JAX function (fp32
+    sums in another order)."""
+    if points_xyz.dim() != 3:
+        raise ValueError(f"points_xyz must be (B, N, 3), got "
+                         f"{tuple(points_xyz.shape)}")
+    dev, dt = points_xyz.device, points_xyz.dtype
+    gx, gy, gz = grid_shape(xbound, ybound, zbound)
+    num_voxels = gx * gy * gz
+    voxel_size = torch.tensor([xbound[2], ybound[2], zbound[2]], dtype=dt,
+                              device=dev)
+    grid_offset = torch.tensor([xbound[0], ybound[0], zbound[0]], dtype=dt,
+                               device=dev)
+    grid_size = torch.tensor([gx, gy, gz], dtype=torch.int32, device=dev)
+
+    shifted = points_xyz - grid_offset
+    voxel_xyz = shifted / voxel_size
+    coords = _trunc_int(voxel_xyz)
+    padding = (points_mask < 1.0) | (
+        (coords >= grid_size) | (coords < 0)).any(-1)
+    idx = coords[..., 0] * (gy * gz) + coords[..., 1] * gz + coords[..., 2]
+    idx = torch.where(padding, 0, idx).to(torch.int32)
+    voxel_centers = (coords.to(dt) + 0.5) * voxel_size + grid_offset
+    coords = torch.where(padding[..., None], 0, coords)
+    voxel_xyz = torch.where(padding[..., None], 0.0, voxel_xyz)
+    valid = 1.0 - padding.to(dt)
+
+    payload = torch.cat([valid[..., None], points_xyz], dim=-1).contiguous()
+    acc, raw_counts = pillar_bin_sums(payload, idx, num_voxels)  # (B, V, 4)
+    points_per_voxel = acc[..., 0]
+    voxel_centroids = acc[..., 1:] / raw_counts.clamp_min(1.0)[..., None]
+
+    table = torch.cat([points_per_voxel[..., None], voxel_centroids], dim=-1)
+    g = torch.gather(table, 1, idx.long()[..., None].expand(-1, -1, 4))
+    voxel_point_count = g[..., 0]
+    point_centroids = g[..., 1:]
+
+    return {
+        "local_points_xyz": points_xyz - point_centroids,
+        "shifted_points_xyz": shifted,
+        "point_centroids": point_centroids,
+        "points_xyz": points_xyz,
+        "grid_offset": grid_offset,
+        "voxel_coords": coords,
+        "voxel_centers": voxel_centers,
+        "voxel_indices": idx,
+        "voxel_paddings": padding.to(dt),
+        "points_mask": valid,
+        "num_voxels": num_voxels,
+        "grid_size": grid_size,
+        "grid_shape": (gx, gy, gz),
+        "voxel_xyz": voxel_xyz,
+        "voxel_size": voxel_size,
+        "voxel_point_count": voxel_point_count,
+        "points_per_voxel": points_per_voxel,
+        "raw_counts": raw_counts,
+    }
+
+
+def scatter_mean_to_grid(features: torch.Tensor, voxel_indices: torch.Tensor,
+                         num_voxels: int,
+                         counts: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Mean-pool (B, N, C) per-point features into (B, V, C) pillars on K2.
+
+    torch_scatter ``scatter_mean`` semantics: the denominator counts every
+    row binned to the pillar, padding included (padding carries id 0).
+    ``counts``: optional (B, V) all-rows counts (``raw_counts`` of
+    ``points_to_voxels``); without them K2's count column is used."""
+    sums, cnt = pillar_bin_sums(features.float().contiguous(),
+                                voxel_indices.to(torch.int32).contiguous(),
+                                num_voxels)
+    if counts is not None:
+        cnt = counts.to(sums.dtype)
+    return sums / cnt.clamp_min(1.0)[..., None]

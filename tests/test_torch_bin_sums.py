@@ -1,0 +1,118 @@
+"""Kernel K2 (unsorted pillar binning): the port's plain version against the
+JAX package's Pallas ``pillar_bin_sums`` (interpret mode on the CPU) and its
+fp32 XLA scatter; the CUDA kernel against the plain version on a card.
+
+Tolerances, relative to per-pillar L1 mass: against the Pallas kernel 2e-2
+(its bf16 feature rounding, ≤ 2⁻⁹ per row; the bound
+tests/test_pallas_scatter.py holds); against the fp32 scatter 1e-5 (fp32
+sums in another order). Counts are exact."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gloc3d_tpu.ops.pallas_scatter import pillar_bin_sums as jax_pallas
+from gloc3d_tpu_torch.kernels import bin_sums as bs
+
+
+def _case(seed, b, n, c, v, p0=0, empty=()):
+    """Random ids in [1, V) with p0 rows (spread through the scan) moved to
+    pillar 0 and no row in the pillars ``empty``."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, v, (b, n))
+    for e in empty:
+        ids[ids == e] = (e + 1) % v or 1
+    for i in range(b):
+        ids[i, rng.permutation(n)[:p0]] = 0
+    return (rng.randn(b, n, c).astype(np.float32), ids.astype(np.int32))
+
+
+def _rel_err(got, want, l1):
+    return float((np.abs(got - want) / np.maximum(l1, 1e-30)).max())
+
+
+@pytest.mark.parametrize("n,c,v,chunk", [(1024, 8, 300, 256),
+                                         (600, 64, 50, 128)])
+def test_plain_matches_pallas_interpret(n, c, v, chunk):
+    x, ids = _case(0, 1, n, c, v, p0=n // 3)
+    sums, cnt = bs.pillar_bin_sums(torch.from_numpy(x[0]),
+                                   torch.from_numpy(ids[0]), v)
+    p_sums, p_cnt = jax_pallas(jnp.asarray(x[0]), jnp.asarray(ids[0]), v,
+                               chunk=chunk)
+    l1, _ = bs.pillar_bin_sums(torch.from_numpy(np.abs(x[0])),
+                               torch.from_numpy(ids[0]), v)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(p_cnt))
+    assert _rel_err(sums.numpy(), np.asarray(p_sums), l1.numpy()) < 2e-2
+
+
+@pytest.mark.parametrize("b,n,c,v,p0,empty", [
+    (1, 4096, 64, 200, 3000, (5, 17)),   # pillar 0 holds most rows
+    (2, 2048, 4, 100, 100, ()),          # the [valid, x, y, z] payload
+    (1, 777, 65, 13, 0, (3,)),
+])
+def test_plain_matches_fp32_scatter(b, n, c, v, p0, empty):
+    x, ids = _case(1, b, n, c, v, p0, empty)
+    sums, cnt = bs.pillar_bin_sums(torch.from_numpy(x), torch.from_numpy(ids),
+                                   v)
+    assert sums.shape == (b, v, c) and cnt.shape == (b, v)
+    for i in range(b):
+        want = jnp.zeros((v, c)).at[ids[i]].add(x[i])
+        l1 = jnp.zeros((v, c)).at[ids[i]].add(np.abs(x[i]))
+        assert _rel_err(sums[i].numpy(), np.asarray(want),
+                        np.asarray(l1)) < 1e-5
+        np.testing.assert_array_equal(cnt[i].numpy(),
+                                      np.bincount(ids[i], minlength=v))
+        for e in empty:
+            assert (sums[i, e] == 0).all() and cnt[i, e] == 0
+
+
+def test_cpu_tensors_take_the_plain_version():
+    x, ids = _case(2, 1, 300, 64, 20)
+    before = bs.pillar_bin_sums.launches
+    got = bs.pillar_bin_sums(torch.from_numpy(x), torch.from_numpy(ids), 20)
+    assert bs.pillar_bin_sums.launches == before
+    want = bs.pillar_bin_sums_plain(torch.from_numpy(x),
+                                    torch.from_numpy(ids), 20)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("feats,ids,v,match", [
+    (torch.zeros(10, 4, dtype=torch.float64), torch.zeros(10, dtype=torch.int32),
+     5, "float32"),
+    (torch.zeros(10, 4), torch.zeros(10, dtype=torch.int64), 5, "int32"),
+    (torch.zeros(10, 257), torch.zeros(10, dtype=torch.int32), 5, "channels"),
+    (torch.zeros(10, 4), torch.zeros(9, dtype=torch.int32), 5, "expected"),
+    (torch.zeros(10, 4), torch.full((10,), 5, dtype=torch.int32), 5,
+     "outside"),
+    (torch.zeros(10, 4), torch.full((10,), -1, dtype=torch.int32), 5,
+     "outside"),
+])
+def test_kernel_input_checks(feats, ids, v, match):
+    with pytest.raises((TypeError, ValueError), match=match):
+        bs._check(feats, ids, v)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernel, no CPU mode)")
+    cases = [(1, 122480, 64, 11200, 83000, ()), (1, 122480, 4, 11200, 90000,
+                                                  (7, 99)),
+             (2, 4096, 64, 100, 0, ()), (1, 300, 65, 50, 3, (4,)),
+             (1, 777, 256, 13, 0, ())]
+    for seed, (b, n, c, v, p0, empty) in enumerate(cases):
+        x, ids = _case(seed, b, n, c, v, p0, empty)
+        x, ids = torch.from_numpy(x).cuda(), torch.from_numpy(ids).cuda()
+        before = bs.pillar_bin_sums.launches
+        sums, cnt = bs.pillar_bin_sums(x, ids, v)
+        torch.cuda.synchronize()
+        assert bs.pillar_bin_sums.launches == before + 1
+        p_sums, p_cnt = bs.pillar_bin_sums_plain(x, ids, v)
+        l1, _ = bs.pillar_bin_sums_plain(x.abs(), ids, v)
+        err = ((sums - p_sums).double().abs()
+               / l1.double().clamp_min(1e-30)).max()
+        assert float(err) < 1e-5, (b, n, c, v, p0, float(err))
+        assert torch.equal(cnt, p_cnt)
+        assert bool((sums[p_cnt == 0] == 0).all())

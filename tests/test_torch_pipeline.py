@@ -1,10 +1,10 @@
-"""The located-query slice as a whole: the JAX GlobalLocalizer(host_stats=
-True) and the port, built from the same bridged weights, with the same
-keyframes and queries.
+"""The located-query slice as a whole: the JAX GlobalLocalizer and the port,
+built from the same bridged weights, with the same keyframes and queries,
+on the host-stats path and on the all-device path (host_stats=False).
 
-Equal: top-k ids, success and db_index. Within tolerance: descriptors
-(atol 2e-4 / rtol 2e-3, the bound tests/test_pipeline_hoststats.py holds
-between two JAX paths) and the pose (1e-3 m, 1e-3 rad)."""
+Equal: top-k ids, success, db_index and BEV images. Within tolerance:
+descriptors (atol 2e-4 / rtol 2e-3, the bound tests/test_pipeline_hoststats
+.py holds between two JAX paths) and the pose (1e-3 m, 1e-3 rad)."""
 
 import os
 import subprocess
@@ -120,15 +120,61 @@ def test_compose_6dof_matches_jax():
                                    np.asarray(want.translation), atol=1e-6)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(host_stats=False), "item 10"), (dict(align_ground=True), "item 10"),
-    (dict(device_keyframes=True), "item 9"), (dict(device_sort=True),
-                                              "item 10"),
+@pytest.mark.parametrize("kwargs,cfg_change,item", [
+    (dict(device_keyframes=True), None, "item 9"),
+    (dict(host_mirror=False), None, "item 9"),
+    (dict(device_sort=True), None, "TPU workarounds"),
+    ({}, dict(index=IndexConfig(dim=128, backend="ivf")), "item 13"),
+    ({}, dict(match=MatchConfig(image_size=128, refine_icp=True)),
+     "item 14"),
 ])
-def test_unported_options_raise(kwargs, item):
+def test_unported_options_raise(kwargs, cfg_change, item):
     model = build_model(CFG.model, CFG.voxel)
+    cfg = CFG.replace(**cfg_change) if cfg_change else CFG
     with pytest.raises(NotImplementedError, match=item):
-        GlobalLocalizer(CFG, model, **kwargs)
+        GlobalLocalizer(cfg, model, **kwargs)
+
+
+@pytest.fixture(scope="module")
+def device_localizers(localizers):
+    """The JAX default (all-device) extraction and the port's
+    host_stats=False, from the same weights."""
+    ref, port = localizers
+    jax_dev = JaxLocalizer(CFG, ref.model, ref.params)
+    port_dev = GlobalLocalizer(CFG, port.model, host_stats=False)
+    return jax_dev, port_dev
+
+
+def test_all_device_extract_matches_jax(device_localizers):
+    jax_dev, port_dev = device_localizers
+    pts, mask = _scans(QUERIES[:3] + DB_POSES[:1])
+    d_j, bev_j, g_j = jax_dev.extract(pts, mask)
+    d_t, bev_t, g_t = port_dev.extract(pts, mask)
+    assert g_j is None and g_t is None
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), atol=2e-4,
+                               rtol=2e-3)
+    np.testing.assert_array_equal(bev_t.image.numpy(), np.asarray(bev_j.image))
+    np.testing.assert_array_equal(bev_t.origin_xy.numpy(),
+                                  np.asarray(bev_j.origin_xy))
+    np.testing.assert_array_equal(bev_t.num_occupied.numpy(),
+                                  np.asarray(bev_j.num_occupied))
+
+
+def test_all_device_locate_matches_jax(device_localizers):
+    jax_dev, port_dev = device_localizers
+    pts, mask = _scans(DB_POSES)
+    for loc in (jax_dev, port_dev):
+        if not loc.keyframes:
+            loc.add_keyframes(pts, mask)
+    for a, b in zip(port_dev.keyframes, jax_dev.keyframes):
+        np.testing.assert_array_equal(a.image, b.image)
+    q_pts, q_mask = scan_at(*QUERIES[1], n=N_PTS)
+    got = port_dev.locate(q_pts, q_mask)
+    want = jax_dev.locate(q_pts, q_mask)
+    assert got.success == want.success and got.db_index == want.db_index
+    np.testing.assert_array_equal(got.candidates, want.candidates)
+    np.testing.assert_allclose(got.pose.translation,
+                               np.asarray(want.pose.translation), atol=1e-3)
 
 
 def test_shared_config_round_trips_through_json():
@@ -141,8 +187,9 @@ def test_shared_config_round_trips_through_json():
 
 
 def test_port_runs_without_jax():
-    """Import the port and run a CPU located query with jax and flax
-    blocked: the port never needs JAX."""
+    """Import the port and run CPU located queries (host stats, and
+    all-device binning) with jax and flax blocked: the port never needs
+    JAX."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -177,13 +224,14 @@ def test_port_runs_without_jax():
             return out, mask
 
         model = g.init_params(g.build_model(cfg.model, cfg.voxel), seed=0)
-        loc = g.GlobalLocalizer(cfg, model)
         kf = [scan(0, 0), scan(20, 5)]
-        loc.add_keyframes(np.stack([k[0] for k in kf]),
-                          np.stack([k[1] for k in kf]))
-        res = loc.locate(*scan(20, 5))
-        assert res.success and res.db_index == 1, res
-        assert np.abs(res.pose.translation).max() < 1e-3, res.pose
+        for host_stats in (True, False):
+            loc = g.GlobalLocalizer(cfg, model, host_stats=host_stats)
+            loc.add_keyframes(np.stack([k[0] for k in kf]),
+                              np.stack([k[1] for k in kf]))
+            res = loc.locate(*scan(20, 5))
+            assert res.success and res.db_index == 1, res
+            assert np.abs(res.pose.translation).max() < 1e-3, res.pose
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
         print("OK")

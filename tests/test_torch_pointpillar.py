@@ -99,6 +99,30 @@ def test_descriptor_matches_flax(jax_model, fold):
     np.testing.assert_allclose(got, want, **DESC_TOL)
 
 
+@pytest.mark.parametrize("fold", [False, True])
+def test_device_binning_descriptor_matches_flax(jax_model, fold):
+    """voxel_stats=None: the pillar statistics and the feature mean bin on
+    the device (K2's plain version here, the XLA scatter in JAX), on the
+    unsorted scans in their original row order."""
+    model, variables = jax_model
+    if fold:
+        model = jax_build_model(MC.replace(fold_bn=True), VC)
+        variables = {"params": jax_fold(variables["params"],
+                                        variables["batch_stats"])}
+    scans = [scan_at(3, -5, 0.7, n=N_PTS), scan_at(-10, 12, 2.5, n=N_PTS)]
+    pts = np.stack([s[0] for s in scans])
+    mask = np.stack([s[1] for s in scans])
+    want = np.asarray(model.apply(variables, jnp.asarray(pts),
+                                  jnp.asarray(mask)))
+    port = build_model(MC.replace(fold_bn=fold), VC)
+    port.load_state_dict(flax_to_state_dict(variables))
+    with torch.no_grad():
+        got = port.eval()(torch.from_numpy(pts),
+                          torch.from_numpy(mask)).numpy()
+    assert got.shape == want.shape == (2, 128)
+    np.testing.assert_allclose(got, want, **DESC_TOL)
+
+
 def test_encoder_feature_map_matches_flax(jax_model):
     """The PointPillar output keeps the JAX layout (B, gy, gx, 128)."""
     p, v, vs = _inputs()
