@@ -67,6 +67,7 @@ K1_REPLACES = "gloc3d_tpu/ops/pallas_scatter.py:106"
 K2_SOURCE = "gloc3d_tpu_torch/csrc/pillar_bin_sums.cu"
 K2_REPLACES = "gloc3d_tpu/ops/pallas_scatter.py:45"
 N_KEYFRAMES, N_QUERIES = 16, 8
+N_TRAIN_Q = 8  # training queries; 24 db scans (training_dataset)
 POS_TOL_M, ROT_TOL_DEG = 1.0, 5.0
 MAX_TILT, HEIGHTS = math.radians(3.0), (1.6, 1.9)
 DZ_TOL_M, HEIGHT_TOL_M = 0.3, 0.15
@@ -344,21 +345,22 @@ def phase_k1(torch, cfg, world, card):
 
 
 def record_k2_inputs(fn):
-    """Run fn() and return the (features, ids, V) of every K2 call it made
+    """Run fn() and return the (features, ids, V) of every K2 launch it
+    made, through the plain wrapper or the feature mean's autograd Function
     (the kernel still runs; outside any counted window)."""
-    from gloc3d_tpu_torch.ops import voxelize
+    from gloc3d_tpu_torch.kernels import bin_sums
 
-    calls, real = [], voxelize.pillar_bin_sums
+    calls, real = [], bin_sums._launch
 
     def recorder(features, ids, num_voxels):
         calls.append((features.clone(), ids.clone(), num_voxels))
         return real(features, ids, num_voxels)
 
-    voxelize.pillar_bin_sums = recorder
+    bin_sums._launch = recorder
     try:
         fn()
     finally:
-        voxelize.pillar_bin_sums = real
+        bin_sums._launch = real
     return calls
 
 
@@ -751,9 +753,37 @@ def phase_aligned_reference(torch, cfg, kf_set, q_set, centroids,
           "card aligned locate != CPU aligned locate")
 
 
+DEVICE_CLASSES = (  # kernel-name fragment → class, first match wins
+    ("segment_sum_sorted_kernel", "K1"), ("pillar_bin_sums_kernel", "K2"),
+    ("xmma", "conv/matmul"), ("conv", "conv/matmul"), ("gemm", "conv/matmul"),
+    ("cutlass", "conv/matmul"), ("cudnn", "conv/matmul"),
+    ("index", "gather/index"), ("gather", "gather/index"),
+    ("scatter", "gather/index"), ("batch_norm", "BN/reduce"),
+    ("welford", "BN/reduce"), ("reduce", "BN/reduce"))
+
+
+def device_time_by_class(events) -> dict:
+    """Summed device ms of a chrome trace's kernels by DEVICE_CLASSES (other
+    kernels: "elementwise/other"), plus copies and fills."""
+    out: dict = {}
+    for e in events:
+        cat = e.get("cat")
+        if cat in ("gpu_memcpy", "gpu_memset"):
+            key = "memcpy/memset"
+        elif cat == "kernel":
+            name = e.get("name", "").lower()
+            key = next((k for frag, k in DEVICE_CLASSES if frag in name),
+                       "elementwise/other")
+        else:
+            continue
+        out[key] = out.get(key, 0.0) + e.get("dur", 0) / 1e3
+    return out
+
+
 def device_idle_share(torch, fn):
     """Trace fn() once with torch.profiler: (device busy ms as the union of
-    kernel / memcpy / memset intervals, wall ms, number of kernels)."""
+    kernel / memcpy / memset intervals, wall ms, number of kernels, device
+    ms by class)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -777,7 +807,7 @@ def device_idle_share(torch, fn):
             busy += b - max(a, end)
             end = b
     n_kernels = sum(e.get("cat") == "kernel" for e in events)
-    return busy / 1e3, wall, n_kernels
+    return busy / 1e3, wall, n_kernels, device_time_by_class(events)
 
 
 def phase_aligned_timing(torch, cfg, loc, qs, card):
@@ -817,7 +847,7 @@ def phase_aligned_timing(torch, cfg, loc, qs, card):
           f"id check included); descriptor forward incl. both K2 "
           f"{fwd:.3f} ms; top-{cfg.index.top_k} {topk:.3f} ms; registration "
           f"K=1 {reg:.3f} ms")
-    busy, wall, n_k = device_idle_share(torch, lambda: loc.locate(*qs[1]))
+    busy, wall, n_k, _ = device_idle_share(torch, lambda: loc.locate(*qs[1]))
     print(f"[timing-aligned] traced aligned locate on {card}: device busy "
           f"{busy:.3f} ms of {wall:.3f} ms wall, idle share "
           f"{1 - busy / wall:.3f}, {n_k} kernels (torch.profiler; against "
@@ -876,6 +906,312 @@ def phase_timing(torch, cfg, loc, qs, card):
           f"included)")
 
 
+# -------------------------------------------------------------- training
+def training_dataset(world, n: int):
+    """A synthetic TripletDataset in the walled world: 24 db scans on a 6×4
+    grid at 12 m spacing, 8 queries within 3 m of a db scan, random
+    headings, every scan padded to n rows. Each query has a db scan within
+    10 m (a nontrivial positive) and at least 15 beyond 20 m (negatives)."""
+    from gloc3d_tpu_torch._shared import dataset
+
+    rng = np.random.RandomState(21)
+    db_poses = [(x, y, rng.uniform(-np.pi, np.pi))
+                for x in np.arange(6) * 12.0 - 30.0
+                for y in np.arange(4) * 12.0 - 18.0]
+    near = rng.choice(len(db_poses), N_TRAIN_Q, replace=False)
+    q_poses = [(db_poses[j][0] + rng.uniform(-3, 3),
+                db_poses[j][1] + rng.uniform(-3, 3),
+                rng.uniform(-np.pi, np.pi)) for j in near]
+    db = [scan_at(world, p, n, seed=500 + i) for i, p in enumerate(db_poses)]
+    qs = [scan_at(world, p, n, seed=600 + i) for i, p in enumerate(q_poses)]
+    ds = dataset.TripletDataset(
+        db_inputs=np.stack([s[0] for s in db]),
+        q_inputs=np.stack([s[0] for s in qs]),
+        utm_db=np.array([p[:2] for p in db_poses]),
+        utm_q=np.array([p[:2] for p in q_poses]),
+        db_masks=np.stack([s[1] for s in db]),
+        q_masks=np.stack([s[1] for s in qs]))
+    check(bool(ds.nontrivial_positives(10.0).any(1).all())
+          and int(ds.potential_negatives(20.0).sum(1).min()) >= 15,
+          "training world: a query lacks a positive or negatives")
+    return ds
+
+
+def training_model(torch, cfg, ds, device, compute_dtype=None):
+    """The trainable model (fold_bn=False): the port's seeded init, then
+    NetVLAD initialised from the db scans' encoder features (the ported
+    cluster mode)."""
+    from gloc3d_tpu_torch.models.descriptor import build_model, init_params
+    from gloc3d_tpu_torch.train import init_vlad_from_data
+
+    mc = cfg.model.replace(fold_bn=False)
+    if compute_dtype is not None:
+        mc = mc.replace(compute_dtype=compute_dtype)
+    model = init_params(build_model(mc, cfg.voxel), seed=0).to(device)
+    init_vlad_from_data(cfg.replace(model=mc), model, ds.db_inputs,
+                        ds.db_masks, torch.Generator().manual_seed(0),
+                        num_images=len(ds.db_inputs), per_image=100)
+    return model
+
+
+def timed(torch, fn, log):
+    """fn with each call's CUDA-event ms appended to ``log`` (calls that
+    return None, a skipped batch, are not logged)."""
+    def wrapper(*args, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*args, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        if out is not None:
+            log.append((e0.elapsed_time(e1), len(args[0])))
+        return out
+    return wrapper
+
+
+def phase_training(torch, cfg, ds, card, device="cuda"):
+    """One cache refresh and the steps of one epoch on each train path at
+    full width (the main path, counted), then a second epoch for timing."""
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+    from gloc3d_tpu_torch.train import Trainer
+
+    dev = torch.device(device)
+    tcfg = cfg.replace(model=cfg.model.replace(fold_bn=False),
+                       train=cfg.train.replace(cache_refresh_rate=N_TRAIN_Q))
+    b, n_neg = tcfg.train.batch_size, tcfg.train.n_neg
+    cache_batches = sum(math.ceil(len(a) / 8)
+                        for a in (ds.db_inputs, ds.q_inputs))
+    counts = {}
+    for host_stats in (False, True):
+        path = "host-stats" if host_stats else "all-device"
+        c = tcfg.replace(train=tcfg.train.replace(host_stats=host_stats))
+        model = training_model(torch, c, ds, dev)
+        with tempfile.TemporaryDirectory() as workdir:
+            tr = Trainer(c, model, ds, workdir, device=dev)
+            before = {k: p.detach().clone()
+                      for k, p in model.named_parameters()}
+            steps, device_steps, caches, host = [], [], [], []
+            tr._train_batch = timed(torch, tr._train_batch, steps)
+            tr._host_sorted = timed(torch, tr._host_sorted, host)
+            for name in ("train_step", "train_step_hs"):
+                setattr(tr, name, timed(torch, getattr(tr, name),
+                                        device_steps))
+            tr.compute_cache = timed(torch, tr.compute_cache, caches)
+            torch.cuda.reset_peak_memory_stats()
+            ss.segment_sum_sorted.launches = 0
+            bs.pillar_bin_sums.launches = 0
+            ss.segment_sum_sorted_grad.backward_calls = 0
+            bs.pillar_bin_sums_grad.backward_calls = 0
+            loss = tr.train_epoch(1)
+            k1 = ss.segment_sum_sorted.launches
+            k2 = bs.pillar_bin_sums.launches
+            k1_bwd = ss.segment_sum_sorted_grad.backward_calls
+            k2_bwd = bs.pillar_bin_sums_grad.backward_calls
+            n_steps = tr.step
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"[train] {path}: epoch 1 over {N_TRAIN_Q} queries "
+                  f"(batch {b}, {b * (2 + n_neg)} clouds x "
+                  f"{ds.db_inputs.shape[1]} points per step): {n_steps} "
+                  f"steps, mean loss {loss:.5f}; launches K1 {k1}, K2 {k2}; "
+                  f"backward calls K1 {k1_bwd}, K2 {k2_bwd}")
+            check(n_steps >= 3, f"{path}: only {n_steps} train steps ran")
+            check(math.isfinite(loss) and loss > 0, f"{path}: loss {loss}")
+            want = ((0, 2 * (cache_batches + n_steps), 0, n_steps)
+                    if not host_stats else
+                    (cache_batches + n_steps, 0, n_steps, 0))
+            check((k1, k2, k1_bwd, k2_bwd) == want,
+                  f"{path}: (K1, K2, K1 backward, K2 backward) = "
+                  f"{(k1, k2, k1_bwd, k2_bwd)}, expected {want}")
+            zero = [k for k, p in model.named_parameters()
+                    if k.startswith("encoder.") and (
+                        p.grad is None or float(p.grad.abs().max()) == 0.0)]
+            check(not zero, f"{path}: zero gradient for {zero}")
+            same = [k for k, p in model.named_parameters()
+                    if torch.equal(p.detach(), before[k])]
+            check(not same, f"{path}: parameters unchanged: {same}")
+            pn = model.encoder.pn.pointnet[0].weight.grad
+            print(f"[train] {path}: all {len(before)} parameters changed; "
+                  f"every encoder parameter has a nonzero gradient (PointNet "
+                  f"weight max |grad| {float(pn.abs().max()):.3e}); peak "
+                  f"device memory {peak:.2f} GiB on {card}")
+            counts[path] = (k1, k2)
+
+            tr.train_epoch(2)  # more steps for the timing
+            step_ms = float(np.median([s[0] for s in steps[1:]]))
+            dev_ms = float(np.median([s[0] for s in device_steps[1:]]))
+            cache_ms = sum(s[0] for s in caches) / sum(s[1] for s in caches)
+            host_ms = (float(np.median([s[0] for s in host
+                                        if s[1] == b * (2 + n_neg)]))
+                       if host_stats else 0.0)
+            print(f"[train] {path} on {card}: {step_ms:.2f} ms per train "
+                  f"step (mining, gather, "
+                  f"{'host pass, ' if host_stats else ''}upload, forward, "
+                  f"backward, SGD; CUDA events, median of {len(steps) - 1} "
+                  f"warm steps over 2 epochs); of it {dev_ms:.2f} ms in "
+                  f"{'train_step_hs' if host_stats else 'train_step'}, "
+                  f"{host_ms:.2f} ms in the host pass of the step's "
+                  f"{b * (2 + n_neg)} scans; cache refresh {cache_ms:.3f} ms "
+                  f"per scan ({sum(s[1] for s in caches)} scans in batches "
+                  f"of 8)")
+            cache_db = tr.compute_cache(ds.db_inputs, ds.db_masks)
+            cache_q = tr.compute_cache(ds.q_inputs, ds.q_masks)
+            busy, wall, n_k, by_class = device_idle_share(
+                torch, lambda: tr._train_batch(np.arange(b), cache_db,
+                                               cache_q))
+            print(f"[train] {path}: traced train step on {card}: device busy "
+                  f"{busy:.2f} ms of {wall:.2f} ms wall, idle share "
+                  f"{1 - busy / wall:.3f}, {n_k} kernels (torch.profiler; "
+                  f"against the untraced {step_ms:.2f} ms the idle share is "
+                  f"{1 - busy / step_ms:.3f}); device ms by class: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                      by_class.items(), key=lambda kv: -kv[1])))
+    return counts
+
+
+def phase_train_kernels(torch, cfg, ds, card, device="cuda"):
+    """Each kernel's gradient through its autograd Function against autograd
+    through its plain version, on the card at the train step's shape (24,
+    122480, 64) with real pillar layouts: K1 on the host pass's sorted ids,
+    K2 on the device binning's ids. Times of both backward passes."""
+    from gloc3d_tpu_torch._shared import native
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+    from gloc3d_tpu_torch.ops.voxelize import (
+        points_to_voxels, scatter_mean_to_grid,
+    )
+
+    dev = torch.device(device)
+    vc = cfg.voxel
+    b = cfg.train.batch_size * (2 + cfg.train.n_neg)
+    pts, mask = ds.db_inputs[:b], ds.db_masks[:b]
+    host = native.compute_voxel_stats_host_sorted(
+        pts, mask.sum(1).astype(np.int64), vc.xbound, vc.ybound, vc.zbound,
+        crop=False)
+    ids, starts = (torch.from_numpy(host[i]).to(dev) for i in (2, 5))
+    p_d = torch.from_numpy(pts).to(dev)
+    vox = points_to_voxels(p_d[..., :3], torch.from_numpy(mask).to(dev),
+                           vc.xbound, vc.ybound, vc.zbound)
+    v = vox["num_voxels"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((b, pts.shape[1], 64), generator=gen, device=dev)
+    w = torch.randn((b, v, 64), generator=gen, device=dev)
+    cases = {
+        "K1": (lambda t: ss.segment_sum_sorted_grad(t, starts, ids),
+               lambda t: ss.segment_sum_sorted_plain(t, starts)),
+        "K2": (lambda t: scatter_mean_to_grid(t, vox["voxel_indices"], v,
+                                              counts=vox["raw_counts"]),
+               lambda t: bs.pillar_bin_sums_plain(
+                   t, vox["voxel_indices"], v)[0]
+               / vox["raw_counts"].clamp_min(1.0)[..., None]),
+    }
+    out = {}
+    for name, (kernel_fn, plain_fn) in cases.items():
+        grads, ms = [], []
+        for fn in (kernel_fn, plain_fn):
+            xr = x.clone().requires_grad_()
+            y = fn(xr)
+            check(y.grad_fn is not None, f"{name}: output has no grad_fn")
+            (g,) = torch.autograd.grad(y, xr, w, retain_graph=True)
+            grads.append(g)
+            ms.append(cuda_ms(torch, lambda: torch.autograd.grad(
+                y, xr, w, retain_graph=True), 20))
+        err = float((grads[0] - grads[1]).abs().max())
+        print(f"[train-kernels] {name} backward at ({b}, {pts.shape[1]}, 64) "
+              f"on {card}: autograd Function (row gather) vs autograd through "
+              f"the plain version: max |diff| {err:.3e} (bound 1e-6); "
+              f"{ms[0]:.4f} ms vs {ms[1]:.4f} ms (CUDA events, L2-warm, "
+              f"mean of 20)")
+        check(err <= 1e-6, f"{name} backward disagrees with its plain "
+              f"version: {err:.3e}")
+        out[name] = (err, ms[0], ms[1])
+    return out
+
+
+def phase_train_reference(torch, cfg, ds, n_pts: int = 16384,
+                          devices=("cuda", "cpu")):
+    """One fp32 train step on each path, card against CPU, from the same
+    weights, batch, triplets and yaw, at a reduced pad (TF32 off).
+
+    The loss must agree within rtol 1e-4. The gradient of one triplet step
+    is chaotic at the ~1e-2 level in fp32 (rounding decides ReLUs near 0,
+    and BatchNorm's mean subtraction cancels most of a weight gradient), so
+    the smoke measures that floor on the card: the same step with every
+    intensity scaled by 1 + 2^-23. Each tensor's card gradient must lie
+    within 5e-2 of its norm from the CPU's; a lost or mis-scaled gradient
+    path is an O(1) error."""
+    from gloc3d_tpu_torch._shared import dataset
+    from gloc3d_tpu_torch.models.descriptor import build_model
+    from gloc3d_tpu_torch.train import Trainer
+    from gloc3d_tpu_torch.train.trainer import rotate_clouds_z
+
+    small = dataset.TripletDataset(
+        db_inputs=np.ascontiguousarray(ds.db_inputs[:, :n_pts]),
+        q_inputs=np.ascontiguousarray(ds.q_inputs[:, :n_pts]),
+        utm_db=ds.utm_db, utm_q=ds.utm_q,
+        db_masks=np.ascontiguousarray(ds.db_masks[:, :n_pts]),
+        q_masks=np.ascontiguousarray(ds.q_masks[:, :n_pts]))
+    b, n_neg = cfg.train.batch_size, cfg.train.n_neg
+    dist = np.linalg.norm(small.utm_q[:b, None] - small.utm_db[None], axis=-1)
+    pos = dist.argmin(1)
+    neg = np.concatenate([np.flatnonzero(d > 20.0)[:n_neg] for d in dist])
+    yaw = torch.tensor(np.random.RandomState(4).uniform(-np.pi, np.pi, b),
+                       dtype=torch.float32)
+    q_in = rotate_clouds_z(torch.from_numpy(small.q_inputs[:b]), yaw).numpy()
+    clouds = (q_in, small.db_inputs[pos], small.db_inputs[neg])
+    masks = (small.q_masks[:b], small.db_masks[pos], small.db_masks[neg])
+    nv, qv = np.ones((b, n_neg), np.float32), np.ones(b, np.float32)
+    init = training_model(torch, cfg, small, devices[0],
+                          "float32").state_dict()
+    c = cfg.replace(model=cfg.model.replace(fold_bn=False,
+                                            compute_dtype="float32"))
+
+    def step(device, host_stats, nudge=False):
+        x = [a.copy() for a in clouds]
+        if nudge:
+            for a in x:
+                a[..., 3] *= np.float32(1 + 2.0 ** -23)
+        model = build_model(c.model, c.voxel)
+        model.load_state_dict(init)
+        cc = c.replace(train=c.train.replace(host_stats=host_stats))
+        with tempfile.TemporaryDirectory() as workdir:
+            tr = Trainer(cc, model, small, workdir, device=device)
+            if host_stats:
+                loss = tr.train_step_hs(*tr._host_sorted(
+                    np.concatenate(x), np.concatenate(masks)), nv, qv)
+            else:
+                loss = tr.train_step(x[0], masks[0], x[1], masks[1], x[2],
+                                     masks[2], nv, qv)
+        return float(loss), {k: p.grad.detach().cpu()
+                             for k, p in model.named_parameters()}
+
+    def rel(a, b_):
+        return {k: float((a[k] - b_[k]).norm() / b_[k].norm().clamp_min(
+            1e-30)) for k in b_}
+
+    for host_stats in (False, True):
+        path = "host-stats" if host_stats else "all-device"
+        (l_g, g_g), (l_c, g_c) = (step(d, host_stats) for d in devices)
+        _, g_n = step(devices[0], host_stats, nudge=True)
+        cross, floor = rel(g_g, g_c), rel(g_n, g_g)
+        worst = sorted(cross, key=cross.get)[-3:]
+        print(f"[train-reference] {path}, fp32 step at {n_pts} points, card "
+              f"vs CPU: loss {l_g:.7f} vs {l_c:.7f} (rel "
+              f"{abs(l_g - l_c) / abs(l_c):.2e}, bound 1e-4); gradient "
+              f"|diff| / |grad| per tensor, worst: "
+              + ", ".join(f"{k} {cross[k]:.2e}" for k in worst)
+              + f" (bound 5e-2; median over tensors "
+              f"{np.median(list(cross.values())):.2e}); the card against "
+              f"itself with intensities x (1 + 2^-23): worst "
+              f"{max(floor.values()):.2e}, median "
+              f"{np.median(list(floor.values())):.2e}")
+        check(abs(l_g - l_c) <= 1e-4 * abs(l_c), f"{path}: card loss "
+              f"{l_g} vs CPU {l_c}")
+        check(max(cross.values()) <= 5e-2, f"{path}: card gradients differ "
+              f"from the CPU's: {max(cross.values()):.3e}")
+
+
 def main() -> int:
     import torch
 
@@ -903,13 +1239,28 @@ def main() -> int:
 
     phase_timing(torch, cfg, loc, qs, card)
     phase_aligned_timing(torch, cfg, a_loc, q_set[2], card)
+
+    ds = training_dataset(world, cfg.voxel.max_points)
+    train_counts = phase_training(torch, cfg, ds, card)
+    bwd = phase_train_kernels(torch, cfg, ds, card)
+    phase_train_reference(torch, cfg, ds)
+    k1_paths = {"located query": k1_launches,
+                "training, host-stats": train_counts["host-stats"][0]}
+    k2_paths = {"aligned query": k2_launches,
+                "training, all-device": train_counts["all-device"][1]}
     print(json.dumps({"kernels": [
         {"name": "segment_sum_sorted", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": k1_launches,
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "replaces": K1_REPLACES, "launches": sum(k1_paths.values()),
+         "launches_by_path": k1_paths,
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "backward_max_abs_err": bwd["K1"][0], "backward_ms": bwd["K1"][1],
+         "plain_backward_ms": bwd["K1"][2]},
         {"name": "pillar_bin_sums", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": k2_launches,
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms}]}))
+         "replaces": K2_REPLACES, "launches": sum(k2_paths.values()),
+         "launches_by_path": k2_paths,
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "backward_max_abs_err": bwd["K2"][0], "backward_ms": bwd["K2"][1],
+         "plain_backward_ms": bwd["K2"][2]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

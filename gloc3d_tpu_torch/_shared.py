@@ -1,12 +1,14 @@
 """The JAX package's framework-free modules, shared without copying.
 
-``gloc3d_tpu/config.py`` (stdlib only) and ``gloc3d_tpu/data/native.py``
-(numpy + ctypes, the native scan loader bridge) are loaded here BY FILE
-PATH, so the ``gloc3d_tpu`` package ``__init__`` — which imports jax — never
-runs: the port imports no JAX. Each module is registered in ``sys.modules``
-under its own name before it executes, because ``typing.get_type_hints``
-resolves the config dataclasses' string annotations through that entry
-(``_Base.from_dict``, used by ``from_json`` and ``DescriptorBank.load``).
+``gloc3d_tpu/config.py`` (stdlib only), ``gloc3d_tpu/data/native.py``
+(numpy + ctypes, the native scan loader bridge), ``data/dataset.py``
+(``TripletDataset``, numpy) and ``eval/recall.py`` (numpy) are loaded here
+BY FILE PATH, so the ``gloc3d_tpu`` package ``__init__`` — which imports
+jax — never runs: the port imports no JAX. Each module is registered in
+``sys.modules`` under its own name before it executes, because
+``typing.get_type_hints`` resolves the config dataclasses' string
+annotations through that entry (``_Base.from_dict``, used by ``from_json``
+and ``DescriptorBank.load``).
 """
 
 from __future__ import annotations
@@ -36,3 +38,5 @@ def _load(name: str, relpath: str) -> ModuleType:
 
 config = _load("gloc3d_tpu_torch._config", "config.py")
 native = _load("gloc3d_tpu_torch._native", "data/native.py")
+dataset = _load("gloc3d_tpu_torch._dataset", "data/dataset.py")
+recall = _load("gloc3d_tpu_torch._recall", "eval/recall.py")

@@ -13,6 +13,13 @@ TPU kernel's bf16 one-hot products are not the semantics held.
 On a CUDA tensor the wrapper launches ``csrc/pillar_bin_sums.cu`` (design
 and bound in that file's header) or raises; on a CPU tensor it runs the
 plain version. There is no fallback between the two.
+
+The ctypes launch leaves no autograd history: ``pillar_bin_sums_grad`` wraps
+the binning in an autograd Function for the PointNet feature mean, with the
+backward of the JAX package's XLA scatter (``ops/voxelize.py::
+scatter_mean_to_grid``), the row gather ``d_features[i] = g_sums[ids[i]]``.
+The statistics binning bins input coordinates and stays on the plain
+wrapper.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Tuple
 import torch
 
 from gloc3d_tpu_torch.kernels import build
+from gloc3d_tpu_torch.ops.gather import row_gather
 
 MAX_CHANNELS = 256
 
@@ -127,3 +135,30 @@ def _launch(features: torch.Tensor, ids: torch.Tensor, num_voxels: int
 
 
 pillar_bin_sums.launches = 0
+
+
+class _PillarBinSumsGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, ids, num_voxels):
+        sums, counts = pillar_bin_sums(features, ids, num_voxels)
+        ctx.save_for_backward(ids)
+        ctx.mark_non_differentiable(counts)
+        return sums, counts
+
+    @staticmethod
+    def backward(ctx, g_sums, g_counts):
+        (ids,) = ctx.saved_tensors
+        pillar_bin_sums_grad.backward_calls += 1
+        return row_gather(g_sums, ids), None, None
+
+
+def pillar_bin_sums_grad(features: torch.Tensor, ids: torch.Tensor,
+                         num_voxels: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pillar_bin_sums`` with a gradient for ``features`` (the sums' row
+    gather); the counts carry none. Backward calls are counted in
+    ``pillar_bin_sums_grad.backward_calls``."""
+    return _PillarBinSumsGrad.apply(features, ids, num_voxels)
+
+
+pillar_bin_sums_grad.backward_calls = 0

@@ -13,6 +13,12 @@ per scan at the main-path shape) or raises; on a CPU tensor it runs the
 plain version. There is no fallback between the two. Making the kernel fast
 (wider loads, fusing the divide by the pillar counts) is later work; its
 time and the plain version's are in PERF.md.
+
+The kernel is launched through ctypes, so its output carries no autograd
+history: ``segment_sum_sorted_grad`` (the port of the JAX custom VJP
+``segment_sum_sorted_grad``) wraps it in an autograd Function whose
+backward is the exact row gather ``d_values[i] = g[ids[i]]``. Without it
+the gradient would stop at the kernel on the card and only there.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import ctypes
 import torch
 
 from gloc3d_tpu_torch.kernels import build
+from gloc3d_tpu_torch.ops.gather import row_gather
 
 MAX_CHANNELS = 256
 
@@ -106,3 +113,30 @@ def segment_sum_sorted(values: torch.Tensor,
 
 
 segment_sum_sorted.launches = 0
+
+
+class _SegmentSumSortedGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, starts, ids):
+        ctx.save_for_backward(ids)
+        return segment_sum_sorted(values, starts)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        segment_sum_sorted_grad.backward_calls += 1
+        return row_gather(g, ids), None, None
+
+
+def segment_sum_sorted_grad(values: torch.Tensor, starts: torch.Tensor,
+                            ids: torch.Tensor) -> torch.Tensor:
+    """``segment_sum_sorted`` with a gradient for ``values``: the backward
+    of a segment sum gives every row its segment's cotangent, one row
+    gather. ``ids (..., N)`` are the per-row segment ids consistent with
+    ``starts`` (the pillar-sorted ids of the host stats pass); ``starts``
+    and ``ids`` get no gradient. Backward calls are counted in
+    ``segment_sum_sorted_grad.backward_calls``."""
+    return _SegmentSumSortedGrad.apply(values, starts, ids)
+
+
+segment_sum_sorted_grad.backward_calls = 0

@@ -58,10 +58,14 @@ class DescriptorModel(nn.Module):
         else:
             raise ValueError(f"unknown pooling {model_cfg.pooling!r}")
 
+    def encode(self, inputs, mask: Optional[torch.Tensor] = None,
+               voxel_stats=None):
+        """The encoder's ``(B, gy, gx, D)`` feature map (NetVLAD's input)."""
+        return self.encoder(inputs, mask, voxel_stats=voxel_stats)
+
     def forward(self, inputs, mask: Optional[torch.Tensor] = None,
                 voxel_stats=None):
-        feat = self.encoder(inputs, mask, voxel_stats=voxel_stats)
-        return self.pool(feat)
+        return self.pool(self.encode(inputs, mask, voxel_stats))
 
 
 def build_model(model_cfg, voxel_cfg) -> DescriptorModel:

@@ -8,15 +8,19 @@ reference torch model's: ``conv.weight (K, D, 1, 1)``, ``centroids (K, D)``,
 ``hidden1_weights (K·D, D)``, ``context_gating.gating_weights (D, D)`` with
 ``context_gating.bn1``.
 
-The data-dependent centroid init (``init_netvlad_params``) waits for the
-training port.
+``init_netvlad_params`` is the data-dependent centroid and assignment init
+that ``train/cluster.py`` runs before training.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from gloc3d_tpu_torch.models.batchnorm import BatchNorm
 
 
 def _l2n(x: torch.Tensor) -> torch.Tensor:
@@ -29,7 +33,7 @@ class GatingContext(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.gating_weights = nn.Parameter(torch.empty(dim, dim))
-        self.bn1 = nn.BatchNorm1d(dim)
+        self.bn1 = BatchNorm(dim)  # batch = the descriptors: Flax's update
 
     def forward(self, x):
         return x * torch.sigmoid(self.bn1(x @ self.gating_weights))
@@ -76,3 +80,39 @@ class NetVLAD(nn.Module):
             if self.context_gating is not None:
                 vlad = self.context_gating(vlad)
         return vlad
+
+
+@torch.no_grad()
+def init_netvlad_params(pool: NetVLAD, clusters, train_descs,
+                        vladv2: bool = False) -> NetVLAD:
+    """Data-dependent centroid and assignment init of ``pool``, in place.
+
+    Port of ``gloc3d_tpu/models/netvlad.py::init_netvlad_params``, fp32 on
+    the CPU as the JAX version computes in numpy. ``clusters (K, D)`` are
+    k-means centroids, ``train_descs (M, D)`` sampled local descriptors.
+
+    - vladv1: alpha from the mean gap between each descriptor's two largest
+      dot products with the normalised centroids; assignment weight =
+      alpha · normalised centroids.
+    - vladv2: alpha from the mean gap between each centroid's two smallest
+      squared distances to the descriptors; weight = 2·alpha·centroids,
+      bias = −alpha·‖centroids‖. The distances, as the math calls for (the
+      reference squares the neighbours' indices instead), as in JAX.
+    """
+    c = torch.as_tensor(clusters, dtype=torch.float32).detach().cpu()
+    x = torch.as_tensor(train_descs, dtype=torch.float32).detach().cpu()
+    if not vladv2:
+        norm = c / c.norm(dim=1, keepdim=True).clamp_min(1e-12)
+        dots = (norm @ x.t()).sort(dim=0, descending=True).values  # (K, M)
+        alpha = -math.log(0.01) / float((dots[0] - dots[1]).mean())
+        weight = alpha * norm
+    else:
+        # (K, M) squared distances, one centroid at a time (not (K, M, D))
+        d2 = torch.stack([((x - ck) ** 2).sum(-1) for ck in c])
+        d2 = d2.sort(dim=1).values
+        alpha = -math.log(0.01) / float((d2[:, 1] - d2[:, 0]).mean())
+        weight = 2.0 * alpha * c
+        pool.conv.bias.copy_(-alpha * c.norm(dim=1))
+    pool.centroids.copy_(c)
+    pool.conv.weight.copy_(weight[:, :, None, None])
+    return pool

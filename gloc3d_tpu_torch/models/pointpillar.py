@@ -23,6 +23,10 @@ Traps kept from the reference and the Flax model:
 - The FPN upsample uses align-corners bilinear.
 - Compute dtype: convs run in ``compute_dtype`` (bf16 by default); BN and
   the folded model's ``relu=False`` head end return fp32.
+- Training (``model.train()``): BatchNorm normalises with batch statistics
+  and keeps Flax's biased running variance (``models/batchnorm.py``); both
+  pillar means carry gradients through their kernels' autograd Functions
+  (K1: ``segment_sum_sorted_grad``, K2: ``scatter_mean_to_grid``).
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from gloc3d_tpu_torch.kernels.segment_sum import segment_sum_sorted
+from gloc3d_tpu_torch.kernels.segment_sum import segment_sum_sorted_grad
+from gloc3d_tpu_torch.models.batchnorm import BatchNorm
 from gloc3d_tpu_torch.ops.voxelize import (
     grid_shape, points_to_voxels, points_to_voxels_hoststats,
     scatter_mean_to_grid,
@@ -54,7 +59,7 @@ def _pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
 
 
 def _bn(channels: int, fold_bn: bool) -> nn.Module:
-    return nn.Identity() if fold_bn else nn.BatchNorm2d(channels)
+    return nn.Identity() if fold_bn else BatchNorm(channels)
 
 
 def conv_bn_act(x: torch.Tensor, conv: nn.Conv2d, bn: nn.Module, relu: bool,
@@ -102,7 +107,7 @@ class PointNet(nn.Module):
         super().__init__()
         self.pointnet = nn.Sequential(
             nn.Conv1d(idims, odims, 1, bias=fold_bn),
-            nn.Identity() if fold_bn else nn.BatchNorm1d(odims),
+            nn.Identity() if fold_bn else BatchNorm(odims),
             nn.ReLU())
 
     def forward(self, feats, mask, compute_dtype):
@@ -122,8 +127,9 @@ class PointPillar(nn.Module):
     ``forward(points (B, N, 4), mask (B, N), voxel_stats=None)`` bins on
     the device; ``voxel_stats=(ids, raw_counts, centroids, starts[,
     per_point]))`` takes pillar-sorted points from the host stats pass.
-    Either returns ``(B, gy, gx, 128)``, the JAX ``mode="vlad"`` output. The
-    ``cluster`` and pose modes come with the training ports.
+    Either returns ``(B, gy, gx, 128)``, the JAX ``mode="vlad"`` output
+    (``train/cluster.py`` normalises it as ``mode="cluster"`` does). The
+    pose head comes with the product-surface port (ROADMAP item 15).
     """
 
     def __init__(self, xbound: Sequence[float] = (-35.0, 35.0, 0.5),
@@ -180,7 +186,8 @@ class PointPillar(nn.Module):
                                           vox["num_voxels"],
                                           counts=vox["raw_counts"])
         else:
-            sums = segment_sum_sorted(feats.contiguous(), starts.contiguous())
+            sums = segment_sum_sorted_grad(feats.contiguous(),
+                                           starts.contiguous(), ids)
             pillar = sums / raw_counts.clamp_min(1.0)[..., None]  # (B, V, 64)
         gx, gy, _ = grid_shape(self.xbound, self.ybound, self.zbound)
         # x-major ravel: H = gx, W = gy (≙ torch view(B, C, gx, gy))

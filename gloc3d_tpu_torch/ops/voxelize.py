@@ -22,7 +22,9 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from gloc3d_tpu_torch.kernels.bin_sums import pillar_bin_sums
+from gloc3d_tpu_torch.kernels.bin_sums import (
+    pillar_bin_sums, pillar_bin_sums_grad,
+)
 
 Bound = Sequence[float]
 
@@ -176,10 +178,11 @@ def scatter_mean_to_grid(features: torch.Tensor, voxel_indices: torch.Tensor,
     torch_scatter ``scatter_mean`` semantics: the denominator counts every
     row binned to the pillar, padding included (padding carries id 0).
     ``counts``: optional (B, V) all-rows counts (``raw_counts`` of
-    ``points_to_voxels``); without them K2's count column is used."""
-    sums, cnt = pillar_bin_sums(features.float().contiguous(),
-                                voxel_indices.to(torch.int32).contiguous(),
-                                num_voxels)
+    ``points_to_voxels``); without them K2's count column is used.
+    Differentiable in ``features`` (the backward is a row gather)."""
+    sums, cnt = pillar_bin_sums_grad(
+        features.float().contiguous(),
+        voxel_indices.to(torch.int32).contiguous(), num_voxels)
     if counts is not None:
         cnt = counts.to(sums.dtype)
     return sums / cnt.clamp_min(1.0)[..., None]

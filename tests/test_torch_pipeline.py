@@ -232,6 +232,33 @@ def test_port_runs_without_jax():
             res = loc.locate(*scan(20, 5))
             assert res.success and res.db_index == 1, res
             assert np.abs(res.pose.translation).max() < 1e-3, res.pose
+
+        # one training epoch on each path (small grid, 3 clouds per step)
+        import tempfile
+        from gloc3d_tpu_torch._shared import config, dataset
+        from gloc3d_tpu_torch.train import Trainer, init_vlad_from_data
+        tcfg = cfg.replace(
+            voxel=g.VoxelConfig(max_points=2048, xbound=(-10.0, 10.0, 0.5),
+                                ybound=(-6.0, 6.0, 0.5)),
+            train=config.TrainConfig(batch_size=1, n_neg=1, n_neg_sample=4,
+                                     margin=100.0))
+        sites = [(0, 0), (30, 0), (60, 0), (0, 30)]
+        db = [scan(x, y) for x, y in sites]
+        ds = dataset.TripletDataset(
+            db_inputs=np.stack([d[0] for d in db]),
+            q_inputs=np.stack([scan(1, 0)[0], scan(31, 0)[0]]),
+            utm_db=np.array(sites, float), utm_q=np.array([(1, 0), (31, 0)],
+                                                          float),
+            db_masks=np.stack([d[1] for d in db]),
+            q_masks=np.stack([scan(1, 0)[1], scan(31, 0)[1]]))
+        for host_stats in (False, True):
+            c = tcfg.replace(train=tcfg.train.replace(host_stats=host_stats))
+            tmodel = g.init_params(g.build_model(c.model, c.voxel), seed=0)
+            init_vlad_from_data(c, tmodel, ds.db_inputs, ds.db_masks,
+                                num_images=2, per_image=20)
+            with tempfile.TemporaryDirectory() as workdir:
+                tr = Trainer(c, tmodel, ds, workdir, device="cpu")
+                assert np.isfinite(tr.train_epoch(1)) and tr.step == 2
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
         print("OK")
