@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's s2s located queries once on one NVIDIA card.
+"""Drive the PyTorch port's s2s located queries and training once on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -44,7 +45,19 @@ Phases, each printing its own lines:
   9. timings with the card's name and power limit: detect at bench.py's
      shape and the host-stats located query; the aligned detect and locate,
      the aligned stage split, and the device's idle share over one aligned
-     query from a torch.profiler trace.
+     query from a torch.profiler trace;
+ 10. training at full width on each path, all-device then host-stats (24 db
+     + 8 query scans, init_vlad_from_data, the default step of 24 clouds):
+     one epoch with K1 / K2 launch and backward counts, a finite loss, a
+     nonzero gradient for every encoder parameter and changed parameters;
+     every kernel launch of one cache batch and one step held to its plain
+     version; step and cache-refresh times, peak memory, a traced step;
+ 11. both kernels' autograd Functions against autograd through the plain
+     versions at (24, 122480, 64): forward (bound 1e-5 of L1 mass), gradient
+     (bound 1e-6), backward times;
+ 12. one fp32 step on each path, card against CPU at a 16 384-point pad:
+     loss within rtol 1e-4, gradients within twice the CPU's own floor
+     (mkldnn convolutions off against on).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before those.
 """
@@ -307,24 +320,15 @@ def phase_k1(torch, cfg, world, card):
     for label, starts in cases.items():
         rows = int(starts[0, -1])
         x = torch.randn((1, rows, 64), generator=gen, device=dev)
-        got = ss.segment_sum_sorted(x, starts)
-        torch.cuda.synchronize()
-        plain = ss.segment_sum_sorted_plain(x, starts)
-        l1 = ss.segment_sum_sorted_plain(x.abs(), starts).double()
-        diff = (got - plain).double().abs()
-        rel = float((diff / l1.clamp_min(1e-30)).max())
-        check(bool(torch.isfinite(got).all()), f"K1 {label}: non-finite")
-        empty = (starts[0, 1:] == starts[0, :-1])
-        check(bool((got[0, empty] == 0).all()),
-              f"K1 {label}: empty segments not zero")
+        rel, err = check_k1(torch, label, x, starts)
+        empty = int((starts[0, 1:] == starts[0, :-1]).sum())
         p0 = int(starts[0, 1] - starts[0, 0])
         print(f"[k1] {label}: pillar-0 rows {p0}, empty segments "
-              f"{int(empty.sum())}, max |kernel - plain| "
-              f"{float(diff.max()):.3e}, relative to per-segment L1 mass "
-              f"{rel:.3e} (bound 1e-5)")
+              f"{empty}, max |kernel - plain| {err:.3e}, relative to "
+              f"per-segment L1 mass {rel:.3e} (bound 1e-5)")
         worst = max(worst, rel)
         if main_err is None:
-            main_err, main_x, main_starts = float(diff.max()), x, starts
+            main_err, main_x, main_starts = err, x, starts
     check(worst < 1e-5, f"K1 disagrees with its plain version: {worst:.3e}")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -344,23 +348,70 @@ def phase_k1(torch, cfg, world, card):
     return main_err, float(k[1]), float(p[1])
 
 
-def record_k2_inputs(fn):
-    """Run fn() and return the (features, ids, V) of every K2 launch it
-    made, through the plain wrapper or the feature mean's autograd Function
-    (the kernel still runs; outside any counted window)."""
-    from gloc3d_tpu_torch.kernels import bin_sums
+def check_k1(torch, label, x, starts):
+    """Launch K1 on (x, starts) and hold it to its plain version: finite,
+    empty segments exactly 0. Returns (max error relative to per-segment L1
+    mass, max |kernel - plain|)."""
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
 
-    calls, real = [], bin_sums._launch
+    got = ss.segment_sum_sorted(x, starts)
+    torch.cuda.synchronize()
+    plain = ss.segment_sum_sorted_plain(x, starts)
+    l1 = ss.segment_sum_sorted_plain(x.abs(), starts).double()
+    diff = (got - plain).double().abs()
+    check(bool(torch.isfinite(got).all()), f"K1 {label}: non-finite")
+    empty = starts[..., 1:] == starts[..., :-1]
+    check(bool((got[empty] == 0).all()),
+          f"K1 {label}: empty segments not zero")
+    return (float((diff / l1.clamp_min(1e-30)).max()),
+            float(diff.max()))
 
-    def recorder(features, ids, num_voxels):
-        calls.append((features.clone(), ids.clone(), num_voxels))
-        return real(features, ids, num_voxels)
 
-    bin_sums._launch = recorder
+def check_k2(torch, label, x, ids, nv):
+    """Launch K2 on (x, ids, V) and hold it to its plain version: finite,
+    counts exactly equal, empty pillars exactly 0. Returns (max error
+    relative to per-pillar L1 mass, max |kernel - plain|, plain counts)."""
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+
+    got, cnt = bs.pillar_bin_sums(x, ids, nv)
+    torch.cuda.synchronize()
+    plain, p_cnt = bs.pillar_bin_sums_plain(x, ids, nv)
+    l1, _ = bs.pillar_bin_sums_plain(x.abs(), ids, nv)
+    diff = (got - plain).double().abs()
+    check(bool(torch.isfinite(got).all()), f"K2 {label}: non-finite")
+    check(torch.equal(cnt, p_cnt), f"K2 {label}: counts differ")
+    check(bool((got[p_cnt == 0] == 0).all()),
+          f"K2 {label}: empty pillars not zero")
+    return (float((diff / l1.double().clamp_min(1e-30)).max()),
+            float(diff.max()), p_cnt)
+
+
+def record_launches(fn):
+    """Run fn() and return copies of the arguments of every K1 and K2
+    launch it made: {"K1": [(values, starts)], "K2": [(features, ids, V)]},
+    whether through a plain wrapper or an autograd Function (the kernels
+    still run; outside any counted window)."""
+    from gloc3d_tpu_torch.kernels import bin_sums, segment_sum
+
+    targets = {"K1": (segment_sum, "_launch"), "K2": (bin_sums, "_launch")}
+    calls = {key: [] for key in targets}
+    real = {key: getattr(mod, attr) for key, (mod, attr) in targets.items()}
+
+    def recorder(key):
+        def launch(*args):
+            calls[key].append(tuple(
+                a.detach().clone() if hasattr(a, "detach") else a
+                for a in args))
+            return real[key](*args)
+        return launch
+
+    for key, (mod, attr) in targets.items():
+        setattr(mod, attr, recorder(key))
     try:
         fn()
     finally:
-        bin_sums._launch = real
+        for key, (mod, attr) in targets.items():
+            setattr(mod, attr, real[key])
     return calls
 
 
@@ -378,7 +429,8 @@ def phase_k2(torch, cfg, world, card, centroids):
     for aligned in (False, True):
         loc = GlobalLocalizer(cfg, model, device=dev, host_stats=False,
                               align_ground=aligned)
-        calls = record_k2_inputs(lambda: loc.extract(pts[None], mask[None]))
+        calls = record_launches(
+            lambda: loc.extract(pts[None], mask[None]))["K2"]
         check(len(calls) == 2, f"K2 called {len(calls)} times per scan")
         tag = "aligned" if aligned else "raw"
         inputs[f"statistics (1, {n}, 4), {tag} scan"] = calls[0]
@@ -398,27 +450,17 @@ def phase_k2(torch, cfg, world, card, centroids):
 
     worst, main_err = 0.0, None
     for label, (x, i, nv) in inputs.items():
-        got, cnt = bs.pillar_bin_sums(x, i, nv)
-        torch.cuda.synchronize()
-        plain, p_cnt = bs.pillar_bin_sums_plain(x, i, nv)
-        l1, _ = bs.pillar_bin_sums_plain(x.abs(), i, nv)
-        diff = (got - plain).double().abs()
-        rel = float((diff / l1.double().clamp_min(1e-30)).max())
-        empty = p_cnt == 0
-        check(bool(torch.isfinite(got).all()), f"K2 {label}: non-finite")
-        check(torch.equal(cnt, p_cnt), f"K2 {label}: counts differ")
-        check(bool((got[empty] == 0).all()), f"K2 {label}: empty pillars "
-              "not zero")
+        rel, err, p_cnt = check_k2(torch, label, x, i, nv)
         print(f"[k2] {label}: pillar-0 rows {int(p_cnt[0, 0])}, empty "
-              f"pillars {int(empty.sum())} of {nv}, counts equal, max "
-              f"|kernel - plain| {float(diff.max()):.3e}, relative to "
-              f"per-pillar L1 mass {rel:.3e} (bound 1e-5)")
+              f"pillars {int((p_cnt == 0).sum())} of {nv}, counts equal, max "
+              f"|kernel - plain| {err:.3e}, relative to per-pillar L1 mass "
+              f"{rel:.3e} (bound 1e-5)")
         worst = max(worst, rel)
         if label.startswith("pillar 0"):
             check(int(p_cnt[0, 0]) > 80000, "the crowded case has <= 80k "
                   "rows in pillar 0")
         if x is main_path["features"][0]:
-            main_err = float(diff.max())
+            main_err = err
     check(worst < 1e-5, f"K2 disagrees with its plain version: {worst:.3e}")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -830,7 +872,7 @@ def phase_aligned_timing(torch, cfg, loc, qs, card):
         aligned, _ = loc._align(p_d, m_d)
         bev_ms = cuda_ms(torch, lambda: batch_scan_to_bev(
             aligned[..., :3], m_d, cfg.bev), 10)
-        calls = record_k2_inputs(lambda: loc.model(aligned, m_d))
+        calls = record_launches(lambda: loc.model(aligned, m_d))["K2"]
         k2 = [cuda_ms(torch, lambda: bs.pillar_bin_sums(*c), 20)
               for c in calls]
         fwd = cuda_ms(torch, lambda: loc.model(aligned, m_d), 10)
@@ -970,14 +1012,39 @@ def timed(torch, fn, log):
     return wrapper
 
 
-def phase_training(torch, cfg, ds, card, device="cuda"):
-    """One cache refresh and the steps of one epoch on each train path at
-    full width (the main path, counted), then a second epoch for timing."""
+def check_train_launches(torch, path, launches, host_stats):
+    """Hold every K1 / K2 launch recorded from one cache batch of 8 and one
+    train step of 24 scans to the plain versions (record_launches)."""
+    want = {"K1": 2, "K2": 0} if host_stats else {"K1": 0, "K2": 4}
+    got = {key: len(calls) for key, calls in launches.items()}
+    check(got == want, f"{path}: recorded launches {got}, expected {want}")
+    parts = []
+    for key, calls in launches.items():
+        for args in calls:
+            label = f"{path} {key} {tuple(args[0].shape)}"
+            rel = (check_k1(torch, label, *args)[0] if key == "K1"
+                   else check_k2(torch, label, *args)[0])
+            check(rel < 1e-5, f"{label} disagrees with its plain version: "
+                  f"{rel:.3e}")
+            parts.append(f"{key} {tuple(args[0].shape)} {rel:.2e}")
+    print(f"[train] {path}: every kernel launch of one cache batch and one "
+          f"train step against its plain version, error relative to L1 "
+          f"mass (bound 1e-5"
+          + ("" if host_stats else "; K2 counts exactly equal") + "): "
+          + ", ".join(parts))
+
+
+def phase_training(torch, cfg, ds, card):
+    """On each train path at full width: one epoch (cache refresh and its
+    steps: the main path, counted); the kernel launches of one cache batch
+    and one step held to the plain versions; two epochs timed around the
+    whole step only; the step's split in a separate pass; one traced
+    step."""
     from gloc3d_tpu_torch.kernels import bin_sums as bs
     from gloc3d_tpu_torch.kernels import segment_sum as ss
     from gloc3d_tpu_torch.train import Trainer
 
-    dev = torch.device(device)
+    dev = torch.device("cuda")
     tcfg = cfg.replace(model=cfg.model.replace(fold_bn=False),
                        train=cfg.train.replace(cache_refresh_rate=N_TRAIN_Q))
     b, n_neg = tcfg.train.batch_size, tcfg.train.n_neg
@@ -992,13 +1059,6 @@ def phase_training(torch, cfg, ds, card, device="cuda"):
             tr = Trainer(c, model, ds, workdir, device=dev)
             before = {k: p.detach().clone()
                       for k, p in model.named_parameters()}
-            steps, device_steps, caches, host = [], [], [], []
-            tr._train_batch = timed(torch, tr._train_batch, steps)
-            tr._host_sorted = timed(torch, tr._host_sorted, host)
-            for name in ("train_step", "train_step_hs"):
-                setattr(tr, name, timed(torch, getattr(tr, name),
-                                        device_steps))
-            tr.compute_cache = timed(torch, tr.compute_cache, caches)
             torch.cuda.reset_peak_memory_stats()
             ss.segment_sum_sorted.launches = 0
             bs.pillar_bin_sums.launches = 0
@@ -1038,28 +1098,50 @@ def phase_training(torch, cfg, ds, card, device="cuda"):
                   f"device memory {peak:.2f} GiB on {card}")
             counts[path] = (k1, k2)
 
-            tr.train_epoch(2)  # more steps for the timing
-            step_ms = float(np.median([s[0] for s in steps[1:]]))
-            dev_ms = float(np.median([s[0] for s in device_steps[1:]]))
+            cache_db = tr.compute_cache(ds.db_inputs, ds.db_masks)
+            cache_q = tr.compute_cache(ds.q_inputs, ds.q_masks)
+
+            def one_step():
+                check(tr._train_batch(np.arange(b), cache_db, cache_q)
+                      is not None, f"{path}: the probe batch took no step")
+
+            check_train_launches(torch, path, record_launches(lambda: (
+                tr.compute_cache(ds.db_inputs[:8], ds.db_masks[:8]),
+                one_step())), host_stats)
+
+            # the whole step and the cache refresh, timed from the outside
+            # only: the step ends in the trainer's own sync (float(loss))
+            steps, caches = [], []
+            tr._train_batch = timed(torch, tr._train_batch, steps)
+            tr.compute_cache = timed(torch, tr.compute_cache, caches)
+            for epoch in (2, 3):
+                tr.train_epoch(epoch)
+            del tr._train_batch, tr.compute_cache
+            step_ms = float(np.median([s[0] for s in steps]))
             cache_ms = sum(s[0] for s in caches) / sum(s[1] for s in caches)
-            host_ms = (float(np.median([s[0] for s in host
-                                        if s[1] == b * (2 + n_neg)]))
-                       if host_stats else 0.0)
+            # the split, in a separate pass (its wrappers add syncs)
+            inner, host = [], []
+            tr._host_sorted = timed(torch, tr._host_sorted, host)
+            tr.train_step = timed(torch, tr.train_step, inner)
+            tr.train_step_hs = timed(torch, tr.train_step_hs, inner)
+            for _ in range(3):
+                one_step()
+            del tr._host_sorted, tr.train_step, tr.train_step_hs
+            dev_ms = float(np.median([s[0] for s in inner]))
+            host_ms = float(np.median([s[0] for s in host])) if host else 0.0
             print(f"[train] {path} on {card}: {step_ms:.2f} ms per train "
                   f"step (mining, gather, "
                   f"{'host pass, ' if host_stats else ''}upload, forward, "
-                  f"backward, SGD; CUDA events, median of {len(steps) - 1} "
-                  f"warm steps over 2 epochs); of it {dev_ms:.2f} ms in "
+                  f"backward, SGD; CUDA events around the whole step only, "
+                  f"median of {len(steps)} warm steps of epochs 2-3); split "
+                  f"in a separate pass of 3 steps with syncs between the "
+                  f"parts: {dev_ms:.2f} ms in "
                   f"{'train_step_hs' if host_stats else 'train_step'}, "
                   f"{host_ms:.2f} ms in the host pass of the step's "
                   f"{b * (2 + n_neg)} scans; cache refresh {cache_ms:.3f} ms "
                   f"per scan ({sum(s[1] for s in caches)} scans in batches "
                   f"of 8)")
-            cache_db = tr.compute_cache(ds.db_inputs, ds.db_masks)
-            cache_q = tr.compute_cache(ds.q_inputs, ds.q_masks)
-            busy, wall, n_k, by_class = device_idle_share(
-                torch, lambda: tr._train_batch(np.arange(b), cache_db,
-                                               cache_q))
+            busy, wall, n_k, by_class = device_idle_share(torch, one_step)
             print(f"[train] {path}: traced train step on {card}: device busy "
                   f"{busy:.2f} ms of {wall:.2f} ms wall, idle share "
                   f"{1 - busy / wall:.3f}, {n_k} kernels (torch.profiler; "
@@ -1070,11 +1152,12 @@ def phase_training(torch, cfg, ds, card, device="cuda"):
     return counts
 
 
-def phase_train_kernels(torch, cfg, ds, card, device="cuda"):
-    """Each kernel's gradient through its autograd Function against autograd
-    through its plain version, on the card at the train step's shape (24,
-    122480, 64) with real pillar layouts: K1 on the host pass's sorted ids,
-    K2 on the device binning's ids. Times of both backward passes."""
+def phase_train_kernels(torch, cfg, ds, card):
+    """Each kernel's autograd Function against autograd through its plain
+    version, on the card at the train step's shape (24, 122480, 64) with
+    real pillar layouts: K1 on the host pass's sorted ids, K2 on the device
+    binning's ids. The forward per pillar relative to its L1 mass (bound
+    1e-5), the gradient exactly (bound 1e-6), and both backward times."""
     from gloc3d_tpu_torch._shared import native
     from gloc3d_tpu_torch.kernels import bin_sums as bs
     from gloc3d_tpu_torch.kernels import segment_sum as ss
@@ -1082,7 +1165,7 @@ def phase_train_kernels(torch, cfg, ds, card, device="cuda"):
         points_to_voxels, scatter_mean_to_grid,
     )
 
-    dev = torch.device(device)
+    dev = torch.device("cuda")
     vc = cfg.voxel
     b = cfg.train.batch_size * (2 + cfg.train.n_neg)
     pts, mask = ds.db_inputs[:b], ds.db_masks[:b]
@@ -1108,39 +1191,49 @@ def phase_train_kernels(torch, cfg, ds, card, device="cuda"):
     }
     out = {}
     for name, (kernel_fn, plain_fn) in cases.items():
-        grads, ms = [], []
+        ys, grads, ms = [], [], []
         for fn in (kernel_fn, plain_fn):
             xr = x.clone().requires_grad_()
             y = fn(xr)
             check(y.grad_fn is not None, f"{name}: output has no grad_fn")
             (g,) = torch.autograd.grad(y, xr, w, retain_graph=True)
+            ys.append(y.detach())
             grads.append(g)
             ms.append(cuda_ms(torch, lambda: torch.autograd.grad(
                 y, xr, w, retain_graph=True), 20))
+        with torch.no_grad():
+            l1 = plain_fn(x.abs()).double()
+        fwd = float(((ys[0] - ys[1]).double().abs()
+                     / l1.clamp_min(1e-30)).max())
         err = float((grads[0] - grads[1]).abs().max())
-        print(f"[train-kernels] {name} backward at ({b}, {pts.shape[1]}, 64) "
-              f"on {card}: autograd Function (row gather) vs autograd through "
-              f"the plain version: max |diff| {err:.3e} (bound 1e-6); "
+        print(f"[train-kernels] {name} at ({b}, {pts.shape[1]}, 64) on "
+              f"{card}: forward, autograd Function vs plain, max error "
+              f"relative to per-pillar L1 mass {fwd:.3e} (bound 1e-5); "
+              f"backward (row gather) vs autograd through the plain "
+              f"version: max |diff| {err:.3e} (bound 1e-6); "
               f"{ms[0]:.4f} ms vs {ms[1]:.4f} ms (CUDA events, L2-warm, "
               f"mean of 20)")
+        check(fwd < 1e-5, f"{name} forward at the train step's shape "
+              f"disagrees with its plain version: {fwd:.3e}")
         check(err <= 1e-6, f"{name} backward disagrees with its plain "
               f"version: {err:.3e}")
         out[name] = (err, ms[0], ms[1])
     return out
 
 
-def phase_train_reference(torch, cfg, ds, n_pts: int = 16384,
-                          devices=("cuda", "cpu")):
+def phase_train_reference(torch, cfg, ds, n_pts: int = 16384):
     """One fp32 train step on each path, card against CPU, from the same
     weights, batch, triplets and yaw, at a reduced pad (TF32 off).
 
     The loss must agree within rtol 1e-4. The gradient of one triplet step
     is chaotic at the ~1e-2 level in fp32 (rounding decides ReLUs near 0,
     and BatchNorm's mean subtraction cancels most of a weight gradient), so
-    the smoke measures that floor on the card: the same step with every
-    intensity scaled by 1 + 2^-23. Each tensor's card gradient must lie
-    within 5e-2 of its norm from the CPU's; a lost or mis-scaled gradient
-    path is an O(1) error."""
+    the smoke measures that floor where it brackets a change of device: the
+    same step on the CPU with its mkldnn convolutions off against on (the
+    same code, only the convolutions' summation order differs). Each
+    tensor's card gradient must lie within twice that floor's worst tensor,
+    over both paths, of its norm from the CPU's; a lost or mis-scaled
+    gradient path is an O(1) error."""
     from gloc3d_tpu_torch._shared import dataset
     from gloc3d_tpu_torch.models.descriptor import build_model
     from gloc3d_tpu_torch.train import Trainer
@@ -1162,27 +1255,28 @@ def phase_train_reference(torch, cfg, ds, n_pts: int = 16384,
     clouds = (q_in, small.db_inputs[pos], small.db_inputs[neg])
     masks = (small.q_masks[:b], small.db_masks[pos], small.db_masks[neg])
     nv, qv = np.ones((b, n_neg), np.float32), np.ones(b, np.float32)
-    init = training_model(torch, cfg, small, devices[0],
-                          "float32").state_dict()
+    init = training_model(torch, cfg, small, "cuda", "float32").state_dict()
     c = cfg.replace(model=cfg.model.replace(fold_bn=False,
                                             compute_dtype="float32"))
 
-    def step(device, host_stats, nudge=False):
-        x = [a.copy() for a in clouds]
-        if nudge:
-            for a in x:
-                a[..., 3] *= np.float32(1 + 2.0 ** -23)
+    def step(device, host_stats, mkldnn=True):
         model = build_model(c.model, c.voxel)
         model.load_state_dict(init)
         cc = c.replace(train=c.train.replace(host_stats=host_stats))
-        with tempfile.TemporaryDirectory() as workdir:
-            tr = Trainer(cc, model, small, workdir, device=device)
-            if host_stats:
-                loss = tr.train_step_hs(*tr._host_sorted(
-                    np.concatenate(x), np.concatenate(masks)), nv, qv)
-            else:
-                loss = tr.train_step(x[0], masks[0], x[1], masks[1], x[2],
-                                     masks[2], nv, qv)
+        torch.backends.mkldnn.enabled = mkldnn
+        try:
+            with tempfile.TemporaryDirectory() as workdir:
+                tr = Trainer(cc, model, small, workdir, device=device)
+                if host_stats:
+                    loss = tr.train_step_hs(*tr._host_sorted(
+                        np.concatenate(clouds), np.concatenate(masks)),
+                        nv, qv)
+                else:
+                    loss = tr.train_step(clouds[0], masks[0], clouds[1],
+                                         masks[1], clouds[2], masks[2], nv,
+                                         qv)
+        finally:
+            torch.backends.mkldnn.enabled = True
         return float(loss), {k: p.grad.detach().cpu()
                              for k, p in model.named_parameters()}
 
@@ -1190,26 +1284,32 @@ def phase_train_reference(torch, cfg, ds, n_pts: int = 16384,
         return {k: float((a[k] - b_[k]).norm() / b_[k].norm().clamp_min(
             1e-30)) for k in b_}
 
+    runs = {}
     for host_stats in (False, True):
         path = "host-stats" if host_stats else "all-device"
-        (l_g, g_g), (l_c, g_c) = (step(d, host_stats) for d in devices)
-        _, g_n = step(devices[0], host_stats, nudge=True)
-        cross, floor = rel(g_g, g_c), rel(g_n, g_g)
+        (l_g, g_g), (l_c, g_c) = step("cuda", host_stats), step("cpu",
+                                                                 host_stats)
+        _, g_o = step("cpu", host_stats, mkldnn=False)
+        runs[path] = (l_g, l_c, rel(g_g, g_c), rel(g_o, g_c))
+    floor = max(max(cpu.values()) for *_, cpu in runs.values())
+    bound = 2 * floor
+    for path, (l_g, l_c, cross, cpu) in runs.items():
         worst = sorted(cross, key=cross.get)[-3:]
         print(f"[train-reference] {path}, fp32 step at {n_pts} points, card "
               f"vs CPU: loss {l_g:.7f} vs {l_c:.7f} (rel "
               f"{abs(l_g - l_c) / abs(l_c):.2e}, bound 1e-4); gradient "
               f"|diff| / |grad| per tensor, worst: "
               + ", ".join(f"{k} {cross[k]:.2e}" for k in worst)
-              + f" (bound 5e-2; median over tensors "
-              f"{np.median(list(cross.values())):.2e}); the card against "
-              f"itself with intensities x (1 + 2^-23): worst "
-              f"{max(floor.values()):.2e}, median "
-              f"{np.median(list(floor.values())):.2e}")
+              + f" (median over tensors {np.median(list(cross.values())):.2e}"
+              f"; bound {bound:.2e}, twice the floor); the CPU with mkldnn "
+              f"convolutions off vs on: worst {max(cpu.values()):.2e}, "
+              f"median {np.median(list(cpu.values())):.2e} (floor over both "
+              f"paths {floor:.2e})")
         check(abs(l_g - l_c) <= 1e-4 * abs(l_c), f"{path}: card loss "
               f"{l_g} vs CPU {l_c}")
-        check(max(cross.values()) <= 5e-2, f"{path}: card gradients differ "
-              f"from the CPU's: {max(cross.values()):.3e}")
+        check(max(cross.values()) <= bound, f"{path}: card gradients differ "
+              f"from the CPU's by {max(cross.values()):.3e}, more than twice "
+              f"the CPU's own floor {floor:.3e}")
 
 
 def main() -> int:

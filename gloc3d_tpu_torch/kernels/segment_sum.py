@@ -88,6 +88,12 @@ def segment_sum_sorted(values: torch.Tensor,
     _check(values, starts)
     if values.device.type != "cuda":
         raise ValueError(f"no segment-sum kernel for device {values.device}")
+    return _launch(values, starts)
+
+
+def _launch(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """Allocate the zeroed output and launch the kernel on CUDA tensors that
+    passed ``_check``."""
     batched = values.dim() == 3
     b = values.shape[0] if batched else 1
     n, c = values.shape[-2:]

@@ -9,6 +9,10 @@ descriptors it is 24/23, 4 %. This module keeps Flax's rule so the port's
 running statistics, and hence its eval-mode descriptors, follow the
 reference. Momentum 0.1 here is Flax's 0.9 (``new = 0.9·old + 0.1·batch``).
 
+One reduction does both: ``F.batch_norm`` with momentum 1 writes the batch
+mean and unbiased variance into two C-element buffers, and the running
+statistics move toward those, the variance rescaled by (n-1)/n.
+
 Parameter and buffer names are ``nn.BatchNorm*d``'s, so state dicts and the
 Flax bridge (``convert.py``) are unchanged; eval mode is ``nn.BatchNorm``'s.
 """
@@ -33,12 +37,14 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+        # zeros, not empty: momentum 1 still scales the old value by 0
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
                          self.eps)
+        n = x.numel() // x.shape[1]
         with torch.no_grad():
-            dims = [0] + list(range(2, x.dim()))
-            var, mean = torch.var_mean(x, dim=dims, correction=0)
             self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
+            self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
             self.num_batches_tracked += 1
         return y
