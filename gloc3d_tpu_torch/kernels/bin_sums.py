@@ -83,8 +83,16 @@ def _check(features: torch.Tensor, ids: torch.Tensor, num_voxels: int
     if ids.numel():
         lo, hi = (int(t) for t in torch.aminmax(ids))
         if lo < 0 or hi >= num_voxels:
-            raise ValueError(f"ids span [{lo}, {hi}], outside [0, "
-                             f"{num_voxels})")
+            # A second reading tells bad ids from a bad device reduction.
+            host = ids.cpu()
+            bad = (host < 0) | (host >= num_voxels)
+            first = bad.reshape(-1).nonzero()[:4, 0].tolist()
+            raise ValueError(
+                f"ids span [{lo}, {hi}], outside [0, {num_voxels}); read back "
+                f"to the host they span [{int(host.min())}, "
+                f"{int(host.max())}], {int(bad.sum())} of {host.numel()} "
+                f"out of range (first at flat rows {first}, shape "
+                f"{tuple(ids.shape)})")
 
 
 def pillar_bin_sums(features: torch.Tensor, ids: torch.Tensor,

@@ -94,6 +94,18 @@ def test_kernel_input_checks(feats, ids, v, match):
         bs._check(feats, ids, v)
 
 
+def test_out_of_range_ids_are_reported_from_a_host_copy():
+    ids = torch.zeros((2, 10), dtype=torch.int32)
+    ids[1, 3], ids[1, 7] = 9, -2
+    with pytest.raises(ValueError) as err:
+        bs._check(torch.zeros(2, 10, 4), ids, 5)
+    msg = str(err.value)
+    assert "ids span [-2, 9]" in msg
+    assert "read back to the host they span [-2, 9], 2 of 20 out of range" \
+        in msg
+    assert "first at flat rows [13, 17], shape (2, 10)" in msg
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     if not torch.cuda.is_available():
