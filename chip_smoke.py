@@ -7,8 +7,9 @@ NVIDIA card.
 Phases, each printing its own lines:
   1. the card (torch's name, and nvidia-smi's name and power limit);
   2. build kernels K1 (csrc/segment_sum.cu) and K2 (csrc/pillar_bin_sums.cu)
-     from the checkout, one nvcc each, started together, and report whether
-     the native scan loader built or its numpy fallback is in use;
+     from the checkout, one nvcc each, started together, and the port's host
+     pass (gloc3d_tpu_torch/native/scan_loader.cpp, g++); any build failure
+     fails the smoke;
   3. K1 against its plain PyTorch version on the card: the main-path shape
      with real `starts` from the host pass, pillar 0 holding > 50k rows,
      and empty segments; error relative to per-segment L1 mass (bound
@@ -16,9 +17,11 @@ Phases, each printing its own lines:
   4. K2 against its plain version on the card, on the inputs the
      all-device path gives it for a real scan before and after alignment
      ((1, 122480, 4) pillar statistics with counts, (1, 122480, 64) PointNet
-     features), pillar 0 holding > 80k rows, and empty pillars; error
-     relative to per-pillar L1 mass (bound 1e-5), counts exactly equal,
-     empty pillars exactly 0; CUDA-event times of both;
+     features), pillar 0 holding > 80k rows, every row in pillar 0, empty
+     pillars, C in {1, 3, 4, 65, 256} on the scan's ids and features at a
+     4-byte offset; error relative to per-pillar L1 mass (bound 1e-5),
+     counts exactly equal, empty pillars exactly 0; CUDA-event times of
+     both; pillar 0 bit-equal over four launches on each main-path input;
   5. the located query on the host-stats path at full PipelineConfig.s2s()
      width (122 480-point scans, 768² BEV, top-20, 120 coarse / 11 fine
      rotations) with the folded bf16 serving model from the port's seeded
@@ -57,7 +60,13 @@ Phases, each printing its own lines:
      (bound 1e-6), backward times;
  12. one fp32 step on each path, card against CPU at a 16 384-point pad:
      loss within rtol 1e-4, gradients within twice the CPU's own floor
-     (mkldnn convolutions off against on).
+     (mkldnn convolutions off against on);
+ 13. each kernel alone at the main path's and the train step's shapes: its
+     device time from torch.profiler (L2-warm and L2-flushed), its bound,
+     the wrapper's time (K2's with and without its id-range check, and the
+     check alone) and the time of the one PyTorch call computing the same
+     function (K1: torch.segment_reduce; K2: index_add_ + bincount).
+`python3 chip_smoke.py --kernels` runs phases 1-4 and 13 only.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before those.
 """
@@ -268,7 +277,7 @@ def phase_device(torch):
 
 
 def phase_build():
-    from gloc3d_tpu_torch._shared import native
+    from gloc3d_tpu_torch.data import native
     from gloc3d_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -283,14 +292,18 @@ def phase_build():
               f"{' | '.join(regs) or 'cached build'}")
     print(f"[build] both kernels built and loaded in {took:.2f} s "
           f"(one nvcc each, started together)")
-    lib = native._load_library()
-    print("[build] native scan loader: "
-          + ("built (native/scan_loader.cpp)" if lib is not None
-             else "NOT built, numpy fallback of data/native.py in use"))
+    t0 = time.perf_counter()
+    try:
+        native.load_library()
+    except RuntimeError as e:
+        raise SmokeFailure(f"the port's host pass did not build: {e}")
+    print(f"[build] host pass gloc3d_tpu_torch/native/scan_loader.cpp: "
+          f"built and loaded in {time.perf_counter() - t0:.2f} s "
+          f"({os.path.relpath(native.library_path(), REPO)})")
 
 
 def phase_k1(torch, cfg, world, card):
-    from gloc3d_tpu_torch._shared import native
+    from gloc3d_tpu_torch.data import native
     from gloc3d_tpu_torch.kernels import segment_sum as ss
 
     dev = torch.device("cuda")
@@ -345,7 +358,7 @@ def phase_k1(torch, cfg, world, card):
     print(f"[k1] time at (1, 122480, 64) on {card}: kernel {k[0]:.4f} ms "
           f"L2-warm / {k[1]:.4f} ms L2-flushed; plain {p[0]:.4f} / "
           f"{p[1]:.4f} ms (order plain, kernel, kernel, plain)")
-    return main_err, float(k[1]), float(p[1])
+    return main_err, float(k[1]), float(p[1]), (main_x, main_starts)
 
 
 def check_k1(torch, label, x, starts):
@@ -447,6 +460,16 @@ def phase_k2(torch, cfg, world, card, centroids):
         torch.randn(feats.shape, generator=gen, device=dev), crowded, v)
     inputs["empty pillars (1, 8, 64), V=12"] = (
         torch.randn((1, 8, 64), generator=gen, device=dev), small_ids, 12)
+    inputs["every row in pillar 0 (1, 122480, 64)"] = (
+        torch.randn(feats.shape, generator=gen, device=dev),
+        torch.zeros_like(ids), v)
+    for c in (1, 3, 4, 65, 256):
+        inputs[f"C={c} (1, {n}, {c}), the scan's ids"] = (
+            torch.randn((1, n, c), generator=gen, device=dev), ids, v)
+    # rows that are not 16-byte aligned: the scalar-load specialisations
+    odd = torch.empty(feats.numel() + 1, device=dev)[1:].view(feats.shape)
+    odd.copy_(feats)
+    inputs["features at a 4-byte offset (1, 122480, 64)"] = (odd, ids, v)
 
     worst, main_err = 0.0, None
     for label, (x, i, nv) in inputs.items():
@@ -483,7 +506,24 @@ def phase_k2(torch, cfg, world, card, centroids):
               f"L2-flushed; plain {p[0]:.4f} / {p[1]:.4f} ms (order plain, "
               f"kernel, kernel, plain); wrapper with its id-range check "
               f"{wrapper:.4f} ms L2-warm")
-    return main_err, times["features"][0], times["features"][1]
+    return main_err, times["features"][0], times["features"][1], main_path
+
+
+def check_k2_pillar0_determinism(torch, main_path):
+    """Two launches on the same input give bit-equal pillar-0 rows (and
+    counts): K2 sums pillar 0 through per-block partials in a fixed order.
+    Run on both of the main path's binnings."""
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+
+    for label, (x, ids, v) in main_path.items():
+        first = bs.pillar_bin_sums(x, ids, v)
+        same = all(
+            torch.equal(first[0][..., 0, :], again[0][..., 0, :])
+            and torch.equal(first[1], again[1])
+            for again in (bs.pillar_bin_sums(x, ids, v) for _ in range(3)))
+        print(f"[k2] {label} {tuple(x.shape)}: pillar 0 over four launches "
+              f"bit-equal {same} ({int(first[1][..., 0].sum())} rows)")
+        check(same, f"K2 {label}: pillar 0 differs between launches")
 
 
 def seeded_standard_model(torch, cfg, dtype: str):
@@ -796,7 +836,7 @@ def phase_aligned_reference(torch, cfg, kf_set, q_set, centroids,
 
 
 DEVICE_CLASSES = (  # kernel-name fragment → class, first match wins
-    ("segment_sum_sorted_kernel", "K1"), ("pillar_bin_sums_kernel", "K2"),
+    ("segment_sum_sorted_kernel", "K1"), ("pillar_bin_sums", "K2"),
     ("xmma", "conv/matmul"), ("conv", "conv/matmul"), ("gemm", "conv/matmul"),
     ("cutlass", "conv/matmul"), ("cudnn", "conv/matmul"),
     ("index", "gather/index"), ("gather", "gather/index"),
@@ -822,6 +862,15 @@ def device_time_by_class(events) -> dict:
     return out
 
 
+def trace_events(prof) -> list:
+    """The chrome-trace events of a finished torch.profiler run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
 def device_idle_share(torch, fn):
     """Trace fn() once with torch.profiler: (device busy ms as the union of
     kernel / memcpy / memset intervals, wall ms, number of kernels, device
@@ -836,11 +885,7 @@ def device_idle_share(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+    events = trace_events(prof)
     spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
     busy, end = 0.0, -math.inf
@@ -898,7 +943,7 @@ def phase_aligned_timing(torch, cfg, loc, qs, card):
 
 
 def phase_timing(torch, cfg, loc, qs, card):
-    from gloc3d_tpu_torch._shared import native
+    from gloc3d_tpu_torch.data import native
     from gloc3d_tpu_torch.ops.topk import l2_topk
     from gloc3d_tpu_torch.pipeline import GlobalLocalizer
 
@@ -948,13 +993,178 @@ def phase_timing(torch, cfg, loc, qs, card):
           f"included)")
 
 
+# ------------------------------------------------------ kernel-only times
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
+
+
+def least_ms(n_bytes: float, n_ops: float):
+    """The least time the card could take for work that moves ``n_bytes``
+    and does ``n_ops`` fp32 operations: (ms, "bytes" or "operations")."""
+    t_mem, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else \
+        "operations"
+
+
+def k1_work(x, starts):
+    """K1's bytes (values and starts read once, sums written once) and
+    adds."""
+    b, n, c = x.shape
+    v = starts.shape[-1] - 1
+    return 4 * (b * n * c + b * (v + 1) + b * v * c), b * n * c
+
+
+def k2_work(x, ids, v):
+    """K2's bytes (features and ids read once, sums and counts written
+    once) and adds."""
+    b, n, c = x.shape
+    return 4 * (b * n * c + b * n + b * v * c + b * v), b * n * (c + 1)
+
+
+def kernel_device_ms(torch, fn, frag: str, iters: int, flush=None):
+    """Device time per call of fn() spent in kernels whose name holds
+    ``frag``, from a torch.profiler trace of ``iters`` calls (after three
+    untraced ones): the wrapper's host work, its fills and its checks are
+    out of it. With ``flush`` the L2 cache is overwritten before each
+    call. Returns (ms per call, such kernels per call, {kernel name: ms
+    per call})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    durs = [(e["name"], e.get("dur", 0)) for e in trace_events(prof)
+            if e.get("cat") == "kernel" and frag in e.get("name", "")]
+    check(bool(durs), f"the profiler saw no kernel named *{frag}*")
+    by_name = {}
+    for name, d in durs:
+        by_name[name] = by_name.get(name, 0.0) + d / iters / 1e3
+    return (sum(d for _, d in durs) / iters / 1e3, len(durs) / iters,
+            by_name)
+
+
+def segment_reduce_call(torch, x, starts):
+    """K1's function as one PyTorch call, for its time only (the port never
+    calls it): ``torch.segment_reduce`` over the batch flattened into one
+    row axis, every item's offsets shifted by its first row."""
+    b, n, c = x.shape
+    check(bool((starts[:, -1] == n).all()), "segment_reduce_call needs "
+          "every row in a segment")
+    offs = torch.cat([
+        (starts[:, :-1].long()
+         + n * torch.arange(b, device=x.device)[:, None]).reshape(-1),
+        torch.tensor([b * n], device=x.device)])
+    flat = x.reshape(b * n, c)
+    v = starts.shape[-1] - 1
+    return lambda: torch.segment_reduce(
+        flat, "sum", offsets=offs, axis=0, unsafe=True).reshape(b, v, c)
+
+
+def index_add_call(torch, x, ids, v):
+    """K2's function as PyTorch calls, for their time only (the port never
+    calls them): an fp32 ``index_add_`` into zeroed sums and a
+    ``bincount`` over batch-offset ids."""
+    b, n, c = x.shape
+    flat = (ids.long() + v * torch.arange(b, device=x.device)[:, None]
+            ).reshape(-1)
+    rows = x.reshape(b * n, c)
+
+    def call():
+        sums = torch.zeros((b * v, c), device=x.device).index_add_(
+            0, flat, rows)
+        return (sums.reshape(b, v, c),
+                torch.bincount(flat, minlength=b * v).reshape(b, v))
+    return call
+
+
+def phase_kernel_times(torch, card, k1_cases, k2_cases):
+    """Each kernel alone at the main path's and the train step's shapes:
+    its device time from a torch.profiler trace (L2-warm, mean of 50 calls;
+    L2-flushed, mean of 20), beside its bound, the wrapper's time (CUDA
+    events, L2-warm; K2's with and without its id-range check, and the
+    check alone), and the time of the PyTorch call that computes the same
+    function (K1: ``torch.segment_reduce``; K2: fp32 ``index_add_`` +
+    ``bincount``), held once to the plain version first."""
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    kinds = {
+        "K1": (ss._launch, ss.segment_sum_sorted, segment_reduce_call,
+               k1_work, "segment_sum_sorted", k1_cases),
+        "K2": (bs._launch, bs.pillar_bin_sums, index_add_call, k2_work,
+               "pillar_bin_sums", k2_cases),
+    }
+    out = {}
+    for key, (launch, wrapper, library, work, frag, cases) in kinds.items():
+        out[key] = {}
+        for label, args in cases.items():
+            lib_fn = library(torch, *args)
+            got = lib_fn()
+            plain = (ss.segment_sum_sorted_plain if key == "K1"
+                     else lambda *a: bs.pillar_bin_sums_plain(*a)[0])
+            want, l1 = plain(*args), plain(args[0].abs(), *args[1:])
+            if key == "K2":
+                check(torch.equal(got[1].float(),
+                                  bs.pillar_bin_sums_plain(*args)[1]),
+                      f"{key} library call {label}: counts differ")
+                got = got[0]
+            lib_err = float(((got - want).double().abs()
+                             / l1.double().clamp_min(1e-30)).max())
+            # an fp32 scatter drifts on pillar 0's ~82 000 rows (the plain
+            # version accumulates in fp64): a sanity bound, not a tolerance
+            check(lib_err < 1e-3, f"{key} library call {label} disagrees "
+                  f"with the plain version: {lib_err:.3e} of L1 mass")
+            warm, per_call, _ = kernel_device_ms(
+                torch, lambda: launch(*args), frag, 50)
+            cold, _, parts = kernel_device_ms(
+                torch, lambda: launch(*args), frag, 20, flush)
+            r = {"shape": list(args[0].shape), "kernel_only_ms": cold,
+                 "kernel_only_warm_ms": warm, "kernels_per_call": per_call,
+                 "wrapper_ms": cuda_ms(torch, lambda: wrapper(*args), 50),
+                 "library_ms": cuda_ms(torch, lib_fn, 20, flush),
+                 "library_warm_ms": cuda_ms(torch, lib_fn, 50)}
+            r["bound_ms"], r["bound_by"] = least_ms(*work(*args))
+            extra = part0 = ""
+            if key == "K2":
+                # K2's second launch adds the pillar-0 partials
+                r["pillar0_ms"] = sum(ms for name, ms in parts.items()
+                                      if "pillar0" in name)
+                part0 = (f", of it the pillar-0 launch "
+                         f"{r['pillar0_ms']:.4f} ms flushed")
+                r["wrapper_no_check_ms"] = cuda_ms(
+                    torch, lambda: launch(*args), 50)
+                r["check_ms"] = cuda_ms(torch, lambda: bs._check(*args), 50)
+                extra = (f"; wrapper without the id-range check "
+                         f"{r['wrapper_no_check_ms']:.4f} ms, the check "
+                         f"alone {r['check_ms']:.4f} ms")
+            print(f"[kernel-times] {key} {label} {tuple(args[0].shape)} on "
+                  f"{card}: kernel only {cold:.4f} ms L2-flushed / "
+                  f"{warm:.4f} ms L2-warm ({per_call:g} kernel(s) per "
+                  f"call{part0}; torch.profiler); bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}; {cold and r['bound_ms'] / cold:.1%} "
+                  f"of it flushed); wrapper {r['wrapper_ms']:.4f} ms "
+                  f"L2-warm{extra}; library call {r['library_ms']:.4f} ms "
+                  f"L2-flushed / {r['library_warm_ms']:.4f} ms L2-warm "
+                  f"(CUDA events; {lib_err:.1e} of L1 mass from the plain "
+                  f"version)")
+            out[key][label] = r
+    return out
+
+
 # -------------------------------------------------------------- training
 def training_dataset(world, n: int):
     """A synthetic TripletDataset in the walled world: 24 db scans on a 6×4
     grid at 12 m spacing, 8 queries within 3 m of a db scan, random
     headings, every scan padded to n rows. Each query has a db scan within
     10 m (a nontrivial positive) and at least 15 beyond 20 m (negatives)."""
-    from gloc3d_tpu_torch._shared import dataset
+    from gloc3d_tpu_torch.data import dataset
 
     rng = np.random.RandomState(21)
     db_poses = [(x, y, rng.uniform(-np.pi, np.pi))
@@ -1152,18 +1362,14 @@ def phase_training(torch, cfg, ds, card):
     return counts
 
 
-def phase_train_kernels(torch, cfg, ds, card):
-    """Each kernel's autograd Function against autograd through its plain
-    version, on the card at the train step's shape (24, 122480, 64) with
-    real pillar layouts: K1 on the host pass's sorted ids, K2 on the device
-    binning's ids. The forward per pillar relative to its L1 mass (bound
-    1e-5), the gradient exactly (bound 1e-6), and both backward times."""
-    from gloc3d_tpu_torch._shared import native
-    from gloc3d_tpu_torch.kernels import bin_sums as bs
-    from gloc3d_tpu_torch.kernels import segment_sum as ss
-    from gloc3d_tpu_torch.ops.voxelize import (
-        points_to_voxels, scatter_mean_to_grid,
-    )
+def train_kernel_inputs(torch, cfg, ds):
+    """Both kernels' inputs at the train step's shape, from the first 24 db
+    scans: K1's pillar-sorted ``ids`` and ``starts`` from the host pass; the
+    device binning's ``vox`` (``points_to_voxels``: ids, raw counts, V) and
+    its statistics ``payload`` (24, N, 4); random features ``x`` (24, N,
+    64)."""
+    from gloc3d_tpu_torch.data import native
+    from gloc3d_tpu_torch.ops.voxelize import points_to_voxels
 
     dev = torch.device("cuda")
     vc = cfg.voxel
@@ -1174,11 +1380,33 @@ def phase_train_kernels(torch, cfg, ds, card):
         crop=False)
     ids, starts = (torch.from_numpy(host[i]).to(dev) for i in (2, 5))
     p_d = torch.from_numpy(pts).to(dev)
-    vox = points_to_voxels(p_d[..., :3], torch.from_numpy(mask).to(dev),
-                           vc.xbound, vc.ybound, vc.zbound)
-    v = vox["num_voxels"]
+    m_d = torch.from_numpy(mask).to(dev)
+    vox = points_to_voxels(p_d[..., :3], m_d, vc.xbound, vc.ybound,
+                           vc.zbound)
+    payload = torch.cat([vox["points_mask"][..., None], p_d[..., :3]],
+                        dim=-1).contiguous()
     gen = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn((b, pts.shape[1], 64), generator=gen, device=dev)
+    return {"ids": ids, "starts": starts, "vox": vox, "payload": payload,
+            "x": x}
+
+
+def phase_train_kernels(torch, cfg, ds, card):
+    """Each kernel's autograd Function against autograd through its plain
+    version, on the card at the train step's shape (24, 122480, 64) with
+    real pillar layouts: K1 on the host pass's sorted ids, K2 on the device
+    binning's ids. The forward per pillar relative to its L1 mass (bound
+    1e-5), the gradient exactly (bound 1e-6), and both backward times."""
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+    from gloc3d_tpu_torch.ops.voxelize import scatter_mean_to_grid
+
+    dev = torch.device("cuda")
+    t = train_kernel_inputs(torch, cfg, ds)
+    ids, starts, vox, x = t["ids"], t["starts"], t["vox"], t["x"]
+    b, v = x.shape[0], vox["num_voxels"]
+    pts = ds.db_inputs[:b]
+    gen = torch.Generator(device=dev).manual_seed(4)
     w = torch.randn((b, v, 64), generator=gen, device=dev)
     cases = {
         "K1": (lambda t: ss.segment_sum_sorted_grad(t, starts, ids),
@@ -1234,7 +1462,7 @@ def phase_train_reference(torch, cfg, ds, n_pts: int = 16384):
     tensor's card gradient must lie within twice that floor's worst tensor,
     over both paths, of its norm from the CPU's; a lost or mis-scaled
     gradient path is an O(1) error."""
-    from gloc3d_tpu_torch._shared import dataset
+    from gloc3d_tpu_torch.data import dataset
     from gloc3d_tpu_torch.models.descriptor import build_model
     from gloc3d_tpu_torch.train import Trainer
     from gloc3d_tpu_torch.train.trainer import rotate_clouds_z
@@ -1312,9 +1540,38 @@ def phase_train_reference(torch, cfg, ds, n_pts: int = 16384):
               f"the CPU's own floor {floor:.3e}")
 
 
-def main() -> int:
+def kernel_time_cases(torch, cfg, ds, k1_main, k2_main):
+    """The inputs phase_kernel_times takes: each kernel at the main path's
+    shapes (K1 on a real scan's sorted rows; K2's two binnings of the
+    aligned scan) and at the train step's (24, 122480, ·)."""
+    t = train_kernel_inputs(torch, cfg, ds)
+    n, b = cfg.voxel.max_points, t["x"].shape[0]
+    v, ids = t["vox"]["num_voxels"], t["vox"]["voxel_indices"]
+    k1 = {"main path": k1_main, "train step": (t["x"], t["starts"])}
+    k2 = {"main path, statistics": k2_main["statistics"],
+          "main path, features": k2_main["features"],
+          "train step, statistics": (t["payload"], ids, v),
+          "train step, features": (t["x"], ids, v)}
+    check(tuple(k2_main["features"][0].shape) == (1, n, 64)
+          and tuple(t["x"].shape) == (b, n, 64), "kernel-time shapes")
+    return k1, k2
+
+
+def kernel_entry(key, times, label):
+    """The kernel-only fields of a kernel's JSON entry: its main-path case
+    at the top level, every case under ``cases``."""
+    main = times[key][label]
+    return {"kernel_only_ms": main["kernel_only_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "wrapper_ms": main["wrapper_ms"],
+            "cases": times[key]}
+
+
+def main(argv) -> int:
     import torch
 
+    kernels_only = "--kernels" in argv
     name, card = phase_device(torch)
     sys.path.insert(0, REPO)
     from gloc3d_tpu_torch import PipelineConfig
@@ -1325,8 +1582,16 @@ def main() -> int:
     world = make_world()
     kf_set, q_set = aligned_world_scans(world, cfg.voxel.max_points)
     centroids = vlad_centroids(torch, cfg, kf_set[2][:4])
-    k1_err, k1_ms, k1_plain_ms = phase_k1(torch, cfg, world, card)
-    k2_err, k2_ms, k2_plain_ms = phase_k2(torch, cfg, world, card, centroids)
+    k1_err, k1_ms, k1_plain_ms, k1_main = phase_k1(torch, cfg, world, card)
+    k2_err, k2_ms, k2_plain_ms, k2_main = phase_k2(torch, cfg, world, card,
+                                                   centroids)
+    if kernels_only:
+        ds = training_dataset(world, cfg.voxel.max_points)
+        times = phase_kernel_times(torch, card, *kernel_time_cases(
+            torch, cfg, ds, k1_main, k2_main))
+        print(json.dumps({"card": card, "kernel_times": times}))
+        return 0
+    check_k2_pillar0_determinism(torch, k2_main)
     loc, kf, qs, k1_launches = phase_located_query(torch, cfg, world,
                                                    centroids)
     phase_reference(torch, cfg, kf, qs, centroids)
@@ -1344,6 +1609,8 @@ def main() -> int:
     train_counts = phase_training(torch, cfg, ds, card)
     bwd = phase_train_kernels(torch, cfg, ds, card)
     phase_train_reference(torch, cfg, ds)
+    times = phase_kernel_times(torch, card, *kernel_time_cases(
+        torch, cfg, ds, k1_main, k2_main))
     k1_paths = {"located query": k1_launches,
                 "training, host-stats": train_counts["host-stats"][0]}
     k2_paths = {"aligned query": k2_launches,
@@ -1353,12 +1620,14 @@ def main() -> int:
          "replaces": K1_REPLACES, "launches": sum(k1_paths.values()),
          "launches_by_path": k1_paths,
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         **kernel_entry("K1", times, "main path"),
          "backward_max_abs_err": bwd["K1"][0], "backward_ms": bwd["K1"][1],
          "plain_backward_ms": bwd["K1"][2]},
         {"name": "pillar_bin_sums", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": sum(k2_paths.values()),
          "launches_by_path": k2_paths,
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         **kernel_entry("K2", times, "main path, features"),
          "backward_max_abs_err": bwd["K2"][0], "backward_ms": bwd["K2"][1],
          "plain_backward_ms": bwd["K2"][2]}]}))
     print(json.dumps({"ok": True, "device": {
@@ -1369,7 +1638,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         sys.exit(1)

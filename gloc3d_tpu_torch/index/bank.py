@@ -16,12 +16,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from gloc3d_tpu_torch._shared import config as _config
+from gloc3d_tpu_torch import config as _config
+from gloc3d_tpu_torch.core.device import resolve_device
 from gloc3d_tpu_torch.ops.topk import l2_topk
 
 
 class DescriptorBank:
-    """Append-only descriptor store with exact top-k query."""
+    """Append-only descriptor store with exact top-k query, on ``device``
+    (default ``cuda``; without a card, pass ``device="cpu"``)."""
 
     def __init__(self, cfg, dim: Optional[int] = None,
                  device: Optional[torch.device] = None):
@@ -31,7 +33,7 @@ class DescriptorBank:
                 "map-scale port (ROADMAP Queue 1, item 13)")
         self.cfg = cfg
         self.dim = dim or cfg.dim
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device, "DescriptorBank")
         self._capacity = cfg.capacity
         self._bank = torch.zeros((self._capacity, self.dim),
                                  dtype=torch.float32, device=self.device)

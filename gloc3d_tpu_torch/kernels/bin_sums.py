@@ -11,8 +11,13 @@ carry id 0). Sums are fp32, as the XLA scatter of the JAX serving path; the
 TPU kernel's bf16 one-hot products are not the semantics held.
 
 On a CUDA tensor the wrapper launches ``csrc/pillar_bin_sums.cu`` (design
-and bound in that file's header) or raises; on a CPU tensor it runs the
-plain version. There is no fallback between the two.
+and bound in that file's header: a narrow kernel for C <= 8, a wide one
+for larger C, pillar 0 summed in a fixed order from per-block partials by
+a second launch) or raises; on a CPU tensor it runs the plain version.
+There is no fallback between the two. The wrapper types the C entry once
+and allocates with ``torch.empty``; the C entry sizes the grid and zeroes
+the outputs on the stream. The id-range check still reads the range back
+to the host.
 
 The ctypes launch leaves no autograd history: ``pillar_bin_sums_grad`` wraps
 the binning in an autograd Function for the PointNet feature mean, with the
@@ -24,6 +29,7 @@ wrapper.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Tuple
@@ -112,29 +118,54 @@ def pillar_bin_sums(features: torch.Tensor, ids: torch.Tensor,
     return _launch(features, ids, num_voxels)
 
 
+_fns = None
+
+
+def _kernel_fns():
+    """The kernel's C entry and its scratch size, loaded and typed once."""
+    global _fns
+    if _fns is None:
+        lib = build.load("pillar_bin_sums")
+        fn = lib.gloc3d_pillar_bin_sums
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 4 + [
+            ctypes.c_void_p]
+        size = lib.gloc3d_pillar_bin_sums_scratch_floats
+        size.restype = ctypes.c_int64
+        size.argtypes = [ctypes.c_int64] * 3
+        _fns = fn, size
+    return _fns
+
+
 def _launch(features: torch.Tensor, ids: torch.Tensor, num_voxels: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Allocate the zeroed outputs and launch the kernel on CUDA tensors
-    that passed ``_check`` (the check reads the id range back to the host;
-    the launch itself does not synchronise)."""
+    """Allocate the outputs and the pillar-0 partials (``torch.empty``: the
+    C entry zeroes the outputs on the stream and sizes the grid) and launch
+    the kernels on CUDA tensors that passed ``_check`` (the check reads the
+    id range back to the host; the launch itself does not synchronise)."""
     lead = features.shape[:-2]
     n, c = features.shape[-2:]
     b = math.prod(lead)
-    sums = torch.zeros(lead + (num_voxels, c), dtype=torch.float32,
-                       device=features.device)
-    counts = torch.zeros(lead + (num_voxels,), dtype=torch.float32,
-                         device=features.device)
-    if b == 0 or n == 0:
+    dev = features.device
+    sums = torch.empty(lead + (num_voxels, c), dtype=torch.float32,
+                       device=dev)
+    counts = torch.empty(lead + (num_voxels,), dtype=torch.float32,
+                         device=dev)
+    if b == 0:
         return sums, counts
-    lib = build.load("pillar_bin_sums")
-    fn = lib.gloc3d_pillar_bin_sums
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [
-        ctypes.c_void_p]
-    with torch.cuda.device(features.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    fn, scratch_floats = _kernel_fns()
+    guard = (torch.cuda.device(dev) if dev.index is not None
+             and dev.index != torch.cuda.current_device()
+             else contextlib.nullcontext())
+    with guard:
+        size = scratch_floats(b, n, c)
+        if size < 0:
+            raise RuntimeError("pillar_bin_sums: cannot read the device's "
+                               "SM count")
+        scratch = torch.empty(size, dtype=torch.float32, device=dev)
         rc = fn(features.data_ptr(), ids.data_ptr(), sums.data_ptr(),
-                counts.data_ptr(), b, n, num_voxels, c, stream)
+                counts.data_ptr(), scratch.data_ptr(), b, n, num_voxels, c,
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pillar_bin_sums kernel launch failed: CUDA "
                            f"error {rc}")

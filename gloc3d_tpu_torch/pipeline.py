@@ -4,7 +4,7 @@ Port of ``gloc3d_tpu/pipeline.py::GlobalLocalizer`` for point-cloud scans,
 with its two switches:
 
 - ``host_stats=True`` (the port's default; the JAX default is False): the
-  shared native loader (``data/native.py``) computes pillar statistics, the
+  port's native host pass (``data/native.py``) computes pillar statistics, the
   counting sort, the per-point rows and the BEV image on the host, and the
   descriptor forward runs on the sorted rows (kernel K1 inside).
 - ``host_stats=False``: the all-device extraction. The BEV image
@@ -38,8 +38,9 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from gloc3d_tpu_torch._shared import native
+from gloc3d_tpu_torch.core.device import resolve_device
 from gloc3d_tpu_torch.core.transforms import Rigid3, transform_points
+from gloc3d_tpu_torch.data import native
 from gloc3d_tpu_torch.eval.registration import compose_6dof
 from gloc3d_tpu_torch.index.bank import DescriptorBank
 from gloc3d_tpu_torch.ops.bev import BEVImage, batch_scan_to_bev
@@ -92,8 +93,8 @@ class GlobalLocalizer:
       params: optional state_dict to load into ``model``.
       host_stats: bin and draw the BEV on the host (default) or on the
         device.
-      device: where the model, the bank and the matcher run (default: the
-        model's device).
+      device: where the model, the bank and the matcher run (default:
+        ``cuda``; without a card, pass ``device="cpu"``).
       align_ground: gravity-align scans before BEV / descriptor extraction.
       seed: seed of the ground estimator's draws.
     """
@@ -122,9 +123,7 @@ class GlobalLocalizer:
         self.align_ground = align_ground
         if params is not None:
             model.load_state_dict(params)
-        if device is None:
-            device = next(model.parameters()).device
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "GlobalLocalizer")
         self.model = model.to(self.device).eval()
         self.bank = DescriptorBank(cfg.index, dim=cfg.index.dim,
                                    device=self.device)

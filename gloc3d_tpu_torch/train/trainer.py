@@ -13,7 +13,7 @@ Port of ``gloc3d_tpu/train/trainer.py`` for the s2s (PointPillar) model:
 Two train paths, as in JAX. The all-device path (``host_stats=False``) bins
 on the card: kernel K2 for the pillar statistics and for the feature mean,
 whose backward is ``pillar_bin_sums_grad``'s row gather. The host-stats path
-bins and pillar-sorts each batch on the host (the shared native pass) and
+bins and pillar-sorts each batch on the host (the native host pass) and
 takes the feature mean on kernel K1, backward through
 ``segment_sum_sorted_grad``.
 
@@ -41,7 +41,9 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from gloc3d_tpu_torch._shared import native, recall
+from gloc3d_tpu_torch.core.device import resolve_device
+from gloc3d_tpu_torch.data import native
+from gloc3d_tpu_torch.eval import recall
 from gloc3d_tpu_torch.models.losses import training_triplet_loss
 from gloc3d_tpu_torch.ops.topk import l2_topk
 from gloc3d_tpu_torch.pipeline import _not_ported
@@ -72,21 +74,21 @@ class Trainer:
       cfg: a PipelineConfig (the port's or the JAX package's).
       model: an s2s DescriptorModel with ``fold_bn=False``; moved to
         ``device`` and trained in place.
-      dataset, eval_dataset: ``TripletDataset``s (``_shared.dataset``)
+      dataset, eval_dataset: ``TripletDataset``s (``data/dataset.py``)
         with (N, P, 4) clouds and their prefix-contiguous (N, P) masks.
       workdir: checkpoints, ``config.json`` and ``history.json``.
       seed: seed of the trainer's generator (default ``cfg.train.seed``).
       mesh: data-parallel training is not ported yet (ROADMAP item 16).
       trainable_mask: optional ``{parameter name: bool}``; False freezes the
         parameter (``requires_grad=False``, left out of the optimizer).
-      device: where the model, caches and steps run. Required: there is no
-        fallback from one device to another.
+      device: where the model, caches and steps run (default ``cuda``;
+        without a card, pass ``device="cpu"``).
     """
 
     def __init__(self, cfg, model, dataset, workdir: str,
                  eval_dataset=None, seed: Optional[int] = None, mesh=None,
                  trainable_mask: Optional[Mapping[str, bool]] = None, *,
-                 device):
+                 device=None):
         if mesh is not None:
             raise _not_ported("Trainer(mesh=...) data-parallel training",
                               "item 16")
@@ -101,8 +103,8 @@ class Trainer:
         self.ds = dataset
         self.eval_ds = eval_dataset
         self.workdir = workdir
+        self.device = resolve_device(device, "Trainer")
         os.makedirs(workdir, exist_ok=True)
-        self.device = torch.device(device)
         self.model = model.to(self.device)
         self.host_stats = bool(t.host_stats)
         self.generator = torch.Generator().manual_seed(

@@ -33,7 +33,8 @@ def _model():
 
 @pytest.fixture(scope="module")
 def localizer():
-    loc = GlobalLocalizer(CFG, _model(), host_stats=False, align_ground=True)
+    loc = GlobalLocalizer(CFG, _model(), host_stats=False, align_ground=True,
+                          device="cpu")
     scans = [tilted_scan(*p, roll=r, pitch=pi, seed=i)
              for i, (p, (r, pi)) in enumerate(zip(DB_POSES, DB_TILTS))]
     loc.add_keyframes(np.stack([s[0] for s in scans]),
@@ -124,9 +125,9 @@ def test_host_stats_aligned_extract_matches_all_device():
     pts, mask = _tilted_plane_scan(CFG.voxel.max_points)
     model = _model()
     dev = GlobalLocalizer(CFG, model, host_stats=False, align_ground=True,
-                          seed=7)
+                          seed=7, device="cpu")
     host = GlobalLocalizer(CFG, model, host_stats=True, align_ground=True,
-                           seed=7)
+                           seed=7, device="cpu")
     d0, bev0, g0 = dev.extract(pts[None], mask[None])
     d1, bev1, g1 = host.extract(pts[None], mask[None])
     assert bool(g0.valid[0]) and bool(g1.valid[0])
@@ -148,7 +149,7 @@ def test_three_column_scans_get_zero_intensity(host_stats, align):
     out = []
     for cols in (3, 4):
         loc = GlobalLocalizer(CFG, _model(), host_stats=host_stats,
-                              align_ground=align, seed=3)
+                              align_ground=align, seed=3, device="cpu")
         out.append(loc.extract(pts[None, :, :cols], mask[None]))
     np.testing.assert_array_equal(out[0][0].numpy(), out[1][0].numpy())
     np.testing.assert_array_equal(np.asarray(out[0][1].image),

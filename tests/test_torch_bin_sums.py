@@ -67,6 +67,36 @@ def test_plain_matches_fp32_scatter(b, n, c, v, p0, empty):
             assert (sums[i, e] == 0).all() and cnt[i, e] == 0
 
 
+@pytest.mark.parametrize("c", [1, 3, 4, 64, 65, 256])
+def test_plain_matches_fp32_scatter_at_every_width(c):
+    """The widths the kernel's narrow (C <= 8) and wide specialisations
+    take, with a C that is not a multiple of 4 on each side."""
+    b, n, v = 2, 1500, 97
+    x, ids = _case(10 + c, b, n, c, v, p0=700, empty=(11,))
+    sums, cnt = bs.pillar_bin_sums(torch.from_numpy(x), torch.from_numpy(ids),
+                                   v)
+    assert sums.shape == (b, v, c) and cnt.shape == (b, v)
+    for i in range(b):
+        want = jnp.zeros((v, c)).at[ids[i]].add(x[i])
+        l1 = jnp.zeros((v, c)).at[ids[i]].add(np.abs(x[i]))
+        assert _rel_err(sums[i].numpy(), np.asarray(want),
+                        np.asarray(l1)) < 1e-5
+        np.testing.assert_array_equal(cnt[i].numpy(),
+                                      np.bincount(ids[i], minlength=v))
+        assert (sums[i, 11] == 0).all() and cnt[i, 11] == 0
+
+
+def test_every_row_in_pillar_zero_plain():
+    x, _ = _case(5, 1, 2000, 64, 30)
+    ids = np.zeros((1, 2000), np.int32)
+    sums, cnt = bs.pillar_bin_sums(torch.from_numpy(x), torch.from_numpy(ids),
+                                   30)
+    np.testing.assert_allclose(sums[0, 0].numpy(), x[0].astype(np.float64)
+                               .sum(0), rtol=1e-6, atol=1e-5)
+    assert cnt[0, 0] == 2000 and (cnt[0, 1:] == 0).all()
+    assert (sums[0, 1:] == 0).all()
+
+
 def test_cpu_tensors_take_the_plain_version():
     x, ids = _case(2, 1, 300, 64, 20)
     before = bs.pillar_bin_sums.launches
@@ -106,14 +136,22 @@ def test_out_of_range_ids_are_reported_from_a_host_copy():
     assert "first at flat rows [13, 17], shape (2, 10)" in msg
 
 
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain():
+def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernel, no CPU mode)")
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain():
+    _cuda_or_skip()
     cases = [(1, 122480, 64, 11200, 83000, ()), (1, 122480, 4, 11200, 90000,
                                                   (7, 99)),
              (2, 4096, 64, 100, 0, ()), (1, 300, 65, 50, 3, (4,)),
-             (1, 777, 256, 13, 0, ())]
+             (1, 777, 256, 13, 0, ()), (24, 20000, 64, 11200, 13000, ()),
+             (24, 20000, 4, 11200, 13000, ()), (1, 5000, 1, 300, 2000, ()),
+             (1, 5000, 3, 300, 2000, ()), (1, 5000, 12, 300, 2000, ()),
+             (1, 5000, 9, 300, 2000, ()), (3, 3001, 130, 77, 1000, (5,)),
+             (1, 5, 64, 40, 1, ())]
     for seed, (b, n, c, v, p0, empty) in enumerate(cases):
         x, ids = _case(seed, b, n, c, v, p0, empty)
         x, ids = torch.from_numpy(x).cuda(), torch.from_numpy(ids).cuda()
@@ -128,3 +166,26 @@ def test_cuda_kernel_matches_plain():
         assert float(err) < 1e-5, (b, n, c, v, p0, float(err))
         assert torch.equal(cnt, p_cnt)
         assert bool((sums[p_cnt == 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 64, 65])
+def test_cuda_pillar_zero_is_deterministic(c):
+    """Pillar 0 (every padding and out-of-grid row) is summed through
+    per-block partials in a fixed order: two launches give the same bits,
+    also when every row lies in pillar 0 or the features are misaligned."""
+    _cuda_or_skip()
+    x, ids = _case(7, 2, 122480, c, 11200, p0=82000)
+    x, ids = torch.from_numpy(x).cuda(), torch.from_numpy(ids).cuda()
+    zero = torch.zeros_like(ids)
+    shifted = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    shifted.copy_(x)
+    for feats, i in ((x, ids), (x, zero), (shifted, ids)):
+        a, ca = bs.pillar_bin_sums(feats, i, 11200)
+        b_, cb = bs.pillar_bin_sums(feats, i, 11200)
+        assert torch.equal(a[:, 0], b_[:, 0]) and torch.equal(ca, cb)
+        p_sums, p_cnt = bs.pillar_bin_sums_plain(feats, i, 11200)
+        l1, _ = bs.pillar_bin_sums_plain(feats.abs(), i, 11200)
+        err = ((a - p_sums).double().abs()
+               / l1.double().clamp_min(1e-30)).max()
+        assert float(err) < 1e-5 and torch.equal(ca, p_cnt)

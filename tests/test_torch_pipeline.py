@@ -24,7 +24,7 @@ from gloc3d_tpu.config import (
 from gloc3d_tpu.eval.registration import compose_6dof as jax_compose
 from gloc3d_tpu.models import build_model as jax_build_model
 from gloc3d_tpu.pipeline import GlobalLocalizer as JaxLocalizer
-from gloc3d_tpu_torch import _shared
+from gloc3d_tpu_torch import config as port_config
 from gloc3d_tpu_torch.convert import flax_to_state_dict
 from gloc3d_tpu_torch.eval.registration import compose_6dof
 from gloc3d_tpu_torch.models.descriptor import build_model
@@ -60,7 +60,7 @@ def localizers():
                                  jnp.asarray(pts[:1]), jnp.asarray(mask[:1]))
     ref = JaxLocalizer(CFG, model, params, host_stats=True)
     port = GlobalLocalizer(CFG, build_model(CFG.model, CFG.voxel),
-                           flax_to_state_dict(params))
+                           flax_to_state_dict(params), device="cpu")
     # two batches: the port's bank grows past its capacity of 4
     for sl in (slice(0, 4), slice(4, None)):
         ref.add_keyframes(pts[sl], mask[sl])
@@ -132,7 +132,7 @@ def test_unported_options_raise(kwargs, cfg_change, item):
     model = build_model(CFG.model, CFG.voxel)
     cfg = CFG.replace(**cfg_change) if cfg_change else CFG
     with pytest.raises(NotImplementedError, match=item):
-        GlobalLocalizer(cfg, model, **kwargs)
+        GlobalLocalizer(cfg, model, device="cpu", **kwargs)
 
 
 @pytest.fixture(scope="module")
@@ -141,7 +141,8 @@ def device_localizers(localizers):
     host_stats=False, from the same weights."""
     ref, port = localizers
     jax_dev = JaxLocalizer(CFG, ref.model, ref.params)
-    port_dev = GlobalLocalizer(CFG, port.model, host_stats=False)
+    port_dev = GlobalLocalizer(CFG, port.model, host_stats=False,
+                               device="cpu")
     return jax_dev, port_dev
 
 
@@ -178,22 +179,26 @@ def test_all_device_locate_matches_jax(device_localizers):
 
 
 def test_shared_config_round_trips_through_json():
-    """The path-loaded config resolves its string annotations (the bank
-    loader depends on it) and reads the JAX package's JSON."""
-    cfg = _shared.config.PipelineConfig.from_json(CFG.to_json())
+    """The port's config resolves its string annotations (the bank loader
+    depends on it) and reads the JAX package's JSON."""
+    cfg = port_config.PipelineConfig.from_json(CFG.to_json())
     assert cfg.to_json() == CFG.to_json()
-    assert isinstance(cfg.match, _shared.config.MatchConfig)
+    assert isinstance(cfg.match, port_config.MatchConfig)
     assert cfg.voxel.grid_size == (140, 80, 1)
 
 
 def test_port_runs_without_jax():
     """Import the port and run CPU located queries (host stats, and
-    all-device binning) with jax and flax blocked: the port never needs
-    JAX."""
+    all-device binning) and a training epoch on each path with jax, flax
+    and the JAX package blocked: the port never needs JAX, and no module
+    it loads and no shared library it maps lies under gloc3d_tpu/ or
+    native/."""
     script = textwrap.dedent("""
+        import os
         import sys
         sys.modules["jax"] = None
         sys.modules["flax"] = None
+        sys.modules["gloc3d_tpu"] = None
         import numpy as np
         import gloc3d_tpu_torch as g
 
@@ -226,7 +231,8 @@ def test_port_runs_without_jax():
         model = g.init_params(g.build_model(cfg.model, cfg.voxel), seed=0)
         kf = [scan(0, 0), scan(20, 5)]
         for host_stats in (True, False):
-            loc = g.GlobalLocalizer(cfg, model, host_stats=host_stats)
+            loc = g.GlobalLocalizer(cfg, model, host_stats=host_stats,
+                                    device="cpu")
             loc.add_keyframes(np.stack([k[0] for k in kf]),
                               np.stack([k[1] for k in kf]))
             res = loc.locate(*scan(20, 5))
@@ -235,7 +241,8 @@ def test_port_runs_without_jax():
 
         # one training epoch on each path (small grid, 3 clouds per step)
         import tempfile
-        from gloc3d_tpu_torch._shared import config, dataset
+        from gloc3d_tpu_torch import config
+        from gloc3d_tpu_torch.data import dataset
         from gloc3d_tpu_torch.train import Trainer, init_vlad_from_data
         tcfg = cfg.replace(
             voxel=g.VoxelConfig(max_points=2048, xbound=(-10.0, 10.0, 0.5),
@@ -261,6 +268,19 @@ def test_port_runs_without_jax():
                 assert np.isfinite(tr.train_epoch(1)) and tr.step == 2
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
+        repo = os.getcwd()
+        banned = tuple(os.path.join(repo, d) + os.sep
+                       for d in ("gloc3d_tpu", "native"))
+        files = [getattr(m, "__file__", None) for m in list(
+            sys.modules.values()) if m is not None]
+        bad = [f for f in files if f and os.path.abspath(f).startswith(
+            banned)]
+        assert not bad, bad
+        with open("/proc/self/maps") as f:
+            maps = [ln.split()[-1] for ln in f if "/" in ln]
+        assert any("libscanloader" in m for m in maps), "no host-pass library"
+        bad = [m for m in maps if m.startswith(banned)]
+        assert not bad, bad
         print("OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -50,7 +50,7 @@ def test_l2_topk_matches_jax(case):
 
 def test_bank_grow_query_exclude_recent_matches_jax():
     cfg = IndexConfig(dim=32, top_k=5, capacity=16, num_exclude_recent=30)
-    ours, ref = DescriptorBank(cfg), JaxBank(cfg)
+    ours, ref = DescriptorBank(cfg, device="cpu"), JaxBank(cfg)
     rows = _bank(2, 100)
     for chunk in np.split(rows, [10, 11, 64]):  # crosses 3 doublings
         ours.add(chunk)
@@ -81,7 +81,7 @@ def test_bank_files_load_across_packages(tmp_path):
     ref = JaxBank(cfg)
     ref.add(jnp.asarray(rows))
     ref.save(str(tmp_path / "jax.npz"))
-    ours = DescriptorBank.load(str(tmp_path / "jax.npz"))
+    ours = DescriptorBank.load(str(tmp_path / "jax.npz"), device="cpu")
     assert ours.cfg.top_k == 4 and len(ours) == 20
     np.testing.assert_array_equal(ours.data.numpy(), rows)
 
@@ -97,4 +97,4 @@ def test_bank_files_load_across_packages(tmp_path):
 
 def test_int8_bank_is_not_ported_yet():
     with pytest.raises(NotImplementedError, match="item 13"):
-        DescriptorBank(IndexConfig(quantize="int8"))
+        DescriptorBank(IndexConfig(quantize="int8"), device="cpu")
