@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from gloc3d_tpu.config import BEVConfig, MatchConfig
+from gloc3d_tpu.config import BEVConfig, MatchConfig, PipelineConfig
 from gloc3d_tpu.data.native import compute_bev_host
 from gloc3d_tpu.ops import bev_match as jbm
 from gloc3d_tpu.ops.bev import BEVImage as JaxBEV
@@ -127,13 +127,56 @@ def test_rotation_helpers_match_jax():
         assert tbm._good_fft_size(n) == jbm._good_fft_size(n)
 
 
-@pytest.mark.parametrize("option", [
-    dict(coarse_mode="fm"), dict(fine_argmax_downsample=2),
-    dict(fine_top_f=4), dict(overlap_norm=True),
-])
-def test_fast_match_options_are_not_ported_yet(option):
-    img = torch.ones((1, S, S))
-    q = BEVImage(img[0], torch.zeros(2), RES, None)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tbm.match_bev_topk(q, img, torch.zeros((1, 2)),
-                           MCFG.replace(**option))
+FM_CFG = MCFG.replace(coarse_mode="fm")
+SERVING = {
+    "fm": FM_CFG,
+    "two-stage fine": MCFG.replace(fine_argmax_downsample=2),
+    "overlap_norm": MCFG.replace(overlap_norm=True),
+    "overlap_norm, two-stage": MCFG.replace(overlap_norm=True,
+                                            fine_argmax_downsample=2),
+    "fast_match()": PipelineConfig(match=MCFG).fast_match().match,
+    "fast_match(fm=True)": PipelineConfig(match=MCFG).fast_match(fm=True).match,
+}
+
+
+# six candidates, so that fast_match's fine_top_f = 4 prunes; each clears
+# the fm preset's 180° check by > 1 % at the /8 pooling and has one best
+# coarse angle (at S = 128 some keyframes tie there within rounding, and
+# the two packages then settle the tie apart)
+SERVING_DB = [(2, -1, 0.0), (8, -4, -0.5), (5, 0, -0.3), (6, -1, 0.3),
+              (0, -6, -1.0), (1, -3, 0.6)]
+
+
+@pytest.mark.parametrize("name", list(SERVING))
+def test_serving_options_match_jax(name):
+    got, want = _both((3, -2, 0.35), SERVING_DB, SERVING[name])
+    _assert_close(got, want)
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+
+
+@pytest.mark.parametrize("coarse_mode", ["stack", "fm"])
+def test_fine_top_f_keeps_the_earliest_of_tied_candidates(coarse_mode):
+    """Five candidates, the last three the query's own keyframe (as
+    locate's clamped filler candidates repeat one keyframe): their coarse
+    scores tie exactly at the top, so the cut at F = 2 falls inside the
+    tie, and the earlier two are registered, as jax.lax.top_k keeps the
+    lower index."""
+    cfg = MCFG.replace(fine_top_f=2, coarse_mode=coarse_mode)
+    q_pose = (3, -2, 0.35)
+    got, want = _both(q_pose, SERVING_DB[:2] + [q_pose] * 3, cfg)
+    _assert_close(got, want)
+    for res in (got.score.numpy(), np.asarray(want.score)):
+        assert list(np.flatnonzero(res != 0)) == [2, 3]
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+
+
+def test_angular_signature_matches_jax():
+    q_img, _ = _bev((3, -2, 0.35))
+    occ = tbm._maxpool(tbm._occupancy(torch.from_numpy(q_img)), 4)
+    want = np.asarray(jbm._angular_signature(jnp.asarray(occ.numpy()), 180))
+    got = tbm._angular_signature(occ[None], 180)[0].numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max())
+    for a, b in zip(tbm._polar_weights(32, 180, 3),
+                    jbm._polar_weights(32, 180, 3)):
+        np.testing.assert_array_equal(a, b)
