@@ -3,10 +3,11 @@
 Port of ``gloc3d_tpu/index/bank.py::DescriptorBank`` for the fp32 flat
 bank: a ``(capacity, D)`` tensor on the device that doubles on overflow, a
 ``size`` watermark, exact top-k queries (ops/topk.py) with the SLAM-mode
-``exclude_recent`` window, ``detect_loop``, and ``save``/``load`` in the
-JAX bank's npz format (a bank written by either package loads in the
-other). The int8 bank comes with the map-scale port (ROADMAP Queue 1,
-item 13).
+``exclude_recent`` window, their results on the host (``query``) or left
+on the device (``query_device``, the search of ``locate_fused``),
+``detect_loop``, and ``save``/``load`` in the JAX bank's npz format (a bank
+written by either package loads in the other). The int8 bank comes with
+the map-scale port (ROADMAP Queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -68,10 +69,11 @@ class DescriptorBank:
         self._bank[self._size : self._size + m] = feats
         self._size += m
 
-    def query(self, queries, k: Optional[int] = None,
-              exclude_recent: bool = False
-              ) -> Tuple[np.ndarray, np.ndarray]:
-        """Top-k search → (dists² (Q, k), indices (Q, k)) on the host.
+    def query_device(self, queries, k: Optional[int] = None,
+                     exclude_recent: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Top-k search → (dists² (Q, k), indices (Q, k) int64) left on the
+        device, for callers that go on there without a host round trip.
 
         ``exclude_recent=True`` hides the newest ``cfg.num_exclude_recent``
         entries (the SLAM-mode window)."""
@@ -82,7 +84,14 @@ class DescriptorBank:
                  if exclude_recent else self._size)
         ids = torch.arange(self._capacity, device=self.device)
         valid = (ids < self._size) & (ids < max(limit, 0))
-        d2, idx = l2_topk(queries, self._bank, k, valid)
+        return l2_topk(queries, self._bank, k, valid)
+
+    def query(self, queries, k: Optional[int] = None,
+              exclude_recent: bool = False
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """``query_device`` with the results on the host: (dists² (Q, k),
+        indices (Q, k) int32)."""
+        d2, idx = self.query_device(queries, k, exclude_recent)
         return d2.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
 
     def detect_loop(self, query) -> Optional[Tuple[int, float]]:

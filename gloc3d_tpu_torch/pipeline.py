@@ -1,7 +1,7 @@
 """The s2s located query: scan → descriptor → top-k → registration → pose.
 
 Port of ``gloc3d_tpu/pipeline.py::GlobalLocalizer`` for point-cloud scans,
-with its two switches:
+with its switches:
 
 - ``host_stats=False`` (the default, as in the JAX package): the
   all-device extraction. The BEV image (``ops/bev.py::batch_scan_to_bev``)
@@ -16,24 +16,33 @@ with its two switches:
   roll, pitch and dz from the two ground frames with (dx, dy, yaw) from the
   2-D match, or takes the non-aligned composition when the matched keyframe
   has no ground frame (a mixed-mode map).
+- ``device_keyframes=True``: the keyframes' BEV occupancy also lives on the
+  device, bit-packed (``(capacity, S, S/8)`` uint8, 72 KB per keyframe at
+  768²), and registration gathers its candidates from there by index.
+  ``host_mirror=False`` keeps no image on the host at all (``save``
+  rebuilds them from the device store).
 
 The device runs the descriptor forward, the bank search and the FFT
-registration. BEV keyframe images live on the host as uint8 (the
-``host_mirror`` layout) and the candidate stack is uploaded per query.
-``locate`` registers the top candidate alone first and falls back to all
-top-k only when it fails (``staged_first``, first success wins). The ground
-estimator's random draws come from a CPU ``torch.Generator`` seeded by
-``seed``, so the same calls draw the same numbers on every device.
+registration. Without the device store the keyframe images live on the host
+as uint8 and the candidate stack is uploaded per query. ``locate``
+registers the top candidate alone first and falls back to all top-k only
+when it fails (``staged_first``, first success wins). ``locate_batch`` runs
+extraction and search once for a batch of scans; ``locate_fused`` keeps the
+search results on the device and reads the host only for the staged
+branch. The ground estimator's random draws come from a CPU
+``torch.Generator`` seeded by ``seed``, so the same calls draw the same
+numbers on every device.
 
 Options that other slices port raise ``NotImplementedError`` naming their
-ROADMAP item: ``device_keyframes`` / ``host_mirror=False``, the IVF bank,
-``refine_icp`` and the image encoders, and so do the methods ``save``,
-``load``, ``locate_batch``, ``locate_fused`` and ``match_keyframe``.
-``device_sort`` is a TPU-only strategy that the port leaves out.
+ROADMAP item: the IVF bank, ``refine_icp`` and the image encoders, and so
+does ``match_keyframe``. ``device_sort`` is a TPU-only strategy that the
+port leaves out, and so are the JAX package's ``row_gather`` and the
+bucket padding of ``locate_batch``, which only bound XLA shapes.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -50,8 +59,10 @@ from gloc3d_tpu_torch.ops.ground import GroundEstimate, estimate_ground
 
 
 class Keyframe(NamedTuple):
-    image: np.ndarray      # (S, S) uint8 BEV occupancy image
-    origin_xy: np.ndarray  # (2,) metric origin of pixel (0, 0)
+    image: Optional[np.ndarray]      # (S, S) uint8 BEV occupancy image;
+                                     # None with host_mirror=False
+    origin_xy: Optional[np.ndarray]  # (2,) metric origin of pixel (0, 0);
+                                     # None when ingested without a mirror
     ground: Optional[Rigid3] = None  # T_lidar→ground (numpy), None if the
                                      # keyframe was ingested unaligned
 
@@ -85,6 +96,51 @@ def _xyzi(points) -> np.ndarray:
     return pts
 
 
+def _pack_bits(images: torch.Tensor) -> torch.Tensor:
+    """(B, S, S) BEV images (free = 1.0) → (B, S, S//8) uint8 occupancy
+    bitmaps: a bit is set where the pixel is occupied (< 0.5, the matcher's
+    own threshold, so the packing loses nothing the matcher reads), little-
+    endian within each byte, as the JAX package packs them."""
+    occ = (images < 0.5).to(torch.uint8)
+    b, s, _ = occ.shape
+    w = torch.tensor([1 << i for i in range(8)], dtype=torch.uint8,
+                     device=images.device)
+    return (occ.reshape(b, s, s // 8, 8) * w).sum(-1).to(torch.uint8)
+
+
+def _unpack_bits(packed: torch.Tensor) -> torch.Tensor:
+    """(K, S, S//8) uint8 bitmaps → (K, S, S) float BEV images (occupied =
+    0.0, free = 1.0)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    k, s, sb, _ = bits.shape
+    return 1.0 - bits.reshape(k, s, sb * 8).float()
+
+
+def _stack(results: List[MatchResult]) -> MatchResult:
+    """Per-query MatchResults (K lanes each) → one with a leading query
+    axis."""
+    return MatchResult(*(torch.stack(x) for x in zip(*results)))
+
+
+def _splice_staged(res1: MatchResult, res2: MatchResult,
+                   failed: np.ndarray, b: int, k: int) -> MatchResult:
+    """The (b, k) MatchResult of a staged batch on the host: the stage-1
+    top-candidate lanes (res1: (b, 1)) and, for the queries in ``failed``,
+    the stage-2 lanes over all k candidates (res2: (len(failed), k)).
+    The other queries' untested lanes read zeros (success False), which
+    first-success-wins never consults."""
+
+    def leaf(l1, l2):
+        l1, l2 = _numpy(l1), _numpy(l2)
+        out = np.zeros((b, k) + l1.shape[2:], l1.dtype)
+        out[:, :1] = l1
+        out[failed] = l2[: len(failed)]
+        return out
+
+    return MatchResult(*(leaf(a, c) for a, c in zip(res1, res2)))
+
+
 class GlobalLocalizer:
     """Build-once query-many localization engine (s2s).
 
@@ -98,6 +154,10 @@ class GlobalLocalizer:
         ``cuda``; without a card, pass ``device="cpu"``).
       align_ground: gravity-align scans before BEV / descriptor extraction.
       seed: seed of the ground estimator's draws.
+      device_keyframes: keep the keyframes' BEV occupancy on the device,
+        bit-packed, and gather registration candidates from there.
+      host_mirror: also keep each keyframe's image and origin on the host
+        (default); False needs ``device_keyframes``.
     """
 
     def __init__(self, cfg, model, params=None, *, host_stats: bool = False,
@@ -105,9 +165,8 @@ class GlobalLocalizer:
                  align_ground: bool = False, seed: int = 0,
                  device_keyframes: bool = False, host_mirror: bool = True,
                  device_sort: bool = False):
-        if device_keyframes or not host_mirror:
-            raise _not_ported("device_keyframes / host_mirror=False",
-                              "item 9")
+        if not host_mirror and not device_keyframes:
+            raise ValueError("host_mirror=False requires device_keyframes")
         if device_sort:
             raise NotImplementedError(
                 "device_sort is a TPU-only binning strategy the port leaves "
@@ -122,6 +181,8 @@ class GlobalLocalizer:
         self.cfg = cfg
         self.host_stats = host_stats
         self.align_ground = align_ground
+        self.device_keyframes = device_keyframes
+        self.host_mirror = host_mirror
         if params is not None:
             model.load_state_dict(params)
         self.device = resolve_device(device, "GlobalLocalizer")
@@ -129,6 +190,9 @@ class GlobalLocalizer:
         self.bank = DescriptorBank(cfg.index, dim=cfg.index.dim,
                                    device=self.device)
         self.keyframes: List[Keyframe] = []
+        self._kf_store: Optional[torch.Tensor] = None    # (cap, S, S//8) u8
+        self._kf_origins: Optional[torch.Tensor] = None  # (cap, 2) fp32
+        self._kf_cap = 0
         self._gen = torch.Generator().manual_seed(seed)
 
     # ------------------------------------------------------------ extraction
@@ -200,14 +264,53 @@ class GlobalLocalizer:
         """Extract and store a batch of database keyframes."""
         desc, bev, ground = self.extract(points, mask)
         self.bank.add(desc)
-        imgs = (_numpy(bev.image) * 255.0).astype(np.uint8)
-        origins = _numpy(bev.origin_xy)
-        for i in range(imgs.shape[0]):
-            g = None
-            if ground is not None:
-                g = Rigid3(_numpy(ground.transform.rotation[i]),
-                           _numpy(ground.transform.translation[i]))
-            self.keyframes.append(Keyframe(imgs[i], origins[i], g))
+        if self.device_keyframes:
+            self._store_keyframes(bev.image, bev.origin_xy,
+                                  offset=len(self.keyframes))
+        n_new = len(bev.origin_xy)
+        imgs = origins = None
+        if self.host_mirror:
+            imgs = (_numpy(bev.image) * 255.0).astype(np.uint8)
+            origins = _numpy(bev.origin_xy)
+        if ground is not None:
+            rot = _numpy(ground.transform.rotation)
+            trans = _numpy(ground.transform.translation)
+        for i in range(n_new):
+            self.keyframes.append(Keyframe(
+                imgs[i] if imgs is not None else None,
+                origins[i] if origins is not None else None,
+                Rigid3(rot[i], trans[i]) if ground is not None else None))
+
+    def _ensure_kf_capacity(self, n_needed: int, s: int) -> None:
+        """Room for ``n_needed`` rows in the device store: 1024 rows at
+        first, doubling."""
+        if self._kf_store is None:
+            cap = 1024
+            while cap < n_needed:
+                cap *= 2
+            self._kf_store = torch.zeros((cap, s, s // 8), dtype=torch.uint8,
+                                         device=self.device)
+            self._kf_origins = torch.zeros((cap, 2), dtype=torch.float32,
+                                           device=self.device)
+            self._kf_cap = cap
+        while self._kf_cap < n_needed:
+            self._kf_cap *= 2
+            for name in ("_kf_store", "_kf_origins"):
+                old = getattr(self, name)
+                grown = old.new_zeros((self._kf_cap,) + old.shape[1:])
+                grown[: old.shape[0]] = old
+                setattr(self, name, grown)
+
+    def _store_keyframes(self, images, origins, offset: int) -> None:
+        """Write a batch of BEV images (B, S, S), bit-packed, and their
+        origins into the device store at row ``offset``."""
+        images = torch.as_tensor(images, dtype=torch.float32,
+                                 device=self.device)
+        n = images.shape[0]
+        self._ensure_kf_capacity(offset + n, images.shape[-1])
+        self._kf_store[offset : offset + n] = _pack_bits(images)
+        self._kf_origins[offset : offset + n] = torch.as_tensor(
+            origins, dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------ query
     def detect(self, points: np.ndarray, mask: np.ndarray):
@@ -216,21 +319,43 @@ class GlobalLocalizer:
         d2, idx = self.bank.query(desc, k=self.cfg.index.top_k)
         return d2, idx, bev, ground
 
-    @torch.no_grad()
-    def _match(self, q_image, q_origin, rows: np.ndarray) -> MatchResult:
-        """Register the query against keyframes ``rows`` on the device."""
+    def _candidates(self, rows):
+        """Keyframes ``rows`` (numpy or a device tensor of indices) as a
+        float image stack (K, S, S) and origins (K, 2) on the device: one
+        gather of packed rows from the device store, or the host mirror's
+        images uploaded."""
+        if self._kf_store is not None:
+            rows = torch.as_tensor(rows, dtype=torch.long,
+                                   device=self.device)
+            return (_unpack_bits(self._kf_store.index_select(0, rows)),
+                    self._kf_origins.index_select(0, rows))
         stack = torch.from_numpy(np.stack(
             [self.keyframes[i].image for i in rows])).to(self.device)
         origins = torch.from_numpy(np.stack(
             [self.keyframes[i].origin_xy for i in rows])).to(self.device)
+        return stack.float() / 255.0, origins
+
+    @torch.no_grad()
+    def _match(self, q_image, q_origin, rows) -> MatchResult:
+        """Register the query against keyframes ``rows`` on the device."""
+        images, origins = self._candidates(rows)
         query = BEVImage(
             image=torch.as_tensor(q_image, device=self.device),
             origin_xy=torch.as_tensor(q_origin, device=self.device),
             resolution=self.cfg.bev.resolution,
             num_occupied=None)
-        return match_bev_topk(query, stack.float() / 255.0, origins,
-                              self.cfg.match,
+        return match_bev_topk(query, images, origins, self.cfg.match,
                               resolution=self.cfg.bev.resolution)
+
+    def _staged(self, q_image, q_origin, rows) -> MatchResult:
+        """First success wins: the top candidate usually succeeds, so with
+        ``staged_first`` register it alone (reading its success on the
+        host) and fall back to all of ``rows`` only when it fails."""
+        if self.cfg.match.staged_first:
+            res1 = self._match(q_image, q_origin, rows[:1])
+            if bool(res1.success[0]):
+                return res1
+        return self._match(q_image, q_origin, rows)
 
     def _empty_result(self) -> LocalizationResult:
         k = self.cfg.index.top_k
@@ -242,6 +367,29 @@ class GlobalLocalizer:
         without one: ``compose_6dof`` then takes the non-aligned branch."""
         return self.keyframes[db_idx].ground
 
+    def _result(self, res: MatchResult, idx0: np.ndarray, d2: np.ndarray,
+                ground, q: int = 0) -> LocalizationResult:
+        """Query ``q``'s LocalizationResult from its registration lanes
+        (candidate order ``idx0``): the first success wins."""
+        succ = _numpy(res.success)
+        scores = _numpy(res.score)
+        if not succ.any():
+            return LocalizationResult(False, -1, None, idx0, d2,
+                                      float(scores.max()), None)
+        k_star = int(np.argmax(succ))
+        db_idx = int(idx0[k_star])
+        xy_yaw = torch.as_tensor(_numpy(res.xy_yaw)[k_star])
+        t_q = t_db = None
+        if self.align_ground and ground is not None:
+            t_q = Rigid3(ground.transform.rotation[q],
+                         ground.transform.translation[q])
+            t_db = self._db_ground(db_idx)
+        pose = compose_6dof(xy_yaw, t_q, t_db)
+        return LocalizationResult(
+            True, db_idx,
+            Rigid3(pose.rotation.numpy(), pose.translation.numpy()),
+            idx0, d2, float(scores[k_star]), xy_yaw.numpy())
+
     def locate(self, points: np.ndarray, mask: np.ndarray
                ) -> LocalizationResult:
         """Full pipeline for ONE query scan (N, ≥3) with mask (N,)."""
@@ -251,48 +399,119 @@ class GlobalLocalizer:
         # a db smaller than top_k returns inf-distance filler candidates:
         # clamp them to a real keyframe (their inf distance ranks them last)
         idx0 = np.clip(idx[0], 0, len(self.keyframes) - 1)
-        q_image, q_origin = bev.image[0], bev.origin_xy[0]
-        res = None
+        res = self._staged(bev.image[0], bev.origin_xy[0], idx0)
+        return self._result(res, idx0, d2[0], ground)
+
+    def locate_batch(self, points: np.ndarray, masks: np.ndarray
+                     ) -> List[LocalizationResult]:
+        """Localize B query scans (B, N, ≥3) with masks (B, N): extraction
+        and the bank search run once for the batch. With ``staged_first``,
+        stage 1 registers every query's top candidate and stage 2 all top-k
+        candidates of the queries that failed stage 1, spliced back by
+        lane. Each result equals ``locate``'s on the same scan."""
+        if not self.keyframes:
+            return [self._empty_result() for _ in range(len(points))]
+        d2, idx, bev, ground = self.detect(points, masks)
+        b, k = idx.shape
+        idx = np.clip(idx, 0, len(self.keyframes) - 1)
+
+        def match(q, rows):
+            return self._match(bev.image[q], bev.origin_xy[q], rows)
+
         if self.cfg.match.staged_first:
-            # first success wins: the top candidate usually succeeds, so
-            # register it alone and fall back to all top-k only on failure
-            res1 = self._match(q_image, q_origin, idx0[:1])
-            if bool(res1.success[0]):
-                res = res1
-        if res is None:
-            res = self._match(q_image, q_origin, idx0)
-        succ = res.success.cpu().numpy()
-        scores = res.score.cpu().numpy()
-        if not succ.any():
-            return LocalizationResult(False, -1, None, idx0, d2[0],
-                                      float(scores.max()), None)
-        k_star = int(np.argmax(succ))  # first success in candidate order
-        db_idx = int(idx0[k_star])
-        xy_yaw = res.xy_yaw[k_star].cpu()
-        t_q = t_db = None
-        if self.align_ground and ground is not None:
-            t_q = Rigid3(ground.transform.rotation[0],
-                         ground.transform.translation[0])
-            t_db = self._db_ground(db_idx)
-        pose = compose_6dof(xy_yaw, t_q, t_db)
-        return LocalizationResult(
-            True, db_idx,
-            Rigid3(pose.rotation.numpy(), pose.translation.numpy()),
-            idx0, d2[0], float(scores[k_star]), xy_yaw.numpy())
+            res = _stack([match(q, idx[q, :1]) for q in range(b)])
+            failed = np.flatnonzero(~_numpy(res.success)[:, 0])
+            if failed.size:
+                res = _splice_staged(
+                    res, _stack([match(q, idx[q]) for q in failed]),
+                    failed, b, k)
+        else:
+            res = _stack([match(q, idx[q]) for q in range(b)])
+        return [self._result(MatchResult(*(x[q] for x in res)), idx[q],
+                             d2[q], ground, q) for q in range(b)]
+
+    def locate_fused(self, points: np.ndarray, mask: np.ndarray
+                     ) -> LocalizationResult:
+        """``locate`` for ONE scan with the search results kept on the
+        device: the top-k ids are clamped there and the candidates gathered
+        from the device keyframe store by them, so the host reads only the
+        staged branch's success and the final lanes. Host stats, all-device
+        and aligned extraction as the localizer is built. Results equal
+        ``locate``'s. Needs ``device_keyframes=True`` and a built store;
+        ``match.refine_icp`` is not supported."""
+        if not self.keyframes:
+            return self._empty_result()
+        if self._kf_store is None:
+            raise RuntimeError("locate_fused requires device_keyframes=True"
+                               " and a built store")
+        if self.cfg.match.refine_icp:
+            raise RuntimeError("locate_fused does not compose with "
+                               "match.refine_icp (use locate)")
+        if np.ndim(points) == 3:
+            raise _not_ported("locate_fused on a BEV image (i2i) query",
+                              "item 12")
+        desc, bev, ground = self.extract(points[None], mask[None])
+        d2, idx = self.bank.query_device(desc, k=self.cfg.index.top_k)
+        rows = idx[0].clamp(0, max(len(self.bank) - 1, 0))
+        res = self._staged(bev.image[0], bev.origin_xy[0], rows)
+        idx0 = np.clip(_numpy(idx[0]).astype(np.int32), 0,
+                       len(self.keyframes) - 1)
+        return self._result(res, idx0, _numpy(d2[0]), ground)
+
+    # ------------------------------------------------------------ persistence
+    def save(self, out_dir: str) -> None:
+        """Write the built map to ``out_dir``, in the JAX package's format:
+        ``bank.npz``, ``keyframes.npz`` (``images`` uint8 0/255,
+        ``origins``, and ``ground_q`` / ``ground_t`` when any keyframe has
+        a ground frame) and ``config.json``. With ``host_mirror=False`` the
+        images are rebuilt from the device store, 256 rows at a time. The
+        port's keyframes hold no ICP cloud (ROADMAP Queue 1, item 14), so
+        no ``clouds`` array is written."""
+        os.makedirs(out_dir, exist_ok=True)
+        self.bank.save(os.path.join(out_dir, "bank.npz"))
+        n = len(self.keyframes)
+        if self.host_mirror:
+            images = np.stack([k.image for k in self.keyframes])
+            origins = np.stack([k.origin_xy for k in self.keyframes])
+        else:
+            s = self._kf_store.shape[1]
+            images = np.empty((n, s, s), np.uint8)
+            for i in range(0, n, 256):
+                chunk = _unpack_bits(self._kf_store[i : min(i + 256, n)])
+                images[i : i + 256] = _numpy((chunk * 255.0).to(torch.uint8))
+            origins = _numpy(self._kf_origins[:n])
+        kw = dict(images=images, origins=origins)
+        if any(k.ground is not None for k in self.keyframes):
+            kw["ground_q"] = np.stack([k.ground.rotation
+                                       for k in self.keyframes])
+            kw["ground_t"] = np.stack([k.ground.translation
+                                       for k in self.keyframes])
+        np.savez(os.path.join(out_dir, "keyframes.npz"), **kw)
+        with open(os.path.join(out_dir, "config.json"), "w") as f:
+            f.write(self.cfg.to_json())
+
+    def load(self, out_dir: str) -> None:
+        """Restore a map written by ``save`` (of either package) into this
+        localizer: the bank, the keyframes and, with ``device_keyframes``,
+        the device store (repacked 256 rows at a time). A ``clouds`` array
+        (the JAX package's ICP clouds) is ignored: the port's keyframes
+        hold none until ROADMAP Queue 1, item 14."""
+        self.bank = DescriptorBank.load(os.path.join(out_dir, "bank.npz"),
+                                        device=self.device)
+        kf = np.load(os.path.join(out_dir, "keyframes.npz"))
+        images, origins = kf["images"], kf["origins"]
+        has_ground = "ground_q" in kf
+        self.keyframes = [
+            Keyframe(images[i] if self.host_mirror else None, origins[i],
+                     Rigid3(kf["ground_q"][i], kf["ground_t"][i])
+                     if has_ground else None)
+            for i in range(len(images))]
+        if self.device_keyframes:
+            for i in range(0, len(images), 256):
+                self._store_keyframes(
+                    images[i : i + 256].astype(np.float32) / 255.0,
+                    origins[i : i + 256], offset=i)
 
     # ------------------------------------------------------------ not ported
-    def locate_batch(self, *args, **kwargs):
-        raise _not_ported("GlobalLocalizer.locate_batch", "item 9")
-
-    def locate_fused(self, *args, **kwargs):
-        raise _not_ported("GlobalLocalizer.locate_fused", "item 9")
-
-    def save(self, *args, **kwargs):
-        raise _not_ported("GlobalLocalizer.save", "item 9")
-
-    @classmethod
-    def load(cls, *args, **kwargs):
-        raise _not_ported("GlobalLocalizer.load", "item 9")
-
     def match_keyframe(self, *args, **kwargs):
         raise _not_ported("GlobalLocalizer.match_keyframe", "item 14")

@@ -123,8 +123,6 @@ def test_compose_6dof_matches_jax():
 
 
 @pytest.mark.parametrize("kwargs,cfg_change,item", [
-    (dict(device_keyframes=True), None, "item 9"),
-    (dict(host_mirror=False), None, "item 9"),
     (dict(device_sort=True), None, "TPU workarounds"),
     ({}, dict(index=IndexConfig(dim=128, backend="ivf")), "item 13"),
     ({}, dict(match=MatchConfig(image_size=128, refine_icp=True)),
@@ -146,21 +144,13 @@ def test_host_stats_default_matches_jax():
     assert loc.host_stats is False
 
 
-@pytest.mark.parametrize("method,item", [
-    ("locate_batch", "item 9"), ("locate_fused", "item 9"),
-    ("save", "item 9"), ("load", "item 9"), ("match_keyframe", "item 14"),
-])
-def test_unported_methods_raise(tmp_path, method, item):
+@pytest.mark.parametrize("method,item", [("match_keyframe", "item 14")])
+def test_unported_methods_raise(method, item):
     pts, mask = scan_at(*QUERIES[0], n=N_PTS)
-    if method == "load":
-        call = lambda: GlobalLocalizer.load(str(tmp_path))  # noqa: E731
-    else:
-        loc = GlobalLocalizer(CFG, build_model(CFG.model, CFG.voxel),
-                              device="cpu")
-        args = {"save": (str(tmp_path),)}.get(method, (pts, mask))
-        call = lambda: getattr(loc, method)(*args)  # noqa: E731
+    loc = GlobalLocalizer(CFG, build_model(CFG.model, CFG.voxel),
+                          device="cpu")
     with pytest.raises(NotImplementedError, match=f"{method}.*{item}"):
-        call()
+        getattr(loc, method)(pts, mask)
 
 
 @pytest.fixture(scope="module")
@@ -216,10 +206,11 @@ def test_shared_config_round_trips_through_json():
 
 
 def test_port_runs_without_jax():
-    """Import the port and run CPU located queries (host stats, and
-    all-device binning) and a training epoch on each path with jax, flax
-    and the JAX package blocked: the port never needs JAX, and no module
-    it loads and no shared library it maps lies under gloc3d_tpu/ or
+    """Import the port and run CPU located queries (host stats, all-device
+    binning, and a fused query from the device keyframe store with the fm
+    matcher preset) and a training epoch on each path with jax, flax and
+    the JAX package blocked: the port never needs JAX, and no module it
+    loads and no shared library it maps lies under gloc3d_tpu/ or
     native/."""
     script = textwrap.dedent("""
         import os
@@ -266,6 +257,15 @@ def test_port_runs_without_jax():
             res = loc.locate(*scan(20, 5))
             assert res.success and res.db_index == 1, res
             assert np.abs(res.pose.translation).max() < 1e-3, res.pose
+
+        # the serving path: the device store without a host mirror
+        loc = g.GlobalLocalizer(cfg.fast_match(fm=True), model,
+                                device="cpu", device_keyframes=True,
+                                host_mirror=False)
+        loc.add_keyframes(np.stack([k[0] for k in kf]),
+                          np.stack([k[1] for k in kf]))
+        res = loc.locate_fused(*scan(20, 5))
+        assert res.success and res.db_index == 1, res
 
         # one training epoch on each path (small grid, 3 clouds per step)
         import tempfile
