@@ -48,28 +48,42 @@ Phases, each printing its own lines:
   8. one aligned query on the card against the same port code on the CPU
      (fp32, TF32 off, the same draws): same ground transform, equal BEV,
      descriptors within atol 2e-4 + rtol 2e-3, same keyframe;
-  9. timings with the card's name and power limit: detect at bench.py's
+  9. the serving path, fast_match(fm=True) with the device keyframe store
+     and no host mirror: locate_fused on the host-stats map of phase 5
+     (K1 launches counted) and on the aligned map of phase 6 (K2 launches
+     counted), every query held to that phase's gates (a failing query's
+     BEVs go to chiprun_out/); locate = locate_batch = locate_fused on the
+     fp32 host-stats map (success, keyframe, candidates equal, (dx, dy,
+     yaw) within 1e-4) and locate = locate_fused on the aligned map with
+     the same draws; bench.py's fused cells (10 000-row bank with the
+     real descriptor at row 5 000, a 10 000-row store, bf16, fold_bn),
+     host stats and aligned all-device: row 5 000 found, per-query host
+     clock of locate_fused and locate, host syncs per call, and
+     registration at K=1 and K=20 with the fm preset and the default
+     matcher; one fm-preset locate_fused query card vs CPU (fp32, same
+     keyframe, (dx, dy) within one 0.4 m fine cell, yaw within one bin);
+ 10. timings with the card's name and power limit: detect at bench.py's
      shape and the located query, host-stats and all-device (the default); the aligned detect and locate,
      the aligned stage split, and the device's idle share over one aligned
      query from a torch.profiler trace;
- 10. training at full width on each path, all-device then host-stats (24 db
+ 11. training at full width on each path, all-device then host-stats (24 db
      + 8 query scans, init_vlad_from_data, the default step of 24 clouds):
      one epoch with K1 / K2 launch and backward counts, a finite loss, a
      nonzero gradient for every encoder parameter and changed parameters;
      every kernel launch of one cache batch and one step held to its plain
      version; step and cache-refresh times, peak memory, a traced step;
- 11. both kernels' autograd Functions against autograd through the plain
+ 12. both kernels' autograd Functions against autograd through the plain
      versions at (24, 122480, 64): forward (bound 1e-5 of L1 mass), gradient
      (bound 1e-6), backward times;
- 12. one fp32 step on each path, card against CPU at a 16 384-point pad:
+ 13. one fp32 step on each path, card against CPU at a 16 384-point pad:
      loss within rtol 1e-4, gradients within twice the CPU's own floor
      (mkldnn convolutions off against on);
- 13. each kernel alone at the main path's and the train step's shapes: its
+ 14. each kernel alone at the main path's and the train step's shapes: its
      device time from torch.profiler (L2-warm and L2-flushed), its bound,
      the wrapper's time (K2's with and without its id-range check, and the
      check alone) and the time of the one PyTorch call computing the same
      function (K1: torch.segment_reduce; K2: index_add_ + bincount).
-`python3 chip_smoke.py --kernels` runs phases 1-4 and 13 only.
+`python3 chip_smoke.py --kernels` runs phases 1-4 and 14 only.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before those.
 """
@@ -83,6 +97,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -622,11 +637,10 @@ def build_serving_model(torch, cfg, dtype: str, centroids=None,
     return served.eval()
 
 
-def phase_located_query(torch, cfg, world, centroids, device="cuda"):
-    from gloc3d_tpu_torch.kernels import segment_sum as ss
-    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
-
-    n = cfg.voxel.max_points
+def located_world_scans(world, n: int):
+    """16 keyframes on a 5 m grid with random headings and 8 queries
+    within it at random headings: ((poses, scans) of the keyframes, (poses,
+    scans) of the queries)."""
     rng = np.random.RandomState(7)
     grid = np.linspace(-7.5, 7.5, 4)
     kf_poses = [(x, y, rng.uniform(-np.pi, np.pi)) for x in grid
@@ -635,6 +649,41 @@ def phase_located_query(torch, cfg, world, centroids, device="cuda"):
                 rng.uniform(-np.pi, np.pi)) for _ in range(N_QUERIES)]
     kf = [scan_at(world, p, n, seed=100 + i) for i, p in enumerate(kf_poses)]
     qs = [scan_at(world, p, n, seed=200 + i) for i, p in enumerate(q_poses)]
+    return (kf_poses, kf), (q_poses, qs)
+
+
+def check_located(tag, results, kf_poses, q_poses, top_k):
+    """Every result localized within POS_TOL_M / ROT_TOL_DEG of the
+    ground-truth 2-D pose relative to the keyframe it returns."""
+    worst_pos = worst_rot = 0.0
+    for i, (res, qp) in enumerate(zip(results, q_poses)):
+        check(res.success, f"{tag} query {i} did not localize "
+              f"(score {res.match_score:.3f})")
+        check(len(res.candidates) == top_k, "top-k length")
+        t_gt, yaw_gt = relative_pose(kf_poses[res.db_index], qp)
+        q = res.pose.rotation
+        yaw = 2.0 * math.atan2(q[3], q[0])
+        pos_err = float(np.linalg.norm(res.pose.translation[:2] - t_gt))
+        rot_err = abs(math.degrees(math.remainder(yaw - yaw_gt, 2 * math.pi)))
+        worst_pos, worst_rot = max(worst_pos, pos_err), max(worst_rot,
+                                                            rot_err)
+        print(f"[{tag}] query {i}: db {res.db_index} (top-1 "
+              f"{res.candidates[0]}), score {res.match_score:.3f}, "
+              f"error {pos_err:.3f} m / {rot_err:.3f} deg")
+        check(pos_err < POS_TOL_M and rot_err < ROT_TOL_DEG,
+              f"{tag} query {i}: pose error {pos_err:.3f} m / "
+              f"{rot_err:.3f} deg")
+    print(f"[{tag}] {len(results)}/{len(results)} localized; worst error "
+          f"{worst_pos:.3f} m / {worst_rot:.3f} deg "
+          f"(bound {POS_TOL_M} m / {ROT_TOL_DEG} deg)")
+
+
+def phase_located_query(torch, cfg, lq_set, centroids, device="cuda"):
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
+
+    n = cfg.voxel.max_points
+    (kf_poses, kf), (q_poses, qs) = lq_set
     fill = np.mean([q[1].sum() for q in qs]) / n
     print(f"[locate] world {len(world)} points; scans fill {fill:.1%} of the "
           f"{n}-point pad; gates min_score {cfg.match.min_score}, "
@@ -657,26 +706,7 @@ def phase_located_query(torch, cfg, world, centroids, device="cuda"):
     descs = loc.bank.data
     check(bool(torch.isfinite(descs).all()) and descs.shape == (
         N_KEYFRAMES, cfg.index.dim), "keyframe descriptors")
-    worst_pos = worst_rot = 0.0
-    for i, (res, qp) in enumerate(zip(results, q_poses)):
-        check(res.success, f"query {i} did not localize "
-              f"(score {res.match_score:.3f})")
-        check(len(res.candidates) == cfg.index.top_k, "top-k length")
-        t_gt, yaw_gt = relative_pose(kf_poses[res.db_index], qp)
-        q = res.pose.rotation
-        yaw = 2.0 * math.atan2(q[3], q[0])
-        pos_err = float(np.linalg.norm(res.pose.translation[:2] - t_gt))
-        rot_err = abs(math.degrees(math.remainder(yaw - yaw_gt, 2 * math.pi)))
-        worst_pos, worst_rot = max(worst_pos, pos_err), max(worst_rot,
-                                                            rot_err)
-        print(f"[locate] query {i}: db {res.db_index} (top-1 "
-              f"{res.candidates[0]}), score {res.match_score:.3f}, "
-              f"error {pos_err:.3f} m / {rot_err:.3f} deg")
-        check(pos_err < POS_TOL_M and rot_err < ROT_TOL_DEG,
-              f"query {i}: pose error {pos_err:.3f} m / {rot_err:.3f} deg")
-    print(f"[locate] {N_QUERIES}/{N_QUERIES} localized; worst error "
-          f"{worst_pos:.3f} m / {worst_rot:.3f} deg "
-          f"(bound {POS_TOL_M} m / {ROT_TOL_DEG} deg)")
+    check_located("locate", results, kf_poses, q_poses, cfg.index.top_k)
     return loc, kf, qs, launches
 
 
@@ -759,8 +789,34 @@ def run_aligned(torch, cfg, model, kf, qs, host_stats: bool, seed: int = 0,
     return loc, [loc.locate(*q) for q in qs]
 
 
-def phase_aligned_query(torch, cfg, model, kf_set, q_set):
+def check_aligned(torch, tag, results, kf_set, q_set):
+    """Every result localized in 6-DoF within POS_TOL_M / ROT_TOL_DEG of
+    the ground truth relative to the keyframe it returns, |dz| < DZ_TOL_M."""
     from gloc3d_tpu_torch.eval.registration import registration_errors
+
+    kf_poses, kf_att, _ = kf_set
+    q_poses, q_att, _ = q_set
+    worst = [0.0, 0.0, 0.0]
+    for i, (res, qp, qa) in enumerate(zip(results, q_poses, q_att)):
+        check(res.success, f"{tag} query {i} did not localize "
+              f"(score {res.match_score:.3f})")
+        gt = pose6(torch, kf_poses[res.db_index], kf_att[res.db_index]
+                   ).inverse().compose(pose6(torch, qp, qa))
+        e_pos, e_rot = (float(e) for e in registration_errors(res.pose, gt))
+        dz = abs(float(res.pose.translation[2]) - float(gt.translation[2]))
+        worst = [max(a, b) for a, b in zip(worst, (e_pos, e_rot, dz))]
+        print(f"[{tag}] query {i}: db {res.db_index} (top-1 "
+              f"{res.candidates[0]}), score {res.match_score:.3f}, 6-DoF "
+              f"error {e_pos:.3f} m / {e_rot:.3f} deg, |dz error| {dz:.3f} m")
+        check(e_pos < POS_TOL_M and e_rot < ROT_TOL_DEG and dz < DZ_TOL_M,
+              f"{tag} query {i}: error {e_pos:.3f} m / {e_rot:.3f} deg / "
+              f"dz {dz:.3f} m")
+    print(f"[{tag}] {len(results)}/{len(results)} localized in 6-DoF; worst "
+          f"{worst[0]:.3f} m / {worst[1]:.3f} deg, |dz| {worst[2]:.3f} m "
+          f"(bounds {POS_TOL_M} m / {ROT_TOL_DEG} deg / {DZ_TOL_M} m)")
+
+
+def phase_aligned_query(torch, cfg, model, kf_set, q_set):
     from gloc3d_tpu_torch.kernels import bin_sums as bs
 
     kf_poses, kf_att, kf = kf_set
@@ -786,24 +842,7 @@ def phase_aligned_query(torch, cfg, model, kf_set, q_set):
           f"(bound {HEIGHT_TOL_M} m)")
     check(worst_h < HEIGHT_TOL_M, f"keyframe height error {worst_h:.3f} m")
 
-    worst = [0.0, 0.0, 0.0]
-    for i, (res, qp, qa) in enumerate(zip(results, q_poses, q_att)):
-        check(res.success, f"aligned query {i} did not localize "
-              f"(score {res.match_score:.3f})")
-        gt = pose6(torch, kf_poses[res.db_index], kf_att[res.db_index]
-                   ).inverse().compose(pose6(torch, qp, qa))
-        e_pos, e_rot = (float(e) for e in registration_errors(res.pose, gt))
-        dz = abs(float(res.pose.translation[2]) - float(gt.translation[2]))
-        worst = [max(a, b) for a, b in zip(worst, (e_pos, e_rot, dz))]
-        print(f"[aligned] query {i}: db {res.db_index} (top-1 "
-              f"{res.candidates[0]}), score {res.match_score:.3f}, 6-DoF "
-              f"error {e_pos:.3f} m / {e_rot:.3f} deg, |dz error| {dz:.3f} m")
-        check(e_pos < POS_TOL_M and e_rot < ROT_TOL_DEG and dz < DZ_TOL_M,
-              f"aligned query {i}: error {e_pos:.3f} m / {e_rot:.3f} deg / "
-              f"dz {dz:.3f} m")
-    print(f"[aligned] {len(qs)}/{len(qs)} localized in 6-DoF; worst "
-          f"{worst[0]:.3f} m / {worst[1]:.3f} deg, |dz| {worst[2]:.3f} m "
-          f"(bounds {POS_TOL_M} m / {ROT_TOL_DEG} deg / {DZ_TOL_M} m)")
+    check_aligned(torch, "aligned", results, kf_set, q_set)
     return loc, results, launches
 
 
@@ -874,6 +913,243 @@ def phase_aligned_reference(torch, cfg, kf_set, q_set, centroids,
           "card descriptors disagree with the CPU reference")
     check(r_g.success == r_c.success and r_g.db_index == r_c.db_index,
           "card aligned locate != CPU aligned locate")
+
+
+def serving_localizer(torch, cfg, model, kf, device="cuda", **kw):
+    """The serving configuration: the fast_match(fm=True) matcher and the
+    device keyframe store without a host mirror, its map built from ``kf``
+    in batches of 4."""
+    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
+
+    loc = GlobalLocalizer(cfg.fast_match(fm=True), model,
+                          device=torch.device(device), device_keyframes=True,
+                          host_mirror=False, **kw)
+    for i in range(0, len(kf), 4):
+        loc.add_keyframes(np.stack([k[0] for k in kf[i:i + 4]]),
+                          np.stack([k[1] for k in kf[i:i + 4]]))
+    return loc
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def fused_results(loc, qs, tag):
+    """locate_fused on every query; where one does not localize, its BEV
+    and its top candidates' BEVs (from the device store) go to
+    chiprun_out/ for a look at the matcher there, before the gate fails."""
+    results = [loc.locate_fused(*q) for q in qs]
+    for i, (res, q) in enumerate(zip(results, qs)):
+        if res.success:
+            continue
+        _, bev, _ = loc.extract(q[0][None], q[1][None])
+        images, origins = loc._candidates(res.candidates[:3])
+        out = os.path.join(REPO, "chiprun_out")
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"fused_{tag}_query{i}.npz")
+        np.savez(path, query=_host(bev.image[0]),
+                 query_origin=_host(bev.origin_xy[0]),
+                 candidates=res.candidates, images=_host(images),
+                 origins=_host(origins))
+        print(f"[fused] {tag} query {i} failed: BEVs written to "
+              f"{os.path.relpath(path, REPO)}")
+    return results
+
+
+def same_results(tag, a, b, xy_tol=1e-4):
+    """Two runs of the same queries: success, keyframe and candidates
+    equal, (dx, dy, yaw) within xy_tol. Returns the largest difference."""
+    worst = 0.0
+    for i, (x, y) in enumerate(zip(a, b)):
+        check(x.success == y.success and x.db_index == y.db_index
+              and np.array_equal(x.candidates, y.candidates),
+              f"{tag} query {i}: success {x.success}/{y.success}, db "
+              f"{x.db_index}/{y.db_index}, candidates differ")
+        if x.success:
+            d = float(np.abs(x.match_xy_yaw - y.match_xy_yaw).max())
+            worst = max(worst, d)
+            check(d <= xy_tol, f"{tag} query {i}: xy_yaw differs by {d:.3e}")
+    return worst
+
+
+def phase_fused_query(torch, cfg, lq_set, kf_set, q_set, centroids):
+    """The serving path (fast_match(fm=True), the device store without a
+    host mirror, locate_fused) at full width on both fused variants, held
+    to the gates of the located-query phases; then locate, locate_batch and
+    locate_fused held to one another. Returns the K1 and K2 launches of the
+    two fused runs."""
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+
+    (kf_poses, kf), (q_poses, qs) = lq_set
+    model = build_serving_model(torch, cfg, "bfloat16", centroids)
+    ss.segment_sum_sorted.launches = 0
+    loc = serving_localizer(torch, cfg, model, kf, host_stats=True)
+    results = fused_results(loc, qs, "host-stats")
+    k1 = ss.segment_sum_sorted.launches
+    print(f"[fused] host-stats locate_fused, fm preset, device store (no "
+          f"host mirror): K1 launches {k1}; store {tuple(loc._kf_store.shape)}"
+          f" uint8, {loc._kf_store.numel() / 2**20:.1f} MiB")
+    check(k1 >= N_KEYFRAMES // 4 + N_QUERIES, f"K1 launched {k1} times")
+    check(all(k.image is None for k in loc.keyframes),
+          "host_mirror=False kept images on the host")
+    check_located("fused", results, kf_poses, q_poses, cfg.index.top_k)
+
+    bs.pillar_bin_sums.launches = 0
+    a_loc = serving_localizer(torch, cfg, model, kf_set[2], align_ground=True)
+    a_results = fused_results(a_loc, q_set[2], "aligned")
+    k2 = bs.pillar_bin_sums.launches
+    need = 2 * (len(kf_set[2]) // 4 + len(q_set[2]))
+    print(f"[fused] aligned all-device locate_fused: K2 launches {k2} (at "
+          f"least {need})")
+    check(k2 >= need, f"K2 launched {k2} times, < {need}")
+    check_aligned(torch, "fused-aligned", a_results, kf_set, q_set)
+
+    # locate = locate_batch = locate_fused on one map, with the fp32 model
+    # (a batch of 8 may take other GEMM kernels than a batch of 1, and bf16
+    # rounding then reorders keyframes whose descriptors nearly tie)
+    loc32 = serving_localizer(torch, cfg, build_serving_model(
+        torch, cfg, "float32", centroids), kf, host_stats=True)
+    r_loc = [loc32.locate(*q) for q in qs]
+    r_batch = loc32.locate_batch(np.stack([q[0] for q in qs]),
+                                 np.stack([q[1] for q in qs]))
+    r_fused = [loc32.locate_fused(*q) for q in qs]
+    d1 = same_results("locate vs locate_batch", r_loc, r_batch)
+    d2 = same_results("locate vs locate_fused", r_loc, r_fused)
+    # the aligned map: the same ground-estimator draws for both calls
+    d3 = 0.0
+    for i, q in enumerate(q_set[2]):
+        a_loc._gen.manual_seed(100 + i)
+        x = a_loc.locate(*q)
+        a_loc._gen.manual_seed(100 + i)
+        d3 = max(d3, same_results("aligned locate vs locate_fused", [x],
+                                  [a_loc.locate_fused(*q)]))
+    print(f"[fused] fp32 host-stats map: locate = locate_batch = "
+          f"locate_fused for {len(qs)}/{len(qs)} queries ({sum(r.success for r in r_loc)} "
+          f"localized); xy_yaw max |diff| {d1:.2e} / {d2:.2e}; aligned "
+          f"locate = locate_fused (same draws), max |diff| {d3:.2e} (bound "
+          f"1e-4)")
+    return k1, k2
+
+
+def count_syncs(torch, fn) -> int:
+    """Host synchronisations of one call of fn(), as
+    torch.cuda.set_sync_debug_mode("warn") reports them."""
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_fused_cell(torch, cfg, centroids, card):
+    """bench.py's fused cells: a 10 000-row bank of random rows with the
+    real descriptor planted at row 5 000, a 10 000-row device store holding
+    its BEV there, fold_bn=True and the fm preset, bench.py's synthetic
+    query scan; host stats and aligned all-device."""
+    from gloc3d_tpu_torch.core.transforms import Rigid3
+    from gloc3d_tpu_torch.pipeline import GlobalLocalizer, Keyframe
+
+    n_map, jrow = 10000, 5000
+    n = cfg.voxel.max_points
+    fcfg = cfg.replace(index=cfg.index.replace(capacity=n_map)).fast_match(
+        fm=True)
+    pts, mask = bench_query_scan(n)
+    model = build_serving_model(torch, cfg, "bfloat16", centroids)
+    rows = np.random.RandomState(0).randn(n_map, cfg.index.dim).astype(
+        np.float32)
+    dev = torch.device("cuda")
+    s = fcfg.bev.image_size
+    for label, kw in (("host stats", dict(host_stats=True)),
+                      ("aligned all-device", dict(align_ground=True))):
+        loc = GlobalLocalizer(fcfg, model, device=dev, device_keyframes=True,
+                              host_mirror=False, **kw)
+        desc, bev, ground = loc.extract(pts, mask)
+        loc.bank.add(rows)
+        loc.bank._bank[jrow] = desc[0]
+        loc._kf_store = torch.zeros((n_map, s, s // 8), dtype=torch.uint8,
+                                    device=dev)
+        loc._kf_origins = torch.zeros((n_map, 2), device=dev)
+        loc._kf_cap = n_map
+        loc._store_keyframes(bev.image[:1], bev.origin_xy[:1], offset=jrow)
+        g = None if ground is None else Rigid3(
+            _host(ground.transform.rotation[0]),
+            _host(ground.transform.translation[0]))
+        loc.keyframes = [Keyframe(None, None, g)] * n_map
+        res = loc.locate_fused(pts[0], mask[0])
+        check(res.success and res.db_index == jrow,
+              f"{label} fused cell: success {res.success}, db "
+              f"{res.db_index} (want {jrow})")
+        fused = host_ms(torch, lambda: loc.locate_fused(pts[0], mask[0]), 20)
+        plain = host_ms(torch, lambda: loc.locate(pts[0], mask[0]), 20)
+        syncs = (count_syncs(torch, lambda: loc.locate(pts[0], mask[0])),
+                 count_syncs(torch, lambda: loc.locate_fused(pts[0],
+                                                             mask[0])))
+        print(f"[fused-cell] {label}, {n_map}-row bank and store "
+              f"({loc._kf_store.numel() / 1e6:.1f} MB), fm preset, bf16, on "
+              f"{card}: locate_fused {fused:.3f} ms per query, locate (same "
+              f"map and store) {plain:.3f} ms (host clock, median of 20; "
+              f"db {res.db_index}, score {res.match_score:.3f}); host syncs "
+              f"per call (set_sync_debug_mode): locate {syncs[0]}, "
+              f"locate_fused {syncs[1]}")
+        if label != "host stats":
+            continue
+        q_img = torch.as_tensor(bev.image[0], device=dev)
+        q_org = torch.as_tensor(bev.origin_xy[0], device=dev)
+        times = {}
+        for name, mcfg in (("fm preset", fcfg.match),
+                           ("default matcher", cfg.match)):
+            loc.cfg = fcfg.replace(match=mcfg)
+            for k in (1, cfg.index.top_k):
+                idx = torch.full((k,), jrow, dtype=torch.long, device=dev)
+                times[name, k] = cuda_ms(
+                    torch, lambda: loc._match(q_img, q_org, idx), 10)
+        loc.cfg = fcfg
+        print(f"[fused-cell] registration on {card} (CUDA events around the "
+              f"store gather + match, query image on the device): fm preset "
+              f"K=1 {times['fm preset', 1]:.3f} ms, K={cfg.index.top_k} "
+              f"{times['fm preset', cfg.index.top_k]:.3f} ms; default "
+              f"matcher K=1 {times['default matcher', 1]:.3f} ms, "
+              f"K={cfg.index.top_k} "
+              f"{times['default matcher', cfg.index.top_k]:.3f} ms")
+
+
+def phase_fused_reference(torch, cfg, lq_set, centroids,
+                          devices=("cuda", "cpu")):
+    """One fm-preset locate_fused query on the card against the same port
+    code on the CPU, fp32 with TF32 off: same success and keyframe, (dx,
+    dy) within one fine cell (0.4 m at fine_downsample=2), yaw within one
+    fine bin."""
+    (_, kf), (_, qs) = lq_set
+    out = {}
+    for dev in devices:
+        model = build_serving_model(torch, cfg, "float32", centroids)
+        loc = serving_localizer(torch, cfg, model, kf[:2], device=dev,
+                                host_stats=True)
+        out[dev] = loc.locate_fused(*qs[0])
+    a, b = (out[d] for d in devices)
+    mcfg = cfg.fast_match(fm=True).match
+    cell = cfg.bev.resolution * mcfg.fine_downsample
+    fine_bin = math.radians(mcfg.refine_span_deg
+                            / (mcfg.refine_rotations - 1))
+    print(f"[fused-reference] fm preset, card vs CPU: success "
+          f"{a.success}/{b.success}, db {a.db_index}/{b.db_index}")
+    check(a.success == b.success and a.db_index == b.db_index,
+          "card locate_fused != CPU locate_fused")
+    if a.success:
+        dxy = float(np.abs(a.match_xy_yaw[:2] - b.match_xy_yaw[:2]).max())
+        dyaw = abs(math.remainder(float(a.match_xy_yaw[2]
+                                        - b.match_xy_yaw[2]), 2 * math.pi))
+        print(f"[fused-reference] (dx, dy) max |diff| {dxy:.2e} m (bound "
+              f"{cell} m), yaw |diff| {math.degrees(dyaw):.2e} deg (bound "
+              f"{math.degrees(fine_bin):.2f} deg)")
+        check(dxy <= cell + 1e-3 and dyaw <= fine_bin + 1e-4,
+              "card pose disagrees with the CPU pose")
 
 
 DEVICE_CLASSES = (  # kernel-name fragment → class, first match wins
@@ -1659,7 +1935,8 @@ def main(argv) -> int:
         print(json.dumps({"card": card, "kernel_times": times}))
         return 0
     check_k2_pillar0_determinism(torch, k2_main)
-    loc, kf, qs, k1_launches = phase_located_query(torch, cfg, world,
+    lq_set = located_world_scans(world, cfg.voxel.max_points)
+    loc, kf, qs, k1_launches = phase_located_query(torch, cfg, lq_set,
                                                    centroids)
     phase_reference(torch, cfg, kf, qs, centroids)
 
@@ -1668,6 +1945,11 @@ def main(argv) -> int:
                                                 q_set)
     phase_aligned_hoststats(torch, cfg, kf_set, q_set, centroids)
     phase_aligned_reference(torch, cfg, kf_set, q_set, centroids)
+
+    k1_fused, k2_fused = phase_fused_query(torch, cfg, lq_set, kf_set, q_set,
+                                           centroids)
+    phase_fused_cell(torch, cfg, centroids, card)
+    phase_fused_reference(torch, cfg, lq_set, centroids)
 
     phase_timing(torch, cfg, loc, kf, qs, card)
     phase_aligned_timing(torch, cfg, a_loc, q_set[2], card)
@@ -1679,8 +1961,10 @@ def main(argv) -> int:
     times = phase_kernel_times(torch, card, *kernel_time_cases(
         torch, cfg, ds, k1_main, k2_main))
     k1_paths = {"located query": k1_launches,
+                "fused query, host-stats": k1_fused,
                 "training, host-stats": train_counts["host-stats"][0]}
     k2_paths = {"aligned query": k2_launches,
+                "fused query, aligned all-device": k2_fused,
                 "training, all-device": train_counts["all-device"][1]}
     print(json.dumps({"kernels": [
         {"name": "segment_sum_sorted", "route": "cuda", "source": K1_SOURCE,
