@@ -685,8 +685,9 @@ def phase_located_query(torch, cfg, lq_set, centroids, device="cuda"):
     n = cfg.voxel.max_points
     (kf_poses, kf), (q_poses, qs) = lq_set
     fill = np.mean([q[1].sum() for q in qs]) / n
-    print(f"[locate] world {len(world)} points; scans fill {fill:.1%} of the "
-          f"{n}-point pad; gates min_score {cfg.match.min_score}, "
+    print(f"[locate] {len(kf)} keyframes, {len(qs)} queries; scans fill "
+          f"{fill:.1%} of the {n}-point pad; gates min_score "
+          f"{cfg.match.min_score}, "
           f"min_overlap_pixels {cfg.match.min_overlap_pixels}")
 
     model = build_serving_model(torch, cfg, "bfloat16", centroids)
@@ -956,20 +957,25 @@ def fused_results(loc, qs, tag):
     return results
 
 
-def same_results(tag, a, b, xy_tol=1e-4):
-    """Two runs of the same queries: success, keyframe and candidates
-    equal, (dx, dy, yaw) within xy_tol. Returns the largest difference."""
-    worst = 0.0
+def same_results(tag, a, b, xy_tol=1e-4, ranked=True):
+    """Two runs of the same queries: success and keyframe equal, the same
+    candidates (in the same order, or as a set when not ``ranked``), (dx,
+    dy, yaw) within xy_tol. Returns the largest (dx, dy, yaw) difference
+    and the number of candidate ranks that differ."""
+    worst, swapped = 0.0, 0
     for i, (x, y) in enumerate(zip(a, b)):
-        check(x.success == y.success and x.db_index == y.db_index
-              and np.array_equal(x.candidates, y.candidates),
+        same = (np.array_equal(x.candidates, y.candidates) if ranked else
+                np.array_equal(np.sort(x.candidates), np.sort(y.candidates)))
+        swapped += int((x.candidates != y.candidates).sum())
+        check(x.success == y.success and x.db_index == y.db_index and same,
               f"{tag} query {i}: success {x.success}/{y.success}, db "
-              f"{x.db_index}/{y.db_index}, candidates differ")
+              f"{x.db_index}/{y.db_index}, candidates {x.candidates} / "
+              f"{y.candidates}")
         if x.success:
             d = float(np.abs(x.match_xy_yaw - y.match_xy_yaw).max())
             worst = max(worst, d)
             check(d <= xy_tol, f"{tag} query {i}: xy_yaw differs by {d:.3e}")
-    return worst
+    return worst, swapped
 
 
 def phase_fused_query(torch, cfg, lq_set, kf_set, q_set, centroids):
@@ -1014,21 +1020,28 @@ def phase_fused_query(torch, cfg, lq_set, kf_set, q_set, centroids):
     r_batch = loc32.locate_batch(np.stack([q[0] for q in qs]),
                                  np.stack([q[1] for q in qs]))
     r_fused = [loc32.locate_fused(*q) for q in qs]
-    d1 = same_results("locate vs locate_batch", r_loc, r_batch)
-    d2 = same_results("locate vs locate_fused", r_loc, r_fused)
-    # the aligned map: the same ground-estimator draws for both calls
-    d3 = 0.0
+    d1, _ = same_results("locate vs locate_batch", r_loc, r_batch)
+    d2, _ = same_results("locate vs locate_fused", r_loc, r_fused)
+    # the aligned map, with the same ground-estimator draws for both calls:
+    # the all-device forward sums all pillars but pillar 0 with K2's float
+    # atomics, whose order varies between launches, so descriptors differ
+    # in their last bits between two calls, and keyframes whose distances
+    # nearly tie may swap ranks; the registered keyframe and pose may not
+    d3, swaps = 0.0, 0
     for i, q in enumerate(q_set[2]):
         a_loc._gen.manual_seed(100 + i)
         x = a_loc.locate(*q)
         a_loc._gen.manual_seed(100 + i)
-        d3 = max(d3, same_results("aligned locate vs locate_fused", [x],
-                                  [a_loc.locate_fused(*q)]))
+        d, n = same_results("aligned locate vs locate_fused", [x],
+                            [a_loc.locate_fused(*q)], ranked=False)
+        d3, swaps = max(d3, d), swaps + n
     print(f"[fused] fp32 host-stats map: locate = locate_batch = "
-          f"locate_fused for {len(qs)}/{len(qs)} queries ({sum(r.success for r in r_loc)} "
-          f"localized); xy_yaw max |diff| {d1:.2e} / {d2:.2e}; aligned "
-          f"locate = locate_fused (same draws), max |diff| {d3:.2e} (bound "
-          f"1e-4)")
+          f"locate_fused for {len(qs)}/{len(qs)} queries "
+          f"({sum(r.success for r in r_loc)} localized); xy_yaw max |diff| "
+          f"{d1:.2e} / {d2:.2e}; aligned bf16 map: locate = locate_fused "
+          f"(same draws; candidates as a set, {swaps} of "
+          f"{len(q_set[2]) * cfg.index.top_k} ranks swapped), max |diff| "
+          f"{d3:.2e} (bound 1e-4)")
     return k1, k2
 
 
