@@ -52,15 +52,16 @@ Phases, each printing its own lines:
      and no host mirror: locate_fused on the host-stats map of phase 5
      (K1 launches counted) and on the aligned map of phase 6 (K2 launches
      counted), every query held to that phase's gates (a failing query's
-     BEVs go to chiprun_out/); locate = locate_batch = locate_fused on the
+     BEVs go to smoke_out/); locate = locate_batch = locate_fused on the
      fp32 host-stats map (success, keyframe, candidates equal, (dx, dy,
      yaw) within 1e-4) and locate = locate_fused on the aligned map with
      the same draws; bench.py's fused cells (10 000-row bank with the
      real descriptor at row 5 000, a 10 000-row store, bf16, fold_bn),
      host stats and aligned all-device: row 5 000 found, per-query host
-     clock of locate_fused and locate, host syncs per call, and
-     registration at K=1 and K=20 with the fm preset and the default
-     matcher; one fm-preset locate_fused query card vs CPU (fp32, same
+     clock of locate_fused and locate, host syncs per call, a traced
+     locate_fused's device busy time, and registration at K=1 and K=20
+     with the fm preset and the default matcher (CUDA events and device
+     busy time); one fm-preset locate_fused query card vs CPU (fp32, same
      keyframe, (dx, dy) within one 0.4 m fine cell, yaw within one bin);
  10. timings with the card's name and power limit: detect at bench.py's
      shape and the located query, host-stats and all-device (the default); the aligned detect and locate,
@@ -938,14 +939,15 @@ def _host(x) -> np.ndarray:
 def fused_results(loc, qs, tag):
     """locate_fused on every query; where one does not localize, its BEV
     and its top candidates' BEVs (from the device store) go to
-    chiprun_out/ for a look at the matcher there, before the gate fails."""
+    smoke_out/ (git-ignored) for a look at the matcher there, before the
+    gate fails."""
     results = [loc.locate_fused(*q) for q in qs]
     for i, (res, q) in enumerate(zip(results, qs)):
         if res.success:
             continue
         _, bev, _ = loc.extract(q[0][None], q[1][None])
         images, origins = loc._candidates(res.candidates[:3])
-        out = os.path.join(REPO, "chiprun_out")
+        out = os.path.join(REPO, "smoke_out")
         os.makedirs(out, exist_ok=True)
         path = os.path.join(out, f"fused_{tag}_query{i}.npz")
         np.savez(path, query=_host(bev.image[0]),
@@ -1098,38 +1100,60 @@ def phase_fused_cell(torch, cfg, centroids, card):
         check(res.success and res.db_index == jrow,
               f"{label} fused cell: success {res.success}, db "
               f"{res.db_index} (want {jrow})")
-        fused = host_ms(torch, lambda: loc.locate_fused(pts[0], mask[0]), 20)
-        plain = host_ms(torch, lambda: loc.locate(pts[0], mask[0]), 20)
-        syncs = (count_syncs(torch, lambda: loc.locate(pts[0], mask[0])),
-                 count_syncs(torch, lambda: loc.locate_fused(pts[0],
-                                                             mask[0])))
+        def fused():
+            return loc.locate_fused(pts[0], mask[0])
+
+        def plain():
+            return loc.locate(pts[0], mask[0])
+
+        # order fused, locate, locate, fused: the host clock drifts
+        t = [host_ms(torch, f, 10) for f in (fused, plain, plain, fused)]
+        syncs = (count_syncs(torch, plain), count_syncs(torch, fused))
+        busy, wall, n_k, by_class = device_idle_share(torch, fused)
         print(f"[fused-cell] {label}, {n_map}-row bank and store "
               f"({loc._kf_store.numel() / 1e6:.1f} MB), fm preset, bf16, on "
-              f"{card}: locate_fused {fused:.3f} ms per query, locate (same "
-              f"map and store) {plain:.3f} ms (host clock, median of 20; "
-              f"db {res.db_index}, score {res.match_score:.3f}); host syncs "
-              f"per call (set_sync_debug_mode): locate {syncs[0]}, "
-              f"locate_fused {syncs[1]}")
+              f"{card}: locate_fused {t[0]:.3f} / {t[3]:.3f} ms per query, "
+              f"locate (same map and store) {t[1]:.3f} / {t[2]:.3f} ms (host "
+              f"clock, median of 10 each, in the order fused, locate, "
+              f"locate, fused; db {res.db_index}, score "
+              f"{res.match_score:.3f}); host syncs per call "
+              f"(set_sync_debug_mode): locate {syncs[0]}, locate_fused "
+              f"{syncs[1]}")
+        print(f"[fused-cell] {label}: traced locate_fused, device busy "
+              f"{busy:.3f} ms of {wall:.3f} ms wall, idle share "
+              f"{1 - busy / wall:.3f}, {n_k} kernels (torch.profiler; "
+              f"against the untraced {t[0]:.3f} ms the idle share is "
+              f"{max(0.0, 1 - busy / t[0]):.3f}); device ms by class: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                  by_class.items(), key=lambda kv: -kv[1])))
         if label != "host stats":
             continue
         q_img = torch.as_tensor(bev.image[0], device=dev)
         q_org = torch.as_tensor(bev.origin_xy[0], device=dev)
-        times = {}
-        for name, mcfg in (("fm preset", fcfg.match),
-                           ("default matcher", cfg.match)):
-            loc.cfg = fcfg.replace(match=mcfg)
-            for k in (1, cfg.index.top_k):
+        configs = [(name, mcfg, k) for name, mcfg in (
+            ("fm preset", fcfg.match), ("default matcher", cfg.match))
+            for k in (1, cfg.index.top_k)]
+        times = {c[0::2]: [] for c in configs}
+        for order in (configs, configs[::-1]):
+            for name, mcfg, k in order:
+                loc.cfg = fcfg.replace(match=mcfg)
                 idx = torch.full((k,), jrow, dtype=torch.long, device=dev)
-                times[name, k] = cuda_ms(
-                    torch, lambda: loc._match(q_img, q_org, idx), 10)
+                times[name, k].append(cuda_ms(
+                    torch, lambda: loc._match(q_img, q_org, idx), 20))
+        parts = []
+        for name, mcfg, k in configs:
+            loc.cfg = fcfg.replace(match=mcfg)
+            idx = torch.full((k,), jrow, dtype=torch.long, device=dev)
+            busy, _, n_k, _ = device_idle_share(
+                torch, lambda: loc._match(q_img, q_org, idx))
+            a, b = times[name, k]
+            parts.append(f"{name} K={k} {a:.3f} / {b:.3f} ms (device busy "
+                         f"{busy:.3f} ms, {n_k} kernels)")
         loc.cfg = fcfg
         print(f"[fused-cell] registration on {card} (CUDA events around the "
-              f"store gather + match, query image on the device): fm preset "
-              f"K=1 {times['fm preset', 1]:.3f} ms, K={cfg.index.top_k} "
-              f"{times['fm preset', cfg.index.top_k]:.3f} ms; default "
-              f"matcher K=1 {times['default matcher', 1]:.3f} ms, "
-              f"K={cfg.index.top_k} "
-              f"{times['default matcher', cfg.index.top_k]:.3f} ms")
+              f"store gather + match, mean of 20, query image on the device, "
+              f"in one order and then the reverse; device busy from one "
+              f"torch.profiler trace): " + "; ".join(parts))
 
 
 def phase_fused_reference(torch, cfg, lq_set, centroids,
