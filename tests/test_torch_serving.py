@@ -64,6 +64,13 @@ def _built(port, **kw):
 
 
 @pytest.fixture(scope="module")
+def port_results(localizers):
+    """The port's host-mirror ``locate`` of every query scan, the result
+    the store, the batch and the fused query must reproduce."""
+    return [localizers[1].locate(*q) for q in QUERY_SCANS]
+
+
+@pytest.fixture(scope="module")
 def stored(localizers):
     """The fixture's map in the device store, with no host mirror."""
     return _built(localizers[1], device_keyframes=True, host_mirror=False)
@@ -110,14 +117,14 @@ def test_store_grows_past_1024_rows():
 
 
 @pytest.mark.parametrize("host_mirror", [True, False])
-def test_store_locate_matches_host_mirror(localizers, stored, host_mirror):
-    port = localizers[1]
+def test_store_locate_matches_host_mirror(localizers, stored, port_results,
+                                          host_mirror):
     loc = (stored if not host_mirror
-           else _built(port, device_keyframes=True))
+           else _built(localizers[1], device_keyframes=True))
     assert loc._kf_store is not None and loc._kf_cap == 1024
     assert all((k.image is None) != host_mirror for k in loc.keyframes)
-    for q in QUERY_SCANS:
-        _same(loc.locate(*q), port.locate(*q))
+    for q, want in zip(QUERY_SCANS, port_results):
+        _same(loc.locate(*q), want)
 
 
 def test_host_mirror_off_needs_device_keyframes(localizers):
@@ -138,7 +145,8 @@ def test_load_is_an_instance_method_as_in_jax():
 
 
 @pytest.mark.parametrize("host_mirror", [True, False])
-def test_save_load_round_trip(localizers, stored, tmp_path, host_mirror):
+def test_save_load_round_trip(localizers, stored, port_results, tmp_path,
+                              host_mirror):
     port = localizers[1]
     src = port if host_mirror else stored
     src.save(str(tmp_path))
@@ -149,8 +157,9 @@ def test_save_load_round_trip(localizers, stored, tmp_path, host_mirror):
     assert len(loc.keyframes) == len(src.keyframes) == len(loc.bank)
     np.testing.assert_array_equal(loc.bank.data.numpy(),
                                   src.bank.data.numpy())
-    for q in QUERY_SCANS[:3]:
-        _same(loc.locate(*q), src.locate(*q))
+    # the store reproduces the host mirror's locate (test above)
+    for q, want in zip(QUERY_SCANS[:3], port_results):
+        _same(loc.locate(*q), want)
 
 
 def test_jax_map_loads_in_the_port(localizers, tmp_path):
@@ -178,14 +187,13 @@ def test_port_map_loads_in_jax(localizers, stored, tmp_path):
 
 
 # ---------------------------------------------------------------- batch
-def test_locate_batch_matches_locate(localizers):
-    port = localizers[1]
+def test_locate_batch_matches_locate(localizers, port_results):
     pts = np.stack([q[0] for q in QUERY_SCANS])
     masks = np.stack([q[1] for q in QUERY_SCANS])
-    batch = port.locate_batch(pts, masks)
+    batch = localizers[1].locate_batch(pts, masks)
     assert len(batch) == len(QUERY_SCANS)
-    for got, q in zip(batch, QUERY_SCANS):
-        _same(got, port.locate(*q))
+    for got, want in zip(batch, port_results):
+        _same(got, want)
 
 
 def test_locate_batch_mixed_splice_matches_jax(localizers, stored):
