@@ -1,17 +1,22 @@
 """Flax parameter trees → port ``state_dict``s, and BatchNorm folding.
 
-``flax_to_state_dict`` is the inverse of
-``tools/convert_torch_checkpoint.py::convert_pointpillar_checkpoint``: it
-takes a DescriptorModel's Flax ``{params, batch_stats}`` (numpy or jax
-arrays; the folded tree with ``Conv_0``/``Dense_0`` biases and no
-BatchNorm too) and returns the reference torch names the port uses. Layouts:
-conv HWIO → OIHW; Dense ``(in, out)`` → Conv1d ``(out, in, 1)``; VLAD
-assignment ``(D, K)`` → ``(K, D, 1, 1)``.
+``flax_to_state_dict`` is the inverse of the JAX package's converters
+(``tools/convert_torch_checkpoint.py``: ``convert_pointpillar_checkpoint``,
+``convert_vggvlad_checkpoint``; ``models/encoders.py::
+convert_torchvision_encoder``): it takes a DescriptorModel's Flax ``{params,
+batch_stats}`` (numpy or jax arrays; for PointPillar the folded tree with
+``Conv_0``/``Dense_0`` biases and no BatchNorm too) and returns the
+reference torch names the port uses. The encoder is read from the tree:
+PointPillar (``pn``), VGG16 (``conv0``-``conv12`` → ``encoder.{0,2,5,…,
+28}``), AlexNet (``conv0``-``conv4``), MobileNetV2 (``stem_conv``) or
+ResNet18 (``conv1``). Layouts: conv HWIO → OIHW; Dense ``(in, out)`` →
+Conv1d ``(out, in, 1)``; VLAD assignment ``(D, K)`` → ``(K, D, 1, 1)``.
 
 ``load_reference_checkpoint`` reads a reference PyTorch checkpoint (a
-``.pth.tar`` of the GLoc3D s2s model, saved as ``{'state_dict': ...}`` or as
-a bare state dict, with or without the ``module.`` prefix of
-``nn.DataParallel``) into the same names, which are the reference's own.
+``.pth.tar`` of the GLoc3D s2s model or of its VGGVLAD i2i model, saved as
+``{'state_dict': ...}`` or as a bare state dict, with or without the
+``module.`` prefix of ``nn.DataParallel``) into the same names, which are
+the reference's own.
 
 ``fold_batch_norm`` ports ``gloc3d_tpu/models/fold.py``: each eval-mode BN
 after a conv becomes the conv's scale and bias (same fp32 arithmetic as the
@@ -25,6 +30,9 @@ from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
+
+from gloc3d_tpu_torch.models.encoders import port_key, torchvision_state_dict
+from gloc3d_tpu_torch.models.vgg import VGG16_CONV_IDX
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm default, matches torch
 
@@ -60,12 +68,41 @@ def load_reference_checkpoint(path_or_obj: Union[str, os.PathLike, Mapping]
     return out
 
 
+def _image_encoder_name(enc_p: Mapping) -> Optional[str]:
+    """The image encoder whose Flax tree ``enc_p`` is, or None
+    (PointPillar)."""
+    if "conv12" in enc_p:
+        return "vgg16"
+    if "conv0" in enc_p:
+        return "alexnet"
+    if "stem_conv" in enc_p:
+        return "mobilenet"
+    if "conv1" in enc_p:
+        return "resnet18"
+    return None
+
+
 def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """DescriptorModel (pointpillar + netvlad pooling) Flax variables → port
-    state_dict; works for both ``fold_bn`` variants."""
+    """DescriptorModel Flax variables → port state_dict: any encoder, any
+    pooling; for PointPillar both ``fold_bn`` variants."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     enc_p, enc_s = params["encoder"], stats.get("encoder", {})
+    pool = netvlad_state_dict(params.get("pool", {}), stats.get("pool"),
+                              prefix="pool.")
+    image = _image_encoder_name(enc_p)
+    if image == "vgg16":
+        out = {}
+        for i, li in enumerate(VGG16_CONV_IDX):
+            c = enc_p[f"conv{i}"]
+            out[f"encoder.{li}.weight"] = _t(c["kernel"]).permute(
+                3, 2, 0, 1).contiguous()
+            out[f"encoder.{li}.bias"] = _t(c["bias"])
+        return {**out, **pool}
+    if image is not None:
+        tv = torchvision_state_dict(image, enc_p, enc_s)
+        return {**{f"encoder.{port_key(image, k)}": v
+                   for k, v in tv.items()}, **pool}
     out: Dict[str, torch.Tensor] = {}
 
     def bn(pnode, snode, dst):
@@ -105,8 +142,7 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         conv(enc_p[key], enc_s.get(key, {}), f"encoder.conv_out.{ci}",
              f"encoder.conv_out.{bi}")
 
-    out.update(netvlad_state_dict(params.get("pool", {}), stats.get("pool"),
-                                  prefix="pool."))
+    out.update(pool)
     return out
 
 

@@ -1,8 +1,9 @@
 """End-to-end descriptor extractor: encoder + pooling in one module.
 
-Port of ``gloc3d_tpu/models/descriptor.py`` for the s2s (PointPillar)
-encoder. The image encoders (VGG16 and the zoo of ``models/encoders.py``)
-come with the i2i port (ROADMAP Queue 1, item 12).
+Port of ``gloc3d_tpu/models/descriptor.py``: PointPillar on padded clouds
+(s2s), or an image encoder on ``(B, S, S, 3)`` BEV images (i2i: VGG16, and
+the AlexNet / MobileNetV2 / ResNet18 baselines of ``models/encoders.py``),
+followed by NetVLAD(-FC) or a max / avg head.
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from gloc3d_tpu_torch.models.encoders import (
+    build_image_encoder, is_image_encoder,
+)
 from gloc3d_tpu_torch.models.netvlad import GatingContext, NetVLAD
 from gloc3d_tpu_torch.models.pointpillar import PointPillar
 
@@ -35,15 +39,16 @@ class DescriptorModel(nn.Module):
     def __init__(self, model_cfg, voxel_cfg):
         super().__init__()
         self.model_cfg = model_cfg
-        if model_cfg.encoder != "pointpillar":
-            raise NotImplementedError(
-                f"encoder {model_cfg.encoder!r}: image encoders come with the "
-                "i2i port (ROADMAP Queue 1, item 12)")
         cd = getattr(torch, model_cfg.compute_dtype)
-        self.encoder = PointPillar(
-            xbound=voxel_cfg.xbound, ybound=voxel_cfg.ybound,
-            zbound=voxel_cfg.zbound, compute_dtype=cd,
-            fold_bn=model_cfg.fold_bn)
+        if is_image_encoder(model_cfg.encoder):
+            self.encoder = build_image_encoder(model_cfg.encoder, cd)
+        elif model_cfg.encoder == "pointpillar":
+            self.encoder = PointPillar(
+                xbound=voxel_cfg.xbound, ybound=voxel_cfg.ybound,
+                zbound=voxel_cfg.zbound, compute_dtype=cd,
+                fold_bn=model_cfg.fold_bn)
+        else:
+            raise ValueError(f"unknown encoder {model_cfg.encoder!r}")
         if model_cfg.pooling in ("netvlad", "netvlad_fc"):
             self.pool = NetVLAD(
                 num_clusters=model_cfg.num_clusters,
@@ -60,8 +65,12 @@ class DescriptorModel(nn.Module):
 
     def encode(self, inputs, mask: Optional[torch.Tensor] = None,
                voxel_stats=None):
-        """The encoder's ``(B, gy, gx, D)`` feature map (NetVLAD's input)."""
-        return self.encoder(inputs, mask, voxel_stats=voxel_stats)
+        """The encoder's ``(B, H, W, D)`` feature map (NetVLAD's input):
+        PointPillar's ``(B, gy, gx, 128)`` from clouds and ``mask``, or an
+        image encoder's from ``(B, S, S, 3)`` images (``mask`` unused)."""
+        if self.model_cfg.encoder == "pointpillar":
+            return self.encoder(inputs, mask, voxel_stats=voxel_stats)
+        return self.encoder(inputs)
 
     def forward(self, inputs, mask: Optional[torch.Tensor] = None,
                 voxel_stats=None):

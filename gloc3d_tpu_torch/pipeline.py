@@ -1,10 +1,16 @@
-"""The s2s located query: scan → descriptor → top-k → registration → pose.
+"""The located query: scan or BEV image → descriptor → top-k →
+registration → pose.
 
-Port of ``gloc3d_tpu/pipeline.py::GlobalLocalizer`` for point-cloud scans,
-with its switches:
+Port of ``gloc3d_tpu/pipeline.py::GlobalLocalizer``. The model is s2s
+(PointPillar on clouds) or i2i (an image encoder, VGG16 by default, on BEV
+images). An i2i localizer takes scans, which it projects to BEV images on
+the device (``ops/bev.py``) and repeats to 3 channels, or ``(B, S, S, 3)``
+BEV probability images straight from disk (free = 1.0) with their origins;
+channel 0 of an image is its registration BEV. The switches:
 
 - ``host_stats=False`` (the default, as in the JAX package): the
-  all-device extraction. The BEV image (``ops/bev.py::batch_scan_to_bev``)
+  all-device extraction, the only one of an i2i model (``host_stats`` is
+  dropped for it: the host pass feeds PointPillar alone). The BEV image (``ops/bev.py::batch_scan_to_bev``)
   and both pillar binnings (kernel K2) run on the device.
 - ``host_stats=True``: the port's native host pass (``data/native.py``)
   computes pillar statistics, the counting sort, the per-point rows and the
@@ -34,8 +40,8 @@ branch. The ground estimator's random draws come from a CPU
 numbers on every device.
 
 Options that other slices port raise ``NotImplementedError`` naming their
-ROADMAP item: the IVF bank, ``refine_icp`` and the image encoders, and so
-does ``match_keyframe``. ``device_sort`` is a TPU-only strategy that the
+ROADMAP item: the IVF bank and ``refine_icp``, and so does
+``match_keyframe``. ``device_sort`` is a TPU-only strategy that the
 port leaves out, and so are the JAX package's ``row_gather`` and the
 bucket padding of ``locate_batch``, which only bound XLA shapes.
 """
@@ -48,6 +54,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from gloc3d_tpu_torch.config import ENCODER_DIMS
 from gloc3d_tpu_torch.core.device import resolve_device
 from gloc3d_tpu_torch.core.transforms import Rigid3, transform_points
 from gloc3d_tpu_torch.data import native
@@ -117,6 +124,12 @@ def _unpack_bits(packed: torch.Tensor) -> torch.Tensor:
     return 1.0 - bits.reshape(k, s, sb * 8).float()
 
 
+def _one(points, mask, origin):
+    """One query (and its mask or origin) as a batch of one."""
+    return (points[None], None if mask is None else mask[None],
+            None if origin is None else np.asarray(origin)[None])
+
+
 def _stack(results: List[MatchResult]) -> MatchResult:
     """Per-query MatchResults (K lanes each) → one with a leading query
     axis."""
@@ -142,14 +155,14 @@ def _splice_staged(res1: MatchResult, res2: MatchResult,
 
 
 class GlobalLocalizer:
-    """Build-once query-many localization engine (s2s).
+    """Build-once query-many localization engine (s2s or i2i).
 
     Args:
       cfg: a PipelineConfig (the port's or the JAX package's).
       model: a DescriptorModel (models/descriptor.py).
       params: optional state_dict to load into ``model``.
       host_stats: bin and draw the BEV on the host, or on the device
-        (default).
+        (default); ignored for an image encoder.
       device: where the model, the bank and the matcher run (default:
         ``cuda``; without a card, pass ``device="cpu"``).
       align_ground: gravity-align scans before BEV / descriptor extraction.
@@ -172,14 +185,13 @@ class GlobalLocalizer:
                 "device_sort is a TPU-only binning strategy the port leaves "
                 "out (ROADMAP ground rule: port semantics, not TPU "
                 "workarounds); host_stats=False bins on the device")
-        if cfg.model.encoder != "pointpillar":
-            raise _not_ported(f"encoder {cfg.model.encoder!r}", "item 12")
         if cfg.index.backend != "flat":
             raise _not_ported("the IVF bank", "item 13")
         if cfg.match.refine_icp:
             raise _not_ported("match.refine_icp", "item 14")
         self.cfg = cfg
-        self.host_stats = host_stats
+        self.images = cfg.model.encoder in ENCODER_DIMS
+        self.host_stats = host_stats and not self.images
         self.align_ground = align_ground
         self.device_keyframes = device_keyframes
         self.host_mirror = host_mirror
@@ -219,12 +231,42 @@ class GlobalLocalizer:
             torch.stack([e.inlier_fraction for e in ests]))
         return torch.stack(rows), ground
 
+    def _default_origins(self, n: int) -> np.ndarray:
+        """Scan-centred origins for images given without theirs."""
+        half = self.cfg.bev.image_size / 2.0 * self.cfg.bev.resolution
+        return np.full((n, 2), -half, np.float32)
+
+    def _extract_images(self, images, origins):
+        """i2i on BEV probability images (B, S, S, 3), free = 1.0: the
+        descriptor, and channel 0 as the registration BEV."""
+        if origins is None:
+            origins = self._default_origins(len(images))
+        images = torch.as_tensor(np.asarray(images, np.float32),
+                                 device=self.device)
+        img2d = images[..., 0]
+        bev = BEVImage(
+            image=img2d,
+            origin_xy=torch.as_tensor(np.asarray(origins, np.float32),
+                                      device=self.device),
+            resolution=np.float32(self.cfg.bev.resolution),
+            num_occupied=(img2d < 0.5).sum(dim=(1, 2)).int())
+        return self.model(images), bev, None
+
     @torch.no_grad()
-    def extract(self, inputs: np.ndarray, mask: np.ndarray):
-        """Batched extraction: padded clouds (B, N, ≥3) + mask (B, N) →
-        (descriptors (B, D) on the device, BEVImage batch, ground estimates
-        or None). The BEV batch is numpy with host stats and on the device
+    def extract(self, inputs: np.ndarray, mask: Optional[np.ndarray] = None,
+                origins: Optional[np.ndarray] = None):
+        """Batched extraction → (descriptors (B, D) on the device, BEVImage
+        batch, ground estimates or None). Inputs are padded clouds
+        (B, N, ≥3) with mask (B, N), or, for an image encoder, BEV
+        probability images (B, S, S, 3) with ``origins`` (B, 2), each
+        image's pixel-(0, 0) metric coordinate (scan-centred by default).
+        The BEV batch is numpy with host stats and on the device
         without."""
+        if np.ndim(inputs) == 4:
+            if not self.images:
+                raise ValueError("BEV image inputs need an image encoder; "
+                                 f"this model's is {self.cfg.model.encoder!r}")
+            return self._extract_images(inputs, origins)
         pts = _xyzi(inputs)
         ground = None
         if self.align_ground or not self.host_stats:
@@ -235,7 +277,11 @@ class GlobalLocalizer:
             pts_d, ground = self._align(pts_d, mask_d)
         if not self.host_stats:
             bev = batch_scan_to_bev(pts_d[..., :3], mask_d, self.cfg.bev)
-            return self.model(pts_d, mask_d), bev, ground
+            if self.images:  # the BEV, repeated to 3 channels, is the input
+                desc = self.model(bev.image[..., None].repeat(1, 1, 1, 3))
+            else:
+                desc = self.model(pts_d, mask_d)
+            return desc, bev, ground
         if ground is not None:  # the host pass bins the aligned floats
             pts = pts_d.cpu().numpy()
 
@@ -260,9 +306,12 @@ class GlobalLocalizer:
         return desc, bev, ground
 
     # ------------------------------------------------------------ db build
-    def add_keyframes(self, points: np.ndarray, mask: np.ndarray) -> None:
-        """Extract and store a batch of database keyframes."""
-        desc, bev, ground = self.extract(points, mask)
+    def add_keyframes(self, points: np.ndarray,
+                      mask: Optional[np.ndarray] = None,
+                      origins: Optional[np.ndarray] = None) -> None:
+        """Extract and store a batch of database keyframes: scans with
+        their masks, or BEV images with their origins."""
+        desc, bev, ground = self.extract(points, mask, origins)
         self.bank.add(desc)
         if self.device_keyframes:
             self._store_keyframes(bev.image, bev.origin_xy,
@@ -313,9 +362,10 @@ class GlobalLocalizer:
             origins, dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------ query
-    def detect(self, points: np.ndarray, mask: np.ndarray):
-        """Top-k place candidates for a batch of query scans."""
-        desc, bev, ground = self.extract(points, mask)
+    def detect(self, points: np.ndarray, mask: Optional[np.ndarray] = None,
+               origins: Optional[np.ndarray] = None):
+        """Top-k place candidates for a batch of query scans or images."""
+        desc, bev, ground = self.extract(points, mask, origins)
         d2, idx = self.bank.query(desc, k=self.cfg.index.top_k)
         return d2, idx, bev, ground
 
@@ -390,28 +440,32 @@ class GlobalLocalizer:
             Rigid3(pose.rotation.numpy(), pose.translation.numpy()),
             idx0, d2, float(scores[k_star]), xy_yaw.numpy())
 
-    def locate(self, points: np.ndarray, mask: np.ndarray
-               ) -> LocalizationResult:
-        """Full pipeline for ONE query scan (N, ≥3) with mask (N,)."""
+    def locate(self, points: np.ndarray, mask: Optional[np.ndarray] = None,
+               origin: Optional[np.ndarray] = None) -> LocalizationResult:
+        """Full pipeline for ONE query: a scan (N, ≥3) with mask (N,), or a
+        BEV image (S, S, 3) with its origin (2,)."""
         if not self.keyframes:
             return self._empty_result()
-        d2, idx, bev, ground = self.detect(points[None], mask[None])
+        d2, idx, bev, ground = self.detect(*_one(points, mask, origin))
         # a db smaller than top_k returns inf-distance filler candidates:
         # clamp them to a real keyframe (their inf distance ranks them last)
         idx0 = np.clip(idx[0], 0, len(self.keyframes) - 1)
         res = self._staged(bev.image[0], bev.origin_xy[0], idx0)
         return self._result(res, idx0, d2[0], ground)
 
-    def locate_batch(self, points: np.ndarray, masks: np.ndarray
+    def locate_batch(self, points: np.ndarray,
+                     masks: Optional[np.ndarray] = None,
+                     origins: Optional[np.ndarray] = None
                      ) -> List[LocalizationResult]:
-        """Localize B query scans (B, N, ≥3) with masks (B, N): extraction
-        and the bank search run once for the batch. With ``staged_first``,
+        """Localize B query scans (B, N, ≥3) with masks (B, N), or B BEV
+        images (B, S, S, 3) with origins (B, 2): extraction and the bank
+        search run once for the batch. With ``staged_first``,
         stage 1 registers every query's top candidate and stage 2 all top-k
         candidates of the queries that failed stage 1, spliced back by
         lane. Each result equals ``locate``'s on the same scan."""
         if not self.keyframes:
             return [self._empty_result() for _ in range(len(points))]
-        d2, idx, bev, ground = self.detect(points, masks)
+        d2, idx, bev, ground = self.detect(points, masks, origins)
         b, k = idx.shape
         idx = np.clip(idx, 0, len(self.keyframes) - 1)
 
@@ -430,14 +484,16 @@ class GlobalLocalizer:
         return [self._result(MatchResult(*(x[q] for x in res)), idx[q],
                              d2[q], ground, q) for q in range(b)]
 
-    def locate_fused(self, points: np.ndarray, mask: np.ndarray
+    def locate_fused(self, points: np.ndarray,
+                     mask: Optional[np.ndarray] = None,
+                     origin: Optional[np.ndarray] = None
                      ) -> LocalizationResult:
-        """``locate`` for ONE scan with the search results kept on the
-        device: the top-k ids are clamped there and the candidates gathered
-        from the device keyframe store by them, so the host reads only the
-        staged branch's success and the final lanes. Host stats, all-device
-        and aligned extraction as the localizer is built. Results equal
-        ``locate``'s. Needs ``device_keyframes=True`` and a built store;
+        """``locate`` for ONE query, a scan or a BEV image (S, S, 3), with
+        the search results kept on the device: the top-k ids are clamped
+        there and the candidates gathered from the device keyframe store by
+        them, so the host reads only the staged branch's success and the
+        final lanes. Host stats, all-device, aligned and image extraction
+        as the localizer is built. Results equal ``locate``'s. Needs ``device_keyframes=True`` and a built store;
         ``match.refine_icp`` is not supported."""
         if not self.keyframes:
             return self._empty_result()
@@ -447,10 +503,7 @@ class GlobalLocalizer:
         if self.cfg.match.refine_icp:
             raise RuntimeError("locate_fused does not compose with "
                                "match.refine_icp (use locate)")
-        if np.ndim(points) == 3:
-            raise _not_ported("locate_fused on a BEV image (i2i) query",
-                              "item 12")
-        desc, bev, ground = self.extract(points[None], mask[None])
+        desc, bev, ground = self.extract(*_one(points, mask, origin))
         d2, idx = self.bank.query_device(desc, k=self.cfg.index.top_k)
         rows = idx[0].clamp(0, max(len(self.bank) - 1, 0))
         res = self._staged(bev.image[0], bev.origin_xy[0], rows)

@@ -1,7 +1,7 @@
 """NetVLAD centroid initialisation from encoder descriptors.
 
 Port of ``gloc3d_tpu/train/cluster.py`` (the reference's cluster mode):
-sample scans, take random spatial positions of the encoder's channel-wise
+sample scans (or BEV images, i2i), take random spatial positions of the encoder's channel-wise
 L2-normalised feature map, k-means them into ``num_clusters`` centroids,
 then set NetVLAD's assignment conv from them (``init_netvlad_params``).
 
@@ -22,14 +22,15 @@ from gloc3d_tpu_torch.models.netvlad import init_netvlad_params
 
 @torch.no_grad()
 def sample_encoder_descriptors(
-    model, inputs: np.ndarray, masks: np.ndarray,
+    model, inputs: np.ndarray, masks: Optional[np.ndarray],
     generator: Optional[torch.Generator] = None,
     num_images: int = 500, per_image: int = 100, batch: int = 8,
     l2_normalize: bool = True,
     draws: Optional[Tuple[Sequence[int], np.ndarray]] = None,
 ) -> torch.Tensor:
     """``(len(sel)·per_image, D)`` encoder features at random positions,
-    on the model's device. ``draws = (sel, positions)``: the scans to
+    on the model's device. ``masks`` is None for BEV images (an image
+    encoder). ``draws = (sel, positions)``: the scans to
     encode, in order, and a ``(len(sel), per_image)`` array of flat
     positions in the ``gy·gx`` map; drawn from ``generator`` otherwise (a
     permutation, then per batch of scans, uniform positions)."""
@@ -47,9 +48,11 @@ def sample_encoder_descriptors(
     try:
         for i in range(0, len(sel), batch):
             idx = sel[i:i + batch]
+            mask = (None if masks is None else torch.from_numpy(
+                np.asarray(masks[idx], np.float32)).to(dev))
             feat = model.encode(
                 torch.from_numpy(np.asarray(inputs[idx], np.float32)).to(dev),
-                torch.from_numpy(np.asarray(masks[idx], np.float32)).to(dev))
+                mask)
             b, h, w, c = feat.shape
             flat = feat.reshape(b, h * w, c).float()
             if l2_normalize:
@@ -67,7 +70,7 @@ def sample_encoder_descriptors(
 
 
 def init_vlad_from_data(
-    cfg, model, inputs: np.ndarray, masks: np.ndarray,
+    cfg, model, inputs: np.ndarray, masks: Optional[np.ndarray],
     generator: Optional[torch.Generator] = None,
     num_images: int = 500, per_image: int = 100,
     draws=None, seed_draws=None,

@@ -207,9 +207,10 @@ def test_shared_config_round_trips_through_json():
 
 def test_port_runs_without_jax():
     """Import the port and run CPU located queries (host stats, all-device
-    binning, and a fused query from the device keyframe store with the fm
-    matcher preset) and a training epoch on each path with jax, flax and
-    the JAX package blocked: the port never needs JAX, and no module it
+    binning, a fused query from the device keyframe store with the fm
+    matcher preset, and an i2i fused query on a 64² BEV image) and a
+    training epoch on each path with jax, flax and the JAX package
+    blocked: the port never needs JAX, and no module it
     loads and no shared library it maps lies under gloc3d_tpu/ or
     native/."""
     script = textwrap.dedent("""
@@ -265,6 +266,24 @@ def test_port_runs_without_jax():
         loc.add_keyframes(np.stack([k[0] for k in kf]),
                           np.stack([k[1] for k in kf]))
         res = loc.locate_fused(*scan(20, 5))
+        assert res.success and res.db_index == 1, res
+
+        # the i2i serving path: VGG16 + NetVLAD-FC on 64² BEV images
+        icfg = g.PipelineConfig.i2i().replace(
+            bev=g.BEVConfig(image_size=64, max_points=2048, resolution=0.5),
+            match=g.MatchConfig(image_size=64, min_score=0.1,
+                                min_overlap_pixels=16))
+        icfg = icfg.replace(
+            model=icfg.model.replace(compute_dtype="float32"),
+            index=icfg.index.replace(top_k=2, capacity=4))
+        iloc = g.GlobalLocalizer(
+            icfg, g.init_params(g.build_model(icfg.model, icfg.voxel)),
+            device="cpu", device_keyframes=True, host_mirror=False)
+        _, bev, _ = iloc.extract(np.stack([k[0] for k in kf]),
+                                 np.stack([k[1] for k in kf]))
+        images = bev.image[..., None].repeat(1, 1, 1, 3).numpy()
+        iloc.add_keyframes(images, origins=bev.origin_xy.numpy())
+        res = iloc.locate_fused(images[1], origin=bev.origin_xy[1].numpy())
         assert res.success and res.db_index == 1, res
 
         # one training epoch on each path (small grid, 3 clouds per step)

@@ -258,19 +258,16 @@ def test_locate_fused_matches_jax(localizers, stored):
               xy_tol=1e-3)
 
 
-@pytest.mark.parametrize("case", ["no store", "refine_icp", "image query"])
+@pytest.mark.parametrize("case", ["no store", "refine_icp"])
 def test_locate_fused_guards(localizers, stored, case):
     port = localizers[1]
     pts, mask = QUERY_SCANS[0]
     if case == "no store":
         loc, err, match = port, RuntimeError, "device_keyframes"
-    elif case == "refine_icp":
+    else:
         loc = _built(port, device_keyframes=True)
         loc.cfg = CFG.replace(match=CFG.match.replace(refine_icp=True))
         err, match = RuntimeError, "refine_icp"
-    else:
-        loc, err, match = stored, NotImplementedError, "item 12"
-        pts, mask = np.ones((128, 128, 3), np.float32), None
     with pytest.raises(err, match=match):
         loc.locate_fused(pts, mask)
 
