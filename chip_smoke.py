@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's s2s located queries and training once on one
-NVIDIA card.
+"""Drive the PyTorch port's s2s and i2i located queries and s2s training
+once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -67,30 +67,52 @@ Phases, each printing its own lines:
      shape and the located query, host-stats and all-device (the default); the aligned detect and locate,
      the aligned stage split, and the device's idle share over one aligned
      query from a torch.profiler trace;
- 11. training at full width on each path, all-device then host-stats (24 db
+ 11. the i2i path at PipelineConfig.i2i() (VGG16 + NetVLAD-FC, 64 clusters x
+     512, FC 32 768 → 512, bf16, 768² BEV; seeded weights, NetVLAD
+     initialised from the VGG feature maps of the aligned map's db BEVs):
+     a. bench.py's i2i cell: detect (forward + top-20 over a random
+        10 000 x 512 bank) per query at B=1 and B=8 (CUDA events), the
+        forward's FLOPs from its conv shapes, achieved TFLOP/s and
+        i2i_forward_mfu against 989 TFLOP/s dense bf16, a traced detect's
+        device busy time, kernel count and device time by class;
+     b. the paper's configuration, align_ground=True on the tilted map of
+        phase 6 (16 keyframes, 8 queries) held to its gates, per-query
+        time, its stages and the idle share;
+     c. image inputs on the serving configuration (fast_match(fm=True),
+        device store, no host mirror): the located world's BEVs rendered
+        by the port as (B, S, S, 3) images with origins, image queries
+        held to phase 5's gates; locate = locate_fused (bf16) and locate
+        = locate_batch = locate_fused (fp32: same db_index and candidate
+        set, (dx, dy, yaw) within 1e-4); per-query time, host syncs;
+     d. card vs CPU, fp32 with TF32 off in cuDNN and matmul: one 768²
+        forward (relative L2 error of the descriptor, limit 1e-3) and one
+        aligned i2i located query (same keyframe, pose within 1e-3 m);
+ 12. training at full width on each path, all-device then host-stats (24 db
      + 8 query scans, init_vlad_from_data, the default step of 24 clouds):
      one epoch with K1 / K2 launch and backward counts, a finite loss, a
      nonzero gradient for every encoder parameter and changed parameters;
      every kernel launch of one cache batch and one step held to its plain
      version; step and cache-refresh times, peak memory, a traced step;
- 12. both kernels' autograd Functions against autograd through the plain
+ 13. both kernels' autograd Functions against autograd through the plain
      versions at (24, 122480, 64): forward (bound 1e-5 of L1 mass), gradient
      (bound 1e-6), backward times;
- 13. one fp32 step on each path, card against CPU at a 16 384-point pad:
+ 14. one fp32 step on each path, card against CPU at a 16 384-point pad:
      loss within rtol 1e-4, gradients within twice the CPU's own floor
      (mkldnn convolutions off against on);
- 14. each kernel alone at the main path's and the train step's shapes: its
+ 15. each kernel alone at the main path's and the train step's shapes: its
      device time from torch.profiler (L2-warm and L2-flushed), its bound,
      the wrapper's time (K2's with and without its id-range check, and the
      check alone) and the time of the one PyTorch call computing the same
      function (K1: torch.segment_reduce; K2: index_add_ + bincount).
-`python3 chip_smoke.py --kernels` runs phases 1-4 and 14 only.
+`python3 chip_smoke.py --kernels` runs phases 1-4 and 15 only, `--i2i`
+phases 1 and 11a-d only (the i2i path runs neither kernel).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before those.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -1362,6 +1384,334 @@ def phase_timing(torch, cfg, loc, kf, qs, card):
           f"same queries x 3)")
 
 
+# ------------------------------------------------------------------- i2i
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
+
+
+def event_ms(torch, fn, iters: int) -> float:
+    """Median of iters CUDA-event times of one fn() each (host gaps
+    inside the call included)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times))
+
+
+def i2i_model(torch, cfg, dtype: str, centroids=None, alpha: float = 30.0,
+              device="cuda"):
+    """The port's seeded VGG16 + NetVLAD-FC in ``dtype`` on ``device``,
+    NetVLAD given ``centroids`` (assignment weights alpha·centroids) where
+    given."""
+    from gloc3d_tpu_torch.models.descriptor import build_model, init_params
+
+    model = init_params(build_model(
+        cfg.model.replace(compute_dtype=dtype), cfg.voxel), seed=0)
+    if centroids is not None:
+        with torch.no_grad():
+            model.pool.centroids.copy_(centroids)
+            model.pool.conv.weight.copy_(alpha * centroids[:, :, None, None])
+    return model.to(device).eval()
+
+
+def i2i_centroids(torch, cfg, kf_set, seed=0):
+    """NetVLAD's data init for the i2i phases: K normalised local features
+    of the seeded fp32 VGG16, sampled from the feature maps of the aligned
+    map's db BEVs (as vlad_centroids does for PointPillar)."""
+    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
+
+    model = i2i_model(torch, cfg, "float32")
+    loc = GlobalLocalizer(cfg, model, device=torch.device("cuda"),
+                          align_ground=True)
+    feats = []
+    with torch.no_grad():
+        for i in range(0, len(kf_set[2]), 4):
+            kf = kf_set[2][i:i + 4]
+            _, bev, _ = loc.extract(np.stack([k[0] for k in kf]),
+                                    np.stack([k[1] for k in kf]))
+            feats.append(model.encode(bev.image[..., None].repeat(1, 1, 1, 3)))
+    f = torch.nn.functional.normalize(
+        torch.cat(feats).reshape(-1, cfg.model.encoder_dim).float(),
+        dim=-1).cpu()
+    pick = torch.randperm(f.shape[0], generator=torch.Generator(
+    ).manual_seed(seed))[: cfg.model.num_clusters]
+    return f[pick]
+
+
+def render_bevs(torch, cfg, scans):
+    """Scans → their BEV images as the i2i inputs a user loads from disk:
+    ((B, S, S, 3) float32 numpy, free = 1.0; (B, 2) origins), projected by
+    the port on the card."""
+    from gloc3d_tpu_torch.ops.bev import batch_scan_to_bev
+
+    images, origins = [], []
+    for i in range(0, len(scans), 4):
+        pts = torch.from_numpy(np.stack([s[0] for s in scans[i:i + 4]]))
+        mask = torch.from_numpy(np.stack([s[1] for s in scans[i:i + 4]]))
+        bev = batch_scan_to_bev(pts[..., :3].cuda(), mask.cuda(), cfg.bev)
+        images.append(bev.image[..., None].repeat(1, 1, 1, 3).cpu().numpy())
+        origins.append(bev.origin_xy.cpu().numpy())
+    return np.concatenate(images), np.concatenate(origins)
+
+
+def top_kernels(events, n: int = 4) -> str:
+    """The n kernels of a trace with the most device time, summed by
+    name."""
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+    return "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top)
+
+
+def phase_i2i_cell(torch, cfg, model, card):
+    """bench.py's i2i shape: one (1, 768, 768, 3) image (rand > 0.01), a
+    random (10 000, 512) bank, detect = forward + top-20; B=1 and B=8."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gloc3d_tpu_torch.models.vgg import conv_flops
+    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
+
+    s = cfg.bev.image_size
+    rng = np.random.RandomState(0)
+    img1 = (rng.rand(1, s, s, 3) > 0.01).astype(np.float32)
+    img8 = np.repeat(img1, 8, axis=0)
+    det = GlobalLocalizer(cfg, model, device=torch.device("cuda"))
+    det.bank.add(rng.randn(10000, cfg.index.dim).astype(np.float32))
+    d1, i1, _, _ = det.detect(img1)
+    d8, i8, _, _ = det.detect(img8)
+    check(i1.shape == (1, cfg.index.top_k) and np.isfinite(d1).all(),
+          "i2i detect output")
+    check(bool((i8 == i1).all()), "i2i detect at B=8 differs from B=1")
+
+    b1 = event_ms(torch, lambda: det.detect(img1), 20)
+    b8 = event_ms(torch, lambda: det.detect(img8), 10) / 8
+    h1 = host_ms(torch, lambda: det.detect(img1), 20)
+    x1, x8 = torch.from_numpy(img1).cuda(), torch.from_numpy(img8).cuda()
+    # the encoder as built (conv weights channels-last) against a copy with
+    # contiguous (NCHW) weights, in the order built, NCHW, NCHW, built
+    nchw = copy.deepcopy(det.model.encoder).to(
+        memory_format=torch.contiguous_format)
+    with torch.no_grad():
+        enc1 = event_ms(torch, lambda: det.model.encode(x1), 20)
+        enc8 = event_ms(torch, lambda: det.model.encode(x8), 10) / 8
+        fwd1 = event_ms(torch, lambda: det.model(x1), 20)
+        layouts = [event_ms(torch, lambda: enc(x1), 20) for enc in (
+            det.model.encoder, nchw, nchw, det.model.encoder)]
+    flops = conv_flops(1, s)
+    mfu1 = flops / (enc1 * 1e-3) / BF16_FLOPS_PER_S
+    mfu8 = flops / (enc8 * 1e-3) / BF16_FLOPS_PER_S
+    bound = flops / BF16_FLOPS_PER_S * 1e3
+    print(f"[i2i-cell] detect at bench.py's i2i shape (VGG16 + NetVLAD-FC "
+          f"bf16, {s}² image, 10000 x {cfg.index.dim} bank, top-"
+          f"{cfg.index.top_k}) on {card}: {b1:.3f} ms per query at B=1, "
+          f"{b8:.3f} ms per query at B=8 (CUDA events around detect, median "
+          f"of 20 / 10; image upload included); host clock {h1:.3f} ms at "
+          f"B=1 (median of 20)")
+    print(f"[i2i-cell] VGG16 forward on an image on the card: "
+          f"{flops / 1e9:.1f} GFLOP per image (13 convs, from their shapes), "
+          f"bound {bound:.4f} ms at 989 TFLOP/s dense bf16; conv stack "
+          f"{enc1:.3f} ms at B=1 ({flops / enc1 / 1e9:.1f} TFLOP/s, "
+          f"i2i_forward_mfu={mfu1:.4f}), {enc8:.3f} ms per image at B=8 "
+          f"({flops / enc8 / 1e9:.1f} TFLOP/s, share {mfu8:.4f}); with "
+          f"NetVLAD-FC {fwd1:.3f} ms at B=1 (CUDA events, median); conv "
+          f"stack at B=1 with channels-last weights (as built) "
+          f"{layouts[0]:.3f} / {layouts[3]:.3f} ms, with NCHW weights "
+          f"{layouts[1]:.3f} / {layouts[2]:.3f} ms (order built, NCHW, NCHW, "
+          f"built)")
+    det.detect(img1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        det.detect(img1)
+        torch.cuda.synchronize()
+    events = trace_events(prof)
+    busy, wall, n_k, by_class = device_idle_share(
+        torch, lambda: det.detect(img1))
+    print(f"[i2i-cell] traced detect at B=1: device busy {busy:.3f} ms of "
+          f"{wall:.3f} ms wall, {n_k} kernels; device ms by class: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+              by_class.items(), key=lambda kv: -kv[1]))
+          + f"; top kernels: {top_kernels(events)}")
+    return {"i2i_forward_mfu": mfu1, "forward_ms": enc1,
+            "detect_ms_b1": b1, "detect_ms_b8": b8}
+
+
+def phase_i2i_aligned(torch, cfg, model, kf_set, q_set, card):
+    """The paper's configuration: aligned scan → BEV → VGG16 → 6-DoF, on
+    the tilted world of phase 6, held to its gates."""
+    from gloc3d_tpu_torch.ops.bev import batch_scan_to_bev
+    from gloc3d_tpu_torch.ops.topk import l2_topk
+
+    qs = q_set[2]
+    loc, results = run_aligned(torch, cfg, model, kf_set[2], qs,
+                               host_stats=False)
+    check_aligned(torch, "i2i-aligned", results, kf_set, q_set)
+    locate = host_ms(torch, lambda: [loc.locate(*q) for q in qs], 3) / len(qs)
+    pts, mask = qs[0]
+    p_d = torch.from_numpy(pts[None]).cuda()
+    m_d = torch.from_numpy(mask[None]).cuda()
+    with torch.no_grad():
+        ground = cuda_ms(torch, lambda: loc._align(p_d, m_d), 10)
+        aligned, _ = loc._align(p_d, m_d)
+        bev_ms = cuda_ms(torch, lambda: batch_scan_to_bev(
+            aligned[..., :3], m_d, cfg.bev), 10)
+        bev = batch_scan_to_bev(aligned[..., :3], m_d, cfg.bev)
+        img = bev.image[..., None].repeat(1, 1, 1, 3)
+        fwd = cuda_ms(torch, lambda: loc.model(img), 10)
+        desc = loc.model(img)
+        topk = cuda_ms(torch, lambda: l2_topk(desc, loc.bank.data,
+                                              cfg.index.top_k), 10)
+    reg = cuda_ms(torch, lambda: loc._match(bev.image[0], bev.origin_xy[0],
+                                            np.zeros(1, np.int64)), 5)
+    busy, wall, n_k, by_class = device_idle_share(
+        torch, lambda: loc.locate(*qs[1]))
+    print(f"[i2i-aligned] aligned i2i locate ({len(kf_set[2])} keyframes, "
+          f"staged first, default matcher) on {card}: {locate:.3f} ms per "
+          f"query (host clock, {len(qs)} queries x 3); stages of one scan "
+          f"(CUDA events around each call): ground estimate + alignment "
+          f"{ground:.3f} ms, device BEV {bev_ms:.3f} ms, VGG16 + NetVLAD-FC "
+          f"forward {fwd:.3f} ms, top-{cfg.index.top_k} {topk:.3f} ms, "
+          f"registration K=1 {reg:.3f} ms")
+    print(f"[i2i-aligned] traced aligned i2i locate: device busy "
+          f"{busy:.3f} ms of {wall:.3f} ms wall, idle share "
+          f"{1 - busy / wall:.3f}, {n_k} kernels (against the untraced "
+          f"{locate:.3f} ms the idle share is {1 - busy / locate:.3f}); "
+          f"device ms by class: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(by_class.items(),
+                                                key=lambda kv: -kv[1])))
+    return locate
+
+
+def phase_i2i_fused(torch, cfg, centroids, lq_set, card):
+    """Image inputs on the serving configuration: the located world's db
+    BEVs as (B, S, S, 3) images with their origins, fast_match(fm=True),
+    the device store without a host mirror, image queries. The bf16 map is
+    held to the located gates and locate = locate_fused; locate =
+    locate_batch = locate_fused on the fp32 map (a batch of 8 may take
+    other conv kernels than a batch of 1, and bf16 rounding then reorders
+    nearly tied keyframes)."""
+    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
+
+    (kf_poses, kf), (q_poses, qs) = lq_set
+    kf_img, kf_org = render_bevs(torch, cfg, kf)
+    q_img, q_org = render_bevs(torch, cfg, qs)
+
+    def serving(model):
+        loc = GlobalLocalizer(cfg.fast_match(fm=True), model,
+                              device=torch.device("cuda"),
+                              device_keyframes=True, host_mirror=False)
+        for i in range(0, len(kf_img), 4):
+            loc.add_keyframes(kf_img[i:i + 4], origins=kf_org[i:i + 4])
+        return loc
+
+    loc = serving(i2i_model(torch, cfg, "bfloat16", centroids))
+    check(all(k.image is None for k in loc.keyframes),
+          "host_mirror=False kept images on the host")
+    fused = [loc.locate_fused(i, origin=o) for i, o in zip(q_img, q_org)]
+    check_located("i2i-fused", fused, kf_poses, q_poses, cfg.index.top_k)
+    d0, _ = same_results("i2i bf16 locate vs locate_fused",
+                         [loc.locate(i, origin=o)
+                          for i, o in zip(q_img, q_org)], fused)
+    loc32 = serving(i2i_model(torch, cfg, "float32", centroids))
+    r_loc = [loc32.locate(i, origin=o) for i, o in zip(q_img, q_org)]
+    r_batch = loc32.locate_batch(q_img, origins=q_org)
+    r_fused = [loc32.locate_fused(i, origin=o) for i, o in zip(q_img, q_org)]
+    d1, _ = same_results("i2i fp32 locate vs locate_batch", r_loc, r_batch,
+                         ranked=False)
+    d2, _ = same_results("i2i fp32 locate vs locate_fused", r_loc, r_fused,
+                         ranked=False)
+    print(f"[i2i-fused] locate = locate_fused on the bf16 map (max |diff| "
+          f"{d0:.2e}); fp32 map: locate = locate_batch = locate_fused for "
+          f"{len(qs)}/{len(qs)} queries ({sum(r.success for r in r_loc)} "
+          f"localized; same db_index and candidate set), xy_yaw max |diff| "
+          f"{d1:.2e} / {d2:.2e} (bound 1e-4)")
+
+    img, org = q_img[0], q_org[0]
+
+    def fused_call():
+        return loc.locate_fused(img, origin=org)
+
+    def plain_call():
+        return loc.locate(img, origin=org)
+
+    t = [host_ms(torch, f, 10) for f in (fused_call, plain_call, plain_call,
+                                         fused_call)]
+    syncs = (count_syncs(torch, plain_call), count_syncs(torch, fused_call))
+    busy, wall, n_k, _ = device_idle_share(torch, fused_call)
+    print(f"[i2i-fused] image query, fm preset, bf16, {len(kf_img)}-keyframe "
+          f"store on {card}: locate_fused {t[0]:.3f} / {t[3]:.3f} ms per "
+          f"query, locate {t[1]:.3f} / {t[2]:.3f} ms (host clock, median of "
+          f"10 each, in the order fused, locate, locate, fused); host syncs "
+          f"per call (set_sync_debug_mode): locate {syncs[0]}, locate_fused "
+          f"{syncs[1]}; traced locate_fused: device busy {busy:.3f} ms of "
+          f"{wall:.3f} ms wall, {n_k} kernels")
+    return t[0]
+
+
+def phase_i2i_reference(torch, cfg, kf_set, q_set, centroids):
+    """Card against CPU, fp32 with TF32 off in both cuDNN and matmul: one
+    768² forward (a real BEV of the aligned map), and one aligned i2i
+    located query with the same draws."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    img, _ = render_bevs(torch, cfg, q_set[2][:1])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = i2i_model(torch, cfg, "float32", centroids, device=dev)
+        with torch.no_grad():
+            feat = model.encode(torch.from_numpy(img).to(dev))
+            out[dev] = (feat.cpu().double(), model.pool(feat).cpu().double())
+    (f_g, d_g), (f_c, d_c) = out["cuda"], out["cpu"]
+    rel_f = float((f_g - f_c).norm() / f_c.norm())
+    rel_d = float((d_g - d_c).norm() / d_c.norm())
+    print(f"[i2i-reference] fp32 {img.shape[1]}² forward card vs CPU (TF32 "
+          f"off in cuDNN and matmul): relative L2 error of the VGG16 feature "
+          f"map {rel_f:.3e}, of the descriptor {rel_d:.3e} (limit 1e-3)")
+    check(rel_d < 1e-3 and rel_f < 1e-3,
+          "card i2i forward disagrees with the CPU")
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = i2i_model(torch, cfg, "float32", centroids, device=dev)
+        loc, _ = run_aligned(torch, cfg, model, kf_set[2][:2], [],
+                             host_stats=False, seed=5, device=dev)
+        res[dev] = loc.locate(*q_set[2][0])
+    a, b = res["cuda"], res["cpu"]
+    check(a.success and a.success == b.success and a.db_index == b.db_index,
+          f"card aligned i2i locate (success {a.success}, db {a.db_index}) "
+          f"!= CPU (success {b.success}, db {b.db_index})")
+    dt = float(np.abs(a.pose.translation - b.pose.translation).max())
+    print(f"[i2i-reference] aligned i2i locate card vs CPU: db "
+          f"{a.db_index}/{b.db_index}, pose translation max |diff| "
+          f"{dt:.2e} m (bound 1e-3 m)")
+    check(dt < 1e-3, f"card aligned i2i pose differs by {dt:.3e} m")
+
+
+def run_i2i(torch, kf_set, q_set, lq_set, card):
+    """The four i2i phases at PipelineConfig.i2i() (VGG16, 64 clusters x
+    512, FC 32 768 → 512, bf16, 768² BEV)."""
+    from gloc3d_tpu_torch import PipelineConfig
+
+    cfg = PipelineConfig.i2i()
+    centroids = i2i_centroids(torch, cfg, kf_set)
+    model = i2i_model(torch, cfg, "bfloat16", centroids)
+    out = phase_i2i_cell(torch, cfg, model, card)
+    out["aligned_locate_ms"] = phase_i2i_aligned(torch, cfg, model, kf_set,
+                                                 q_set, card)
+    out["fused_ms"] = phase_i2i_fused(torch, cfg, centroids, lq_set, card)
+    phase_i2i_reference(torch, cfg, kf_set, q_set, centroids)
+    return out
+
+
 # ------------------------------------------------------ kernel-only times
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
@@ -1957,9 +2307,14 @@ def main(argv) -> int:
 
     cfg = PipelineConfig.s2s()
     cfg = cfg.replace(model=cfg.model.replace(fold_bn=True))
-    phase_build()
     world = make_world()
     kf_set, q_set = aligned_world_scans(world, cfg.voxel.max_points)
+    if "--i2i" in argv:
+        i2i = run_i2i(torch, kf_set, q_set, located_world_scans(
+            world, cfg.voxel.max_points), card)
+        print(json.dumps({"card": card, "i2i": i2i}))
+        return 0
+    phase_build()
     centroids = vlad_centroids(torch, cfg, kf_set[2][:4])
     k1_err, k1_ms, k1_plain_ms, k1_main = phase_k1(torch, cfg, world, card)
     k1_pillar0_same = check_k1_pillar0_determinism(torch, *k1_main)
@@ -1990,6 +2345,8 @@ def main(argv) -> int:
 
     phase_timing(torch, cfg, loc, kf, qs, card)
     phase_aligned_timing(torch, cfg, a_loc, q_set[2], card)
+    i2i = run_i2i(torch, kf_set, q_set, lq_set, card)
+    print(json.dumps({"card": card, "i2i": i2i}))
 
     ds = training_dataset(world, cfg.voxel.max_points)
     train_counts = phase_training(torch, cfg, ds, card)

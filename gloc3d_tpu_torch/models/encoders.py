@@ -199,11 +199,15 @@ class ResNet18Encoder(nn.Sequential):
 
 
 def build_image_encoder(name: str, compute_dtype: torch.dtype) -> nn.Module:
+    """The encoder ``name`` with its conv weights channels-last in memory
+    (loading and casting keep the layout), as its activations are: cuDNN
+    then takes the weights as they are instead of reordering them on every
+    call."""
     cls = {"vgg16": VGG16Encoder, "alexnet": AlexNetEncoder,
            "mobilenet": MobileNetV2Encoder, "resnet18": ResNet18Encoder}
     if name not in cls:
         raise ValueError(f"unknown image encoder {name!r}")
-    return cls[name](compute_dtype)
+    return cls[name](compute_dtype).to(memory_format=torch.channels_last)
 
 
 # ---------------------------------------------------------------------------

@@ -94,7 +94,7 @@ class Trainer:
                               "item 16")
         if cfg.model.encoder != "pointpillar":
             raise _not_ported(f"training the {cfg.model.encoder!r} encoder",
-                              "item 12")
+                              "item 12b")
         if cfg.model.fold_bn:
             raise ValueError("training needs live BatchNorm: build the "
                              "model with fold_bn=False")

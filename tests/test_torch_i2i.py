@@ -445,3 +445,15 @@ def test_images_need_an_image_encoder():
                           device="cpu")
     with pytest.raises(ValueError, match="image encoder"):
         loc.extract(np.ones((1, S, S, 3), np.float32))
+
+
+def test_trainer_refuses_image_encoders(port_model, tmp_path):
+    """i2i training (the conv10+ freeze, image triplets) is not ported."""
+    from gloc3d_tpu_torch.data.dataset import TripletDataset
+    from gloc3d_tpu_torch.train import Trainer
+
+    images, _ = _render(DB_POSES[:2])
+    ds = TripletDataset(db_inputs=images, q_inputs=images[:1],
+                        utm_db=np.zeros((2, 2)), utm_q=np.zeros((1, 2)))
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        Trainer(CFG, port_model, ds, str(tmp_path), device="cpu")
