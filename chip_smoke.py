@@ -1247,10 +1247,9 @@ def trace_events(prof) -> list:
             return json.load(f)["traceEvents"]
 
 
-def device_idle_share(torch, fn):
-    """Trace fn() once with torch.profiler: (device busy ms as the union of
-    kernel / memcpy / memset intervals, wall ms, number of kernels, device
-    ms by class)."""
+def trace(torch, fn):
+    """Trace fn() once with torch.profiler, after one untraced call: (the
+    chrome-trace events, wall ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1261,7 +1260,12 @@ def device_idle_share(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = trace_events(prof)
+    return trace_events(prof), wall
+
+
+def device_busy(events):
+    """(device busy ms as the union of kernel / memcpy / memset intervals,
+    number of kernels, device ms by class) of a trace's events."""
     spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
     busy, end = 0.0, -math.inf
@@ -1270,7 +1274,15 @@ def device_idle_share(torch, fn):
             busy += b - max(a, end)
             end = b
     n_kernels = sum(e.get("cat") == "kernel" for e in events)
-    return busy / 1e3, wall, n_kernels, device_time_by_class(events)
+    return busy / 1e3, n_kernels, device_time_by_class(events)
+
+
+def device_idle_share(torch, fn):
+    """Trace fn() once: (device busy ms, wall ms, number of kernels, device
+    ms by class)."""
+    events, wall = trace(torch, fn)
+    busy, n_kernels, by_class = device_busy(events)
+    return busy, wall, n_kernels, by_class
 
 
 def phase_aligned_timing(torch, cfg, loc, qs, card):
@@ -1475,8 +1487,6 @@ def top_kernels(events, n: int = 4) -> str:
 def phase_i2i_cell(torch, cfg, model, card):
     """bench.py's i2i shape: one (1, 768, 768, 3) image (rand > 0.01), a
     random (10 000, 512) bank, detect = forward + top-20; B=1 and B=8."""
-    from torch.profiler import ProfilerActivity, profile
-
     from gloc3d_tpu_torch.models.vgg import conv_flops
     from gloc3d_tpu_torch.pipeline import GlobalLocalizer
 
@@ -1527,15 +1537,8 @@ def phase_i2i_cell(torch, cfg, model, card):
           f"{layouts[0]:.3f} / {layouts[3]:.3f} ms, with NCHW weights "
           f"{layouts[1]:.3f} / {layouts[2]:.3f} ms (order built, NCHW, NCHW, "
           f"built)")
-    det.detect(img1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        det.detect(img1)
-        torch.cuda.synchronize()
-    events = trace_events(prof)
-    busy, wall, n_k, by_class = device_idle_share(
-        torch, lambda: det.detect(img1))
+    events, wall = trace(torch, lambda: det.detect(img1))
+    busy, n_k, by_class = device_busy(events)
     print(f"[i2i-cell] traced detect at B=1: device busy {busy:.3f} ms of "
           f"{wall:.3f} ms wall, {n_k} kernels; device ms by class: "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(

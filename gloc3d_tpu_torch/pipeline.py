@@ -9,9 +9,10 @@ BEV probability images straight from disk (free = 1.0) with their origins;
 channel 0 of an image is its registration BEV. The switches:
 
 - ``host_stats=False`` (the default, as in the JAX package): the
-  all-device extraction, the only one of an i2i model (``host_stats`` is
-  dropped for it: the host pass feeds PointPillar alone). The BEV image (``ops/bev.py::batch_scan_to_bev``)
-  and both pillar binnings (kernel K2) run on the device.
+  all-device extraction. The BEV image (``ops/bev.py::batch_scan_to_bev``)
+  and both pillar binnings (kernel K2) run on the device. It is the only
+  extraction of an i2i model: ``host_stats`` is dropped for one, as the
+  host pass feeds PointPillar alone.
 - ``host_stats=True``: the port's native host pass (``data/native.py``)
   computes pillar statistics, the counting sort, the per-point rows and the
   BEV image on the host, and the descriptor forward runs on the sorted rows
@@ -66,7 +67,7 @@ from gloc3d_tpu_torch.ops.ground import GroundEstimate, estimate_ground
 
 
 class Keyframe(NamedTuple):
-    image: Optional[np.ndarray]      # (S, S) uint8 BEV occupancy image;
+    image: Optional[np.ndarray]      # (S, S) uint8 BEV image (x255);
                                      # None with host_mirror=False
     origin_xy: Optional[np.ndarray]  # (2,) metric origin of pixel (0, 0);
                                      # None when ingested without a mirror
@@ -190,8 +191,8 @@ class GlobalLocalizer:
         if cfg.match.refine_icp:
             raise _not_ported("match.refine_icp", "item 14")
         self.cfg = cfg
-        self.images = cfg.model.encoder in ENCODER_DIMS
-        self.host_stats = host_stats and not self.images
+        self.i2i = cfg.model.encoder in ENCODER_DIMS
+        self.host_stats = host_stats and not self.i2i
         self.align_ground = align_ground
         self.device_keyframes = device_keyframes
         self.host_mirror = host_mirror
@@ -263,7 +264,7 @@ class GlobalLocalizer:
         The BEV batch is numpy with host stats and on the device
         without."""
         if np.ndim(inputs) == 4:
-            if not self.images:
+            if not self.i2i:
                 raise ValueError("BEV image inputs need an image encoder; "
                                  f"this model's is {self.cfg.model.encoder!r}")
             return self._extract_images(inputs, origins)
@@ -277,7 +278,7 @@ class GlobalLocalizer:
             pts_d, ground = self._align(pts_d, mask_d)
         if not self.host_stats:
             bev = batch_scan_to_bev(pts_d[..., :3], mask_d, self.cfg.bev)
-            if self.images:  # the BEV, repeated to 3 channels, is the input
+            if self.i2i:  # the BEV, repeated to 3 channels, is the input
                 desc = self.model(bev.image[..., None].repeat(1, 1, 1, 3))
             else:
                 desc = self.model(pts_d, mask_d)
@@ -493,8 +494,9 @@ class GlobalLocalizer:
         there and the candidates gathered from the device keyframe store by
         them, so the host reads only the staged branch's success and the
         final lanes. Host stats, all-device, aligned and image extraction
-        as the localizer is built. Results equal ``locate``'s. Needs ``device_keyframes=True`` and a built store;
-        ``match.refine_icp`` is not supported."""
+        as the localizer is built. Results equal ``locate``'s. Needs
+        ``device_keyframes=True`` and a built store; ``match.refine_icp``
+        is not supported."""
         if not self.keyframes:
             return self._empty_result()
         if self._kf_store is None:

@@ -1,9 +1,10 @@
 """NetVLAD centroid initialisation from encoder descriptors.
 
 Port of ``gloc3d_tpu/train/cluster.py`` (the reference's cluster mode):
-sample scans (or BEV images, i2i), take random spatial positions of the encoder's channel-wise
-L2-normalised feature map, k-means them into ``num_clusters`` centroids,
-then set NetVLAD's assignment conv from them (``init_netvlad_params``).
+sample scans (or BEV images, i2i), take random spatial positions of the
+encoder's channel-wise L2-normalised feature map, k-means them into
+``num_clusters`` centroids, then set NetVLAD's assignment conv from them
+(``init_netvlad_params``).
 
 The random draws are injectable (``draws``, ``seed_draws``) so a test can
 replay JAX's; by default they come from a CPU ``torch.Generator``.

@@ -31,7 +31,9 @@ from gloc3d_tpu.config import (
 from gloc3d_tpu.models import build_model as jax_build_model
 from gloc3d_tpu.models.vgg import load_vggvlad_npz
 from gloc3d_tpu.pipeline import GlobalLocalizer as JaxLocalizer
-from gloc3d_tpu_torch.convert import flax_to_state_dict, load_reference_checkpoint
+from gloc3d_tpu_torch.convert import (
+    flax_to_state_dict, load_reference_checkpoint,
+)
 from gloc3d_tpu_torch.models.descriptor import build_model, init_params
 from gloc3d_tpu_torch.models.vgg import VGG16_CFG, VGG16_CONV_IDX, conv_flops
 from gloc3d_tpu_torch.ops.bev import batch_scan_to_bev
@@ -191,7 +193,8 @@ def test_vggvlad_checkpoint_matches_jax(tmp_path, wrapped, prefixed):
 def test_init_vlad_from_images(port_model):
     """NetVLAD's data init takes BEV images without masks (cluster mode on
     the VGG feature map)."""
-    model = _port_model_copy(port_model)
+    model = build_model(CFG.model, CFG.voxel)
+    model.load_state_dict(port_model.state_dict())
     images, _ = _render(DB_POSES)
     cents, descs = init_vlad_from_data(
         CFG, model, images, None, torch.Generator().manual_seed(0),
@@ -199,12 +202,6 @@ def test_init_vlad_from_images(port_model):
     assert cents.shape == (64, 512) and descs.shape == (64, 512)
     torch.testing.assert_close(descs.norm(dim=1), torch.ones(64))
     torch.testing.assert_close(model.pool.centroids, cents)
-
-
-def _port_model_copy(model):
-    out = build_model(CFG.model, CFG.voxel)
-    out.load_state_dict(model.state_dict())
-    return out.eval()
 
 
 # ---------------------------------------------------------------- pipeline
@@ -433,7 +430,7 @@ def test_aligned_locate_matches_jax(variables, port_model, monkeypatch):
 # ---------------------------------------------------------------- guards
 def test_image_encoder_drops_host_stats(port_model):
     loc = GlobalLocalizer(CFG, port_model, device="cpu", host_stats=True)
-    assert loc.host_stats is False and loc.images
+    assert loc.host_stats is False and loc.i2i
 
 
 def test_images_need_an_image_encoder():
