@@ -104,15 +104,13 @@ Phases, each printing its own lines:
      the wrapper's time (K2's with and without its id-range check, and the
      check alone) and the time of the one PyTorch call computing the same
      function (K1: torch.segment_reduce; K2: index_add_ + bincount).
-`python3 chip_smoke.py --kernels` runs phases 1-4 and 15 only, `--i2i`
-phases 1 and 11a-d only (the i2i path runs neither kernel).
+`python3 chip_smoke.py --kernels` runs phases 1-4 and 15 only.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before those.
 """
 
 from __future__ import annotations
 
-import copy
 import json
 import math
 import os
@@ -1400,23 +1398,6 @@ def phase_timing(torch, cfg, loc, kf, qs, card):
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
 
 
-def event_ms(torch, fn, iters: int) -> float:
-    """Median of iters CUDA-event times of one fn() each (host gaps
-    inside the call included)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
-
-
 def i2i_model(torch, cfg, dtype: str, centroids=None, alpha: float = 30.0,
               device="cuda"):
     """The port's seeded VGG16 + NetVLAD-FC in ``dtype`` on ``device``,
@@ -1502,20 +1483,14 @@ def phase_i2i_cell(torch, cfg, model, card):
           "i2i detect output")
     check(bool((i8 == i1).all()), "i2i detect at B=8 differs from B=1")
 
-    b1 = event_ms(torch, lambda: det.detect(img1), 20)
-    b8 = event_ms(torch, lambda: det.detect(img8), 10) / 8
+    b1 = cuda_ms(torch, lambda: det.detect(img1), 20)
+    b8 = cuda_ms(torch, lambda: det.detect(img8), 10) / 8
     h1 = host_ms(torch, lambda: det.detect(img1), 20)
     x1, x8 = torch.from_numpy(img1).cuda(), torch.from_numpy(img8).cuda()
-    # the encoder as built (conv weights channels-last) against a copy with
-    # contiguous (NCHW) weights, in the order built, NCHW, NCHW, built
-    nchw = copy.deepcopy(det.model.encoder).to(
-        memory_format=torch.contiguous_format)
     with torch.no_grad():
-        enc1 = event_ms(torch, lambda: det.model.encode(x1), 20)
-        enc8 = event_ms(torch, lambda: det.model.encode(x8), 10) / 8
-        fwd1 = event_ms(torch, lambda: det.model(x1), 20)
-        layouts = [event_ms(torch, lambda: enc(x1), 20) for enc in (
-            det.model.encoder, nchw, nchw, det.model.encoder)]
+        enc1 = cuda_ms(torch, lambda: det.model.encode(x1), 20)
+        enc8 = cuda_ms(torch, lambda: det.model.encode(x8), 10) / 8
+        fwd1 = cuda_ms(torch, lambda: det.model(x1), 20)
     flops = conv_flops(1, s)
     mfu1 = flops / (enc1 * 1e-3) / BF16_FLOPS_PER_S
     mfu8 = flops / (enc8 * 1e-3) / BF16_FLOPS_PER_S
@@ -1523,8 +1498,8 @@ def phase_i2i_cell(torch, cfg, model, card):
     print(f"[i2i-cell] detect at bench.py's i2i shape (VGG16 + NetVLAD-FC "
           f"bf16, {s}² image, 10000 x {cfg.index.dim} bank, top-"
           f"{cfg.index.top_k}) on {card}: {b1:.3f} ms per query at B=1, "
-          f"{b8:.3f} ms per query at B=8 (CUDA events around detect, median "
-          f"of 20 / 10; image upload included); host clock {h1:.3f} ms at "
+          f"{b8:.3f} ms per query at B=8 (CUDA events around 20 / 10 "
+          f"detects, mean; image upload included); host clock {h1:.3f} ms at "
           f"B=1 (median of 20)")
     print(f"[i2i-cell] VGG16 forward on an image on the card: "
           f"{flops / 1e9:.1f} GFLOP per image (13 convs, from their shapes), "
@@ -1532,11 +1507,8 @@ def phase_i2i_cell(torch, cfg, model, card):
           f"{enc1:.3f} ms at B=1 ({flops / enc1 / 1e9:.1f} TFLOP/s, "
           f"i2i_forward_mfu={mfu1:.4f}), {enc8:.3f} ms per image at B=8 "
           f"({flops / enc8 / 1e9:.1f} TFLOP/s, share {mfu8:.4f}); with "
-          f"NetVLAD-FC {fwd1:.3f} ms at B=1 (CUDA events, median); conv "
-          f"stack at B=1 with channels-last weights (as built) "
-          f"{layouts[0]:.3f} / {layouts[3]:.3f} ms, with NCHW weights "
-          f"{layouts[1]:.3f} / {layouts[2]:.3f} ms (order built, NCHW, NCHW, "
-          f"built)")
+          f"NetVLAD-FC {fwd1:.3f} ms at B=1 (CUDA events, mean of 20 "
+          f"back-to-back calls at B=1, 10 at B=8)")
     events, wall = trace(torch, lambda: det.detect(img1))
     busy, n_k, by_class = device_busy(events)
     print(f"[i2i-cell] traced detect at B=1: device busy {busy:.3f} ms of "
@@ -2312,11 +2284,6 @@ def main(argv) -> int:
     cfg = cfg.replace(model=cfg.model.replace(fold_bn=True))
     world = make_world()
     kf_set, q_set = aligned_world_scans(world, cfg.voxel.max_points)
-    if "--i2i" in argv:
-        i2i = run_i2i(torch, kf_set, q_set, located_world_scans(
-            world, cfg.voxel.max_points), card)
-        print(json.dumps({"card": card, "i2i": i2i}))
-        return 0
     phase_build()
     centroids = vlad_centroids(torch, cfg, kf_set[2][:4])
     k1_err, k1_ms, k1_plain_ms, k1_main = phase_k1(torch, cfg, world, card)

@@ -6,11 +6,12 @@
 convert_torchvision_encoder``): it takes a DescriptorModel's Flax ``{params,
 batch_stats}`` (numpy or jax arrays; for PointPillar the folded tree with
 ``Conv_0``/``Dense_0`` biases and no BatchNorm too) and returns the
-reference torch names the port uses. The encoder is read from the tree:
-PointPillar (``pn``), VGG16 (``conv0``-``conv12`` → ``encoder.{0,2,5,…,
-28}``), AlexNet (``conv0``-``conv4``), MobileNetV2 (``stem_conv``) or
-ResNet18 (``conv1``). Layouts: conv HWIO → OIHW; Dense ``(in, out)`` →
-Conv1d ``(out, in, 1)``; VLAD assignment ``(D, K)`` → ``(K, D, 1, 1)``.
+reference torch names the port uses. The caller names the encoder, as
+``ModelConfig.encoder`` does: PointPillar (the default), VGG16 (Flax
+``conv0``-``conv12`` → ``encoder.{0,2,5,…,28}``), AlexNet, MobileNetV2 or
+ResNet18 (torchvision's names). Layouts: conv HWIO → OIHW; Dense
+``(in, out)`` → Conv1d ``(out, in, 1)``; VLAD assignment ``(D, K)`` →
+``(K, D, 1, 1)``.
 
 ``load_reference_checkpoint`` reads a reference PyTorch checkpoint (a
 ``.pth.tar`` of the GLoc3D s2s model or of its VGGVLAD i2i model, saved as
@@ -31,7 +32,8 @@ from typing import Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from gloc3d_tpu_torch.models.encoders import port_key, torchvision_state_dict
+from gloc3d_tpu_torch.models.encoders import (
+    is_image_encoder, port_key, torchvision_state_dict)
 from gloc3d_tpu_torch.models.vgg import VGG16_CONV_IDX
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm default, matches torch
@@ -68,30 +70,17 @@ def load_reference_checkpoint(path_or_obj: Union[str, os.PathLike, Mapping]
     return out
 
 
-def _image_encoder_name(enc_p: Mapping) -> Optional[str]:
-    """The image encoder whose Flax tree ``enc_p`` is, or None
-    (PointPillar)."""
-    if "conv12" in enc_p:
-        return "vgg16"
-    if "conv0" in enc_p:
-        return "alexnet"
-    if "stem_conv" in enc_p:
-        return "mobilenet"
-    if "conv1" in enc_p:
-        return "resnet18"
-    return None
-
-
-def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """DescriptorModel Flax variables → port state_dict: any encoder, any
-    pooling; for PointPillar both ``fold_bn`` variants."""
+def flax_to_state_dict(variables: Mapping, encoder: str = "pointpillar"
+                       ) -> Dict[str, torch.Tensor]:
+    """DescriptorModel Flax variables of ``encoder`` (a
+    ``ModelConfig.encoder`` name) → port state_dict: any pooling; for
+    PointPillar both ``fold_bn`` variants."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     enc_p, enc_s = params["encoder"], stats.get("encoder", {})
     pool = netvlad_state_dict(params.get("pool", {}), stats.get("pool"),
                               prefix="pool.")
-    image = _image_encoder_name(enc_p)
-    if image == "vgg16":
+    if encoder == "vgg16":
         out = {}
         for i, li in enumerate(VGG16_CONV_IDX):
             c = enc_p[f"conv{i}"]
@@ -99,10 +88,12 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                 3, 2, 0, 1).contiguous()
             out[f"encoder.{li}.bias"] = _t(c["bias"])
         return {**out, **pool}
-    if image is not None:
-        tv = torchvision_state_dict(image, enc_p, enc_s)
-        return {**{f"encoder.{port_key(image, k)}": v
+    if is_image_encoder(encoder):
+        tv = torchvision_state_dict(encoder, enc_p, enc_s)
+        return {**{f"encoder.{port_key(encoder, k)}": v
                    for k, v in tv.items()}, **pool}
+    if encoder != "pointpillar":
+        raise ValueError(f"unknown encoder {encoder!r}")
     out: Dict[str, torch.Tensor] = {}
 
     def bn(pnode, snode, dst):

@@ -34,10 +34,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gloc3d_tpu_torch.config import ENCODER_DIMS
 from gloc3d_tpu_torch.models.batchnorm import BatchNorm
 from gloc3d_tpu_torch.models.vgg import VGG16Encoder
-
-IMAGE_ENCODERS = ("vgg16", "alexnet", "mobilenet", "resnet18")
 
 # MobileNetV2 inverted-residual plan, torchvision features[1..17]:
 # (expand_ratio, out_ch, stride) per block
@@ -54,7 +53,7 @@ _ALEXNET_CONV_IDX = (0, 3, 6, 8, 10)
 
 
 def is_image_encoder(name: str) -> bool:
-    return name in IMAGE_ENCODERS
+    return name in ENCODER_DIMS
 
 
 def _conv(m: nn.Conv2d, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:

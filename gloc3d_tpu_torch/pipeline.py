@@ -55,12 +55,12 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from gloc3d_tpu_torch.config import ENCODER_DIMS
 from gloc3d_tpu_torch.core.device import resolve_device
 from gloc3d_tpu_torch.core.transforms import Rigid3, transform_points
 from gloc3d_tpu_torch.data import native
 from gloc3d_tpu_torch.eval.registration import compose_6dof
 from gloc3d_tpu_torch.index.bank import DescriptorBank
+from gloc3d_tpu_torch.models.encoders import is_image_encoder
 from gloc3d_tpu_torch.ops.bev import BEVImage, batch_scan_to_bev
 from gloc3d_tpu_torch.ops.bev_match import MatchResult, match_bev_topk
 from gloc3d_tpu_torch.ops.ground import GroundEstimate, estimate_ground
@@ -191,7 +191,7 @@ class GlobalLocalizer:
         if cfg.match.refine_icp:
             raise _not_ported("match.refine_icp", "item 14")
         self.cfg = cfg
-        self.i2i = cfg.model.encoder in ENCODER_DIMS
+        self.i2i = is_image_encoder(cfg.model.encoder)
         self.host_stats = host_stats and not self.i2i
         self.align_ground = align_ground
         self.device_keyframes = device_keyframes

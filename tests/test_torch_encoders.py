@@ -53,7 +53,7 @@ def pair(request):
         node["var"] = rng.uniform(0.5, 2.0, node["var"].shape).astype(
             np.float32)
     port = build_model(_cfg(name), VoxelConfig())
-    port.load_state_dict(flax_to_state_dict(v))
+    port.load_state_dict(flax_to_state_dict(v, name))
     return name, jm, v, port.eval()
 
 

@@ -105,7 +105,7 @@ def variables():
 @pytest.fixture(scope="module")
 def port_model(variables):
     model = build_model(CFG.model, CFG.voxel)
-    model.load_state_dict(flax_to_state_dict(variables))
+    model.load_state_dict(flax_to_state_dict(variables, "vgg16"))
     return model.eval()
 
 
@@ -143,7 +143,7 @@ def test_conv_flops_count_the_jax_kernels(variables):
 
 
 def test_flax_to_state_dict_uses_the_reference_names(variables):
-    sd = flax_to_state_dict(variables)
+    sd = flax_to_state_dict(variables, "vgg16")
     enc = sorted(k for k in sd if k.startswith("encoder."))
     assert enc == sorted(f"encoder.{i}.{p}" for i in VGG16_CONV_IDX
                          for p in ("weight", "bias"))
@@ -185,7 +185,7 @@ def test_vggvlad_checkpoint_matches_jax(tmp_path, wrapped, prefixed):
         got = port.eval()(torch.from_numpy(images)).numpy()
     np.testing.assert_allclose(got, want, **DESC_TOL)
     # and back: the JAX tree through flax_to_state_dict is the checkpoint
-    back = flax_to_state_dict({"params": params})
+    back = flax_to_state_dict({"params": params}, "vgg16")
     for k, v in sd.items():
         torch.testing.assert_close(back[k], v, rtol=0, atol=0)
 
