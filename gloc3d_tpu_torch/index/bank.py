@@ -1,13 +1,17 @@
 """Device-resident descriptor bank: build, serialize, query.
 
-Port of ``gloc3d_tpu/index/bank.py::DescriptorBank`` for the fp32 flat
-bank: a ``(capacity, D)`` tensor on the device that doubles on overflow, a
-``size`` watermark, exact top-k queries (ops/topk.py) with the SLAM-mode
-``exclude_recent`` window, their results on the host (``query``) or left
-on the device (``query_device``, the search of ``locate_fused``),
-``detect_loop``, and ``save``/``load`` in the JAX bank's npz format (a bank
-written by either package loads in the other). The int8 bank comes with
-the map-scale port (ROADMAP Queue 1, item 13).
+Port of ``gloc3d_tpu/index/bank.py::DescriptorBank``: a ``(capacity, D)``
+tensor on the device that doubles on overflow, a ``size`` watermark, exact
+top-k queries (ops/topk.py) with the SLAM-mode ``exclude_recent`` window,
+their results on the host (``query``) or left on the device
+(``query_device``, the search of ``locate_fused``), ``detect_loop``, and
+``save``/``load`` in the JAX bank's npz format (a bank written by either
+package loads in the other).
+
+``IndexConfig(quantize="int8")`` is the map-scale mode: per-row symmetric
+int8 codes, an fp32 scale per row and the exact fp32 squared norm, so a
+query reads a quarter of the fp32 bank's bytes (``l2_topk_int8``). Its file
+holds ``bank_q`` / ``scales`` / ``bsq`` verbatim, as JAX writes it.
 """
 
 from __future__ import annotations
@@ -19,7 +23,9 @@ import torch
 
 from gloc3d_tpu_torch import config as _config
 from gloc3d_tpu_torch.core.device import resolve_device
-from gloc3d_tpu_torch.ops.topk import l2_topk
+from gloc3d_tpu_torch.ops.topk import (
+    l2_distances, l2_distances_int8, quantize_rows, select_topk,
+)
 
 
 class DescriptorBank:
@@ -28,24 +34,31 @@ class DescriptorBank:
 
     def __init__(self, cfg, dim: Optional[int] = None,
                  device: Optional[torch.device] = None):
-        if cfg.quantize != "none":
-            raise NotImplementedError(
-                f"quantize={cfg.quantize!r}: the int8 bank comes with the "
-                "map-scale port (ROADMAP Queue 1, item 13)")
         self.cfg = cfg
         self.dim = dim or cfg.dim
         self.device = resolve_device(device, "DescriptorBank")
         self._capacity = cfg.capacity
-        self._bank = torch.zeros((self._capacity, self.dim),
-                                 dtype=torch.float32, device=self.device)
+        self._quantized = cfg.quantize == "int8"
+        self._bank = self._zeros((self.dim,), torch.int8 if self._quantized
+                                 else torch.float32)
+        if self._quantized:
+            self._scales = self._zeros((), torch.float32)
+            self._bsq = self._zeros((), torch.float32)
         self._size = 0
+
+    def _zeros(self, row: tuple, dtype: torch.dtype) -> torch.Tensor:
+        return torch.zeros((self._capacity,) + row, dtype=dtype,
+                           device=self.device)
 
     def __len__(self) -> int:
         return self._size
 
     @property
     def data(self) -> torch.Tensor:
-        """The live (size, D) rows."""
+        """The live (size, D) rows (dequantized in int8 mode)."""
+        if self._quantized:
+            return (self._bank[: self._size].float()
+                    * self._scales[: self._size, None])
         return self._bank[: self._size]
 
     def truncate(self, n: int) -> None:
@@ -54,20 +67,43 @@ class DescriptorBank:
             raise ValueError(f"truncate({n}) outside [0, {self._size}]")
         self._size = n
 
+    def _put(self, rows, scales=None, bsq=None) -> None:
+        """Append rows (codes with their scales and norms in int8 mode),
+        doubling the capacity until they fit."""
+        rows = torch.as_tensor(rows, device=self.device)
+        lo, hi = self._size, self._size + rows.shape[0]
+        names = ("_bank", "_scales", "_bsq") if self._quantized else (
+            "_bank",)
+        if hi > self._capacity:
+            while hi > self._capacity:
+                self._capacity *= 2
+            for name in names:
+                old = getattr(self, name)
+                grown = self._zeros(old.shape[1:], old.dtype)
+                grown[: old.shape[0]] = old
+                setattr(self, name, grown)
+        for name, x in zip(names, (rows, scales, bsq)):
+            getattr(self, name)[lo:hi] = torch.as_tensor(x,
+                                                         device=self.device)
+        self._size = hi
+
     def add(self, feats) -> None:
         """Append (M, D) or (D,) descriptors (numpy or tensor)."""
         feats = torch.atleast_2d(torch.as_tensor(
             feats, dtype=torch.float32, device=self.device))
-        m = feats.shape[0]
-        if self._size + m > self._capacity:
-            while self._size + m > self._capacity:
-                self._capacity *= 2
-            grown = torch.zeros((self._capacity, self.dim),
-                                dtype=torch.float32, device=self.device)
-            grown[: self._bank.shape[0]] = self._bank
-            self._bank = grown
-        self._bank[self._size : self._size + m] = feats
-        self._size += m
+        if self._quantized:
+            self._put(*quantize_rows(feats))
+        else:
+            self._put(feats)
+
+    def distances(self, queries: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The distance pass of a search: (Q, capacity) squared distances,
+        +inf where ``valid`` is False."""
+        if self._quantized:
+            return l2_distances_int8(queries, self._bank, self._scales,
+                                     self._bsq, valid)
+        return l2_distances(queries, self._bank, valid)
 
     def query_device(self, queries, k: Optional[int] = None,
                      exclude_recent: bool = False
@@ -84,7 +120,7 @@ class DescriptorBank:
                  if exclude_recent else self._size)
         ids = torch.arange(self._capacity, device=self.device)
         valid = (ids < self._size) & (ids < max(limit, 0))
-        return l2_topk(queries, self._bank, k, valid)
+        return select_topk(self.distances(queries, valid), k)
 
     def query(self, queries, k: Optional[int] = None,
               exclude_recent: bool = False
@@ -105,20 +141,30 @@ class DescriptorBank:
         return None
 
     def save(self, path: str) -> None:
-        np.savez(path, bank=self.data.cpu().numpy(), dim=self.dim,
-                 cfg=self.cfg.to_json())
+        if self._quantized:
+            # codes, scales and exact norms verbatim: re-quantizing the
+            # dequantized rows would lose the exact norms
+            n = self._size
+            np.savez(path, bank_q=self._bank[:n].cpu().numpy(),
+                     scales=self._scales[:n].cpu().numpy(),
+                     bsq=self._bsq[:n].cpu().numpy(), dim=self.dim,
+                     cfg=self.cfg.to_json())
+        else:
+            np.savez(path, bank=self.data.cpu().numpy(), dim=self.dim,
+                     cfg=self.cfg.to_json())
 
     @classmethod
     def load(cls, path: str, cfg=None,
              device: Optional[torch.device] = None) -> "DescriptorBank":
         data = np.load(path, allow_pickle=False)
-        if "bank_q" in data:
-            raise NotImplementedError(
-                "int8 bank files load with the map-scale port (ROADMAP "
-                "Queue 1, item 13)")
         if cfg is None:
             cfg = _config.IndexConfig.from_json(str(data["cfg"]))
+        if "bank_q" in data and cfg.quantize != "int8":
+            cfg = cfg.replace(quantize="int8")
         bank = cls(cfg, dim=int(data["dim"]), device=device)
-        if data["bank"].shape[0]:
+        if "bank_q" in data:
+            if data["bank_q"].shape[0]:
+                bank._put(data["bank_q"], data["scales"], data["bsq"])
+        elif data["bank"].shape[0]:
             bank.add(data["bank"])
         return bank

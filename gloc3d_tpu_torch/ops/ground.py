@@ -22,7 +22,14 @@ Differences from the JAX function, each kept to its semantics:
   cancel badly in fp32 (0.2 % of a 0.1 m neighbour distance at 20 m), so
   fp32 neighbour sets, and through them the plane, differ between two
   devices' matmuls; in float64 the card and the CPU give the same transform
-  and hence the same aligned cloud and BEV image.
+  and hence the same aligned cloud and BEV image. The RANSAC inlier test
+  rounds the float64 distance to fp32 and compares it with the fp32
+  threshold, as the JAX function compares.
+- A hypothesis that draws p1 and p2 at one point away from p0 counts no
+  inliers (``_plane_from_triplets``): in JAX's fp32 its normal is a
+  rounding residue with few inliers, in float64 it was 0, a plane through
+  every point, which won the count on one test scan and moved the refit
+  plane by 6.4 mm.
 """
 
 from __future__ import annotations
@@ -80,13 +87,25 @@ def _smallest_eigvec_3x3(a: Tensor) -> Tensor:
                        v / torch.clamp_min(n, 1e-20))
 
 
-def _plane_from_triplets(p0: Tensor, p1: Tensor, p2: Tensor) -> Tensor:
-    """(H, 3)×3 → (H, 4) unit-normal plane coefficients."""
+def _plane_from_triplets(p0: Tensor, p1: Tensor, p2: Tensor
+                         ) -> tuple[Tensor, Tensor]:
+    """(H, 3)×3 → (H, 4) unit-normal plane coefficients, and (H,) whether
+    the hypothesis may count inliers.
+
+    A triplet that repeats p0 has an edge of 0, so its cross product and
+    plane are exactly 0 in any arithmetic, and every point lies on it, as
+    in JAX. A triplet whose p1 and p2 coincide away from p0 has the cross
+    product e × e: 0 in exact arithmetic, but JAX's fp32 computes it with
+    fused multiply-adds and keeps their rounding residue, a random normal
+    with few inliers, while float64 without them keeps 0, a plane through
+    every point. Such a hypothesis counts no inliers here, on every
+    device."""
     n = torch.linalg.cross(p1 - p0, p2 - p0, dim=-1)
     n = n / torch.clamp_min(
         torch.linalg.vector_norm(n, dim=-1, keepdim=True), 1e-9)
     d = -torch.sum(n * p0, dim=-1, keepdim=True)
-    return torch.cat([n, d], dim=-1)
+    counts = ~((p1 == p2).all(-1) & (p1 != p0).any(-1))
+    return torch.cat([n, d], dim=-1), counts
 
 
 def _generator_device(generator: Optional[torch.Generator]) -> torch.device:
@@ -170,15 +189,20 @@ def estimate_ground(points: Tensor, mask: Tensor, cfg,
     if sample_triplets is None:
         sample_triplets = _uniform_triplet_sampler(generator)
     tri = sample_triplets(ground_ok, cfg.ransac_iters).to(dev)  # (3, H)
-    planes = _plane_from_triplets(pts[tri[0]], pts[tri[1]], pts[tri[2]])
+    planes, counts = _plane_from_triplets(pts[tri[0]], pts[tri[1]],
+                                          pts[tri[2]])
     dist = torch.abs(pts @ planes[:, :3].T + planes[None, :, 3])  # (M, H)
-    inl = torch.sum((dist < cfg.inlier_threshold) & ground_ok[:, None], 0)
+    # the inlier test of the JAX function, in its fp32: the float64
+    # distance rounded to fp32 against the fp32 threshold
+    inlier = dist.float() < torch.tensor(cfg.inlier_threshold,
+                                         dtype=torch.float32, device=dev)
+    inl = torch.sum(inlier & ground_ok[:, None] & counts[None, :], 0)
     best = torch.argmax(inl)
     n_ground = torch.clamp_min(torch.sum(ground_ok), 1)
     inlier_frac = inl[best].double() / n_ground
 
     # --- least-squares refit on the inliers ---
-    w = ((dist[:, best] < cfg.inlier_threshold) & ground_ok).double()
+    w = (inlier[:, best] & ground_ok).double()
     wsum = torch.clamp_min(torch.sum(w), 3.0)
     mu_i = torch.sum(pts * w[:, None], 0) / wsum
     ci = (pts - mu_i) * w[:, None]

@@ -40,11 +40,16 @@ branch. The ground estimator's random draws come from a CPU
 ``torch.Generator`` seeded by ``seed``, so the same calls draw the same
 numbers on every device.
 
+The bank is the flat ``DescriptorBank`` (fp32, or int8 with
+``IndexConfig(quantize="int8")``) or, with ``IndexConfig(backend="ivf")``,
+the IVF index (``index/ivf.py``, fp32 or int8 cells) behind
+``_IVFBankAdapter``; every entry point searches either.
+
 Options that other slices port raise ``NotImplementedError`` naming their
-ROADMAP item: the IVF bank and ``refine_icp``, and so does
-``match_keyframe``. ``device_sort`` is a TPU-only strategy that the
-port leaves out, and so are the JAX package's ``row_gather`` and the
-bucket padding of ``locate_batch``, which only bound XLA shapes.
+ROADMAP item: ``refine_icp``, ``match_keyframe`` and sharding the IVF
+bank. ``device_sort`` is a TPU-only strategy that the port leaves out, and
+so are the JAX package's ``row_gather`` and the bucket padding of
+``locate_batch``, which only bound XLA shapes.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from gloc3d_tpu_torch.core.transforms import Rigid3, transform_points
 from gloc3d_tpu_torch.data import native
 from gloc3d_tpu_torch.eval.registration import compose_6dof
 from gloc3d_tpu_torch.index.bank import DescriptorBank
+from gloc3d_tpu_torch.index.ivf import IVFBank
 from gloc3d_tpu_torch.models.encoders import is_image_encoder
 from gloc3d_tpu_torch.ops.bev import BEVImage, batch_scan_to_bev
 from gloc3d_tpu_torch.ops.bev_match import MatchResult, match_bev_topk
@@ -92,6 +98,98 @@ def _not_ported(option: str, item: str) -> NotImplementedError:
 
 def _numpy(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class _IVFBankAdapter:
+    """DescriptorBank-shaped facade over the IVF index (map-scale maps).
+
+    The coarse quantizer needs the descriptors before it can partition, so
+    adds are buffered on the host, and the index trains and ingests them on
+    the first query after a change (build once, query many). The training
+    sample is JAX's: ``RandomState(0).permutation`` of the buffered rows,
+    cut to ``ivf_train_sample``; k-means draws from the port's generator
+    seeded with 0, so the port's cells differ from JAX's for the same rows
+    (maps saved by either package load in the other)."""
+
+    def __init__(self, cfg, dim: int, device: torch.device):
+        self.cfg = cfg
+        self.dim = dim
+        self._ivf = IVFBank(dim=dim, num_cells=cfg.ivf_num_cells,
+                            cell_capacity=cfg.ivf_cell_capacity,
+                            nprobe=cfg.ivf_nprobe, quantize=cfg.quantize,
+                            device=device)
+        self._pending: List[np.ndarray] = []
+        self._size = 0
+
+    def __len__(self) -> int:
+        return self._size
+
+    def add(self, feats) -> None:
+        feats = np.atleast_2d(np.asarray(_numpy(feats), np.float32))
+        self._pending.append(feats)
+        self._size += len(feats)
+
+    def truncate(self, n: int) -> None:
+        """Drop rows beyond n; only rows not yet ingested can go."""
+        if n < self._size - sum(len(p) for p in self._pending):
+            raise ValueError("IVF backend cannot truncate ingested rows")
+        drop = self._size - n
+        while drop > 0 and self._pending:
+            tail = self._pending[-1]
+            if len(tail) <= drop:
+                drop -= len(tail)
+                self._pending.pop()
+            else:
+                self._pending[-1] = tail[:-drop]
+                drop = 0
+        self._size = n
+
+    def _flush(self) -> None:
+        if not self._pending:
+            return
+        batch = np.concatenate(self._pending)
+        self._pending = []
+        if self._ivf.centroids is None:
+            sample = batch[np.random.RandomState(0).permutation(len(batch))[
+                : self.cfg.ivf_train_sample]]
+            self._ivf.train(sample, torch.Generator().manual_seed(0))
+        self._ivf.add(batch)
+
+    def _limit(self, exclude_recent: bool) -> Optional[int]:
+        # ids are insertion order: the SLAM window hides the newest rows
+        return (self._size - self.cfg.num_exclude_recent if exclude_recent
+                else None)
+
+    def query_device(self, queries, k: Optional[int] = None,
+                     exclude_recent: bool = False):
+        self._flush()
+        return self._ivf.query_device(queries, k or self.cfg.top_k,
+                                      exclude_after=self._limit(
+                                          exclude_recent))
+
+    def query(self, queries, k: Optional[int] = None,
+              exclude_recent: bool = False):
+        self._flush()
+        return self._ivf.query(queries, k or self.cfg.top_k,
+                               exclude_after=self._limit(exclude_recent))
+
+    def shard(self, mesh) -> None:
+        raise _not_ported("sharding the IVF bank", "item 16")
+
+    def save(self, path: str) -> None:
+        self._flush()
+        self._ivf.save(path)
+
+    @classmethod
+    def load(cls, path: str, cfg, device: torch.device
+             ) -> "_IVFBankAdapter":
+        adapter = cls.__new__(cls)
+        adapter.cfg = cfg
+        adapter._ivf = IVFBank.load(path, device=device)
+        adapter.dim = adapter._ivf.dim
+        adapter._pending = []
+        adapter._size = len(adapter._ivf)
+        return adapter
 
 
 def _xyzi(points) -> np.ndarray:
@@ -186,8 +284,6 @@ class GlobalLocalizer:
                 "device_sort is a TPU-only binning strategy the port leaves "
                 "out (ROADMAP ground rule: port semantics, not TPU "
                 "workarounds); host_stats=False bins on the device")
-        if cfg.index.backend != "flat":
-            raise _not_ported("the IVF bank", "item 13")
         if cfg.match.refine_icp:
             raise _not_ported("match.refine_icp", "item 14")
         self.cfg = cfg
@@ -200,8 +296,12 @@ class GlobalLocalizer:
             model.load_state_dict(params)
         self.device = resolve_device(device, "GlobalLocalizer")
         self.model = model.to(self.device).eval()
-        self.bank = DescriptorBank(cfg.index, dim=cfg.index.dim,
-                                   device=self.device)
+        if cfg.index.backend == "ivf":
+            self.bank = _IVFBankAdapter(cfg.index, cfg.index.dim,
+                                        self.device)
+        else:
+            self.bank = DescriptorBank(cfg.index, dim=cfg.index.dim,
+                                       device=self.device)
         self.keyframes: List[Keyframe] = []
         self._kf_store: Optional[torch.Tensor] = None    # (cap, S, S//8) u8
         self._kf_origins: Optional[torch.Tensor] = None  # (cap, 2) fp32
@@ -494,9 +594,11 @@ class GlobalLocalizer:
         there and the candidates gathered from the device keyframe store by
         them, so the host reads only the staged branch's success and the
         final lanes. Host stats, all-device, aligned and image extraction
-        as the localizer is built. Results equal ``locate``'s. Needs
-        ``device_keyframes=True`` and a built store; ``match.refine_icp``
-        is not supported."""
+        as the localizer is built; the search runs on the flat bank (fp32
+        or int8) or the IVF index, whose device copy of the cells is
+        uploaded once per change of the map. Results equal ``locate``'s.
+        Needs ``device_keyframes=True`` and a built store;
+        ``match.refine_icp`` is not supported."""
         if not self.keyframes:
             return self._empty_result()
         if self._kf_store is None:
@@ -551,8 +653,12 @@ class GlobalLocalizer:
         the device store (repacked 256 rows at a time). A ``clouds`` array
         (the JAX package's ICP clouds) is ignored: the port's keyframes
         hold none until ROADMAP Queue 1, item 14."""
-        self.bank = DescriptorBank.load(os.path.join(out_dir, "bank.npz"),
-                                        device=self.device)
+        path = os.path.join(out_dir, "bank.npz")
+        if self.cfg.index.backend == "ivf":
+            self.bank = _IVFBankAdapter.load(path, self.cfg.index,
+                                             self.device)
+        else:
+            self.bank = DescriptorBank.load(path, device=self.device)
         kf = np.load(os.path.join(out_dir, "keyframes.npz"))
         images, origins = kf["images"], kf["origins"]
         has_ground = "ground_q" in kf

@@ -20,8 +20,12 @@ from gloc3d_tpu.ops.ground import estimate_ground as jax_estimate
 from gloc3d_tpu_torch.core.transforms import (
     get_yaw, quat_from_rpy, quat_rotate, transform_points,
 )
-from gloc3d_tpu_torch.ops.ground import _smallest_eigvec_3x3, estimate_ground
+from gloc3d_tpu_torch.ops.ground import (
+    _plane_from_triplets, _smallest_eigvec_3x3, estimate_ground,
+)
 from test_ground import make_scene
+from test_pipeline_ground import CFG as ALIGNED_CFG
+from test_pipeline_ground import tilted_scan
 
 CFG = GroundConfig(num_candidates=1024, ransac_iters=128)
 
@@ -68,6 +72,53 @@ def test_matches_jax_with_replayed_draws(roll, pitch, height, seed, pad):
                                atol=1e-4)
     assert float(got.inlier_fraction) == pytest.approx(
         float(want.inlier_fraction), abs=1e-3)
+
+
+# the tilted keyframes of tests/test_torch_i2i.py's aligned map
+TILTED = [((-30, -30, 0.0), (0.02, -0.01)), ((0, -30, 0.4), (-0.015, 0.02)),
+          ((30, 0, 1.5), (0.01, 0.015))]
+
+
+@pytest.mark.parametrize("scan,seed", [(0, 0), (1, 1), (2, 2), (2, 12)])
+def test_tilted_scans_match_jax_with_replayed_draws(scan, seed):
+    """The aligned map's scans with the i2i test's draws. Scan 1 at seed 1
+    draws a triplet whose p1 and p2 coincide: JAX's fp32 normal for it is
+    a rounding residue with 41 inliers, and the port, which had counted
+    every point on its float64 zero plane, picked a plane 6.4 mm higher
+    (ROADMAP Queue 3 item 7). Scan 2 at seed 12 draws one that repeats p0,
+    whose zero plane both packages count whole, and JAX picks it."""
+    pose, (roll, pitch) = TILTED[scan]
+    pts, mask = tilted_scan(*pose, roll=roll, pitch=pitch, seed=seed)
+    _, sub = jax.random.split(jax.random.PRNGKey(4))
+    key = jax.random.split(sub, 3)[scan]
+    prio, sampler = _replayed_draws(key, len(pts))
+    cfg = ALIGNED_CFG.ground
+    got = estimate_ground(torch.from_numpy(pts), torch.from_numpy(mask), cfg,
+                          priority=prio, sample_triplets=sampler)
+    want = jax_estimate(jnp.asarray(pts), jnp.asarray(mask), cfg, key)
+    np.testing.assert_allclose(got.plane.numpy(), np.asarray(want.plane),
+                               atol=1e-5)
+    np.testing.assert_allclose(got.transform.rotation.numpy(),
+                               np.asarray(want.transform.rotation), atol=1e-5)
+    np.testing.assert_allclose(got.transform.translation.numpy(),
+                               np.asarray(want.transform.translation),
+                               atol=1e-5)
+    assert float(got.inlier_fraction) == float(want.inlier_fraction)
+
+
+def test_repeated_point_triplets():
+    """A triplet that repeats p0 gives the zero plane, which every point
+    lies on (as in JAX); one whose p1 and p2 coincide away from p0 counts
+    no inliers; three distinct points span their plane."""
+    p = torch.tensor([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]],
+                     dtype=torch.float64)
+    planes, counts = _plane_from_triplets(p[[0, 0, 0, 1]], p[[0, 1, 1, 1]],
+                                          p[[1, 0, 1, 1]])
+    assert counts.tolist() == [True, True, False, True]
+    np.testing.assert_array_equal(planes[[0, 1, 3]].numpy(), 0.0)
+    planes, counts = _plane_from_triplets(p[:1], p[1:2], p[2:])
+    assert counts.tolist() == [True]
+    np.testing.assert_allclose(planes.numpy(), [[0.0, 0.0, 1.0, 0.0]])
 
 
 def _estimate(pts, mask=None, seed=0):

@@ -399,9 +399,8 @@ ALIGNED_TILTS = [(0.02, -0.01), (-0.015, 0.02), (0.01, 0.015)]
 def test_aligned_locate_matches_jax(variables, port_model, monkeypatch):
     """The paper's configuration, aligned scan → BEV → VGG → 6-DoF, with
     the port replaying JAX's ground draws."""
-    # scan seeds 10-12: at seed 1 the port's RANSAC counts one more inlier
-    # than JAX's on a near-tied hypothesis and picks a plane 6 mm higher
-    # (the estimator's own parity is tests/test_torch_ground.py's)
+    # scan seeds 10-12 (the estimator's own parity on these scans, at
+    # seeds 0-2 and 12 too, is tests/test_torch_ground.py's)
     scans = [tilted_scan(*p, roll=r, pitch=pi, seed=10 + i)
              for i, (p, (r, pi)) in enumerate(zip(ALIGNED_DB, ALIGNED_TILTS))]
     pts = np.stack([s[0] for s in scans])

@@ -124,7 +124,7 @@ def test_compose_6dof_matches_jax():
 
 @pytest.mark.parametrize("kwargs,cfg_change,item", [
     (dict(device_sort=True), None, "TPU workarounds"),
-    ({}, dict(index=IndexConfig(dim=128, backend="ivf")), "item 13"),
+    ({}, dict(index=IndexConfig(dim=128, backend="ivf")), "item 16"),
     ({}, dict(match=MatchConfig(image_size=128, refine_icp=True)),
      "item 14"),
 ])
@@ -132,7 +132,8 @@ def test_unported_options_raise(kwargs, cfg_change, item):
     model = build_model(CFG.model, CFG.voxel)
     cfg = CFG.replace(**cfg_change) if cfg_change else CFG
     with pytest.raises(NotImplementedError, match=item):
-        GlobalLocalizer(cfg, model, device="cpu", **kwargs)
+        loc = GlobalLocalizer(cfg, model, device="cpu", **kwargs)
+        loc.bank.shard(None)  # the IVF bank builds; its sharding waits
 
 
 def test_host_stats_default_matches_jax():
@@ -208,7 +209,9 @@ def test_shared_config_round_trips_through_json():
 def test_port_runs_without_jax():
     """Import the port and run CPU located queries (host stats, all-device
     binning, a fused query from the device keyframe store with the fm
-    matcher preset, and an i2i fused query on a 64² BEV image) and a
+    matcher preset, located and fused queries on the int8 flat bank and
+    the IVF index with int8 cells, and an i2i fused query on a 64² BEV
+    image) and a
     training epoch on each path with jax, flax and the JAX package
     blocked: the port never needs JAX, and no module it
     loads and no shared library it maps lies under gloc3d_tpu/ or
@@ -267,6 +270,21 @@ def test_port_runs_without_jax():
                           np.stack([k[1] for k in kf]))
         res = loc.locate_fused(*scan(20, 5))
         assert res.success and res.db_index == 1, res
+
+        # the map-scale banks: the int8 flat bank, IVF with int8 cells
+        for index in (cfg.index.replace(quantize="int8"),
+                      cfg.index.replace(backend="ivf", quantize="int8",
+                                        ivf_num_cells=2, ivf_nprobe=2,
+                                        ivf_cell_capacity=4,
+                                        ivf_train_sample=16)):
+            mloc = g.GlobalLocalizer(cfg.replace(index=index), model,
+                                     device="cpu", device_keyframes=True,
+                                     host_mirror=False)
+            mloc.add_keyframes(np.stack([k[0] for k in kf]),
+                               np.stack([k[1] for k in kf]))
+            for call in (mloc.locate, mloc.locate_fused):
+                res = call(*scan(20, 5))
+                assert res.success and res.db_index == 1, res
 
         # the i2i serving path: VGG16 + NetVLAD-FC on 64² BEV images
         icfg = g.PipelineConfig.i2i().replace(

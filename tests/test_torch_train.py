@@ -7,18 +7,26 @@ the loss within rtol 1e-4 and the BatchNorm running statistics within rtol
 1e-4 (the bounds tests/test_train_hoststats.py holds between the two JAX
 paths), and per tensor the update Δ = new − old (not the parameters, whose
 rounding would hide the step) within 1e-2 of ‖Δ_jax‖ and elementwise within
-rtol 5e-3 + atol 5e-2·max|Δ_jax|. Those are the update's fp32 noise floor
-at this size, measured: the JAX package's own two paths give updates that
-differ by up to 2.5e-2 of a tensor's largest element (4.6e-3 in norm), and
-scaling the port's positives by 1 + 1e-7 moves its update by 1.1e-2 of
-the largest element. Rounding decides some ReLUs near 0, and each grid
-position's term is large against a weight gradient that BatchNorm's mean
-subtraction has cancelled. A missing term, a wrong rate or a lost gradient
-is an O(1) error. One more step with context gating holds its BatchNorm
+rtol 5e-3 + atol 2·floor·max|Δ_jax|. The floor is the reference's own:
+the JAX package's two paths run the same step on the same batch, and
+differ only in how they sum (XLA scatters against the Pallas
+cumsum-difference segment sums), so ``jax_path_floor`` measures, in the
+run, the worst tensor's largest elementwise difference of their updates
+relative to that tensor's largest element (0.0548, on
+encoder.block3.layers.6.weight, on one CPU; scaling the port's positives
+by 1 + 1e-7 moves its update by 1.1e-2 of the largest element). The
+elementwise bound is twice that floor, as chip_smoke.py holds the card to
+twice the CPU's mkldnn-on-vs-off floor. The port's two paths both lie
+within 2e-2 of JAX's all-device update there: the JAX host-stats update
+is the one that stands off. Rounding decides some ReLUs near 0, and each
+grid position's term is large against a weight gradient that BatchNorm's
+mean subtraction has cancelled. A missing term, a wrong rate or a lost
+gradient is an O(1) error. One more step with context gating holds its BatchNorm
 over the batch of 10 descriptors to Flax's biased running variance.
 """
 
 import functools
+import tempfile
 
 import flax.linen as fnn
 import jax
@@ -109,20 +117,46 @@ def step_batch(cfg):
     }
 
 
-def _jax_step(cfg, tmp_path):
+@functools.lru_cache(maxsize=None)
+def _jax_step(cfg):
+    """One JAX step of ``cfg`` → (loss, the new state as a state_dict)."""
     model, variables = jax_variables(cfg.model)
-    tr = JaxTrainer(cfg, model, dataset(), str(tmp_path / "jax"))
-    state = tr.init_state(variables["params"], variables["batch_stats"])
     a = step_batch(cfg)
     nv, qv = jnp.asarray(a["neg_valid"]), jnp.asarray(a["q_valid"])
-    if cfg.train.host_stats:
-        p, vl, vs = tr._host_sorted(a["cat_in"], a["cat_mk"])
-        new, loss = tr._train_step_hs(state, p, vl, vs, nv, qv)
-    else:
-        new, loss = tr._train_step(state, *map(jnp.asarray, a["device"]),
-                                   nv, qv, a["key"])
+    with tempfile.TemporaryDirectory() as workdir:
+        tr = JaxTrainer(cfg, model, dataset(), workdir)
+        state = tr.init_state(variables["params"], variables["batch_stats"])
+        if cfg.train.host_stats:
+            p, vl, vs = tr._host_sorted(a["cat_in"], a["cat_mk"])
+            new, loss = tr._train_step_hs(state, p, vl, vs, nv, qv)
+        else:
+            new, loss = tr._train_step(state, *map(jnp.asarray,
+                                                   a["device"]),
+                                       nv, qv, a["key"])
     return float(loss), flax_to_state_dict(
         {"params": new.params, "batch_stats": new.batch_stats})
+
+
+def _step_cfg(host_stats, gating):
+    # lr 0.1: a step well above the fp32 spacing of the parameters, so Δ
+    # measures the update and not the rounding of new and old
+    return CFG.replace(model=CFG.model.replace(gating=gating),
+                       train=CFG.train.replace(host_stats=host_stats, lr=0.1))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_path_floor():
+    """The reference's own fp32 floor of the elementwise update check: the
+    largest |Δ_host-stats − Δ_all-device| of the JAX package's two paths
+    on one batch, relative to each tensor's largest |Δ_all-device|, worst
+    tensor."""
+    _, old = jax_variables(CFG.model)
+    old = flax_to_state_dict(old)
+    _, dev = _jax_step(_step_cfg(False, False))
+    _, hs = _jax_step(_step_cfg(True, False))
+    return max(float((hs[k] - dev[k]).abs().max()
+                     / (dev[k] - old[k]).abs().max())
+               for k in dev if "running" not in k and "num_b" not in k)
 
 
 def _port_step(cfg, tr):
@@ -138,11 +172,9 @@ def _port_step(cfg, tr):
 @pytest.mark.parametrize("host_stats,gating", [
     (False, False), (True, False), (False, True)])
 def test_train_step_matches_jax(tmp_path, host_stats, gating):
-    # lr 0.1: a step well above the fp32 spacing of the parameters, so Δ
-    # measures the update and not the rounding of new and old
-    cfg = CFG.replace(model=CFG.model.replace(gating=gating),
-                      train=CFG.train.replace(host_stats=host_stats, lr=0.1))
-    want_loss, want = _jax_step(cfg, tmp_path)
+    cfg = _step_cfg(host_stats, gating)
+    want_loss, want = _jax_step(cfg)
+    atol = 2.0 * jax_path_floor()  # of each tensor's largest |Δ_jax|
     tr = port_trainer(cfg, str(tmp_path / "port"))
     old = {k: v.clone() for k, v in tr.model.state_dict().items()}
     loss = _port_step(cfg, tr)
@@ -160,7 +192,7 @@ def test_train_step_matches_jax(tmp_path, host_stats, gating):
         assert (np.linalg.norm(d_port - d_jax)
                 <= 1e-2 * np.linalg.norm(d_jax)), k
         np.testing.assert_allclose(d_port, d_jax, rtol=5e-3,
-                                   atol=5e-2 * np.abs(d_jax).max(), err_msg=k)
+                                   atol=atol * np.abs(d_jax).max(), err_msg=k)
     stats = [k for k in new if "running" in k]
     assert len(stats) == 2 * (14 + gating)  # 14 encoder BNs (+ gating)
     for k in stats:
