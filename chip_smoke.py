@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's s2s and i2i located queries and s2s training
-once on one NVIDIA card.
+"""Drive the PyTorch port's s2s and i2i located queries, the refinement
+stage and s2s training once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -117,8 +117,31 @@ Phases, each printing its own lines:
  17. each kernel alone at the main path's and the train step's shapes: its
      device time from torch.profiler (L2-warm and L2-flushed), its bound,
      the wrapper's time (K2's with and without its id-range check, and the
-     check alone) and the time of the one PyTorch call computing the same
-     function (K1: torch.segment_reduce; K2: index_add_ + bincount).
+     check alone), the plain version's, and the time of the one PyTorch
+     call computing the same function (K1: torch.segment_reduce; K2:
+     index_add_ + bincount).
+ 18. [refine], after the i2i phases: (a) the ICP polish
+     (match.refine_icp, 4096-point clouds, 10 iterations, 1 m gate) at
+     full width with the fp32 serving model on the host-stats located map
+     (16 keyframes, 8 queries: the located gates, the mean position error
+     at most the unrefined map's, locate = locate_batch, match_keyframe on
+     the host mirror and on the device store = locate for the keyframe
+     locate returns, K1 launches) and with the bf16 model on the aligned
+     all-device map (6-DoF gates, mean 6-DoF position error at most the
+     aligned phase's, K2 launches); one refined query card vs CPU and the
+     ICP alone on the same clouds and seed; (b) the port's SLAM example
+     (gloc3d_tpu_torch/examples/slam_session.py) at its default size: no
+     closure on lap 1, lap 2 within 1 m / 5°; (c) tools/bench_refine.py's
+     five rows at its shapes (icp_point_to_point 4096 vs 4096, 20
+     iterations; refine_match_icp on two 768² BEVs; build_ndt_grid_3d
+     into 100x100x12 at 1 m; ndt_refine_3d, 35 iterations;
+     ergodic_rp_sweep_match, 49 BEVs at 768², fm preset) and
+     contour_virtual_cloud on a 768² BEV: CUDA-event ms, a traced call's
+     busy ms, idle share and kernels, host syncs per call, card vs CPU
+     within stated bounds; the connected-components sweeps at 768².
+The kernel-only times of phase 17 come from complete traces only (both
+kernels of every traced call); a timing with none in six traces prints
+that it was not measured.
 `python3 chip_smoke.py --kernels` runs phases 1-4 and 17 only;
 `--seed N` seeds the map-scale rows (default 0).
 The line before the last is the kernels JSON; the last line is
@@ -674,6 +697,18 @@ def build_serving_model(torch, cfg, dtype: str, centroids=None,
     return served.eval()
 
 
+def build_map(torch, cfg, model, kf, device="cuda", **kw):
+    """A GlobalLocalizer on ``device`` with its map built from the scans
+    ``kf`` in batches of 4."""
+    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
+
+    loc = GlobalLocalizer(cfg, model, device=torch.device(device), **kw)
+    for i in range(0, len(kf), 4):
+        loc.add_keyframes(np.stack([k[0] for k in kf[i:i + 4]]),
+                          np.stack([k[1] for k in kf[i:i + 4]]))
+    return loc
+
+
 def located_world_scans(world, n: int):
     """16 keyframes on a 5 m grid with random headings and 8 queries
     within it at random headings: ((poses, scans) of the keyframes, (poses,
@@ -717,7 +752,6 @@ def check_located(tag, results, kf_poses, q_poses, top_k):
 
 def phase_located_query(torch, cfg, lq_set, centroids, device="cuda"):
     from gloc3d_tpu_torch.kernels import segment_sum as ss
-    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
 
     n = cfg.voxel.max_points
     (kf_poses, kf), (q_poses, qs) = lq_set
@@ -728,12 +762,8 @@ def phase_located_query(torch, cfg, lq_set, centroids, device="cuda"):
           f"min_overlap_pixels {cfg.match.min_overlap_pixels}")
 
     model = build_serving_model(torch, cfg, "bfloat16", centroids)
-    loc = GlobalLocalizer(cfg, model, device=torch.device(device),
-                          host_stats=True)
     ss.segment_sum_sorted.launches = 0
-    for i in range(0, N_KEYFRAMES, 4):
-        loc.add_keyframes(np.stack([k[0] for k in kf[i:i + 4]]),
-                          np.stack([k[1] for k in kf[i:i + 4]]))
+    loc = build_map(torch, cfg, model, kf, device, host_stats=True)
     results = [loc.locate(*q) for q in qs]
     launches = ss.segment_sum_sorted.launches
     print(f"[locate] K1 launches on the main path: {launches}")
@@ -817,13 +847,8 @@ def aligned_world_scans(world, n: int):
 def run_aligned(torch, cfg, model, kf, qs, host_stats: bool, seed: int = 0,
                 device="cuda"):
     """Build the aligned map in batches of 4 and locate every query."""
-    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
-
-    loc = GlobalLocalizer(cfg, model, device=torch.device(device),
-                          host_stats=host_stats, align_ground=True, seed=seed)
-    for i in range(0, len(kf), 4):
-        loc.add_keyframes(np.stack([k[0] for k in kf[i:i + 4]]),
-                          np.stack([k[1] for k in kf[i:i + 4]]))
+    loc = build_map(torch, cfg, model, kf, device, host_stats=host_stats,
+                    align_ground=True, seed=seed)
     return loc, [loc.locate(*q) for q in qs]
 
 
@@ -957,15 +982,8 @@ def serving_localizer(torch, cfg, model, kf, device="cuda", **kw):
     """The serving configuration: the fast_match(fm=True) matcher and the
     device keyframe store without a host mirror, its map built from ``kf``
     in batches of 4."""
-    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
-
-    loc = GlobalLocalizer(cfg.fast_match(fm=True), model,
-                          device=torch.device(device), device_keyframes=True,
-                          host_mirror=False, **kw)
-    for i in range(0, len(kf), 4):
-        loc.add_keyframes(np.stack([k[0] for k in kf[i:i + 4]]),
-                          np.stack([k[1] for k in kf[i:i + 4]]))
-    return loc
+    return build_map(torch, cfg.fast_match(fm=True), model, kf, device,
+                     device_keyframes=True, host_mirror=False, **kw)
 
 
 def _host(x) -> np.ndarray:
@@ -1060,26 +1078,40 @@ def phase_fused_query(torch, cfg, lq_set, kf_set, q_set, centroids):
     r_fused = [loc32.locate_fused(*q) for q in qs]
     d1, _ = same_results("locate vs locate_batch", r_loc, r_batch)
     d2, _ = same_results("locate vs locate_fused", r_loc, r_fused)
-    # the aligned map, with the same ground-estimator draws for both calls:
-    # the all-device forward sums all pillars but pillar 0 with K2's float
-    # atomics, whose order varies between launches, so descriptors differ
-    # in their last bits between two calls, and keyframes whose distances
-    # nearly tie may swap ranks; the registered keyframe and pose may not
+    # the aligned map: the all-device forward sums all pillars but pillar 0
+    # with K2's float atomics, whose order varies between launches, so two
+    # extractions of one scan differ in their last bits, and keyframes whose
+    # distances nearly tie may swap ranks, the top one included (which then
+    # changes the registered keyframe). So locate and locate_fused share one
+    # extraction and are held equal, ranks and all; a second extraction
+    # with the same ground draws counts the ranks the atomics swap
     d3, swaps = 0.0, 0
+    extract = a_loc.extract
     for i, q in enumerate(q_set[2]):
+        memo = []
+
+        def extract_once(*args, memo=memo):
+            if not memo:
+                memo.append(extract(*args))
+            return memo[0]
+
         a_loc._gen.manual_seed(100 + i)
-        x = a_loc.locate(*q)
+        a_loc.extract = extract_once
+        try:
+            x, y = a_loc.locate(*q), a_loc.locate_fused(*q)
+        finally:
+            del a_loc.extract
+        d, _ = same_results("aligned locate vs locate_fused", [x], [y])
+        d3 = max(d3, d)
         a_loc._gen.manual_seed(100 + i)
-        d, n = same_results("aligned locate vs locate_fused", [x],
-                            [a_loc.locate_fused(*q)], ranked=False)
-        d3, swaps = max(d3, d), swaps + n
+        swaps += int((a_loc.locate_fused(*q).candidates != y.candidates).sum())
     print(f"[fused] fp32 host-stats map: locate = locate_batch = "
           f"locate_fused for {len(qs)}/{len(qs)} queries "
           f"({sum(r.success for r in r_loc)} localized); xy_yaw max |diff| "
-          f"{d1:.2e} / {d2:.2e}; aligned bf16 map: locate = locate_fused "
-          f"(same draws; candidates as a set, {swaps} of "
-          f"{len(q_set[2]) * cfg.index.top_k} ranks swapped), max |diff| "
-          f"{d3:.2e} (bound 1e-4)")
+          f"{d1:.2e} / {d2:.2e}; aligned bf16 map: locate = locate_fused on "
+          f"one extraction, max |diff| {d3:.2e} (bound 1e-4); a second "
+          f"extraction with the same draws swapped {swaps} of "
+          f"{len(q_set[2]) * cfg.index.top_k} candidate ranks (K2's atomics)")
     return k1, k2
 
 
@@ -1695,10 +1727,7 @@ def phase_timing(torch, cfg, loc, kf, qs, card):
           f"{dev_detect:.3f} ms (CUDA events); all-device detect "
           f"(host_stats=False) {detect_dev:.3f} ms (host clock, median of 20)")
 
-    loc_dev = GlobalLocalizer(cfg, loc.model, device=torch.device("cuda"))
-    for i in range(0, len(kf), 4):
-        loc_dev.add_keyframes(np.stack([k[0] for k in kf[i:i + 4]]),
-                              np.stack([k[1] for k in kf[i:i + 4]]))
+    loc_dev = build_map(torch, cfg, loc.model, kf)
     locate_dev = host_ms(torch, lambda: [loc_dev.locate(*q) for q in qs],
                          3) / len(qs)
     locate = host_ms(torch, lambda: [loc.locate(*q) for q in qs], 3) / len(qs)
@@ -2010,6 +2039,402 @@ def run_i2i(torch, kf_set, q_set, lq_set, card):
     return out
 
 
+# -------------------------------------------------------------- refinement
+def refine_cfg(cfg):
+    """``cfg`` with the ICP polish at the issue's full-width settings:
+    4096-point clouds, 10 iterations, a 1 m gate."""
+    return cfg.replace(match=cfg.match.replace(
+        refine_icp=True, refine_icp_points=4096, refine_icp_iters=10,
+        refine_icp_max_corr=1.0))
+
+
+def located_errors(results, kf_poses, q_poses):
+    """Planar position error of each result against the ground truth
+    relative to the keyframe it returns."""
+    return [float(np.linalg.norm(r.pose.translation[:2] - relative_pose(
+        kf_poses[r.db_index], qp)[0])) for r, qp in zip(results, q_poses)]
+
+
+def aligned_errors(torch, results, kf_set, q_set):
+    """6-DoF position error of each aligned result."""
+    from gloc3d_tpu_torch.eval.registration import registration_errors
+
+    (kf_poses, kf_att, _), (q_poses, q_att, _) = kf_set, q_set
+    return [float(registration_errors(r.pose, pose6(
+        torch, kf_poses[r.db_index], kf_att[r.db_index]).inverse().compose(
+        pose6(torch, qp, qa)))[0])
+        for r, qp, qa in zip(results, q_poses, q_att)]
+
+
+def check_tightens(tag, plain, refined):
+    print(f"[{tag}] mean position error refined {np.mean(refined):.4f} m "
+          f"against unrefined {np.mean(plain):.4f} m (worst "
+          f"{max(refined):.4f} / {max(plain):.4f})")
+    check(np.mean(refined) <= np.mean(plain),
+          f"{tag}: the ICP polish raised the mean position error")
+
+
+def xy_yaw_diff(a, b) -> float:
+    """Largest of |Δdx|, |Δdy| (m) and |Δyaw| (rad, wrapped)."""
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    return float(max(np.abs(d[:2]).max(),
+                     abs(math.remainder(float(d[2]), 2 * math.pi))))
+
+
+def phase_refine_polish(torch, cfg, lq_set, centroids):
+    """(a) on the host-stats located world, fp32 serving model: the ICP
+    polish through locate on the host mirror (16 keyframes, 8 queries) at
+    the located gates and against the unrefined map's errors; locate =
+    locate_batch; match_keyframe on the mirror and on the device store (no
+    mirror) = locate for the keyframe locate returns. Returns K1's
+    launches on the refined map's build and queries."""
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+
+    (kf_poses, kf), (q_poses, qs) = lq_set
+    rcfg = refine_cfg(cfg)
+    model = build_serving_model(torch, cfg, "float32", centroids)
+    plain = build_map(torch, cfg, model, kf, host_stats=True)
+    plain_res = [plain.locate(*q) for q in qs]
+    ss.segment_sum_sorted.launches = 0
+    mirror = build_map(torch, rcfg, model, kf, host_stats=True)
+    results = [mirror.locate(*q) for q in qs]
+    k1 = ss.segment_sum_sorted.launches
+    print(f"[refine] host stats, fp32: {len(kf)} keyframes with "
+          f"{mirror.keyframes[0].cloud.shape[0]}-point clouds, "
+          f"{len(qs)} queries; K1 launches {k1}")
+    check(k1 >= N_KEYFRAMES // 4 + N_QUERIES, f"K1 launched {k1} times")
+    check_located("refine", results, kf_poses, q_poses, cfg.index.top_k)
+    check_tightens("refine", located_errors(plain_res, kf_poses, q_poses),
+                   located_errors(results, kf_poses, q_poses))
+
+    batch = mirror.locate_batch(np.stack([q[0] for q in qs]),
+                                np.stack([q[1] for q in qs]))
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(batch, results)):
+        check(a.success and a.db_index == b.db_index,
+              f"refine locate_batch query {i}: db {a.db_index} vs "
+              f"{b.db_index}")
+        worst = max(worst, xy_yaw_diff(a.match_xy_yaw, b.match_xy_yaw))
+    print(f"[refine] locate_batch = locate: same keyframe for {len(qs)}/"
+          f"{len(qs)}, (dx, dy, yaw) within {worst:.2e} (bound 1e-4)")
+    check(worst <= 1e-4, "refined locate_batch != locate")
+
+    store = build_map(torch, rcfg, model, kf, host_stats=True,
+                      device_keyframes=True, host_mirror=False)
+    worst = {"mirror": 0.0, "store": 0.0}
+    for i, (q, r) in enumerate(zip(qs, results)):
+        for name, loc in (("mirror", mirror), ("store", store)):
+            m = loc.match_keyframe(*q, db_index=r.db_index)
+            check(m.success and m.db_index == r.db_index
+                  and list(m.candidates) == [r.db_index],
+                  f"match_keyframe ({name}) query {i} failed")
+            worst[name] = max(worst[name], xy_yaw_diff(m.match_xy_yaw,
+                                                       r.match_xy_yaw))
+    print(f"[refine] match_keyframe = locate on the keyframe locate "
+          f"returns: host mirror within {worst['mirror']:.2e}, device store "
+          f"within {worst['store']:.2e} (bound 1e-4)")
+    check(max(worst.values()) <= 1e-4, "match_keyframe != locate")
+    times = {name: host_ms(torch, lambda: loc.locate(*qs[0]), 5)
+             for name, loc in (("plain", plain), ("refined", mirror))}
+    syncs = {name: count_syncs(torch, lambda: loc.locate(*qs[0]))
+             for name, loc in (("plain", plain), ("refined", mirror))}
+    print(f"[refine] locate, host stats, fp32: {times['refined']:.3f} ms "
+          f"with the polish against {times['plain']:.3f} ms without "
+          f"(median of 5, host clock); {syncs['refined']} host syncs "
+          f"against {syncs['plain']}")
+    return k1, times
+
+
+def phase_refine_aligned(torch, cfg, model, kf_set, q_set, plain_results):
+    """(a) on the aligned all-device map (bf16 serving model, the map and
+    queries of the aligned phase): 6-DoF gates and the mean 6-DoF position
+    error against the aligned phase's unrefined results. Returns K2's
+    launches."""
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+
+    bs.pillar_bin_sums.launches = 0
+    loc, results = run_aligned(torch, refine_cfg(cfg), model, kf_set[2],
+                               q_set[2], host_stats=False)
+    k2 = bs.pillar_bin_sums.launches
+    need = 2 * (len(kf_set[2]) // 4 + len(q_set[2]))
+    print(f"[refine-aligned] clouds in the ground frame; K2 launches {k2} "
+          f"(at least {need})")
+    check(k2 >= need, f"K2 launched {k2} times, < {need}")
+    check_aligned(torch, "refine-aligned", results, kf_set, q_set)
+    check_tightens("refine-aligned",
+                   aligned_errors(torch, plain_results, kf_set, q_set),
+                   aligned_errors(torch, results, kf_set, q_set))
+    return k2
+
+
+def phase_refine_reference(torch, cfg, lq_set, centroids,
+                           devices=("cuda", "cpu")):
+    """One refined query card vs CPU (fp32, TF32 off, 2 keyframes): same
+    success and keyframe, the polished (dx, dy, yaw) within one 0.2 m cell
+    (the unrefined seed may differ by one, phase_reference); then the ICP
+    alone on the same clouds from the same seed, 0.36 m and 1.1° off the
+    polished match, within 1e-2 (a twentieth of a BEV cell): ten steps
+    from that seed have not converged, and a nearest neighbour that the
+    two devices' summation orders pick differently moves the rest of the
+    walk (the first card run read 1.1e-3)."""
+    (_, kf), (_, qs) = lq_set
+    locs = [build_map(torch, refine_cfg(cfg), build_serving_model(
+        torch, cfg, "float32", centroids), kf[:2], host_stats=True,
+        device=dev) for dev in devices]
+    a, b = (loc.locate(*qs[0]) for loc in locs)
+    check(a.success and a.success == b.success
+          and a.db_index == b.db_index, "card refined locate != CPU")
+    err = xy_yaw_diff(a.match_xy_yaw, b.match_xy_yaw)
+    q_cloud, q_valid = locs[1]._query_clouds(qs[0][0][None], qs[0][1][None],
+                                             None)
+    kc = locs[1].keyframes[b.db_index].cloud
+    seed = np.asarray(b.match_xy_yaw) + np.array([0.3, -0.2, 0.02],
+                                                 np.float32)
+    icp = [loc._refine_icp(q_cloud[0], q_valid[0], kc[:, :3], kc[:, 3],
+                           seed) for loc in locs]
+    icp_err = xy_yaw_diff(*icp)
+    print(f"[refine-reference] card vs CPU: db {a.db_index}/{b.db_index}, "
+          f"polished (dx, dy, yaw) within {err:.2e} (bound 0.2 m); ICP "
+          f"alone on the same clouds and seed within {icp_err:.2e} (bound "
+          f"1e-2), {seed - icp[0]} from the seed")
+    check(err <= 0.2 + 1e-3, "card refined pose disagrees with the CPU")
+    check(icp_err <= 1e-2, "card ICP disagrees with the CPU ICP")
+
+
+def phase_refine_slam(torch):
+    """(b) the port's SLAM example at the JAX example's size on the card
+    (run raises when lap 1 verifies a closure or lap 2 misses its gates)."""
+    from gloc3d_tpu_torch.examples import slam_session
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+
+    bs.pillar_bin_sums.launches = 0
+    t0 = time.perf_counter()
+    out = slam_session.run(device="cuda",
+                           log=lambda m: print(f"[refine-slam] {m}"))
+    out["seconds"] = time.perf_counter() - t0
+    out["k2_launches"] = bs.pillar_bin_sums.launches
+    print(f"[refine-slam] {out['closures']}/{out['lap']} closures, worst "
+          f"{out['max_pos_err_m']:.3f} m / {out['max_yaw_err_deg']:.2f} deg "
+          f"(gates 1 m / 5 deg); {out['seconds']:.1f} s; K2 launches "
+          f"{out['k2_launches']}")
+    check(out["closures"] >= 0.8 * out["lap"], "SLAM closures")
+    return out
+
+
+def refine_row(torch, card, name, make, compare, iters: int):
+    """One refiner at its bench shape: ``make(device)`` → a call returning
+    its outputs. CUDA-event ms (mean of ``iters`` after three), a traced
+    call's device busy ms, idle share and kernel count, host syncs per
+    call, and card vs CPU on the same inputs: ``compare(card, cpu)`` →
+    [(label, error, bound)]."""
+    fn = make("cuda")
+    ms = cuda_ms(torch, fn, iters)
+    busy, wall, n_kernels, _ = device_idle_share(torch, fn)
+    syncs = count_syncs(torch, fn)
+    got = fn()
+    torch.cuda.synchronize()
+    want = make("cpu")()
+    rows = compare(got, want)
+    agree = "; ".join(f"{label} {err:.2e} (bound {bound:g})"
+                      for label, err, bound in rows)
+    print(f"[refine-ops] {name} on {card}: {ms:.3f} ms (CUDA events, mean "
+          f"of {iters}); traced: busy {busy:.3f} ms of {wall:.3f} ms, idle "
+          f"{1.0 - busy / wall:.3f}, {n_kernels} kernels; {syncs} host "
+          f"syncs per call; card vs CPU: {agree}")
+    for label, err, bound in rows:
+        check(err <= bound, f"{name}: card vs CPU {label} {err:.2e} > "
+              f"{bound:g}")
+    return {"ms": ms, "busy_ms": busy, "traced_wall_ms": wall,
+            "idle_share": 1.0 - busy / wall, "kernels": n_kernels,
+            "host_syncs": syncs,
+            "card_vs_cpu": {label: [err, bound] for label, err, bound
+                            in rows}}
+
+
+def phase_refine_ops(torch, card, wall_scan):
+    """(c) tools/bench_refine.py's five rows at its shapes, on bench.py's
+    synthetic scan (100 000 points in a 131 072 pad) and a copy moved by
+    (1.2, -0.8, 0.3) m and 0.15 rad, and contour_virtual_cloud on the 768²
+    BEV of ``wall_scan`` (a located-world keyframe) with its occupancy
+    dilated by a 5×5 window: its walls are one pixel thick, which the
+    3×3 erosion would remove whole, and bench.py's uniform scan leaves
+    isolated pixels; each beside the same call on the CPU."""
+    import torch.nn.functional as F
+
+    from gloc3d_tpu_torch import BEVConfig, MatchConfig
+    from gloc3d_tpu_torch.core.transforms import Rigid3, quat_identity
+    from gloc3d_tpu_torch.ops import contour, refine
+    from gloc3d_tpu_torch.ops.bev import scan_to_bev
+
+    bcfg = BEVConfig(image_size=768)
+    pts, mask = (a[0] for a in bench_query_scan(bcfg.max_points))
+    pts3 = pts[:, :3].copy()
+    yaw = 0.15
+    c, s = math.cos(yaw), math.sin(yaw)
+    dst3 = pts3.copy()
+    dst3[:, 0] = c * pts3[:, 0] - s * pts3[:, 1] + 1.2
+    dst3[:, 1] = s * pts3[:, 0] + c * pts3[:, 1] - 0.8
+    dst3[:, 2] += 0.3
+    sel = np.random.RandomState(0).choice(100000, 4096, replace=False)
+    dims, origin = (100, 100, 12), (-50.0, -50.0, -4.0)
+    mcfg = MatchConfig(image_size=768, fine_downsample=2,
+                       coarse_rot_downsample=8, fine_top_f=4,
+                       fine_argmax_downsample=2, coarse_mode="fm")
+
+    def on(dev, *arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+
+    def bevs(dev):
+        p, d, m = on(dev, pts3, dst3, mask)
+        return scan_to_bev(p, m, bcfg), scan_to_bev(d, m, bcfg)
+
+    out = {}
+
+    def icp(dev):
+        src, dst = on(dev, pts3[sel], dst3[sel])
+        ones = torch.ones(4096, device=dev)
+        init = Rigid3(quat_identity(device=dev), torch.zeros(3, device=dev))
+        return lambda: refine.icp_point_to_point(
+            src, ones, dst, ones, init, iterations=20, max_corr_dist=2.0)
+
+    def icp_cmp(a, b):
+        dq = min(float((a.transform.rotation.cpu() - s_ * b.transform
+                        .rotation).abs().max()) for s_ in (1.0, -1.0))
+        return [("quaternion", dq, 1e-3),
+                ("translation", float((a.transform.translation.cpu()
+                                       - b.transform.translation).abs()
+                                      .max()), 1e-3)]
+
+    out["icp_point_to_point"] = refine_row(
+        torch, card, "icp_point_to_point (4096 vs 4096, 20 iterations, gate "
+        "2.0 m)", icp, icp_cmp, 20)
+
+    def planar(dev):
+        q, d = bevs(dev)
+        init = torch.tensor([1.2, -0.8, yaw], device=dev)
+        return lambda: refine.refine_match_icp(
+            q.image, q.origin_xy, d.image, d.origin_xy, init,
+            bcfg.resolution, budget=4096, iterations=10)
+
+    out["refine_match_icp"] = refine_row(
+        torch, card, "refine_match_icp (768² BEVs, budget 4096, 10 "
+        "iterations)", planar, lambda a, b: [
+            ("(dx, dy, yaw)", xy_yaw_diff(a.xy_yaw.cpu(), b.xy_yaw), 1e-3),
+            ("inliers", float(abs(int(a.num_inliers)
+                                  - int(b.num_inliers))), 0)], 20)
+
+    def grid(dev):
+        d, m = on(dev, dst3, mask)
+        return lambda: refine.build_ndt_grid_3d(d, m, origin, dims, 1.0)
+
+    def grid_cmp(a, b):
+        va = a.valid.cpu()
+        s_a = float(refine.ndt_score_3d(
+            refine.NDTGrid3D(*(x.cpu() if torch.is_tensor(x) else x
+                               for x in a)), *on("cpu", pts3, mask),
+            torch.zeros(6)))
+        s_b = float(refine.ndt_score_3d(b, *on("cpu", pts3, mask),
+                                        torch.zeros(6)))
+        return [("valid voxels differing", float((va != b.valid).sum()), 0),
+                ("means", float((a.mean.cpu()[va] - b.mean[va]).abs()
+                                .max()), 1e-4),
+                ("score at the zero pose", abs(s_a - s_b), 1e-3)]
+
+    out["build_ndt_grid_3d"] = refine_row(
+        torch, card, "build_ndt_grid_3d (131 072-row pad, 100 000 points, "
+        "100x100x12 at 1 m)", grid, grid_cmp, 20)
+    cpu_grid = grid("cpu")()
+    print(f"[refine-ops] NDT map: {int(cpu_grid.valid.sum())} valid voxels "
+          f"of {cpu_grid.valid.numel()}")
+
+    def ndt(dev):
+        g = refine.NDTGrid3D(*(x.to(dev) if torch.is_tensor(x) else x
+                               for x in cpu_grid))
+        p, m = on(dev, pts3, mask)
+        return lambda: refine.ndt_refine_3d(g, p, m, torch.zeros(
+            6, device=dev), iterations=35)
+
+    # the walk's last steps are 4-6 mm long (0.15 m × 0.9^i), each along a
+    # normalised gradient that near the optimum follows the summation
+    # order: the pose is held to 1e-2, the likelihood to 1e-3
+    out["ndt_refine_3d"] = refine_row(
+        torch, card, "ndt_refine_3d (35 iterations, the CPU's map on both)",
+        ndt, lambda a, b: [
+            ("pose", float((a[0].cpu() - b[0]).abs().max()), 1e-2),
+            ("score", abs(float(a[1]) - float(b[1])), 1e-3)], 5)
+
+    def sweep(dev):
+        p, m = on(dev, pts3, mask)
+        d = bevs(dev)[1]
+        return lambda: refine.ergodic_rp_sweep_match(
+            p, m, d.image, d.origin_xy, bcfg, mcfg)
+
+    cell = bcfg.resolution * mcfg.fine_downsample
+    out["ergodic_rp_sweep_match"] = refine_row(
+        torch, card, "ergodic_rp_sweep_match (49 BEVs at 768², fm preset)",
+        sweep, lambda a, b: [
+            ("(roll, pitch)", float((a[1].cpu() - b[1]).abs().max()), 0),
+            ("success", float(bool(a[0].success) != bool(b[0].success)), 0),
+            ("(dx, dy)", float((a[0].xy_yaw[:2].cpu()
+                                - b[0].xy_yaw[:2]).abs().max()),
+             cell + 1e-3)], 2)
+
+    def wall_bev(dev):
+        p, m = on(dev, wall_scan[0][:, :3], wall_scan[1])
+        b = scan_to_bev(p, m, bcfg)
+        occ = F.max_pool2d((b.image < 0.5).float()[None, None], 5, 1, 2)
+        return 1.0 - occ[0, 0], b.origin_xy
+
+    def blobs(dev):
+        image, origin_xy = wall_bev(dev)
+        return lambda: contour.contour_virtual_cloud(
+            image, origin_xy, bcfg.resolution, budget=4096)
+
+    def blobs_cmp(a, b):
+        return [("points", float((a[0].cpu() - b[0]).abs().max()), 0),
+                ("validity", float((a[1].cpu() != b[1]).sum()), 0)]
+
+    out["contour_virtual_cloud"] = refine_row(
+        torch, card, "contour_virtual_cloud (768² BEV, budget 4096)", blobs,
+        blobs_cmp, 20)
+    occ = contour.erode3x3(wall_bev("cuda")[0] < 0.5)
+    final = contour.connected_components(occ)
+    sweeps = next(k for k in range(1, 4096) if torch.equal(
+        contour.connected_components(occ, k), final))
+    reads = -(-(sweeps + 1) // contour.SWEEPS_PER_READ)
+    try:
+        F.max_pool2d(torch.zeros((1, 1, 8, 8), dtype=torch.int32,
+                                 device="cuda"), 3, 1, 1)
+        int_pool = "accepts"
+    except RuntimeError as e:
+        int_pool = f"refuses ({str(e).splitlines()[0]})"
+    print(f"[refine-ops] connected components at 768²: {sweeps} sweeps to "
+          f"converge, {reads} reads of the changed flag per call; "
+          f"{int((occ > 0.5).sum())} pixels after erosion; CUDA "
+          f"max_pool2d on int32 {int_pool} (the port pools float32 labels)")
+    out["contour_virtual_cloud"].update(sweeps=sweeps, flag_reads=reads)
+    return out
+
+
+def run_refine(torch, cfg, lq_set, kf_set, q_set, centroids, model,
+               aligned_results, card):
+    """The [refine] phases: (a) the ICP polish and match_keyframe at full
+    width, (b) the SLAM example, (c) the refiners at their bench shapes.
+    Returns the JSON record and the kernels' launches on its paths."""
+    t0 = time.perf_counter()
+    k1, locate_ms = phase_refine_polish(torch, cfg, lq_set, centroids)
+    k2 = phase_refine_aligned(torch, cfg, model, kf_set, q_set,
+                              aligned_results)
+    phase_refine_reference(torch, cfg, lq_set, centroids)
+    slam = phase_refine_slam(torch)
+    ops = phase_refine_ops(torch, card, lq_set[0][1][0])
+    seconds = time.perf_counter() - t0
+    print(f"[refine] all phases {seconds:.1f} s")
+    return {"locate_ms": locate_ms, "slam": slam, "ops": ops,
+            "seconds": seconds}, k1, k2
+
+
 # ------------------------------------------------------ kernel-only times
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
@@ -2038,46 +2463,54 @@ def k2_work(x, ids, v):
     return 4 * (b * n * c + b * n + b * v * c + b * v), b * n * (c + 1)
 
 
-def kernel_device_ms(torch, fn, frag: str, iters: int, flush=None):
+def kernel_device_ms(torch, fn, frag: str, iters: int, flush=None,
+                     per_call: int = 2, attempts: int = 6):
     """Device time per call of fn() spent in kernels whose name holds
-    ``frag``, from a torch.profiler trace of ``iters`` calls (after three
-    untraced ones): the wrapper's host work, its fills and its checks are
-    out of it. With ``flush`` the L2 cache is overwritten before each
-    call. Returns (ms per call, such kernels per call as traced, {kernel
-    name: ms per call})."""
-    from torch.profiler import ProfilerActivity, profile
+    ``frag``, from a complete torch.profiler trace of ``iters`` calls
+    (after three untraced ones): the wrapper's host work, its fills and its
+    checks are out of it. With ``flush`` the L2 cache is overwritten before
+    each call. A trace is complete when it holds ``per_call`` kernel names
+    (each of K1 and K2 launches two kernels a call), each ``iters`` times.
+    A trace's first events now and then go missing (late in a full smoke
+    more often), so each trace records a second run of the calls after a
+    profiler warm-up run (``schedule(warmup=1, active=1)``), and up to
+    ``attempts`` traces are taken, with the CPU side traced and not in
+    turns. Returns (ms per call, {kernel name: ms per call}), or (None,
+    kernels kept per call in the fullest trace) when no trace was
+    complete."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    # a trace now and then comes back without kernels, once three times in
-    # a row with CUDA activity alone: the retries trace the CPU side too
-    for activities in ([ProfilerActivity.CUDA],
-                       [ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                       [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        with profile(activities=activities) as prof:
-            for _ in range(iters):
-                if flush is not None:
-                    flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        durs = [(e["name"], e.get("dur", 0)) for e in trace_events(prof)
-                if e.get("cat") == "kernel" and frag in e.get("name", "")]
-        if durs:
-            break
-        print(f"[kernel-times] a trace with {len(activities)} activities "
-              f"came back without *{frag}* kernels")
-    check(bool(durs), f"the profiler saw no kernel named *{frag}* in "
-          f"three traces")
-    # each kernel name launches once per call: its mean over the events
-    # the trace kept (a trace now and then drops a few)
-    seen = {}
-    for name, d in durs:
-        total, count = seen.get(name, (0.0, 0))
-        seen[name] = (total + d, count + 1)
-    by_name = {name: total / count / 1e3
-               for name, (total, count) in seen.items()}
-    return sum(by_name.values()), len(durs) / iters, by_name
+    kept = 0.0
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA] + (
+                [ProfilerActivity.CPU] if attempt % 2 == 0 else []),
+                schedule=schedule(wait=0, warmup=1, active=1,
+                                  repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    if flush is not None:
+                        flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        seen = {}
+        for e in trace_events(prof):
+            if e.get("cat") == "kernel" and frag in e.get("name", ""):
+                total, count = seen.get(e["name"], (0.0, 0))
+                seen[e["name"]] = (total + e.get("dur", 0), count + 1)
+        kept = max(kept, sum(c for _, c in seen.values()) / iters)
+        if len(seen) == per_call and all(c == iters
+                                         for _, c in seen.values()):
+            by_name = {name: total / iters / 1e3
+                       for name, (total, _) in seen.items()}
+            return sum(by_name.values()), by_name
+        print(f"[kernel-times] an incomplete trace of *{frag}*: "
+              f"{len(seen)} kernel names, {kept:g} of {per_call} kernels "
+              f"a call kept")
+    return None, kept
 
 
 def segment_reduce_call(torch, x, starts):
@@ -2116,12 +2549,13 @@ def index_add_call(torch, x, ids, v):
 
 def phase_kernel_times(torch, card, k1_cases, k2_cases):
     """Each kernel alone at the main path's and the train step's shapes:
-    its device time from a torch.profiler trace (L2-warm, mean of 50 calls;
-    L2-flushed, mean of 20), beside its bound, the wrapper's time (CUDA
-    events, L2-warm; K2's with and without its id-range check, and the
-    check alone), and the time of the PyTorch call that computes the same
-    function (K1: ``torch.segment_reduce``; K2: fp32 ``index_add_`` +
-    ``bincount``), held once to the plain version first."""
+    its device time from a complete torch.profiler trace (L2-warm and
+    L2-flushed, mean of 20 calls each), beside its bound, the wrapper's and
+    the plain version's time (CUDA events, L2-warm; K2's wrapper with and
+    without its id-range check, and the check alone), and the time of the
+    PyTorch call that computes the same function (K1:
+    ``torch.segment_reduce``; K2: fp32 ``index_add_`` + ``bincount``), held
+    once to the plain version first."""
     from gloc3d_tpu_torch.kernels import bin_sums as bs
     from gloc3d_tpu_torch.kernels import segment_sum as ss
 
@@ -2152,24 +2586,17 @@ def phase_kernel_times(torch, card, k1_cases, k2_cases):
             # version accumulates in fp64): a sanity bound, not a tolerance
             check(lib_err < 1e-3, f"{key} library call {label} disagrees "
                   f"with the plain version: {lib_err:.3e} of L1 mass")
-            warm, per_call, _ = kernel_device_ms(
-                torch, lambda: launch(*args), frag, 50)
-            cold, _, parts = kernel_device_ms(
-                torch, lambda: launch(*args), frag, 20, flush)
-            r = {"shape": list(args[0].shape), "kernel_only_ms": cold,
-                 "kernel_only_warm_ms": warm, "kernels_per_call": per_call,
+            warm = kernel_device_ms(torch, lambda: launch(*args), frag, 20)
+            cold = kernel_device_ms(torch, lambda: launch(*args), frag, 20,
+                                    flush)
+            r = {"shape": list(args[0].shape),
+                 "kernel_only_ms": cold[0], "kernel_only_warm_ms": warm[0],
                  "wrapper_ms": cuda_ms(torch, lambda: wrapper(*args), 50),
                  "library_ms": cuda_ms(torch, lib_fn, 20, flush),
-                 "library_warm_ms": cuda_ms(torch, lib_fn, 50)}
+                 "library_warm_ms": cuda_ms(torch, lib_fn, 50),
+                 "plain_warm_ms": cuda_ms(torch, lambda: plain(*args), 5)}
             r["bound_ms"], r["bound_by"] = least_ms(*work(*args))
-            extra = part0 = ""
-            # each kernel's second launch adds per-block partials: K2's of
-            # pillar 0, K1's of blocks wholly inside one segment
-            second = "pillar0" if key == "K2" else "partials"
-            r[f"{second}_ms"] = sum(ms for name, ms in parts.items()
-                                    if second in name)
-            part0 = (f", of it the {second} launch "
-                     f"{r[f'{second}_ms']:.4f} ms flushed")
+            extra = ""
             if key == "K2":
                 r["wrapper_no_check_ms"] = cuda_ms(
                     torch, lambda: launch(*args), 50)
@@ -2177,16 +2604,32 @@ def phase_kernel_times(torch, card, k1_cases, k2_cases):
                 extra = (f"; wrapper without the id-range check "
                          f"{r['wrapper_no_check_ms']:.4f} ms, the check "
                          f"alone {r['check_ms']:.4f} ms")
+            # each kernel's second launch adds per-block partials: K2's of
+            # pillar 0, K1's of blocks wholly inside one segment
+            second = "pillar0" if key == "K2" else "partials"
+
+            def timed(t, cache):
+                return (f"{t[0]:.4f} ms {cache}" if t[0] is not None else
+                        f"not measured {cache} (no complete trace in six: "
+                        f"the fullest kept {t[1]:g} of 2 kernels a call)")
+
+            kernel = (f"kernel only {timed(cold, 'L2-flushed')} / "
+                      f"{timed(warm, 'L2-warm')} (torch.profiler, both "
+                      f"kernels of every traced call)")
+            if cold[0] is not None:
+                r[f"{second}_ms"] = sum(ms for name, ms in cold[1].items()
+                                        if second in name)
+                kernel += (f", of it the {second} launch "
+                           f"{r[f'{second}_ms']:.4f} ms flushed, "
+                           f"{r['bound_ms'] / cold[0]:.1%} of the bound")
             print(f"[kernel-times] {key} {label} {tuple(args[0].shape)} on "
-                  f"{card}: kernel only {cold:.4f} ms L2-flushed / "
-                  f"{warm:.4f} ms L2-warm ({per_call:g} kernel(s) per "
-                  f"call{part0}; torch.profiler); bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}; {cold and r['bound_ms'] / cold:.1%} "
-                  f"of it flushed); wrapper {r['wrapper_ms']:.4f} ms "
-                  f"L2-warm{extra}; library call {r['library_ms']:.4f} ms "
-                  f"L2-flushed / {r['library_warm_ms']:.4f} ms L2-warm "
-                  f"(CUDA events; {lib_err:.1e} of L1 mass from the plain "
-                  f"version)")
+                  f"{card}: {kernel}; bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}); wrapper "
+                  f"{r['wrapper_ms']:.4f} ms L2-warm{extra}; library call "
+                  f"{r['library_ms']:.4f} ms L2-flushed / "
+                  f"{r['library_warm_ms']:.4f} ms L2-warm (CUDA events; "
+                  f"{lib_err:.1e} of L1 mass from the plain version); plain "
+                  f"version {r['plain_warm_ms']:.4f} ms L2-warm")
             out[key][label] = r
     return out
 
@@ -2633,8 +3076,8 @@ def main(argv) -> int:
     phase_reference(torch, cfg, kf, qs, centroids)
 
     model = build_serving_model(torch, cfg, "bfloat16", centroids)
-    a_loc, _, k2_launches = phase_aligned_query(torch, cfg, model, kf_set,
-                                                q_set)
+    a_loc, a_results, k2_launches = phase_aligned_query(
+        torch, cfg, model, kf_set, q_set)
     phase_aligned_hoststats(torch, cfg, kf_set, q_set, centroids)
     phase_aligned_reference(torch, cfg, kf_set, q_set, centroids)
 
@@ -2650,6 +3093,9 @@ def main(argv) -> int:
     phase_aligned_timing(torch, cfg, a_loc, q_set[2], card)
     i2i = run_i2i(torch, kf_set, q_set, lq_set, card)
     print(json.dumps({"card": card, "i2i": i2i}))
+    refine, k1_refine, k2_refine = run_refine(
+        torch, cfg, lq_set, kf_set, q_set, centroids, model, a_results, card)
+    print(json.dumps({"card": card, "refine": refine}))
 
     ds = training_dataset(world, cfg.voxel.max_points)
     train_counts = phase_training(torch, cfg, ds, card)
@@ -2659,10 +3105,12 @@ def main(argv) -> int:
         torch, cfg, ds, k1_main, k2_main))
     k1_paths = {"located query": k1_launches,
                 "fused query, host-stats": k1_fused,
-                "training, host-stats": train_counts["host-stats"][0]}
+                "training, host-stats": train_counts["host-stats"][0],
+                "refine, host-stats": k1_refine}
     k2_paths = {"aligned query": k2_launches,
                 "fused query, aligned all-device": k2_fused,
-                "training, all-device": train_counts["all-device"][1]}
+                "training, all-device": train_counts["all-device"][1],
+                "refine, aligned all-device": k2_refine}
     print(json.dumps({"kernels": [
         {"name": "segment_sum_sorted", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": sum(k1_paths.values()),

@@ -258,14 +258,15 @@ class MatchConfig(_Base):
                                      # structurally-similar negatives
                                      # correlate diffusely (≲ 1.08 measured)
     image_size: int = 768
-    refine_icp: bool = False         # planar-ICP polish of accepted matches.
-    # Default OFF by measurement (RESULTS round 5, refinement study): the
-    # matcher alone is sub-cell (0.15 m mean) at 100% success on the
-    # 12-24 m calibration pairs, and the fused serving path excludes the
-    # stage. ON (+5.5 ms via locate()) halves translation error to
-    # 0.069 m and cuts yaw error 3x — enable when centimeters matter.
+    refine_icp: bool = False         # 3-D point-to-point ICP polish of
+    # accepted matches in locate / locate_batch / match_keyframe: each
+    # keyframe keeps a downsampled scan cloud, and the query's cloud is
+    # registered onto it from the match's (dx, dy, yaw), the result
+    # projected back to (dx, dy, yaw). Scans only (no cloud for image
+    # inputs); locate_fused refuses it. Off by default, as in the JAX
+    # package (its refinement study, RESULTS.md round 5, measured on a TPU).
                                      # (global_registration.cpp:1388-1398 role)
-    refine_icp_points: int = 4096    # virtual-cloud budget per image
+    refine_icp_points: int = 4096    # points per downsampled scan cloud
     refine_icp_iters: int = 10
     refine_icp_max_corr: float = 1.0  # correspondence gate, meters
 

@@ -1,7 +1,8 @@
 """SE(3) / SE(2) rigid transforms and quaternion algebra on tensors.
 
 Port of ``gloc3d_tpu/core/transforms.py`` for the located query, plain and
-ground-aligned: quaternion algebra, Euler extraction, the ground-alignment
+ground-aligned, and for the refiners: quaternion algebra,
+``matrix_to_quat``, Euler extraction, the ground-alignment
 helpers (``remove_yaw``, ``quat_from_two_vectors``), ``Rigid3`` / ``Rigid2``
 and ``embed_3d``. Quaternions are (w, x, y, z) in the last axis; every
 function broadcasts over leading axes and is branch-free (``torch.where``),
@@ -73,6 +74,33 @@ def quat_to_matrix(q: Tensor) -> Tensor:
         2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
     ], dim=-1)
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m: Tensor) -> Tensor:
+    """Rotation matrix (..., 3, 3) → unit quaternion (..., 4), branch-free
+    Shepperd: all four candidates are built and the one with the largest
+    pivot is taken with ``take_along_dim``, so no value is read back to the
+    host."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                      1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1)
+    w0, x1, y2, z3 = (torch.sqrt(qw.clamp_min(1e-12)) * 0.5).unbind(-1)
+    cands = torch.stack([
+        torch.stack([w0, (m21 - m12) / (4 * w0), (m02 - m20) / (4 * w0),
+                     (m10 - m01) / (4 * w0)], dim=-1),
+        torch.stack([(m21 - m12) / (4 * x1), x1, (m01 + m10) / (4 * x1),
+                     (m02 + m20) / (4 * x1)], dim=-1),
+        torch.stack([(m02 - m20) / (4 * y2), (m01 + m10) / (4 * y2), y2,
+                     (m12 + m21) / (4 * y2)], dim=-1),
+        torch.stack([(m10 - m01) / (4 * z3), (m02 + m20) / (4 * z3),
+                     (m12 + m21) / (4 * z3), z3], dim=-1),
+    ], dim=-2)
+    best = torch.stack([tr, m00, m11, m22], dim=-1).argmax(-1)
+    q = torch.take_along_dim(cands, best[..., None, None], dim=-2)[..., 0, :]
+    return quat_normalize(q)
 
 
 def quat_from_rpy(roll: Tensor, pitch: Tensor, yaw: Tensor) -> Tensor:

@@ -45,23 +45,32 @@ The bank is the flat ``DescriptorBank`` (fp32, or int8 with
 the IVF index (``index/ivf.py``, fp32 or int8 cells) behind
 ``_IVFBankAdapter``; every entry point searches either.
 
-Options that other slices port raise ``NotImplementedError`` naming their
-ROADMAP item: ``refine_icp``, ``match_keyframe`` and sharding the IVF
-bank. ``device_sort`` is a TPU-only strategy that the port leaves out, and
-so are the JAX package's ``row_gather`` and the bucket padding of
+With ``match.refine_icp`` each keyframe also keeps a downsampled scan cloud
+(``refine_icp_points`` points, in the BEV frame: the ground frame on an
+aligned map), and ``locate``, ``locate_batch`` and ``match_keyframe``
+polish an accepted match with 3-D point-to-point ICP (``ops/refine.py``)
+seeded by its (dx, dy, yaw), projected back to (dx, dy, yaw).
+``match_keyframe`` registers a query against one chosen keyframe, the SLAM
+loop's verify step.
+
+Sharding the IVF bank raises ``NotImplementedError`` naming its ROADMAP
+item (16). ``device_sort`` is a TPU-only strategy that the port leaves
+out, and so are the JAX package's ``row_gather`` and the bucket padding of
 ``locate_batch``, which only bound XLA shapes.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gloc3d_tpu_torch.core.device import resolve_device
-from gloc3d_tpu_torch.core.transforms import Rigid3, transform_points
+from gloc3d_tpu_torch.core.transforms import (
+    Rigid3, quat_from_rpy, quat_to_matrix, transform_points,
+)
 from gloc3d_tpu_torch.data import native
 from gloc3d_tpu_torch.eval.registration import compose_6dof
 from gloc3d_tpu_torch.index.bank import DescriptorBank
@@ -70,6 +79,7 @@ from gloc3d_tpu_torch.models.encoders import is_image_encoder
 from gloc3d_tpu_torch.ops.bev import BEVImage, batch_scan_to_bev
 from gloc3d_tpu_torch.ops.bev_match import MatchResult, match_bev_topk
 from gloc3d_tpu_torch.ops.ground import GroundEstimate, estimate_ground
+from gloc3d_tpu_torch.ops.refine import icp_point_to_point
 
 
 class Keyframe(NamedTuple):
@@ -79,6 +89,9 @@ class Keyframe(NamedTuple):
                                      # None when ingested without a mirror
     ground: Optional[Rigid3] = None  # T_lidar→ground (numpy), None if the
                                      # keyframe was ingested unaligned
+    cloud: Optional[np.ndarray] = None  # (P, 4) downsampled scan in the BEV
+                                        # frame, xyz + validity column
+                                        # (kept with match.refine_icp)
 
 
 class LocalizationResult(NamedTuple):
@@ -284,8 +297,6 @@ class GlobalLocalizer:
                 "device_sort is a TPU-only binning strategy the port leaves "
                 "out (ROADMAP ground rule: port semantics, not TPU "
                 "workarounds); host_stats=False bins on the device")
-        if cfg.match.refine_icp:
-            raise _not_ported("match.refine_icp", "item 14")
         self.cfg = cfg
         self.i2i = is_image_encoder(cfg.model.encoder)
         self.host_stats = host_stats and not self.i2i
@@ -425,11 +436,14 @@ class GlobalLocalizer:
         if ground is not None:
             rot = _numpy(ground.transform.rotation)
             trans = _numpy(ground.transform.translation)
+        clouds = self._query_clouds(points, mask, ground)
         for i in range(n_new):
             self.keyframes.append(Keyframe(
                 imgs[i] if imgs is not None else None,
                 origins[i] if origins is not None else None,
-                Rigid3(rot[i], trans[i]) if ground is not None else None))
+                Rigid3(rot[i], trans[i]) if ground is not None else None,
+                None if clouds is None else np.concatenate(
+                    [clouds[0][i], clouds[1][i][:, None]], 1)))
 
     def _ensure_kf_capacity(self, n_needed: int, s: int) -> None:
         """Room for ``n_needed`` rows in the device store: 1024 rows at
@@ -461,6 +475,80 @@ class GlobalLocalizer:
         self._kf_store[offset : offset + n] = _pack_bits(images)
         self._kf_origins[offset : offset + n] = torch.as_tensor(
             origins, dtype=torch.float32, device=self.device)
+
+    # ------------------------------------------------------------ ICP polish
+    def _downsample_cloud(self, points: np.ndarray, mask: np.ndarray
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+        """Uniform-stride subsample of the valid points to the ICP budget."""
+        budget = self.cfg.match.refine_icp_points
+        pts = np.asarray(points)[..., :3]
+        valid_idx = np.nonzero(np.asarray(mask) > 0)[0]
+        take = valid_idx[
+            np.linspace(0, len(valid_idx) - 1,
+                        min(budget, max(len(valid_idx), 1))).astype(int)
+        ] if len(valid_idx) else np.zeros(0, int)
+        out = np.zeros((budget, 3), np.float32)
+        out[: len(take)] = pts[take]
+        v = np.zeros(budget, np.float32)
+        v[: len(take)] = 1.0
+        return out, v
+
+    def _query_clouds(self, points, masks, ground):
+        """Downsampled clouds of a batch of scans for the ICP polish, in the
+        BEV frame (moved into the ground frame on an aligned map, in float64
+        as ``_align`` moves the scans): ((B, P, 3), (B, P)) numpy, or None
+        when refinement is off or the inputs are images or have no mask."""
+        if (not self.cfg.match.refine_icp or masks is None
+                or np.ndim(points) != 3):
+            return None
+        clouds, valids = [], []
+        for q in range(len(points)):
+            xyz, v = self._downsample_cloud(points[q], masks[q])
+            if self.align_ground and ground is not None:
+                t64 = Rigid3(ground.transform.rotation[q].double().cpu(),
+                             ground.transform.translation[q].double().cpu())
+                xyz = transform_points(
+                    t64, torch.from_numpy(xyz).double()).float().numpy()
+            clouds.append(xyz)
+            valids.append(v)
+        return np.stack(clouds), np.stack(valids)
+
+    @torch.no_grad()
+    def _refine_icp(self, q_cloud, q_valid, db_cloud, db_valid,
+                    xy_yaw) -> np.ndarray:
+        """3-D ICP polish of an accepted match on the device: the query's
+        cloud onto the keyframe's, both in their BEV frames, seeded with
+        (dx, dy, yaw); the refined transform projected back to
+        (dx, dy, atan2(r10, r00))."""
+        m = self.cfg.match
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.float32),
+                                   device=self.device)
+
+        xy_yaw = dev(xy_yaw)
+        z = torch.zeros((), device=self.device)
+        init = Rigid3(quat_from_rpy(z, z, xy_yaw[2]),
+                      torch.stack([xy_yaw[0], xy_yaw[1], z]))
+        res = icp_point_to_point(
+            dev(q_cloud), dev(q_valid), dev(db_cloud), dev(db_valid), init,
+            iterations=m.refine_icp_iters,
+            max_corr_dist=m.refine_icp_max_corr)
+        r = quat_to_matrix(res.transform.rotation)
+        return _numpy(torch.stack([
+            res.transform.translation[0], res.transform.translation[1],
+            torch.atan2(r[1, 0], r[0, 0])]))
+
+    def _maybe_refine(self, q_cloud, q_valid, db_idx: int, xy_yaw):
+        """``xy_yaw`` polished against keyframe ``db_idx``'s cloud, or as it
+        is when refinement is off or either side has no cloud."""
+        if not self.cfg.match.refine_icp or q_cloud is None:
+            return xy_yaw
+        kf = self.keyframes[db_idx]
+        if kf.cloud is None:
+            return xy_yaw
+        return self._refine_icp(q_cloud, q_valid, kf.cloud[:, :3],
+                                kf.cloud[:, 3], xy_yaw)
 
     # ------------------------------------------------------------ query
     def detect(self, points: np.ndarray, mask: Optional[np.ndarray] = None,
@@ -519,9 +607,11 @@ class GlobalLocalizer:
         return self.keyframes[db_idx].ground
 
     def _result(self, res: MatchResult, idx0: np.ndarray, d2: np.ndarray,
-                ground, q: int = 0) -> LocalizationResult:
+                ground, q: int = 0, clouds=None) -> LocalizationResult:
         """Query ``q``'s LocalizationResult from its registration lanes
-        (candidate order ``idx0``): the first success wins."""
+        (candidate order ``idx0``): the first success wins, polished with
+        ICP against its keyframe when ``clouds`` (``_query_clouds``) holds
+        the query's."""
         succ = _numpy(res.success)
         scores = _numpy(res.score)
         if not succ.any():
@@ -529,7 +619,11 @@ class GlobalLocalizer:
                                       float(scores.max()), None)
         k_star = int(np.argmax(succ))
         db_idx = int(idx0[k_star])
-        xy_yaw = torch.as_tensor(_numpy(res.xy_yaw)[k_star])
+        xy_yaw = _numpy(res.xy_yaw)[k_star]
+        if clouds is not None:
+            xy_yaw = self._maybe_refine(clouds[0][q], clouds[1][q], db_idx,
+                                        xy_yaw)
+        xy_yaw = torch.as_tensor(xy_yaw)
         t_q = t_db = None
         if self.align_ground and ground is not None:
             t_q = Rigid3(ground.transform.rotation[q],
@@ -552,7 +646,8 @@ class GlobalLocalizer:
         # clamp them to a real keyframe (their inf distance ranks them last)
         idx0 = np.clip(idx[0], 0, len(self.keyframes) - 1)
         res = self._staged(bev.image[0], bev.origin_xy[0], idx0)
-        return self._result(res, idx0, d2[0], ground)
+        return self._result(res, idx0, d2[0], ground, clouds=(
+            self._query_clouds(*_one(points, mask, None)[:2], ground)))
 
     def locate_batch(self, points: np.ndarray,
                      masks: Optional[np.ndarray] = None,
@@ -582,8 +677,9 @@ class GlobalLocalizer:
                     failed, b, k)
         else:
             res = _stack([match(q, idx[q]) for q in range(b)])
+        clouds = self._query_clouds(points, masks, ground)
         return [self._result(MatchResult(*(x[q] for x in res)), idx[q],
-                             d2[q], ground, q) for q in range(b)]
+                             d2[q], ground, q, clouds) for q in range(b)]
 
     def locate_fused(self, points: np.ndarray,
                      mask: Optional[np.ndarray] = None,
@@ -619,11 +715,10 @@ class GlobalLocalizer:
     def save(self, out_dir: str) -> None:
         """Write the built map to ``out_dir``, in the JAX package's format:
         ``bank.npz``, ``keyframes.npz`` (``images`` uint8 0/255,
-        ``origins``, and ``ground_q`` / ``ground_t`` when any keyframe has
-        a ground frame) and ``config.json``. With ``host_mirror=False`` the
-        images are rebuilt from the device store, 256 rows at a time. The
-        port's keyframes hold no ICP cloud (ROADMAP Queue 1, item 14), so
-        no ``clouds`` array is written."""
+        ``origins``, ``ground_q`` / ``ground_t`` when any keyframe has a
+        ground frame, and ``clouds`` when every keyframe has an ICP cloud)
+        and ``config.json``. With ``host_mirror=False`` the images are
+        rebuilt from the device store, 256 rows at a time."""
         os.makedirs(out_dir, exist_ok=True)
         self.bank.save(os.path.join(out_dir, "bank.npz"))
         n = len(self.keyframes)
@@ -643,16 +738,17 @@ class GlobalLocalizer:
                                        for k in self.keyframes])
             kw["ground_t"] = np.stack([k.ground.translation
                                        for k in self.keyframes])
+        if all(k.cloud is not None for k in self.keyframes):
+            kw["clouds"] = np.stack([k.cloud for k in self.keyframes])
         np.savez(os.path.join(out_dir, "keyframes.npz"), **kw)
         with open(os.path.join(out_dir, "config.json"), "w") as f:
             f.write(self.cfg.to_json())
 
     def load(self, out_dir: str) -> None:
         """Restore a map written by ``save`` (of either package) into this
-        localizer: the bank, the keyframes and, with ``device_keyframes``,
-        the device store (repacked 256 rows at a time). A ``clouds`` array
-        (the JAX package's ICP clouds) is ignored: the port's keyframes
-        hold none until ROADMAP Queue 1, item 14."""
+        localizer: the bank, the keyframes (with their ICP clouds where
+        the map has them) and, with ``device_keyframes``, the device store
+        (repacked 256 rows at a time)."""
         path = os.path.join(out_dir, "bank.npz")
         if self.cfg.index.backend == "ivf":
             self.bank = _IVFBankAdapter.load(path, self.cfg.index,
@@ -662,10 +758,12 @@ class GlobalLocalizer:
         kf = np.load(os.path.join(out_dir, "keyframes.npz"))
         images, origins = kf["images"], kf["origins"]
         has_ground = "ground_q" in kf
+        clouds = kf["clouds"] if "clouds" in kf else None
         self.keyframes = [
             Keyframe(images[i] if self.host_mirror else None, origins[i],
                      Rigid3(kf["ground_q"][i], kf["ground_t"][i])
-                     if has_ground else None)
+                     if has_ground else None,
+                     None if clouds is None else clouds[i])
             for i in range(len(images))]
         if self.device_keyframes:
             for i in range(0, len(images), 256):
@@ -673,6 +771,29 @@ class GlobalLocalizer:
                     images[i : i + 256].astype(np.float32) / 255.0,
                     origins[i : i + 256], offset=i)
 
-    # ------------------------------------------------------------ not ported
-    def match_keyframe(self, *args, **kwargs):
-        raise _not_ported("GlobalLocalizer.match_keyframe", "item 14")
+    def match_keyframe(self, points: Optional[np.ndarray] = None,
+                       mask: Optional[np.ndarray] = None,
+                       origin: Optional[np.ndarray] = None,
+                       db_index: int = 0, *, bev=None,
+                       ground=None) -> LocalizationResult:
+        """Register ONE query, a scan (N, ≥3) with mask (N,) or a BEV image
+        (S, S, 3) with its origin, against the CHOSEN keyframe ``db_index``:
+        the SLAM loop's verify step after ``bank.detect_loop`` names a
+        candidate. The matcher, the ICP polish and the 6-DoF composition
+        are ``locate``'s, without the bank search; the result's candidates
+        are ``[db_index]`` with a nan distance. ``bev`` / ``ground`` from an
+        earlier ``extract`` of the same query skip a second extraction; the
+        polish needs the scan itself (``points`` and ``mask``)."""
+        if not 0 <= db_index < len(self.keyframes):
+            raise IndexError(
+                f"db_index {db_index} outside [0, {len(self.keyframes)})")
+        if bev is None:
+            if points is None:
+                raise ValueError("match_keyframe needs points or bev=")
+            _, bev, ground = self.extract(*_one(points, mask, origin))
+        cand = np.array([db_index])
+        res = self._match(bev.image[0], bev.origin_xy[0], cand)
+        clouds = (self._query_clouds(*_one(points, mask, None)[:2], ground)
+                  if points is not None else None)
+        return self._result(res, cand, np.array([np.nan]), ground,
+                            clouds=clouds)

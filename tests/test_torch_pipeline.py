@@ -125,8 +125,6 @@ def test_compose_6dof_matches_jax():
 @pytest.mark.parametrize("kwargs,cfg_change,item", [
     (dict(device_sort=True), None, "TPU workarounds"),
     ({}, dict(index=IndexConfig(dim=128, backend="ivf")), "item 16"),
-    ({}, dict(match=MatchConfig(image_size=128, refine_icp=True)),
-     "item 14"),
 ])
 def test_unported_options_raise(kwargs, cfg_change, item):
     model = build_model(CFG.model, CFG.voxel)
@@ -143,15 +141,6 @@ def test_host_stats_default_matches_jax():
     loc = GlobalLocalizer(CFG, build_model(CFG.model, CFG.voxel),
                           device="cpu")
     assert loc.host_stats is False
-
-
-@pytest.mark.parametrize("method,item", [("match_keyframe", "item 14")])
-def test_unported_methods_raise(method, item):
-    pts, mask = scan_at(*QUERIES[0], n=N_PTS)
-    loc = GlobalLocalizer(CFG, build_model(CFG.model, CFG.voxel),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match=f"{method}.*{item}"):
-        getattr(loc, method)(pts, mask)
 
 
 @pytest.fixture(scope="module")
@@ -210,8 +199,8 @@ def test_port_runs_without_jax():
     """Import the port and run CPU located queries (host stats, all-device
     binning, a fused query from the device keyframe store with the fm
     matcher preset, located and fused queries on the int8 flat bank and
-    the IVF index with int8 cells, and an i2i fused query on a 64² BEV
-    image) and a
+    the IVF index with int8 cells, ``locate`` with the ICP polish and
+    ``match_keyframe``, and an i2i fused query on a 64² BEV image) and a
     training epoch on each path with jax, flax and the JAX package
     blocked: the port never needs JAX, and no module it
     loads and no shared library it maps lies under gloc3d_tpu/ or
@@ -285,6 +274,21 @@ def test_port_runs_without_jax():
             for call in (mloc.locate, mloc.locate_fused):
                 res = call(*scan(20, 5))
                 assert res.success and res.db_index == 1, res
+
+        # the refinement stage: the ICP polish in locate, and
+        # match_keyframe (the SLAM verify step) on the device store
+        rcfg = cfg.replace(match=cfg.match.replace(
+            refine_icp=True, refine_icp_points=256, refine_icp_iters=3))
+        rloc = g.GlobalLocalizer(rcfg, model, device="cpu",
+                                 device_keyframes=True)
+        rloc.add_keyframes(np.stack([k[0] for k in kf]),
+                           np.stack([k[1] for k in kf]))
+        assert rloc.keyframes[1].cloud.shape == (256, 4)
+        res = rloc.locate(*scan(20, 5))
+        assert res.success and res.db_index == 1, res
+        res = rloc.match_keyframe(*scan(20, 5), db_index=1)
+        assert res.success and res.candidates.tolist() == [1], res
+        assert np.abs(res.pose.translation).max() < 0.05, res.pose
 
         # the i2i serving path: VGG16 + NetVLAD-FC on 64² BEV images
         icfg = g.PipelineConfig.i2i().replace(

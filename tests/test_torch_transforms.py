@@ -45,6 +45,20 @@ def test_unary_quaternion_functions(name):
            getattr(jt, name)(jnp.asarray(q)))
 
 
+def test_matrix_to_quat_matches_jax():
+    """Random rotations and one rotation per Shepperd pivot (the trace,
+    then m00, m11, m22 largest: identity and 180° turns about x, y, z)."""
+    half_turns = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0],
+                           [0, 0, 0, 1]], np.float32)
+    q = np.concatenate([_quats(64, 15), half_turns])
+    m = np.asarray(jt.quat_to_matrix(jnp.asarray(q)))
+    got = tt.matrix_to_quat(torch.from_numpy(m))
+    _close(got, jt.matrix_to_quat(jnp.asarray(m)), atol=2e-6)
+    # the same rotation: q or -q
+    dots = np.abs((got.numpy() * q).sum(-1))
+    np.testing.assert_allclose(dots, 1.0, atol=2e-6)
+
+
 def test_quat_mul_rotate_identity():
     a, b, v = _quats(64, 1), _quats(64, 2), _rand((64, 3), 3)
     _close(tt.quat_mul(torch.from_numpy(a), torch.from_numpy(b)),
