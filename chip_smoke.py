@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's s2s and i2i located queries, the refinement
-stage and s2s training once on one NVIDIA card.
+stage, the SLAM submap and s2s training once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -139,10 +139,28 @@ Phases, each printing its own lines:
      contour_virtual_cloud on a 768² BEV: CUDA-event ms, a traced call's
      busy ms, idle share and kernels, host syncs per call, card vs CPU
      within stated bounds; the connected-components sweeps at 768².
+ 19. [submap], after [refine], at tools/bench_submap.py's shapes
+     (BEVConfig(z_min=-4, z_max=4), ±100 m: the high grid 1000x1000x40 at
+     0.2 m, the low 400x400x16 at 0.5 m): ten 122 480-pad sweeps of the
+     walled world from (1.5 i, 0.4 i) m at yaw 0.06 i, i < 10; ms per
+     dual-grid Submap3D.insert (a world sweep and bench.py's scan) and host
+     syncs; project_to_bev of the 10-sweep high grid to 768²; one sweep's
+     insert and projection card vs CPU, bit-equal; match_scan and
+     match_scan_fast on the 512² centre crop with sweep 0's 4096-point
+     virtual scan at R = 64, 256 and the local R = 32 ±0.15 rad (a
+     certified fast result must be the exhaustive optimum), match_scan at
+     R = 64 card vs CPU (the same optimum); fast against exhaustive at the
+     Olson-bound R on bench_submap.py's offset query (4.0, -2.0, 0.35 rad,
+     σ 0.10 m); match_full_submap(fallback="full") and cmd_match_submap's
+     composition (scan_to_bev → bev_to_virtual_points →
+     match_full_submap) recovering that offset within one cell and one
+     angular step; cuFFT against float64 direct sums (fine and coarse
+     FFT) below the certificate's 0.05-count slack.
 The kernel-only times of phase 17 come from complete traces only (both
 kernels of every traced call); a timing with none in six traces prints
 that it was not measured.
 `python3 chip_smoke.py --kernels` runs phases 1-4 and 17 only;
+`python3 chip_smoke.py --submap` phases 1 and 19 only;
 `--seed N` seeds the map-scale rows (default 0).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before those.
@@ -1117,7 +1135,8 @@ def phase_fused_query(torch, cfg, lq_set, kf_set, q_set, centroids):
 
 def count_syncs(torch, fn) -> int:
     """Host synchronisations of one call of fn(), as
-    torch.cuda.set_sync_debug_mode("warn") reports them."""
+    torch.cuda.set_sync_debug_mode("warn") reports them (not counting the
+    mode's own once-per-process notice that it is a prototype)."""
     fn()
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -1127,7 +1146,8 @@ def count_syncs(torch, fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("synchroniz" in str(w.message)
+               and "prototype" not in str(w.message) for w in caught)
 
 
 def phase_fused_cell(torch, cfg, centroids, card):
@@ -2435,6 +2455,387 @@ def run_refine(torch, cfg, lq_set, kf_set, q_set, centroids, model,
             "seconds": seconds}, k1, k2
 
 
+# ---------------------------------------------------------------- [submap]
+SUBMAP_EXTENT_M = 100.0   # tools/bench_submap.py: ±100 m, z in [-4, 4]
+SUBMAP_SWEEPS = 10
+SUBMAP_CROP = (128, 640)  # the matcher's 512² centre crop of the 768² BEV
+SUBMAP_POINTS = 4096      # the virtual scan
+SUBMAP_GT = (4.0, -2.0, 0.35)  # bench_submap.py's offset query, σ 0.10 m
+
+
+def submap_sweeps(world, n_pts: int):
+    """tools/bench_submap.py's ten sweeps, from the poses (1.5 i, 0.4 i) m
+    at yaw 0.06 i, i < 10: the walled world's scan at each pose (scan_at,
+    the full pad), moved into the frame of sweep 0 as bench_submap.py moves
+    its scan; and the sweeps' origins."""
+    sweeps, masks = [], []
+    for i in range(SUBMAP_SWEEPS):
+        pts, mask = scan_at(world, (1.5 * i, 0.4 * i, 0.06 * i), n_pts,
+                            seed=300 + i)
+        c, s = np.cos(0.06 * i), np.sin(0.06 * i)
+        p = pts[:, :3].copy()
+        p[:, 0] = c * pts[:, 0] - s * pts[:, 1] + 1.5 * i
+        p[:, 1] = s * pts[:, 0] + c * pts[:, 1] + 0.4 * i
+        sweeps.append(p)
+        masks.append(mask)
+    origins = np.array([[1.5 * i, 0.4 * i, 0.0]
+                        for i in range(SUBMAP_SWEEPS)], np.float32)
+    return sweeps, masks, origins
+
+
+def offset_query(v, t, alpha, sigma, seed):
+    """bench_submap.py's q = R_α⁻¹(v − t) plus N(0, σ) per coordinate:
+    matching q against the map recovers (t, α)."""
+    c, s = np.cos(alpha), np.sin(alpha)
+    q = np.stack([c * (v[:, 0] - t[0]) + s * (v[:, 1] - t[1]),
+                  -s * (v[:, 0] - t[0]) + c * (v[:, 1] - t[1])], 1)
+    if sigma > 0:
+        q = q + np.random.RandomState(seed).normal(0, sigma, q.shape)
+    return q.astype(np.float32)
+
+
+def same_optimum(torch, score_at, grid, pts, mask, got, want,
+                 tol: float = 1e-5) -> bool:
+    """The same score within tol, and the same pose or a score-tied one."""
+    if abs(float(got.score) - float(want.score)) >= tol:
+        return False
+    if torch.allclose(got.pose.cpu(), want.pose.cpu(), atol=1e-5):
+        return True
+    refit = float(score_at(grid, pts, mask, got.pose.to(pts.device)))
+    return abs(refit - float(want.score)) < tol
+
+
+def fft_error_probe(torch, grid, vpts, vmask, thetas, coarse_factor=None):
+    """cuFFT's correlation against a float64 direct sum on the card: the
+    fine FFT at pad 1.5·size (or, with ``coarse_factor``, the coarse bound
+    FFT at pad 1.5·size_c) over the batch ``thetas``, at 16 random shifts
+    per rotation and at its maximum where that is alias-free
+    (|t| < size/2). Returns the largest |FFT − direct| in counts."""
+    import torch.nn.functional as F
+
+    from gloc3d_tpu_torch.ops import scan_match as sm
+
+    size = grid.log_odds.shape[0]
+    probs = grid.probabilities()
+    col, row = sm._cells(thetas, vpts, grid.origin_xy, grid.resolution)
+    valid = ((vmask > 0)[None] & (row >= 0) & (row < size) & (col >= 0)
+             & (col < size))
+    if coarse_factor:  # the matcher's own bound grid and coarse cells
+        target = sm._coarse_bounds(probs, coarse_factor)
+        q = sm._coarse_cells(col, row, coarse_factor)
+        col, row = q[..., 0], q[..., 1]
+        size = (size - 1) // coarse_factor + 1
+    else:
+        target = probs
+    n = target.shape[0]
+    pad = size + size // 2
+    ft = torch.fft.rfft2(F.pad(target, (0, pad - n, 0, pad - n)))
+    counts = sm._scatter_counts(torch.stack([col, row], -1), valid, size,
+                                out_size=pad)
+    corr = sm._fft_corr(counts, ft, pad).reshape(len(thetas), -1)
+    gen = torch.Generator(device=corr.device).manual_seed(0)
+    half = size // 2
+    shifts = torch.randint(-half + 1, half, (len(thetas), 16, 2),
+                           generator=gen, device=corr.device)
+    best = torch.stack(sm._decode_shift(corr.argmax(-1), pad), -1)
+    shifts = torch.cat([shifts, best[:, None]], 1)            # (R, 17, 2)
+    ok = (shifts.abs() < half).all(-1)
+    ty, tx = shifts[..., 0:1], shifts[..., 1:2]
+    rows_t, cols_t = row[:, None] + ty, col[:, None] + tx     # (R, 17, N)
+    inb = (valid[:, None] & (rows_t >= 0) & (rows_t < n) & (cols_t >= 0)
+           & (cols_t < n))
+    flat = (rows_t * n + cols_t).clamp(0, n * n - 1)
+    direct = torch.where(inb, target.reshape(-1).double()[flat],
+                         0.0).sum(-1)
+    got = corr.gather(1, (ty[..., 0] % pad) * pad + tx[..., 0] % pad)
+    return float(torch.where(ok, (got.double() - direct).abs(), 0.0).max())
+
+
+def phase_submap(torch, card, world, dev: str = "cuda",
+                 extent=SUBMAP_EXTENT_M):
+    """[submap], tools/bench_submap.py's workload: ``Submap3D.insert`` of
+    bench.py's 122 480-pad scan (bench_query_scan) and of 10 sweeps of the
+    walled world (submap_sweeps) into the dual grid (high 1000×1000×40 at
+    0.2 m, low 400×400×16 at 0.5 m), ``project_to_bev`` of
+    the 10-sweep high grid to 768², ``match_scan`` and ``match_scan_fast``
+    on its 512² centre crop with a 4096-point virtual scan of sweep 0 at
+    R = 64, 256 and the local R = 32 ±0.15 rad, fast against exhaustive at
+    the Olson-bound R, ``match_full_submap(fallback="full")`` on the
+    offset query, ``cmd_match_submap``'s composition (``scan_to_bev`` →
+    ``bev_to_virtual_points`` → ``match_full_submap``), the cuFFT error
+    probes, and card against CPU (one sweep's insert and projection,
+    ``apply_odds`` and ``grid_to_points`` on the crop, bit for bit;
+    ``match_scan`` at R = 64, the same optimum). bench.py's scan is uniform noise in a
+    box: ten of them overlapped fill nearly every pixel of their footprint,
+    and no query can be placed in such a map, so the map is built from
+    the world's sweeps, which have walls."""
+    from gloc3d_tpu_torch.config import BEVConfig
+    from gloc3d_tpu_torch.ops import scan_match as sm
+    from gloc3d_tpu_torch.ops.bev import scan_to_bev
+    from gloc3d_tpu_torch.ops.occupancy import (
+        ProbabilityGrid2D, Submap3D, grid_to_points)
+    from gloc3d_tpu_torch.ops.refine import bev_to_virtual_points
+
+    t_phase = time.perf_counter()
+    cfg = BEVConfig(z_min=-4.0, z_max=4.0)
+    res = cfg.resolution
+    sweeps, masks, origins = submap_sweeps(world, 122480)
+    out = {"card": card}
+
+    def to_dev(a, d=dev):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(d)
+
+    submap0 = Submap3D.create(cfg, extent_xy=extent, device=dev)
+    hi, lo = submap0.high.log_odds.shape, submap0.low.log_odds.shape
+    bench_pts, bench_mask = bench_query_scan(122480)
+    p0, m0, o0 = to_dev(sweeps[0]), to_dev(masks[0]), to_dev(origins[0])
+    pb, mb = to_dev(bench_pts[0, :, :3]), to_dev(bench_mask[0])
+
+    def insert():
+        return submap0.insert(p0, m0, origin=o0, cfg=cfg)
+
+    out["insert_ms"] = cuda_ms(torch, insert, 10)
+    out["insert_bench_scan_ms"] = cuda_ms(
+        torch, lambda: submap0.insert(pb, mb, cfg=cfg), 10)
+    out["insert_syncs"] = count_syncs(torch, insert)
+    busy, wall, n_kernels, _ = device_idle_share(torch, insert)
+    out.update(insert_busy_ms=busy, insert_traced_wall_ms=wall,
+               insert_kernels=n_kernels)
+    one = insert()
+    img0, org0 = one.project(cfg)
+    sub = submap0
+    for p, m, o in zip(sweeps, masks, origins):
+        sub = sub.insert(to_dev(p), to_dev(m), origin=to_dev(o), cfg=cfg)
+    torch.cuda.synchronize()
+    known = int(sub.high.known.sum())
+    print(f"[submap] on {card}: grids high {tuple(hi)} at {res} m, low "
+          f"{tuple(lo)} at {cfg.low_resolution} m; Submap3D.insert (both "
+          f"grids, one 122480-pad sweep; CUDA events, mean of 10): world "
+          f"sweep ({int(masks[0].sum())} points) {out['insert_ms']:.3f} ms, "
+          f"bench.py's scan (100 000 points) "
+          f"{out['insert_bench_scan_ms']:.3f} ms; {out['insert_syncs']} "
+          f"host syncs; traced: busy {busy:.3f} ms of {wall:.3f} ms, "
+          f"{n_kernels} kernels; {SUBMAP_SWEEPS} sweeps: {known} known "
+          f"high-res cells")
+    check(known > 0 and sub.num_range_data == SUBMAP_SWEEPS,
+          "submap: the sweeps left no known cell")
+    check(not bool(submap0.high.known.any()),
+          "submap: insert changed the grid passed in")
+
+    def project():
+        return sub.project(cfg)
+
+    out["project_ms"] = cuda_ms(torch, project, 10)
+    img768, org768 = project()
+    print(f"[submap] project_to_bev of the {SUBMAP_SWEEPS}-sweep high grid "
+          f"({math.prod(hi)} cells) → {cfg.image_size}²: "
+          f"{out['project_ms']:.3f} ms; {int((img768 < 0.5).sum())} "
+          f"occupied pixels")
+
+    # one sweep card vs CPU, bit for bit
+    cpu0 = Submap3D.create(cfg, extent_xy=extent, device="cpu").insert(
+        torch.from_numpy(sweeps[0]), torch.from_numpy(masks[0]),
+        origin=torch.from_numpy(origins[0]), cfg=cfg)
+    cimg, corg = cpu0.project(cfg)
+    same = (torch.equal(one.high.log_odds.cpu(), cpu0.high.log_odds)
+            and torch.equal(one.high.known.cpu(), cpu0.high.known)
+            and torch.equal(one.low.log_odds.cpu(), cpu0.low.log_odds)
+            and torch.equal(one.low.known.cpu(), cpu0.low.known))
+    same_img = (torch.equal(img0.cpu(), cimg)
+                and torch.equal(org0.cpu(), corg))
+    print(f"[submap] one sweep card vs CPU: both grids' log-odds and "
+          f"known bit-equal {same}; projection bit-equal {same_img}")
+    check(same, "submap: the card's insert differs from the CPU's")
+    check(same_img, "submap: the card's projection differs from the CPU's")
+
+    a, b = SUBMAP_CROP
+    grid = ProbabilityGrid2D.from_bev_image(
+        img768[a:b, a:b], org768 + a * res, res)
+    occ = np.argwhere(img0.cpu().numpy() < 0.5)
+    sel = np.random.RandomState(0).choice(len(occ), SUBMAP_POINTS,
+                                          replace=len(occ) < SUBMAP_POINTS)
+    vscan = (occ[sel][:, ::-1] * res + org0.cpu().numpy()[None, :]
+             ).astype(np.float32)
+    vpts, vmask = to_dev(vscan), torch.ones(SUBMAP_POINTS, device=dev)
+
+    # the 2-D updates card vs CPU, bit for bit: a hit update at the virtual
+    # scan's cells (repeats and off-grid cells among them) on the crop, and
+    # its occupied cells as a virtual cloud
+    cgrid = ProbabilityGrid2D(grid.log_odds.cpu(), grid.known.cpu(),
+                              grid.origin_xy.cpu(), res)
+    cells = np.round((vscan - (org768.cpu().numpy() + a * res)) / res
+                     ).astype(np.int64)
+    rows_c, cols_c = torch.from_numpy(cells[:, 1]), torch.from_numpy(
+        cells[:, 0])
+    ok_c = torch.from_numpy(np.arange(SUBMAP_POINTS) % 7 != 0)
+    hit = grid.apply_odds(rows_c.to(dev), cols_c.to(dev), ok_c.to(dev), 0.55)
+    chit = cgrid.apply_odds(rows_c, cols_c, ok_c, 0.55)
+    gp = grid_to_points(hit.probabilities(), hit.origin_xy, res,
+                        max_points=8192)
+    cgp = grid_to_points(chit.probabilities(), chit.origin_xy, res,
+                         max_points=8192)
+    same_odds = (torch.equal(hit.log_odds.cpu(), chit.log_odds)
+                 and torch.equal(hit.known.cpu(), chit.known))
+    same_pts = all(torch.equal(x.cpu(), y) for x, y in zip(gp, cgp))
+    off = int(((cells < 0) | (cells >= b - a)).any(1).sum())
+    print(f"[submap] card vs CPU on the {b - a}² grid: apply_odds "
+          f"({int(ok_c.sum())} of {SUBMAP_POINTS} lanes valid, {off} "
+          f"off the grid) bit-equal {same_odds}; grid_to_points "
+          f"({int(gp[1].sum())} points) bit-equal {same_pts}")
+    check(same_odds, "submap: the card's apply_odds differs from the CPU's")
+    check(same_pts, "submap: the card's grid_to_points differs from the "
+          "CPU's")
+    out["card_vs_cpu_bit_equal"] = (same and same_img and same_odds
+                                    and same_pts)
+
+    rows = {}
+    for tag, nrot, hw in (("R=64", 64, math.pi), ("R=256", 256, math.pi),
+                          ("local R=32 ±0.15 rad", 32, 0.15)):
+        def exact(nrot=nrot, hw=hw):
+            return sm.match_scan(grid, vpts, vmask, num_rotations=nrot,
+                                 angular_halfwidth=hw)
+
+        def fast(nrot=nrot, hw=hw):
+            return sm.match_scan_fast(grid, vpts, vmask, num_rotations=nrot,
+                                      angular_halfwidth=hw)
+
+        e_ms, f_ms = cuda_ms(torch, exact, 5), cuda_ms(torch, fast, 5)
+        e, (fr, cert) = exact(), fast()
+        cert = bool(cert)
+        agree = same_optimum(torch, sm.score_at, grid, vpts, vmask, fr, e)
+        rows[tag] = {"match_scan_ms": e_ms, "match_scan_fast_ms": f_ms,
+                     "certified": cert, "same_optimum": agree,
+                     "score": float(e.score),
+                     "pose": [float(x) for x in e.pose.cpu()]}
+        pose = e.pose.cpu().numpy()
+        print(f"[submap] {tag} on the {b - a}² grid, {SUBMAP_POINTS} points:"
+              f" match_scan {e_ms:.3f} ms, match_scan_fast {f_ms:.3f} ms; "
+              f"pose ({pose[0]:+.2f}, {pose[1]:+.2f}, "
+              f"{math.degrees(pose[2]):+.2f}°) score {float(e.score):.4f}; "
+              f"fast certified {cert}, same optimum {agree}")
+        check(not cert or agree, f"submap {tag}: a certified fast result "
+              "is not the exhaustive optimum")
+    out["match"] = rows
+
+    # match_scan at R = 64 card vs CPU
+    want = sm.match_scan(cgrid, vpts.cpu(), vmask.cpu(), num_rotations=64)
+    got = sm.match_scan(grid, vpts, vmask, num_rotations=64)
+    agree = same_optimum(torch, sm.score_at, cgrid, vpts.cpu(), vmask.cpu(),
+                         got, want)
+    print(f"[submap] match_scan R=64 card vs CPU: scores "
+          f"{float(got.score):.6f} / {float(want.score):.6f}, same "
+          f"optimum {agree}")
+    check(agree, "submap: the card's match_scan optimum differs from the "
+          "CPU's")
+
+    # the Olson-bound rotation count at the virtual scan's range
+    r_max = float(np.linalg.norm(vscan, axis=1).max())
+    step = sm.olson_angular_step(res, r_max)
+    n_rot = int(math.ceil(2 * math.pi / step))
+    k = max(128, min(n_rot, 2048))
+    q0 = to_dev(offset_query(vscan, SUBMAP_GT[:2], SUBMAP_GT[2], 0.10, 100))
+
+    def olson_fast():
+        return sm.match_scan_fast(grid, q0, vmask, num_rotations=n_rot,
+                                  num_candidates=k)
+
+    def olson_exact():
+        return sm.match_scan(grid, q0, vmask, num_rotations=n_rot)
+
+    of_ms, oe_ms = cuda_ms(torch, olson_fast, 3), cuda_ms(torch, olson_exact,
+                                                          3)
+    (ofr, ocert), oe = olson_fast(), olson_exact()
+    o_agree = same_optimum(torch, sm.score_at, grid, q0, vmask, ofr, oe)
+    out["olson"] = {"r_max_m": r_max, "step_rad": step, "rotations": n_rot,
+                    "num_candidates": k, "fast_ms": of_ms,
+                    "exhaustive_ms": oe_ms, "certified": bool(ocert),
+                    "same_optimum": o_agree,
+                    "fast_score": float(ofr.score),
+                    "exhaustive_score": float(oe.score)}
+    print(f"[submap] Olson bound at r_max {r_max:.1f} m: dθ "
+          f"{math.degrees(step):.4f}°, R = {n_rot}; offset query: "
+          f"match_scan_fast (K={k}) {of_ms:.3f} ms, certified "
+          f"{bool(ocert)}, score {float(ofr.score):.4f}; exhaustive "
+          f"{oe_ms:.3f} ms ({-(-n_rot // sm.rotation_chunk_for(
+              (b - a) * 3 // 2))} FFT batches), score {float(oe.score):.4f}; same optimum {o_agree}")
+    check(not bool(ocert) or o_agree, "submap Olson R: a certified fast "
+          "result is not the exhaustive optimum")
+
+    def gt_err(pose, n):
+        p = pose.cpu().numpy()
+        dyaw = math.remainder(float(p[2]) - SUBMAP_GT[2], 2 * math.pi)
+        return (abs(p[0] - SUBMAP_GT[0]), abs(p[1] - SUBMAP_GT[1]),
+                abs(dyaw), 2 * math.pi / n)
+
+    def check_gt(tag, pose, n):
+        ex, ey, eyaw, dth = gt_err(pose, n)
+        ok = ex <= res + 1e-4 and ey <= res + 1e-4 and eyaw <= dth + 1e-6
+        print(f"[submap] {tag}: error ({ex:.3f}, {ey:.3f}) m, "
+              f"{math.degrees(eyaw):.4f}° (gates one cell {res} m, one "
+              f"step {math.degrees(dth):.4f}°)")
+        check(ok, f"submap {tag}: the offset query was not recovered")
+        return [float(ex), float(ey), float(eyaw)]
+
+    def full_submap():
+        return sm.match_full_submap(grid, q0, vmask, fallback="full")
+
+    fs_ms = host_ms(torch, full_submap, 3)
+    fs = full_submap()
+    n_fs = int(math.ceil(2 * math.pi / sm.olson_angular_step(res, 50.0)))
+    busy, wall, n_kernels, _ = device_idle_share(torch, full_submap)
+    out["full_submap"] = {
+        "ms": fs_ms, "rotations": n_fs, "certified": fs.certified,
+        "used_fallback": fs.used_fallback, "score": float(fs.score),
+        "busy_ms": busy, "traced_wall_ms": wall, "kernels": n_kernels,
+        "gt_error": check_gt(
+            f"match_full_submap(fallback='full'), R = {n_fs}, host "
+            f"{fs_ms:.3f} ms, certified {fs.certified}, fallback "
+            f"{fs.used_fallback}, traced busy {busy:.3f} of {wall:.3f} ms "
+            f"({n_kernels} kernels)", fs.pose, n_fs)}
+
+    # cmd_match_submap: a raw query scan → its BEV → a virtual scan → match
+    c, s = math.cos(SUBMAP_GT[2]), math.sin(SUBMAP_GT[2])
+    q3 = sweeps[0].copy()
+    dx, dy = sweeps[0][:, 0] - SUBMAP_GT[0], sweeps[0][:, 1] - SUBMAP_GT[1]
+    q3[:, 0], q3[:, 1] = c * dx + s * dy, -s * dx + c * dy
+
+    def composed():
+        bev = scan_to_bev(to_dev(q3), m0, cfg)
+        pts, valid = bev_to_virtual_points(bev.image, bev.origin_xy, res,
+                                           SUBMAP_POINTS)
+        return sm.match_full_submap(grid, pts, valid, fallback="full")
+
+    cm_ms = host_ms(torch, composed, 3)
+    cm = composed()
+    out["composed"] = {"ms": cm_ms, "score": float(cm.score),
+                       "gt_error": check_gt(
+                           f"cmd_match_submap composition, host "
+                           f"{cm_ms:.3f} ms, score {float(cm.score):.4f}",
+                           cm.pose, n_fs)}
+
+    # cuFFT against float64 direct sums at the phase's shapes: the fine FFT
+    # over one default batch of Olson rotations, the coarse bound FFT over
+    # all of them in one batch
+    thetas = sm.rotation_grid(n_rot, 0.0, math.pi, dev)
+    size = b - a
+    size_c = (size - 1) // 4 + 1
+    pad, pad_c = size + size // 2, size_c + size_c // 2
+    chunk, chunk_c = sm.rotation_chunk_for(pad), sm.rotation_chunk_for(pad_c)
+    fine = fft_error_probe(torch, grid, q0, vmask, thetas[:chunk])
+    coarse = fft_error_probe(torch, grid, q0, vmask, thetas[:chunk_c],
+                             coarse_factor=4)
+    out["fft_error_counts"] = {"fine": fine, "coarse": coarse}
+    print(f"[submap] cuFFT vs float64 direct sums: fine (pad {pad}, batch "
+          f"{min(chunk, n_rot)}) max {fine:.2e} counts, coarse (pad {pad_c}, "
+          f"batch {min(chunk_c, n_rot)}) max {coarse:.2e} counts; the "
+          f"certificate's slack is 0.05")
+    check(max(fine, coarse) < 0.05, "submap: cuFFT error reaches the "
+          "certificate slack")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[submap] phase {out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------ kernel-only times
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
@@ -3053,6 +3454,10 @@ def main(argv) -> int:
     sys.path.insert(0, REPO)
     from gloc3d_tpu_torch import PipelineConfig
 
+    if "--submap" in argv:
+        print(json.dumps({"submap": phase_submap(torch, card, make_world())}))
+        return 0
+
     cfg = PipelineConfig.s2s()
     cfg = cfg.replace(model=cfg.model.replace(fold_bn=True))
     world = make_world()
@@ -3096,6 +3501,7 @@ def main(argv) -> int:
     refine, k1_refine, k2_refine = run_refine(
         torch, cfg, lq_set, kf_set, q_set, centroids, model, a_results, card)
     print(json.dumps({"card": card, "refine": refine}))
+    print(json.dumps({"submap": phase_submap(torch, card, world)}))
 
     ds = training_dataset(world, cfg.voxel.max_points)
     train_counts = phase_training(torch, cfg, ds, card)

@@ -22,19 +22,28 @@ the reference's own.
 ``fold_batch_norm`` ports ``gloc3d_tpu/models/fold.py``: each eval-mode BN
 after a conv becomes the conv's scale and bias (same fp32 arithmetic as the
 JAX fold), for the ``fold_bn=True`` serving model.
+
+``grid_state_to_port`` carries an occupancy state across: a JAX
+``OccupancyGrid3D``, ``ProbabilityGrid2D`` or ``Submap3D`` (the NamedTuple
+itself, or a mapping of the same fields as numpy arrays and metadata)
+becomes the port's, bit for bit; ``grid_state_to_numpy`` is its inverse,
+the fields that JAX's constructors take.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
+from gloc3d_tpu_torch.core.device import resolve_device
 from gloc3d_tpu_torch.models.encoders import (
     is_image_encoder, port_key, torchvision_state_dict)
 from gloc3d_tpu_torch.models.vgg import VGG16_CONV_IDX
+from gloc3d_tpu_torch.ops.occupancy import (
+    OccupancyGrid3D, ProbabilityGrid2D, Submap3D)
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm default, matches torch
 
@@ -191,4 +200,54 @@ def fold_batch_norm(state_dict: Mapping[str, torch.Tensor]
         for suffix in ("weight", "bias", "running_mean", "running_var",
                        "num_batches_tracked"):
             out.pop(f"{bn}.{suffix}", None)
+    return out
+
+
+def _field(state: Any, name: str):
+    return state[name] if isinstance(state, Mapping) else getattr(state, name)
+
+
+def _has(state: Any, name: str) -> bool:
+    return name in state if isinstance(state, Mapping) else hasattr(
+        state, name)
+
+
+def grid_state_to_port(state: Any, device=None):
+    """A JAX occupancy state → the port's on ``device`` (the card unless
+    ``"cpu"`` is given): a ``Submap3D`` (fields ``high``, ``low``,
+    ``num_range_data``), an ``OccupancyGrid3D`` (``log_odds``, ``known``,
+    ``resolution``, ``half``) or a ``ProbabilityGrid2D`` (``log_odds``,
+    ``known``, ``origin_xy``, ``resolution``). Arrays may be numpy or JAX
+    arrays (read through ``np.asarray``)."""
+    dev = resolve_device(device, "grid_state_to_port")
+    if _has(state, "high"):
+        return Submap3D(grid_state_to_port(_field(state, "high"), dev),
+                        grid_state_to_port(_field(state, "low"), dev),
+                        int(_field(state, "num_range_data")))
+    lo = torch.from_numpy(np.array(_field(state, "log_odds"), np.float32)
+                          ).to(dev)
+    kn = torch.from_numpy(np.array(_field(state, "known"), bool)).to(dev)
+    res = float(_field(state, "resolution"))
+    if _has(state, "half"):
+        return OccupancyGrid3D(lo, kn, res, tuple(
+            int(h) for h in _field(state, "half")))
+    origin = torch.from_numpy(np.array(_field(state, "origin_xy"),
+                                       np.float32)).to(dev)
+    return ProbabilityGrid2D(lo, kn, origin, res)
+
+
+def grid_state_to_numpy(state) -> Dict[str, Any]:
+    """The port's occupancy state → a dict of its fields, arrays as numpy
+    (the inverse of ``grid_state_to_port``)."""
+    if isinstance(state, Submap3D):
+        return {"high": grid_state_to_numpy(state.high),
+                "low": grid_state_to_numpy(state.low),
+                "num_range_data": state.num_range_data}
+    out = {"log_odds": state.log_odds.cpu().numpy(),
+           "known": state.known.cpu().numpy(),
+           "resolution": state.resolution}
+    if isinstance(state, OccupancyGrid3D):
+        out["half"] = tuple(state.half)
+    else:
+        out["origin_xy"] = state.origin_xy.cpu().numpy()
     return out

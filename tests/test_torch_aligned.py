@@ -21,6 +21,8 @@ from gloc3d_tpu_torch.models.descriptor import build_model, init_params
 from gloc3d_tpu_torch.pipeline import GlobalLocalizer, Keyframe
 from test_pipeline import scan_at
 from test_pipeline_ground import CFG, tilted_scan
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 DB_POSES = [(-30, -30, 0.0), (0, -30, 0.4), (30, 0, 1.5), (0, 30, 3.0)]
 DB_TILTS = [(0.02, -0.01), (-0.015, 0.02), (0.01, 0.015), (-0.02, -0.02)]

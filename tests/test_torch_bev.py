@@ -18,6 +18,8 @@ from gloc3d_tpu.data.native import compute_bev_host
 from gloc3d_tpu.ops.bev import scan_to_bev as jax_bev
 from gloc3d_tpu_torch.ops.bev import batch_scan_to_bev, scan_to_bev
 from test_pipeline import scan_at
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 N_PTS = 4096
 CFG = BEVConfig(image_size=128, max_points=N_PTS)

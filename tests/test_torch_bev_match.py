@@ -20,6 +20,8 @@ from gloc3d_tpu.ops.bev import BEVImage as JaxBEV
 from gloc3d_tpu_torch.ops import bev_match as tbm
 from gloc3d_tpu_torch.ops.bev import BEVImage
 from test_pipeline import scan_at
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 S, N_PTS, RES = 128, 2048, 0.2
 BCFG = BEVConfig(image_size=S, max_points=N_PTS)

@@ -25,6 +25,8 @@ from gloc3d_tpu.models.pointpillar import load_pointpillar_npz
 from gloc3d_tpu_torch.convert import load_reference_checkpoint
 from gloc3d_tpu_torch.models.descriptor import build_model, init_params
 from test_pipeline import scan_at
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 N_PTS = 2048
 VC = VoxelConfig(max_points=N_PTS)

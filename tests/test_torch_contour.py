@@ -13,17 +13,7 @@ import torch
 from gloc3d_tpu.ops import contour as jc
 from gloc3d_tpu_torch.ops import contour as tc
 from test_contour import EIGHT, _random_blobs
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op torch threads for this module: tier-1 runs six workers
-    on the machine's cores, and a worker whose torch spins on all of them
-    ran this module's tests at 5-35x their one-process time."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from test_torch_threads import _two_threads  # noqa: F401
 
 
 def _t(a):

@@ -22,6 +22,8 @@ from gloc3d_tpu_torch.models.descriptor import build_model
 from gloc3d_tpu_torch.models.encoders import (
     build_image_encoder, port_key, torchvision_state_dict,
 )
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 NAMES = ["alexnet", "mobilenet", "resnet18"]
 SIZE = 96

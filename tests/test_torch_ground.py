@@ -26,6 +26,8 @@ from gloc3d_tpu_torch.ops.ground import (
 from test_ground import make_scene
 from test_pipeline_ground import CFG as ALIGNED_CFG
 from test_pipeline_ground import tilted_scan
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 CFG = GroundConfig(num_candidates=1024, ransac_iters=128)
 

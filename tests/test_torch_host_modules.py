@@ -21,6 +21,8 @@ from gloc3d_tpu_torch.index.bank import DescriptorBank
 from gloc3d_tpu_torch.models.descriptor import build_model
 from gloc3d_tpu_torch.pipeline import GlobalLocalizer
 from gloc3d_tpu_torch.train import Trainer
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 PRESETS = {
     "default": lambda c: c.PipelineConfig(),

@@ -43,6 +43,8 @@ from gloc3d_tpu_torch.train.cluster import init_vlad_from_data
 from test_pipeline import scan_at
 from test_pipeline_ground import tilted_scan
 from test_torch_ground import _replayed_draws
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 N_PTS = 4096
 S = 128

@@ -9,6 +9,7 @@ import pytest
 
 from gloc3d_tpu.data import images as jax_images
 from gloc3d_tpu_torch.data import images
+from test_torch_threads import _two_threads  # noqa: F401
 
 
 def _bev(h, w, seed):

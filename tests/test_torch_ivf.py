@@ -21,6 +21,7 @@ from gloc3d_tpu.ops.topk import l2_topk as jax_topk
 from gloc3d_tpu_torch.index.ivf import IVFBank
 from gloc3d_tpu_torch.ops.topk import l2_topk
 from test_torch_mining import _jax_seed_draws
+from test_torch_threads import _two_threads  # noqa: F401
 
 
 def _data(n=2000, d=32, seed=0):

@@ -9,6 +9,8 @@ import torch
 
 from gloc3d_tpu.models import losses as jl
 from gloc3d_tpu_torch.models import losses as tl
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 B, P, N, D = 4, 3, 5, 16
 

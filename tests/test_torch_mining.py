@@ -23,6 +23,7 @@ from gloc3d_tpu_torch.models.netvlad import NetVLAD, init_netvlad_params
 from gloc3d_tpu_torch.train.mining import (
     mine_other_negative, mine_triplets,
 )
+from test_torch_threads import _two_threads  # noqa: F401
 
 
 def _world(seed, ndb=64, nq=6, d=16):

@@ -31,6 +31,8 @@ from gloc3d_tpu_torch.eval.registration import compose_6dof
 from gloc3d_tpu_torch.models.descriptor import build_model
 from gloc3d_tpu_torch.pipeline import GlobalLocalizer
 from test_pipeline import scan_at
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 N_PTS = 2048
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -200,11 +202,11 @@ def test_port_runs_without_jax():
     binning, a fused query from the device keyframe store with the fm
     matcher preset, located and fused queries on the int8 flat bank and
     the IVF index with int8 cells, ``locate`` with the ICP polish and
-    ``match_keyframe``, and an i2i fused query on a 64² BEV image) and a
-    training epoch on each path with jax, flax and the JAX package
-    blocked: the port never needs JAX, and no module it
-    loads and no shared library it maps lies under gloc3d_tpu/ or
-    native/."""
+    ``match_keyframe``, an i2i fused query on a 64² BEV image, and a
+    sweep's BEV matched into a two-sweep submap) and a training epoch on
+    each path with jax, flax and the JAX package blocked: the port never
+    needs JAX, and no module it loads and no shared library it maps lies
+    under gloc3d_tpu/ or native/."""
     script = textwrap.dedent("""
         import os
         import sys
@@ -212,6 +214,7 @@ def test_port_runs_without_jax():
         sys.modules["flax"] = None
         sys.modules["gloc3d_tpu"] = None
         import numpy as np
+        import torch
         import gloc3d_tpu_torch as g
 
         cfg = g.PipelineConfig(
@@ -307,6 +310,29 @@ def test_port_runs_without_jax():
         iloc.add_keyframes(images, origins=bev.origin_xy.numpy())
         res = iloc.locate_fused(images[1], origin=bev.origin_xy[1].numpy())
         assert res.success and res.db_index == 1, res
+
+        # the submap matcher: two sweeps into a dual-grid submap, its BEV
+        # as a probability grid, the first sweep's own BEV matched into it
+        from gloc3d_tpu_torch.ops import occupancy, scan_match
+        scfg = g.BEVConfig(image_size=128, z_min=-2.0, z_max=4.0)
+        sub = occupancy.Submap3D.create(scfg, extent_xy=20.0, device="cpu")
+        for x, y in ((0, 0), (1, 0)):
+            p, m = scan(x, y)
+            p[:, 0] += x
+            sub = sub.insert(torch.from_numpy(p[:, :3]),
+                             torch.from_numpy(m), cfg=scfg)
+        img, org = sub.project(scfg)
+        grid = occupancy.ProbabilityGrid2D.from_bev_image(img, org, 0.2)
+        one = occupancy.Submap3D.create(scfg, extent_xy=20.0, device="cpu")
+        qimg, qorg = one.insert(torch.from_numpy(scan(0, 0)[0][:, :3]),
+                                torch.from_numpy(scan(0, 0)[1]),
+                                cfg=scfg).project(scfg)
+        pts, valid = occupancy.grid_to_points(
+            (qimg < 0.5).float(), qorg, 0.2, max_points=512)
+        sres = scan_match.match_full_submap(grid, pts, valid,
+                                            num_rotations=16)
+        assert sres.certified and float(sres.score) > 0.5, sres
+        assert float(sres.pose.abs().max()) < 1e-6, sres
 
         # one training epoch on each path (small grid, 3 clouds per step)
         import tempfile

@@ -23,6 +23,8 @@ from test_torch_pipeline import (  # noqa: F401  (module fixture reuse)
     CFG, DB_POSES, _scans, localizers,
 )
 from test_torch_serving import QUERY_SCANS, _same
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 BANKS = {
     "int8": dict(quantize="int8"),

@@ -17,7 +17,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from gloc3d_tpu.models import build_model as jax_build_model
 from gloc3d_tpu.pipeline import GlobalLocalizer as JaxLocalizer
@@ -28,22 +27,12 @@ from test_pipeline import scan_at
 from test_pipeline_ground import tilted_scan
 from test_torch_i2i import _JaxDraws
 from test_torch_pipeline import CFG, DB_POSES, N_PTS, QUERIES, _scans
+from test_torch_threads import _two_threads  # noqa: F401
 
 RCFG = CFG.replace(match=CFG.match.replace(
     refine_icp=True, refine_icp_points=512, refine_icp_iters=10,
     refine_icp_max_corr=1.0))
 XY_TOL = 2e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op torch threads for this module: tier-1 runs six workers
-    on the machine's cores, and a worker whose torch spins on all of them
-    ran this module's tests at 5-35x their one-process time."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,8 @@ from gloc3d_tpu_torch.models.descriptor import build_model, init_params
 from gloc3d_tpu_torch.models.netvlad import NetVLAD
 from gloc3d_tpu_torch.models.pointpillar import _pad_same, conv_bn_act
 from test_pipeline import scan_at
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 N_PTS = 2048
 VC = VoxelConfig(max_points=N_PTS)

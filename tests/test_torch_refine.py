@@ -26,17 +26,7 @@ from gloc3d_tpu.ops.bev import scan_to_bev as jax_scan_to_bev
 from gloc3d_tpu_torch.core import transforms as tt
 from gloc3d_tpu_torch.ops import refine as tr
 from test_refine import _cloud
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op torch threads for this module: tier-1 runs six workers
-    on the machine's cores, and a worker whose torch spins on all of them
-    ran this module's tests at 5-35x their one-process time."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from test_torch_threads import _two_threads  # noqa: F401
 
 
 def _t(a):

@@ -29,6 +29,7 @@ from test_pipeline_ground import tilted_scan
 from test_torch_pipeline import (  # noqa: F401  (module fixture reuse)
     CFG, DB_POSES, N_PTS, QUERIES, _scans, localizers,
 )
+from test_torch_threads import _two_threads  # noqa: F401
 
 
 # (25, 5, 1.2) and (3, -2, 0.35) register at their top candidate,

@@ -27,6 +27,8 @@ from gloc3d_tpu_torch.data.dataset import TripletDataset
 from gloc3d_tpu_torch.models.descriptor import build_model, init_params
 from gloc3d_tpu_torch.train import Trainer, init_vlad_from_data
 from gloc3d_tpu_torch.train.trainer import rotate_clouds_z
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 N_PTS = 256
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -21,6 +21,7 @@ from gloc3d_tpu_torch.index.bank import DescriptorBank
 from gloc3d_tpu_torch.ops.topk import (
     int8_dots, l2_topk, l2_topk_int8, quantize_rows,
 )
+from test_torch_threads import _two_threads  # noqa: F401
 
 
 def _bank(seed=0, n=300, d=32):

@@ -16,6 +16,8 @@ from gloc3d_tpu_torch.core import transforms as tt
 from gloc3d_tpu_torch.eval.registration import (
     compose_6dof, registration_errors,
 )
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 ATOL = 1e-6
 

@@ -20,6 +20,8 @@ from gloc3d_tpu_torch.ops.voxelize import (
     points_to_voxels, points_to_voxels_hoststats, scatter_mean_to_grid,
 )
 from test_pipeline import scan_at
+from test_torch_threads import _two_threads  # noqa: F401
+
 
 N_PTS = 2048
 VC = VoxelConfig(max_points=N_PTS)
