@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's s2s and i2i located queries, the refinement
-stage, the SLAM submap and s2s training once on one NVIDIA card.
+stage, the SLAM submap, s2s, i2i and pose training and the packed and
+pillar-sorted PointPillar once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -13,7 +14,8 @@ Phases, each printing its own lines:
   3. K1 against its plain PyTorch version on the card: the main-path shape
      with real `starts` from the host pass, pillar 0 holding > 50k rows,
      empty segments, every row in one segment (segment 0, a middle one),
-     batch 3 with different `starts` per item, and C in {2, 62, 66, 256};
+     batch 3 with different `starts` per item, and C in {2, 4, 62, 66,
+     256} (C=4: PointPillarSorted's statistics payload);
      error relative to per-segment L1 mass (bound 1e-5), empty segments
      exactly 0; CUDA-event times of both at the main-path shape; pillar 0
      bit-equal over four launches on the main-path input;
@@ -156,11 +158,36 @@ Phases, each printing its own lines:
      match_full_submap) recovering that offset within one cell and one
      angular step; cuFFT against float64 direct sums (fine and coarse
      FFT) below the certificate's 0.05-count slack.
+ 20. [i2i-train], after training: PipelineConfig.i2i() (VGG16 +
+     NetVLAD-FC, bf16) at 768² on the training world's BEVs rendered by the
+     port (24 db, 8 queries; margin 10 so that every batch takes a step),
+     NetVLAD from init_vlad_from_data, the reference's freeze mask
+     (models/encoders.py::train_mask): one epoch (the loss finite, every
+     trainable parameter with a nonzero gradient and moved, every frozen
+     one bit-unchanged), two timing epochs (median warm step, cache refresh
+     per image, peak memory, the step's conv FLOPs against 989 TFLOP/s);
+     one fp32 step card vs CPU at a 128² crop (loss rtol 1e-4, gradients
+     within twice the CPU's mkldnn-on-vs-off floor); one step each of
+     AlexNet, MobileNetV2 and ResNet18 under their masks;
+ 21. [pose-train]: make_pose_model(PipelineConfig.s2s()) at the 140 x 80
+     grid, 4 walled-world scan pairs at the 122 480 pad with their
+     relative pose as gt, Adam 1e-3, 25 steps on the fixed batch: JAX's
+     criterion (min < 0.7 x the largest of the first three losses), K2
+     launches and backward calls counted, every K2 launch of one step
+     against its plain version, one fp32 step card vs CPU at a 16 384-point
+     pad, predict_pose (4, 6) and finite; step ms, peak memory;
+ 22. [packed]: one full-pad scan through PointPillar (K2),
+     PointPillarPacked (pack_points, K2) and PointPillarSorted (the host
+     pass, K1 on the 4-channel payload and the 64-channel features) from
+     one fp32 state dict: pillar means within 1e-5 and outputs within 1e-4
+     of PointPillar's largest; forward times, launches.
 The kernel-only times of phase 17 come from complete traces only (both
 kernels of every traced call); a timing with none in six traces prints
 that it was not measured.
 `python3 chip_smoke.py --kernels` runs phases 1-4 and 17 only;
 `python3 chip_smoke.py --submap` phases 1 and 19 only;
+`--i2i-train`, `--pose-train` and `--packed` run phases 1, 2 and the
+phase (or phases) named, alone;
 `--seed N` seeds the map-scale rows (default 0).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before those.
@@ -445,7 +472,7 @@ def phase_k1(torch, cfg, world, card):
             rand(3, 64), host_starts(*(np.stack(a) for a in zip(
                 full, sparse, other)))),
     }
-    for c in (2, 62, 66, 256):
+    for c in (2, 4, 62, 66, 256):  # C=4: PointPillarSorted's payload
         cases[f"C={c} (1, 122480, {c}), the scan's starts"] = (
             rand(1, c), main_starts)
     worst, main_err = 0.0, None
@@ -3385,36 +3412,542 @@ def phase_train_reference(torch, cfg, ds, n_pts: int = 16384):
         return float(loss), {k: p.grad.detach().cpu()
                              for k, p in model.named_parameters()}
 
-    def rel(a, b_):
-        return {k: float((a[k] - b_[k]).norm() / b_[k].norm().clamp_min(
-            1e-30)) for k in b_}
-
     runs = {}
     for host_stats in (False, True):
         path = "host-stats" if host_stats else "all-device"
         (l_g, g_g), (l_c, g_c) = step("cuda", host_stats), step("cpu",
                                                                  host_stats)
         _, g_o = step("cpu", host_stats, mkldnn=False)
-        runs[path] = (l_g, l_c, rel(g_g, g_c), rel(g_o, g_c))
-    floor = max(max(cpu.values()) for *_, cpu in runs.values())
-    bound = 2 * floor
-    for path, (l_g, l_c, cross, cpu) in runs.items():
-        worst = sorted(cross, key=cross.get)[-3:]
+        runs[path] = (l_g, l_c, g_g, g_c, grad_floor(g_c, g_o))
+    floor = max(r[-1] for r in runs.values())
+    for path, (l_g, l_c, g_g, g_c, _) in runs.items():
         print(f"[train-reference] {path}, fp32 step at {n_pts} points, card "
               f"vs CPU: loss {l_g:.7f} vs {l_c:.7f} (rel "
-              f"{abs(l_g - l_c) / abs(l_c):.2e}, bound 1e-4); gradient "
-              f"|diff| / |grad| per tensor, worst: "
-              + ", ".join(f"{k} {cross[k]:.2e}" for k in worst)
-              + f" (median over tensors {np.median(list(cross.values())):.2e}"
-              f"; bound {bound:.2e}, twice the floor); the CPU with mkldnn "
-              f"convolutions off vs on: worst {max(cpu.values()):.2e}, "
-              f"median {np.median(list(cpu.values())):.2e} (floor over both "
-              f"paths {floor:.2e})")
+              f"{abs(l_g - l_c) / abs(l_c):.2e}, bound 1e-4)")
         check(abs(l_g - l_c) <= 1e-4 * abs(l_c), f"{path}: card loss "
               f"{l_g} vs CPU {l_c}")
-        check(max(cross.values()) <= bound, f"{path}: card gradients differ "
-              f"from the CPU's by {max(cross.values()):.3e}, more than twice "
-              f"the CPU's own floor {floor:.3e}")
+        grad_floor_check(f"train-reference, {path}", g_g, g_c, floor,
+                         "mkldnn convolutions off vs on, over both paths")
+
+
+# ------------------------------------------------- i2i and pose training
+def grad_rel(a, b):
+    """Per tensor, |a - b| / |b| of two gradient dicts."""
+    return {k: float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30))
+            for k in b}
+
+
+def grad_floor(cpu_grads, *reruns):
+    """The CPU's own floor: the worst tensor of the CPU reruns that change
+    only an order of summation, against the CPU's step."""
+    return max(max(grad_rel(g, cpu_grads).values()) for g in reruns)
+
+
+def grad_floor_check(tag, card_grads, cpu_grads, floor, floor_what):
+    """Hold a card step's gradients to the CPU's: each tensor's |diff| /
+    |grad| within twice ``floor``. Returns the worst card-vs-CPU tensor."""
+    cross = grad_rel(card_grads, cpu_grads)
+    worst = sorted(cross, key=cross.get)[-3:]
+    print(f"[{tag}] gradient |diff| / |grad| per tensor, card vs CPU, "
+          f"worst: " + ", ".join(f"{k} {cross[k]:.2e}" for k in worst)
+          + f" (median {np.median(list(cross.values())):.2e}); the CPU "
+          f"with {floor_what}: worst {floor:.2e} (bound {2 * floor:.2e}, "
+          f"twice that floor)")
+    check(max(cross.values()) <= 2 * floor, f"{tag}: card gradients differ "
+          f"from the CPU's by {max(cross.values()):.3e}, more than twice the "
+          f"CPU's own floor {floor:.3e}")
+    return max(cross.values())
+
+
+def i2i_training_dataset(torch, cfg, world):
+    """The training world's 24 db and 8 query scans (training_dataset)
+    rendered by the port to 768² BEV images: the i2i inputs a user loads
+    from disk."""
+    from gloc3d_tpu_torch.data import dataset
+
+    scans = training_dataset(world, cfg.voxel.max_points)
+    db, _ = render_bevs(torch, cfg, list(zip(scans.db_inputs,
+                                             scans.db_masks)))
+    qs, _ = render_bevs(torch, cfg, list(zip(scans.q_inputs,
+                                             scans.q_masks)))
+    return dataset.TripletDataset(db_inputs=db, q_inputs=qs,
+                                  utm_db=scans.utm_db, utm_q=scans.utm_q)
+
+
+def i2i_trainer(torch, cfg, ds, workdir, device, seed=0, vlad_from=None):
+    """A seeded image model (NetVLAD initialised from ``vlad_from``, the db
+    images by default) in a Trainer with the reference's freeze mask."""
+    from gloc3d_tpu_torch.models.descriptor import build_model, init_params
+    from gloc3d_tpu_torch.models.encoders import train_mask
+    from gloc3d_tpu_torch.train import Trainer, init_vlad_from_data
+
+    model = init_params(build_model(cfg.model, cfg.voxel), seed=seed)
+    model = model.to(device)
+    images = ds.db_inputs if vlad_from is None else vlad_from
+    init_vlad_from_data(cfg, model, images, None,
+                        torch.Generator().manual_seed(seed),
+                        num_images=len(images), per_image=100)
+    mask = train_mask(model, cfg.model.encoder)
+    return Trainer(cfg, model, ds, workdir, device=device,
+                   trainable_mask=mask), mask
+
+
+def check_freeze(torch, tag, model, mask, before):
+    """Frozen parameters bit-unchanged; every trainable one has a nonzero
+    gradient and moved."""
+    params = dict(model.named_parameters())
+    moved = [k for k, t in mask.items() if not t
+             and not torch.equal(params[k].detach(), before[k])]
+    check(not moved, f"{tag}: frozen parameters changed: {moved[:4]}")
+    zero = [k for k, t in mask.items() if t and (
+        params[k].grad is None or float(params[k].grad.abs().max()) == 0.0)]
+    check(not zero, f"{tag}: zero gradient for trainable {zero[:4]}")
+    same = [k for k, t in mask.items() if t
+            and torch.equal(params[k].detach(), before[k])]
+    check(not same, f"{tag}: trainable parameters unchanged: {same[:4]}")
+    return sum(mask.values()), len(mask)
+
+
+def i2i_step_flop(cfg, n_images: int) -> float:
+    """Conv FLOPs of one i2i train step of VGG16 under its freeze mask: the
+    forward of all 13 convs, and the backward of the trainable conv10-12
+    (their weight gradients, and the input gradients of conv11 and conv12;
+    conv10's input carries no gradient below the freeze)."""
+    from gloc3d_tpu_torch.models.vgg import conv_flops
+
+    s = cfg.bev.image_size
+    top = 2 * (s // 16) ** 2 * 512 * 512 * 9  # one of conv10-12, per image
+    return n_images * (conv_flops(1, s) + 5 * top)
+
+
+def phase_i2i_train(torch, world, card):
+    """[i2i-train]: PipelineConfig.i2i() (VGG16 + NetVLAD-FC, 64 x 512
+    clusters, FC 32 768 → 512, bf16) at 768² on the training world's BEVs,
+    the reference's freeze mask: one epoch (counted, checked), two timing
+    epochs, one fp32 step card vs CPU at a 128² crop, and one step each of
+    AlexNet, MobileNetV2 and ResNet18 with their masks."""
+    from gloc3d_tpu_torch import PipelineConfig
+    from gloc3d_tpu_torch.models.vgg import conv_flops
+
+    dev = torch.device("cuda")
+    # margin 10, as the JAX package's zoo test: every negative violates, so
+    # every batch takes a step (seeded weights mine few violations at 0.1)
+    base = PipelineConfig.i2i()
+    cfg = base.replace(train=base.train.replace(
+        cache_refresh_rate=N_TRAIN_Q, margin=10.0))
+    ds = i2i_training_dataset(torch, cfg, world)
+    b, n_neg = cfg.train.batch_size, cfg.train.n_neg
+    n_img = b * (2 + n_neg)
+    with tempfile.TemporaryDirectory() as workdir:
+        tr, mask = i2i_trainer(torch, cfg, ds, workdir, dev)
+        before = {k: p.detach().clone()
+                  for k, p in tr.model.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        loss = tr.train_epoch(1)
+        n_steps = tr.step
+        check(n_steps >= 3, f"[i2i-train] only {n_steps} steps ran")
+        check(math.isfinite(loss) and loss > 0, f"[i2i-train] loss {loss}")
+        n_train, n_all = check_freeze(torch, "[i2i-train]", tr.model, mask,
+                                      before)
+        print(f"[i2i-train] VGG16 + NetVLAD-FC at "
+              f"{cfg.bev.image_size}² bf16, epoch 1 over {N_TRAIN_Q} "
+              f"queries ({n_img} images per step): {n_steps} steps, mean "
+              f"loss {loss:.5f}; {n_train} of {n_all} parameters train "
+              f"(conv10-12 and the pooling), every one with a nonzero "
+              f"gradient and moved; the {n_all - n_train} frozen ones "
+              f"bit-unchanged")
+        steps, caches = [], []
+        tr._train_batch = timed(torch, tr._train_batch, steps)
+        tr.compute_cache = timed(torch, tr.compute_cache, caches)
+        for epoch in (2, 3):
+            tr.train_epoch(epoch)
+        del tr._train_batch, tr.compute_cache
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step_ms = float(np.median([s[0] for s in steps]))
+        cache_ms = sum(s[0] for s in caches) / sum(s[1] for s in caches)
+        flop = i2i_step_flop(cfg, n_img)
+        mfu = flop / (step_ms * 1e-3) / 989e12
+        print(f"[i2i-train] on {card}: {step_ms:.2f} ms per train step "
+              f"(mining, gather, upload, forward, backward, SGD; CUDA "
+              f"events around the whole step, median of {len(steps)} warm "
+              f"steps of epochs 2-3); cache refresh {cache_ms:.3f} ms per "
+              f"image ({sum(s[1] for s in caches)} images in batches of "
+              f"8); peak device memory {peak:.2f} GiB; the step's conv "
+              f"FLOPs {flop / 1e12:.3f} TFLOP (forward "
+              f"{conv_flops(1, cfg.bev.image_size) / 1e9:.1f} GFLOP per "
+              f"image and the backward of conv10-12) over its "
+              f"time: {flop / (step_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+              f"{mfu:.3f} of 989 TFLOP/s dense bf16")
+    out = {"step_ms": step_ms, "cache_ms_per_image": cache_ms,
+           "peak_gib": peak, "step_tflop": flop / 1e12, "mfu": mfu,
+           "steps": n_steps}
+    out["reference"] = phase_i2i_train_reference(torch, cfg, ds)
+    out["zoo"] = phase_i2i_train_zoo(torch, cfg, ds, card)
+    return out
+
+
+def phase_i2i_train_reference(torch, cfg, ds, crop: int = 128):
+    """One fp32 VGG16 step, card against CPU, from the same weights and
+    batch at a ``crop``² centre crop of the BEVs (TF32 off); the gradients
+    within twice the CPU's mkldnn-on-vs-off floor, the loss within rtol
+    1e-4."""
+    from gloc3d_tpu_torch.data import dataset
+
+    lo = (cfg.bev.image_size - crop) // 2
+    small = dataset.TripletDataset(
+        db_inputs=np.ascontiguousarray(ds.db_inputs[:, lo:lo + crop,
+                                                     lo:lo + crop]),
+        q_inputs=np.ascontiguousarray(ds.q_inputs[:, lo:lo + crop,
+                                                  lo:lo + crop]),
+        utm_db=ds.utm_db, utm_q=ds.utm_q)
+    c = cfg.replace(model=cfg.model.replace(compute_dtype="float32"))
+    b, n_neg = c.train.batch_size, c.train.n_neg
+    dist = np.linalg.norm(small.utm_q[:b, None] - small.utm_db[None], axis=-1)
+    pos = dist.argmin(1)
+    neg = np.concatenate([np.flatnonzero(d > 20.0)[:n_neg] for d in dist])
+    batch = (small.q_inputs[:b], None, small.db_inputs[pos], None,
+             small.db_inputs[neg], None, np.ones((b, n_neg), np.float32),
+             np.ones(b, np.float32))
+    with tempfile.TemporaryDirectory() as workdir:
+        # NetVLAD from the queries' crops: no centroid is a batch feature
+        tr, _ = i2i_trainer(torch, c, small, workdir, "cuda",
+                            vlad_from=small.q_inputs[b:])
+        init = {k: v.cpu() for k, v in tr.model.state_dict().items()}
+
+    def step(device, mkldnn=True):
+        from gloc3d_tpu_torch.models.descriptor import build_model
+        from gloc3d_tpu_torch.models.encoders import train_mask
+        from gloc3d_tpu_torch.train import Trainer
+
+        model = build_model(c.model, c.voxel)
+        model.load_state_dict(init)
+        torch.backends.mkldnn.enabled = mkldnn
+        try:
+            with tempfile.TemporaryDirectory() as workdir:
+                tr = Trainer(c, model, small, workdir, device=device,
+                             trainable_mask=train_mask(model, "vgg16"))
+                loss = float(tr.train_step(*batch))
+        finally:
+            torch.backends.mkldnn.enabled = True
+        return loss, {k: p.grad.detach().cpu()
+                      for k, p in model.named_parameters()
+                      if p.grad is not None}
+
+    (l_g, g_g), (l_c, g_c) = step("cuda"), step("cpu")
+    _, g_o = step("cpu", mkldnn=False)
+    print(f"[i2i-train-reference] fp32 VGG16 step at {crop}² crops, card vs "
+          f"CPU: loss {l_g:.7f} vs {l_c:.7f} (rel "
+          f"{abs(l_g - l_c) / abs(l_c):.2e}, bound 1e-4); {len(g_c)} "
+          f"trainable tensors")
+    check(abs(l_g - l_c) <= 1e-4 * abs(l_c), f"[i2i-train-reference] card "
+          f"loss {l_g} vs CPU {l_c}")
+    floor = grad_floor(g_c, g_o)
+    worst = grad_floor_check("i2i-train-reference", g_g, g_c, floor,
+                             "mkldnn convolutions off vs on")
+    return {"loss_rel": abs(l_g - l_c) / abs(l_c), "grad_worst": worst,
+            "cpu_floor": floor}
+
+
+def phase_i2i_train_zoo(torch, cfg, ds, card):
+    """One bf16 step each of AlexNet, MobileNetV2 and ResNet18 at 768² under
+    their freeze masks, on the step batch of the VGG16 phase."""
+    from gloc3d_tpu_torch import PipelineConfig
+
+    b, n_neg = cfg.train.batch_size, cfg.train.n_neg
+    dist = np.linalg.norm(ds.utm_q[:b, None] - ds.utm_db[None], axis=-1)
+    pos = dist.argmin(1)
+    neg = np.concatenate([np.flatnonzero(d > 20.0)[:n_neg] for d in dist])
+    batch = (ds.q_inputs[:b], None, ds.db_inputs[pos], None,
+             ds.db_inputs[neg], None, np.ones((b, n_neg), np.float32),
+             np.ones(b, np.float32))
+    out = {}
+    for enc in ("alexnet", "mobilenet", "resnet18"):
+        zc = PipelineConfig.i2i(enc)
+        zc = zc.replace(train=cfg.train)
+        with tempfile.TemporaryDirectory() as workdir:
+            tr, mask = i2i_trainer(torch, zc, ds, workdir, "cuda")
+            before = {k: p.detach().clone()
+                      for k, p in tr.model.named_parameters()}
+            loss = float(tr.train_step(*batch))
+            check(math.isfinite(loss) and loss > 0,
+                  f"[i2i-train] {enc}: loss {loss}")
+            n_train, n_all = check_freeze(torch, f"[i2i-train] {enc}",
+                                          tr.model, mask, before)
+            ms = cuda_ms(torch, lambda: tr.train_step(*batch), 3)
+        out[enc] = {"loss": loss, "step_ms": ms}
+        print(f"[i2i-train] {enc} at {zc.bev.image_size}² bf16, one step "
+              f"of {len(batch[0]) * (2 + n_neg)} images under its freeze "
+              f"mask: loss {loss:.5f}; {n_train} of {n_all} parameters "
+              f"train, every one with a nonzero gradient and moved, the "
+              f"frozen ones bit-unchanged; {out[enc]['step_ms']:.2f} ms per "
+              f"step on {card} (CUDA events, mean of 3 after 3 warm-up "
+              f"steps)")
+    return out
+
+
+def pose_pairs(world, n: int, b: int = 4):
+    """b scan pairs of the walled world: a query scan and a reference scan
+    1-3 m and up to 0.3 rad away, with gt the angle-axis | translation of
+    T_p←q (q's frame into p's)."""
+    rng = np.random.RandomState(31)
+    qs, ps, gt = [], [], np.zeros((b, 6), np.float32)
+    for i in range(b):
+        q = (rng.uniform(-30, 30), rng.uniform(-20, 20),
+             rng.uniform(-np.pi, np.pi))
+        p = (q[0] + rng.uniform(-3, 3), q[1] + rng.uniform(-3, 3),
+             q[2] + rng.uniform(-0.3, 0.3))
+        qs.append(scan_at(world, q, n, seed=700 + i))
+        ps.append(scan_at(world, p, n, seed=800 + i))
+        c, s = np.cos(-p[2]), np.sin(-p[2])
+        dx, dy = q[0] - p[0], q[1] - p[1]
+        gt[i] = (0.0, 0.0, q[2] - p[2], c * dx - s * dy, s * dx + c * dy,
+                 0.0)
+    stack = [np.stack([s[j] for s in scans]) for scans in (qs, ps)
+             for j in (0, 1)]
+    return tuple(stack), gt
+
+
+def phase_pose_train(torch, world, card, steps: int = 25):
+    """[pose-train]: make_pose_model(PipelineConfig.s2s()) at the full
+    140 x 80 grid (bf16 convs), 4 walled-world pairs at the 122 480 pad,
+    Adam 1e-3, 25 steps on the fixed batch: JAX's criterion, K2 launch and
+    backward counts, every K2 launch of one step against its plain
+    version, one fp32 step card vs CPU, predict_pose."""
+    from gloc3d_tpu_torch import PipelineConfig
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.train import pose
+
+    cfg = PipelineConfig.s2s()
+    batch, gt = pose_pairs(world, cfg.voxel.max_points)
+    dev_batch = [torch.from_numpy(a).cuda() for a in batch]
+    state = pose.init_pose_state(pose.make_pose_model(cfg), lr=1e-3,
+                                 generator=torch.Generator().manual_seed(0),
+                                 device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    bs.pillar_bin_sums.launches = 0
+    bs.pillar_bin_sums_grad.backward_calls = 0
+    losses, ms = [], []
+    for _ in range(steps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss = pose.pose_train_step(state, dev_batch, gt)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        losses.append(float(loss))
+    k2 = bs.pillar_bin_sums.launches
+    k2_bwd = bs.pillar_bin_sums_grad.backward_calls
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = float(np.median(ms[3:]))
+    print(f"[pose-train] PosePairModel at the 140 x 80 grid, "
+          f"{cfg.model.compute_dtype} convs, 4 pairs x "
+          f"{cfg.voxel.max_points} points, Adam 1e-3, {steps} "
+          f"steps on {card}: losses {losses[0]:.4f} {losses[1]:.4f} "
+          f"{losses[2]:.4f} ... min {min(losses):.4f} (criterion: below 0.7 "
+          f"x {max(losses[:3]):.4f}); {step_ms:.2f} ms per step (CUDA "
+          f"events, median of steps 4-{steps}); peak device memory "
+          f"{peak:.2f} GiB; K2 launches {k2}, backward calls {k2_bwd}")
+    check(all(math.isfinite(v) for v in losses), f"[pose-train] {losses}")
+    check(min(losses) < 0.7 * max(losses[:3]),
+          f"[pose-train] the loss did not fall: {losses}")
+    check((k2, k2_bwd) == (4 * steps, 2 * steps), f"[pose-train] (K2, K2 "
+          f"backward) = {(k2, k2_bwd)}, expected {(4 * steps, 2 * steps)}")
+    pred = pose.predict_pose(state, dev_batch)
+    check(tuple(pred.shape) == (4, 6) and bool(torch.isfinite(pred).all()),
+          f"[pose-train] predict_pose {tuple(pred.shape)}")
+
+    launches = record_launches(
+        lambda: pose.pose_train_step(state, dev_batch, gt))
+    check(len(launches["K2"]) == 4 and not launches["K1"],
+          f"[pose-train] recorded {len(launches['K2'])} K2 launches")
+    parts = []
+    for args in launches["K2"]:
+        rel = check_k2(torch, "[pose-train]", *args)[0]
+        check(rel < 1e-5, f"[pose-train] K2 {tuple(args[0].shape)} "
+              f"disagrees with its plain version: {rel:.3e}")
+        parts.append(f"{tuple(args[0].shape)} {rel:.2e}")
+    print("[pose-train] every K2 launch of one step against its plain "
+          "version, error relative to per-pillar L1 mass (bound 1e-5; "
+          "counts exactly equal): " + ", ".join(parts))
+    ref = phase_pose_train_reference(torch, cfg, batch, gt)
+    return {"step_ms": step_ms, "peak_gib": peak, "losses": losses,
+            "k2_launches": k2, "k2_backward": k2_bwd, "reference": ref}
+
+
+def phase_pose_train_reference(torch, cfg, batch, gt, n_pts: int = 16384):
+    """One fp32 pose step, card against CPU, from the same weights at a
+    16 384-point pad: loss within rtol 1e-4, gradients within twice the
+    CPU's own floor. The card changes the order of K2's float atomics and
+    of every reduction at once, so the floor is the largest of four CPU
+    reruns that change only orders of summation: mkldnn convolutions off;
+    every cloud's rows (and mask) permuted, which reorders the pillar sums
+    and the PointNet BatchNorm's statistics; and the rows permuted on one
+    thread without mkldnn, and on three threads, which reorders every
+    reduction. (On an H100 the card read 9.2e-3-1.0e-2 from the CPU, where
+    mkldnn off or permuted rows alone moved the CPU by 2.1e-3-6.2e-3 and
+    the thread count by 1.1e-2-1.8e-2.)
+
+    A control shows the bound still fails a wrong step: the same step on
+    the card with the convolutions and matmuls in bf16 must lie beyond
+    it."""
+    from gloc3d_tpu_torch.train import pose
+
+    small = [np.ascontiguousarray(a[:, :n_pts]) for a in batch]
+
+    def permuted(seed):
+        perm = np.random.RandomState(seed).permutation(n_pts)
+        return [np.ascontiguousarray(a[:, perm]) for a in small]
+
+    def model_for(dtype):
+        return pose.make_pose_model(cfg.replace(
+            model=cfg.model.replace(compute_dtype=dtype)))
+
+    init = pose.init_pose_params(model_for("float32"),
+                                 torch.Generator().manual_seed(1)
+                                 ).state_dict()
+
+    def step(device, mkldnn=True, clouds=small, dtype="float32"):
+        model = model_for(dtype)
+        model.load_state_dict(init)
+        torch.backends.mkldnn.enabled = mkldnn
+        try:
+            st = pose.init_pose_state(model, init=False, device=device)
+            loss = float(pose.pose_train_step(
+                st, [torch.from_numpy(a) for a in clouds], gt))
+        finally:
+            torch.backends.mkldnn.enabled = True
+        return loss, {k: p.grad.detach().cpu()
+                      for k, p in st.model.named_parameters()}
+
+    (l_g, g_g), (l_c, g_c) = step("cuda"), step("cpu")
+    reruns = [step("cpu", mkldnn=False)[1],
+              step("cpu", clouds=permuted(5))[1]]
+    threads = torch.get_num_threads()
+    try:
+        for n_threads, mkldnn, seed in ((1, False, 6), (3, True, 7)):
+            torch.set_num_threads(n_threads)
+            reruns.append(step("cpu", mkldnn, permuted(seed))[1])
+    finally:
+        torch.set_num_threads(threads)
+    print(f"[pose-train-reference] fp32 pose step at {n_pts} points, card "
+          f"vs CPU: loss {l_g:.7f} vs {l_c:.7f} (rel "
+          f"{abs(l_g - l_c) / abs(l_c):.2e}, bound 1e-4)")
+    check(abs(l_g - l_c) <= 1e-4 * abs(l_c), f"[pose-train-reference] card "
+          f"loss {l_g} vs CPU {l_c}")
+    floor = grad_floor(g_c, *reruns)
+    worst = grad_floor_check(
+        "pose-train-reference", g_g, g_c, floor, "mkldnn convolutions off, "
+        "the rows permuted, or permuted on 1 or 3 threads")
+    l_b, g_b = step("cuda", dtype="bfloat16")
+    control = grad_rel(g_b, g_c)
+    n_over = sum(v > 2 * floor for v in control.values())
+    print(f"[pose-train-reference] control, the card step in bf16: loss "
+          f"{l_b:.7f} (rel {abs(l_b - l_c) / abs(l_c):.2e}); gradient "
+          f"|diff| / |grad| worst {max(control.values()):.2e}, median "
+          f"{np.median(list(control.values())):.2e}, {n_over} of "
+          f"{len(control)} tensors beyond the bound {2 * floor:.2e}")
+    check(max(control.values()) > 2 * floor, "[pose-train-reference] the "
+          f"bound {2 * floor:.3e} does not fail the bf16 step")
+    return {"loss_rel": abs(l_g - l_c) / abs(l_c), "grad_worst": worst,
+            "cpu_floor": floor, "bf16_worst": max(control.values()),
+            "bf16_median": float(np.median(list(control.values()))),
+            "bf16_over": n_over}
+
+
+def capture_pillars(model):
+    """Wrap ``model.bev_heads`` so each call keeps its pillar-mean input."""
+    seen = []
+    real = model.bev_heads
+
+    def bev_heads(pillar, mode=None):
+        seen.append(pillar.detach())
+        return real(pillar, mode)
+
+    model.bev_heads = bev_heads
+    return seen
+
+
+def phase_packed(torch, world, card):
+    """[packed]: one full-pad scan through the port's PointPillar (K2),
+    PointPillarPacked (pack_points + K2) and PointPillarSorted (the host
+    pass + K1), one fp32 state dict: the pillar means within 1e-5 of the
+    largest of PointPillar's (K2's float atomics leave pillars other than
+    pillar 0 non-bit-equal, and the sorted path's centre-relative
+    statistics change per-point features in their last bits), the outputs
+    within 1e-4 of their largest element; forward times; K1 / K2
+    launches."""
+    from gloc3d_tpu_torch import PipelineConfig
+    from gloc3d_tpu_torch.data import native
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+    from gloc3d_tpu_torch.models.descriptor import init_params
+    from gloc3d_tpu_torch.models.packed import (
+        PointPillarPacked, PointPillarSorted, pack_points)
+    from gloc3d_tpu_torch.models.pointpillar import PointPillar
+
+    v = PipelineConfig.s2s().voxel
+    pts, mask = scan_at(world, (5.0, -3.0, 0.4), v.max_points, seed=41)
+    bounds = (v.xbound, v.ybound, v.zbound)
+    sd = init_params(PointPillar(*bounds, torch.float32), seed=2
+                     ).state_dict()
+    models = {}
+    for cls in (PointPillar, PointPillarPacked, PointPillarSorted):
+        m = cls(*bounds, torch.float32)
+        m.load_state_dict(sd)  # one state dict for all three
+        models[cls.__name__] = m.cuda().eval()
+    p_d = torch.from_numpy(pts[None]).cuda()
+    m_d = torch.from_numpy(mask[None]).cuda()
+    host = native.compute_voxel_stats_host_sorted(
+        pts[None], mask[None].sum(1).astype(np.int64), *bounds, crop=False)
+    sorted_in = [torch.from_numpy(host[i]).cuda() for i in (0, 1, 2, 5)]
+    calls = {
+        "PointPillar": lambda: models["PointPillar"](p_d, m_d),
+        "PointPillarPacked": lambda: models["PointPillarPacked"](
+            pack_points(p_d, m_d, *bounds)),
+        "PointPillarSorted": lambda: models["PointPillarSorted"](
+            *sorted_in),
+    }
+    outs, pillars, launches = {}, {}, {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            seen = capture_pillars(models[name])
+            ss.segment_sum_sorted.launches = 0
+            bs.pillar_bin_sums.launches = 0
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            launches[name] = (ss.segment_sum_sorted.launches,
+                              bs.pillar_bin_sums.launches)
+            pillars[name] = seen[0]
+            del models[name].bev_heads
+        ref_p, ref_o = pillars["PointPillar"], outs["PointPillar"]
+        res = {}
+        for name in ("PointPillarPacked", "PointPillarSorted"):
+            prel = float((pillars[name] - ref_p).abs().max()
+                         / ref_p.abs().max())
+            orel = float((outs[name] - ref_o).abs().max()
+                         / ref_o.abs().max())
+            ms = cuda_ms(torch, calls[name], 10)
+            res[name] = {"pillar_rel": prel, "out_rel": orel, "ms": ms,
+                         "K1": launches[name][0], "K2": launches[name][1]}
+            print(f"[packed] {name} vs PointPillar on one {v.max_points}-"
+                  f"point scan at fp32 on {card}: pillar means within "
+                  f"{prel:.2e} of the largest (bound 1e-5), "
+                  f"outputs within {orel:.2e} of their largest element "
+                  f"(bound 1e-4); forward {ms:.3f} ms (CUDA events, mean "
+                  f"of 10); launches K1 {launches[name][0]}, K2 "
+                  f"{launches[name][1]}")
+            check(prel < 1e-5 and orel < 1e-4, f"[packed] {name} differs "
+                  f"from PointPillar: pillars {prel:.3e}, outputs "
+                  f"{orel:.3e}")
+        res["PointPillar"] = {"ms": cuda_ms(torch, calls["PointPillar"], 10),
+                              "K2": launches["PointPillar"][1]}
+    print(f"[packed] PointPillar forward {res['PointPillar']['ms']:.3f} ms "
+          f"on {card} (K2 launches {launches['PointPillar'][1]})")
+    check(launches["PointPillarPacked"] == (0, 2)
+          and launches["PointPillarSorted"] == (2, 0),
+          f"[packed] launches (K1, K2): {launches}")
+    return res
 
 
 def kernel_time_cases(torch, cfg, ds, k1_main, k2_main):
@@ -3456,6 +3989,17 @@ def main(argv) -> int:
 
     if "--submap" in argv:
         print(json.dumps({"submap": phase_submap(torch, card, make_world())}))
+        return 0
+    alone = {"--i2i-train": ("i2i_train", phase_i2i_train),
+             "--pose-train": ("pose_train", phase_pose_train),
+             "--packed": ("packed", phase_packed)}
+    if any(flag in argv for flag in alone):
+        phase_build()
+        world = make_world()
+        for flag, (key, phase) in alone.items():
+            if flag in argv:
+                print(json.dumps({"card": card,
+                                  key: phase(torch, world, card)}))
         return 0
 
     cfg = PipelineConfig.s2s()
@@ -3507,16 +4051,24 @@ def main(argv) -> int:
     train_counts = phase_training(torch, cfg, ds, card)
     bwd = phase_train_kernels(torch, cfg, ds, card)
     phase_train_reference(torch, cfg, ds)
+    i2i_train = phase_i2i_train(torch, world, card)
+    pose_train = phase_pose_train(torch, world, card)
+    packed = phase_packed(torch, world, card)
+    print(json.dumps({"card": card, "i2i_train": i2i_train,
+                      "pose_train": pose_train, "packed": packed}))
     times = phase_kernel_times(torch, card, *kernel_time_cases(
         torch, cfg, ds, k1_main, k2_main))
     k1_paths = {"located query": k1_launches,
                 "fused query, host-stats": k1_fused,
                 "training, host-stats": train_counts["host-stats"][0],
-                "refine, host-stats": k1_refine}
+                "refine, host-stats": k1_refine,
+                "sorted": packed["PointPillarSorted"]["K1"]}
     k2_paths = {"aligned query": k2_launches,
                 "fused query, aligned all-device": k2_fused,
                 "training, all-device": train_counts["all-device"][1],
-                "refine, aligned all-device": k2_refine}
+                "refine, aligned all-device": k2_refine,
+                "pose training, all-device": pose_train["k2_launches"],
+                "packed": packed["PointPillarPacked"]["K2"]}
     print(json.dumps({"kernels": [
         {"name": "segment_sum_sorted", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": sum(k1_paths.values()),

@@ -7,17 +7,27 @@ convert_torchvision_encoder``): it takes a DescriptorModel's Flax ``{params,
 batch_stats}`` (numpy or jax arrays; for PointPillar the folded tree with
 ``Conv_0``/``Dense_0`` biases and no BatchNorm too) and returns the
 reference torch names the port uses. The caller names the encoder, as
-``ModelConfig.encoder`` does: PointPillar (the default), VGG16 (Flax
+``ModelConfig.encoder`` does: PointPillar (the default; with the pose head
+``conv_out_pose`` where the tree has it, a model initialised in mode
+"pose" or "both"), VGG16 (Flax
 ``conv0``-``conv12`` → ``encoder.{0,2,5,…,28}``), AlexNet, MobileNetV2 or
 ResNet18 (torchvision's names). Layouts: conv HWIO → OIHW; Dense
 ``(in, out)`` → Conv1d ``(out, in, 1)``; VLAD assignment ``(D, K)`` →
-``(K, D, 1, 1)``.
+``(K, D, 1, 1)``. The same PointPillar state dict loads into
+``models/packed.py``'s ``PointPillarPacked`` and ``PointPillarSorted``.
+``pose_state_dict`` does the same for the pose model of
+``train/pose.py`` (``encoder`` in mode "pose" and ``pose_head``).
 
 ``load_reference_checkpoint`` reads a reference PyTorch checkpoint (a
 ``.pth.tar`` of the GLoc3D s2s model or of its VGGVLAD i2i model, saved as
 ``{'state_dict': ...}`` or as a bare state dict, with or without the
 ``module.`` prefix of ``nn.DataParallel``) into the same names, which are
-the reference's own.
+the reference's own. ``load_reference_into`` loads it strictly into a
+DescriptorModel and hands back, by name, the pose head
+``encoder.conv_out_pose.*`` a reference s2s checkpoint may carry and the
+descriptor model lacks; ``encoder_state_dict`` is the checkpoint's encoder
+alone, which loads strictly into a ``PointPillar`` built with the heads the
+checkpoint has (``mode="both"``).
 
 ``fold_batch_norm`` ports ``gloc3d_tpu/models/fold.py``: each eval-mode BN
 after a conv becomes the conv's scale and bias (same fp32 arithmetic as the
@@ -79,6 +89,33 @@ def load_reference_checkpoint(path_or_obj: Union[str, os.PathLike, Mapping]
     return out
 
 
+POSE_HEAD = "encoder.conv_out_pose."
+
+
+def load_reference_into(model: torch.nn.Module,
+                        state_dict: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """Load a reference state dict into ``model`` strictly, except for the
+    pose head (``encoder.conv_out_pose.*``) when ``model`` has none: those
+    entries are returned by name (the JAX converter likewise takes the head
+    only where the model has it). Any other missing or unexpected key
+    raises."""
+    own = set(model.state_dict())
+    rest = {k: v for k, v in state_dict.items()
+            if k.startswith(POSE_HEAD) and k not in own}
+    model.load_state_dict({k: v for k, v in state_dict.items()
+                           if k not in rest})
+    return rest
+
+
+def encoder_state_dict(state_dict: Mapping[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """The ``encoder.*`` entries of a model state dict with the prefix
+    taken off: a ``PointPillar``'s (or an image encoder's) own."""
+    return {k[len("encoder."):]: v for k, v in state_dict.items()
+            if k.startswith("encoder.")}
+
+
 def flax_to_state_dict(variables: Mapping, encoder: str = "pointpillar"
                        ) -> Dict[str, torch.Tensor]:
     """DescriptorModel Flax variables of ``encoder`` (a
@@ -103,6 +140,15 @@ def flax_to_state_dict(variables: Mapping, encoder: str = "pointpillar"
                    for k, v in tv.items()}, **pool}
     if encoder != "pointpillar":
         raise ValueError(f"unknown encoder {encoder!r}")
+    return {**pointpillar_state_dict(enc_p, enc_s), **pool}
+
+
+def pointpillar_state_dict(enc_p: Mapping, enc_s: Mapping,
+                           prefix: str = "encoder."
+                           ) -> Dict[str, torch.Tensor]:
+    """A Flax PointPillar's ``params`` and ``batch_stats`` (standard or
+    folded; with whichever of the heads ``conv_out`` / ``conv_out_pose``
+    it has) → port names under ``prefix``."""
     out: Dict[str, torch.Tensor] = {}
 
     def bn(pnode, snode, dst):
@@ -123,27 +169,59 @@ def flax_to_state_dict(variables: Mapping, encoder: str = "pointpillar"
         bn(pnode, snode, dst_bn)
 
     pn, pn_s = enc_p["pn"], enc_s.get("pn", {})
-    out["encoder.pn.pointnet.0.weight"] = _t(
+    out[f"{prefix}pn.pointnet.0.weight"] = _t(
         pn["Dense_0"]["kernel"]).t().contiguous()[:, :, None]
     if "bias" in pn["Dense_0"]:
-        out["encoder.pn.pointnet.0.bias"] = _t(pn["Dense_0"]["bias"])
-    bn(pn, pn_s, "encoder.pn.pointnet.1")
+        out[f"{prefix}pn.pointnet.0.bias"] = _t(pn["Dense_0"]["bias"])
+    bn(pn, pn_s, f"{prefix}pn.pointnet.1")
     for name, n in _BLOCKS:
         for i in range(n):
             key = f"ConvBNRelu_{i}"
             conv(enc_p[name][key], enc_s.get(name, {}).get(key, {}),
-                 f"encoder.{name}.layers.{3 * i}",
-                 f"encoder.{name}.layers.{3 * i + 1}")
+                 f"{prefix}{name}.layers.{3 * i}",
+                 f"{prefix}{name}.layers.{3 * i + 1}")
     for name, ci in _UPS:
-        conv(enc_p[name], enc_s.get(name, {}), f"encoder.{name}.{ci}",
-             f"encoder.{name}.{ci + 1}")
-    for j, (ci, bi) in enumerate(((0, 1), (3, 4))):
-        key = f"conv_out_{j}"
-        conv(enc_p[key], enc_s.get(key, {}), f"encoder.conv_out.{ci}",
-             f"encoder.conv_out.{bi}")
-
-    out.update(pool)
+        conv(enc_p[name], enc_s.get(name, {}), f"{prefix}{name}.{ci}",
+             f"{prefix}{name}.{ci + 1}")
+    for head in ("conv_out", "conv_out_pose"):
+        if f"{head}_0" not in enc_p:
+            continue  # Flax creates only the heads of the init mode
+        for j, (ci, bi) in enumerate(((0, 1), (3, 4))):
+            key = f"{head}_{j}"
+            conv(enc_p[key], enc_s.get(key, {}), f"{prefix}{head}.{ci}",
+                 f"{prefix}{head}.{bi}")
     return out
+
+
+def pose_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``PosePairModel`` variables (``encoder``: a PointPillar
+    initialised in mode "pose"; ``pose_head``) → the port's
+    ``PosePairModel`` state_dict."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    return {**pointpillar_state_dict(params["encoder"],
+                                     stats.get("encoder", {})),
+            **pose_head_state_dict(params["pose_head"], stats["pose_head"])}
+
+
+def pose_head_state_dict(params: Mapping, stats: Mapping,
+                         prefix: str = "pose_head."
+                         ) -> Dict[str, torch.Tensor]:
+    """A Flax ``PoseHead``'s ``params`` and ``batch_stats`` (``Conv_0``,
+    ``BatchNorm_0``, ``Dense_0``) → port names under ``prefix``."""
+    bn, bn_s = params["BatchNorm_0"], stats["BatchNorm_0"]
+    return {
+        f"{prefix}conv.weight": _t(params["Conv_0"]["kernel"]).permute(
+            3, 2, 0, 1).contiguous(),
+        f"{prefix}bn.weight": _t(bn["scale"]),
+        f"{prefix}bn.bias": _t(bn["bias"]),
+        f"{prefix}bn.running_mean": _t(bn_s["mean"]),
+        f"{prefix}bn.running_var": _t(bn_s["var"]),
+        f"{prefix}bn.num_batches_tracked": torch.tensor(0),
+        f"{prefix}fc.weight": _t(params["Dense_0"]["kernel"]).t(
+        ).contiguous(),
+        f"{prefix}fc.bias": _t(params["Dense_0"]["bias"]),
+    }
 
 
 def netvlad_state_dict(pool: Mapping, pool_stats: Optional[Mapping] = None,

@@ -1,8 +1,8 @@
 """SE(3) / SE(2) rigid transforms and quaternion algebra on tensors.
 
 Port of ``gloc3d_tpu/core/transforms.py`` for the located query, plain and
-ground-aligned, and for the refiners: quaternion algebra,
-``matrix_to_quat``, Euler extraction, the ground-alignment
+ground-aligned, for the refiners and for the pose loss: quaternion algebra,
+``matrix_to_quat``, the angle-axis maps, Euler extraction, the ground-alignment
 helpers (``remove_yaw``, ``quat_from_two_vectors``), ``Rigid3`` / ``Rigid2``
 and ``embed_3d``. Quaternions are (w, x, y, z) in the last axis; every
 function broadcasts over leading axes and is branch-free (``torch.where``),
@@ -101,6 +101,32 @@ def matrix_to_quat(m: Tensor) -> Tensor:
     best = torch.stack([tr, m00, m11, m22], dim=-1).argmax(-1)
     q = torch.take_along_dim(cands, best[..., None, None], dim=-2)[..., 0, :]
     return quat_normalize(q)
+
+
+def angle_axis_to_quat(angle_axis: Tensor) -> Tensor:
+    """Angle-axis vector (angle·unit axis) → quaternion; linearised below a
+    squared norm of 1e-8 (transform.h:AngleAxisVectorToRotationQuaternion),
+    branch-free."""
+    sq = (angle_axis * angle_axis).sum(-1, keepdim=True)
+    norm = torch.sqrt(sq.clamp_min(1e-24))
+    small = sq < 1e-8
+    scale = torch.where(small, 0.5, torch.sin(norm / 2.0) / norm)
+    w = torch.where(small, 1.0, torch.cos(norm / 2.0))
+    return torch.cat([w, scale * angle_axis], dim=-1)
+
+
+def quat_to_angle_axis(q: Tensor) -> Tensor:
+    """Quaternion → angle-axis vector, on the positive-w branch
+    (transform.h:RotationQuaternionToAngleAxisVector)."""
+    q = quat_normalize(q)
+    q = torch.where(q[..., :1] < 0.0, -q, q)
+    vec_norm = torch.linalg.vector_norm(q[..., 1:], dim=-1, keepdim=True)
+    angle = 2.0 * torch.atan2(vec_norm, q[..., :1])
+    small = angle < 1e-7
+    sin_half = torch.sin(angle / 2.0)
+    scale = torch.where(small, 2.0,
+                        angle / torch.where(small, 1.0, sin_half))
+    return scale * q[..., 1:]
 
 
 def quat_from_rpy(roll: Tensor, pitch: Tensor, yaw: Tensor) -> Tensor:

@@ -27,7 +27,7 @@ ResNet's max-pool pads with −inf as ``F.max_pool2d(padding=1)`` does.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from gloc3d_tpu_torch.config import ENCODER_DIMS
 from gloc3d_tpu_torch.models.batchnorm import BatchNorm
-from gloc3d_tpu_torch.models.vgg import VGG16Encoder
+from gloc3d_tpu_torch.models.vgg import VGG16_CONV_IDX, VGG16Encoder
 
 # MobileNetV2 inverted-residual plan, torchvision features[1..17]:
 # (expand_ratio, out_ch, stride) per block
@@ -207,6 +207,51 @@ def build_image_encoder(name: str, compute_dtype: torch.dtype) -> nn.Module:
     if name not in cls:
         raise ValueError(f"unknown image encoder {name!r}")
     return cls[name](compute_dtype).to(memory_format=torch.channels_last)
+
+
+# ---------------------------------------------------------------------------
+# the reference's pretrained freeze rules (main.py:519-564)
+
+_TRAINABLE = {  # the modules that train, in torchvision's names
+    "alexnet": ("features.10.",),                  # conv4, the last conv
+    "vgg16": tuple(f"{i}." for i in VGG16_CONV_IDX[10:]),  # conv5_1-5_3
+    "mobilenet": ("features.16.", "features.17."),  # the last two blocks
+    "resnet18": ("layer3.", "layer4."),
+}
+
+
+def encoder_trainable_prefixes(name: str) -> Tuple[str, ...]:
+    """Prefixes of the DescriptorModel parameter names that TRAIN under the
+    reference's pretrained freeze rules; the rest of the encoder is frozen.
+    alexnet: layers[:-1] frozen, only the last conv trains; vgg16:
+    layers[:-5] frozen, conv5_1-5_3 (``encoder.24/26/28``) train;
+    mobilenet: layers[:-2] frozen, the last two inverted residuals train;
+    resnet18: layers[:-2] frozen, layer3 and layer4 train."""
+    if name == "vgg16":
+        return tuple(f"encoder.{p}" for p in _TRAINABLE[name])
+    return tuple(f"encoder.{port_key(name, p)}" for p in _TRAINABLE[name])
+
+
+def encoder_trainable_mask(name: str, model: nn.Module) -> Dict[str, bool]:
+    """``{parameter name: bool}`` over a DescriptorModel's encoder
+    parameters: True where the name lies under ``encoder_trainable_
+    prefixes``."""
+    prefixes = encoder_trainable_prefixes(name)
+    return {k: k.startswith(prefixes) for k, _ in model.named_parameters()
+            if k.startswith("encoder.")}
+
+
+def train_mask(model: nn.Module, encoder: str, fromscratch: bool = False
+               ) -> Optional[Dict[str, bool]]:
+    """The mask ``Trainer(trainable_mask=...)`` takes, built as the JAX
+    package's ``cmd_train`` builds it: for a pretrained image encoder the
+    encoder follows ``encoder_trainable_mask`` and every other parameter
+    trains; None (everything trains) for PointPillar or from scratch."""
+    if not is_image_encoder(encoder) or fromscratch:
+        return None
+    mask = {k: True for k, _ in model.named_parameters()}
+    mask.update(encoder_trainable_mask(encoder, model))
+    return mask
 
 
 # ---------------------------------------------------------------------------

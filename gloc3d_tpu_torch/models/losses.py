@@ -8,11 +8,12 @@ Port of ``gloc3d_tpu/models/losses.py``:
   losses over padded negatives, summed and divided by the real negatives;
 - ``best_pos_distance``, ``batched_triplet_loss``,
   ``batched_quadruplet_loss``: the PointNetVLAD-style losses (squared
-  distances; lazy / min / ignore-zero variants).
+  distances; lazy / min / ignore-zero variants);
+- ``pose_loss``: the relative-pose loss of the pose trainer
+  (``train/pose.py``).
 
 Distances are ``_l2`` with the eps inside the sqrt (torch
-``pairwise_distance``; keeps the gradient finite at 0). ``pose_loss`` comes
-with the pose head (ROADMAP item 15).
+``pairwise_distance``; keeps the gradient finite at 0).
 """
 
 from __future__ import annotations
@@ -20,6 +21,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from gloc3d_tpu_torch.core.transforms import (
+    angle_axis_to_quat, quat_conj, quat_mul, quat_rotate, quat_to_angle_axis,
+)
 
 
 def _l2(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -87,3 +92,19 @@ def batched_quadruplet_loss(q: torch.Tensor, pos: torch.Tensor,
     d_on = ((negs - other_neg[:, None, :]) ** 2).sum(-1)
     second = torch.clamp_min(m2 + positive[:, None] - d_on, 0.0)
     return first + _reduce(second, lazy, ignore_zero_loss)
+
+
+def pose_loss(pred: torch.Tensor, gt: torch.Tensor,
+              angle_scale: float = 1.0) -> torch.Tensor:
+    """pred, gt (B, 6) [angle-axis | translation] → angle_scale · mean
+    rotation error + mean translation error. The rotation error is the norm
+    of the angle-axis of gt⁻¹·pred; the translation error is rotated into
+    the gt frame. Where an error is exactly a zero vector (pred = gt) the
+    gradient of its norm is 0 here (torch's norm) and NaN in JAX."""
+    q_pred = angle_axis_to_quat(pred[:, :3])
+    q_gt = angle_axis_to_quat(gt[:, :3])
+    dq = quat_mul(quat_conj(q_gt), q_pred)
+    dr = torch.linalg.vector_norm(quat_to_angle_axis(dq), dim=-1)
+    dt = quat_rotate(quat_conj(q_gt), pred[:, 3:] - gt[:, 3:])
+    dt = torch.linalg.vector_norm(dt, dim=-1)
+    return angle_scale * dr.mean() + dt.mean()

@@ -2,13 +2,15 @@
 
 Port of ``gloc3d_tpu/models/pointpillar.py``: 14-dim per-point features →
 1×1 PointNet → mean into the 140×80 pillar grid → three conv blocks (64/128/256) with FPN upsampling → 448-channel concat →
-128-channel descriptor head. NCHW inside; the public output keeps the JAX
+128-channel heads: the descriptor head ``conv_out`` and the pose head
+``conv_out_pose``. NCHW inside; the public output keeps the JAX
 layout ``(B, gy, gx, 128)``. With host stats (pillar-sorted points) the
 mean runs on kernel K1 (sorted segment sums); without, the pillar
 statistics and the mean are unsorted binnings on kernel K2.
 
 Parameter names are the reference torch model's (``encoder.pn.pointnet.0``,
-``encoder.block1.layers.{3i}``, ``up2.1``, ``conv_out.{0,1,3,4}``), so the
+``encoder.block1.layers.{3i}``, ``up2.1``, ``conv_out.{0,1,3,4}``,
+``conv_out_pose.{0,1,3,4}``), so the
 Flax bridge (convert.py) and reference checkpoints map one to one. With
 ``fold_bn=True`` each BatchNorm is an ``nn.Identity`` and its conv carries
 the folded bias.
@@ -23,6 +25,10 @@ Traps kept from the reference and the Flax model:
 - The FPN upsample uses align-corners bilinear.
 - Compute dtype: convs run in ``compute_dtype`` (bf16 by default); BN and
   the folded model's ``relu=False`` head end return fp32.
+- A Flax module creates a head's parameters only for the mode it is
+  initialised with; the port builds the heads of its ``mode`` argument
+  (``HEADS``), so the descriptor model keeps exactly the descriptor head
+  and a pose model has no ``conv_out``.
 - Training (``model.train()``): BatchNorm normalises with batch statistics
   and keeps Flax's biased running variance (``models/batchnorm.py``); both
   pillar means carry gradients through their kernels' autograd Functions
@@ -121,26 +127,45 @@ class PointNet(nn.Module):
         return F.relu(x) * mask[..., None]
 
 
-class PointPillar(nn.Module):
-    """PointPillar backbone + descriptor head.
+HEADS = {  # mode → the heads it builds and runs
+    "vlad": ("conv_out",),
+    "cluster": ("conv_out",),
+    "pose": ("conv_out_pose",),
+    "both": ("conv_out", "conv_out_pose"),
+}
 
-    ``forward(points (B, N, 4), mask (B, N), voxel_stats=None)`` bins on
-    the device; ``voxel_stats=(ids, raw_counts, centroids, starts[,
+
+def _head(fold_bn: bool) -> nn.Sequential:
+    return nn.Sequential(
+        _conv(448, 256, 1, fold_bn), _bn(256, fold_bn), nn.ReLU(),
+        _conv(256, 128, 1, fold_bn), _bn(128, fold_bn))
+
+
+class PointPillar(nn.Module):
+    """PointPillar backbone + the descriptor and pose heads.
+
+    ``forward(points (B, N, 4), mask (B, N), voxel_stats=None, mode=None)``
+    bins on the device; ``voxel_stats=(ids, raw_counts, centroids, starts[,
     per_point]))`` takes pillar-sorted points from the host stats pass.
-    Either returns ``(B, gy, gx, 128)``, the JAX ``mode="vlad"`` output
-    (``train/cluster.py`` normalises it as ``mode="cluster"`` does). The
-    pose head comes with the product-surface port (ROADMAP item 15).
+    ``mode`` (default: the one the module was built with) is JAX's:
+    ``"vlad"`` → ``(B, gy, gx, 128)`` from ``conv_out``; ``"cluster"`` → the
+    same, L2-normalised over channels; ``"pose"`` → ``(B, gy, gx, 128)``
+    from ``conv_out_pose``; ``"both"`` → the (vlad, pose) pair. The module
+    holds the heads of the mode it is built with (``HEADS``).
     """
 
     def __init__(self, xbound: Sequence[float] = (-35.0, 35.0, 0.5),
                  ybound: Sequence[float] = (-20.0, 20.0, 0.5),
                  zbound: Sequence[float] = (-10.0, 10.0, 20.0),
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, mode: str = "vlad"):
         super().__init__()
+        if mode not in HEADS:
+            raise ValueError(f"unknown mode {mode!r}")
         self.xbound, self.ybound, self.zbound = xbound, ybound, zbound
         self.compute_dtype = compute_dtype
         self.fold_bn = fold_bn
+        self.mode = mode
         self.pn = PointNet(POINT_FEATURES, 64, fold_bn)
         self.block1 = PillarBlock(64, 64, 2, 1, fold_bn)
         self.block2 = PillarBlock(64, 128, 3, 2, fold_bn)
@@ -153,12 +178,10 @@ class PointPillar(nn.Module):
         self.up3 = nn.Sequential(
             nn.Upsample(scale_factor=4, mode="bilinear", align_corners=True),
             _conv(256, 256, 1, fold_bn), _bn(256, fold_bn), nn.ReLU())
-        self.conv_out = nn.Sequential(
-            _conv(448, 256, 1, fold_bn), _bn(256, fold_bn), nn.ReLU(),
-            _conv(256, 128, 1, fold_bn), _bn(128, fold_bn))
+        for name in HEADS[mode]:
+            setattr(self, name, _head(fold_bn))
 
-    def forward(self, points, mask, voxel_stats=None):
-        cd = self.compute_dtype
+    def forward(self, points, mask, voxel_stats=None, mode=None):
         xyz = points[..., :3]
         if voxel_stats is None:
             vox = points_to_voxels(xyz, mask, self.xbound, self.ybound,
@@ -172,14 +195,7 @@ class PointPillar(nn.Module):
             vox = points_to_voxels_hoststats(
                 xyz, mask, ids, raw_counts, centroids,
                 self.xbound, self.ybound, self.zbound, per_point=pp)
-        feats = torch.cat([
-            points,
-            vox["voxel_point_count"][..., None],
-            vox["local_points_xyz"],
-            vox["point_centroids"],
-            xyz - vox["voxel_centers"],
-        ], dim=-1)
-        feats = self.pn(feats, vox["points_mask"], cd)
+        feats = self.point_features(points, vox)
 
         if voxel_stats is None:
             pillar = scatter_mean_to_grid(feats, vox["voxel_indices"],
@@ -189,9 +205,33 @@ class PointPillar(nn.Module):
             sums = segment_sum_sorted_grad(feats.contiguous(),
                                            starts.contiguous(), ids)
             pillar = sums / raw_counts.clamp_min(1.0)[..., None]  # (B, V, 64)
+        return self.bev_heads(pillar, mode)
+
+    def point_features(self, points, vox):
+        """The 14 per-point features of (B, N, 4) ``points`` → the masked
+        (B, N, 64) PointNet features."""
+        xyz = points[..., :3]
+        feats = torch.cat([
+            points,
+            vox["voxel_point_count"][..., None],
+            vox["local_points_xyz"],
+            vox["point_centroids"],
+            xyz - vox["voxel_centers"],
+        ], dim=-1)
+        return self.pn(feats, vox["points_mask"], self.compute_dtype)
+
+    def bev_heads(self, pillar, mode=None):
+        """(B, V, 64) pillar means → the CNN, the FPN and the heads of
+        ``mode``."""
+        cd = self.compute_dtype
+        mode = mode or self.mode
+        missing = [h for h in HEADS[mode] if not hasattr(self, h)]
+        if missing:
+            raise ValueError(f"mode {mode!r} needs {missing}: this module "
+                             f"was built with mode {self.mode!r}")
         gx, gy, _ = grid_shape(self.xbound, self.ybound, self.zbound)
         # x-major ravel: H = gx, W = gy (≙ torch view(B, C, gx, gy))
-        x = pillar.reshape(points.shape[0], gx, gy, 64).permute(0, 3, 1, 2)
+        x = pillar.reshape(pillar.shape[0], gx, gy, 64).permute(0, 3, 1, 2)
 
         f1 = self.block1(x, cd)
         f2 = self.block2(f1, cd)
@@ -201,7 +241,14 @@ class PointPillar(nn.Module):
         f3 = conv_bn_act(self.up3[0](f3), self.up3[1], self.up3[2], True, cd)
         feat = torch.cat([f1.to(cd), f2.to(cd), f3.to(cd)], dim=1)
 
-        co = self.conv_out
-        h = conv_bn_act(feat, co[0], co[1], True, cd)
-        h = conv_bn_act(h, co[3], co[4], False, cd)  # (B, 128, gx, gy)
-        return h.permute(0, 3, 2, 1)  # x↔y swap → (B, gy, gx, 128)
+        def head(co):
+            h = conv_bn_act(feat, co[0], co[1], True, cd)
+            h = conv_bn_act(h, co[3], co[4], False, cd)  # (B, 128, gx, gy)
+            return h.permute(0, 3, 2, 1)  # x↔y swap → (B, gy, gx, 128)
+
+        if mode == "cluster":
+            out = head(self.conv_out)
+            return out * torch.rsqrt((out * out).sum(-1, keepdim=True)
+                                     + 1e-12)
+        outs = tuple(head(getattr(self, h)) for h in HEADS[mode])
+        return outs if mode == "both" else outs[0]

@@ -25,6 +25,8 @@ ignores the flag and always runs the plain convs on the same weights.
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -51,6 +53,18 @@ def conv_flops(batch: int, size: int) -> int:
         total += 2 * batch * s * s * cout * cin * 9
         cin = cout
     return total
+
+
+def trainable_mask(model: nn.Module, train_from_conv: int = 10
+                   ) -> Dict[str, bool]:
+    """``{parameter name: bool}`` over a whole VGG16 DescriptorModel: True
+    for the convs from ``train_from_conv`` on (the reference freezes
+    everything below conv5_1, conv index 10, when pretrained:
+    main.py:538-541), False for every other parameter, the pooling's too,
+    as the JAX function gives over a whole parameter tree."""
+    prefixes = tuple(f"encoder.{i}." for i in VGG16_CONV_IDX[train_from_conv:])
+    return {name: name.startswith(prefixes)
+            for name, _ in model.named_parameters()}
 
 
 class VGG16Encoder(nn.Sequential):

@@ -8,7 +8,10 @@ Port of ``gloc3d_tpu/ops/voxelize.py``:
   only elementwise math;
 - ``points_to_voxels`` + ``scatter_mean_to_grid`` (the all-device path):
   the pillar statistics and the feature mean are unsorted segment sums on
-  kernel K2 (``kernels/bin_sums.py``).
+  kernel K2 (``kernels/bin_sums.py``);
+- ``points_to_voxels_presorted`` (``models/packed.py::PointPillarSorted``):
+  pillar-sorted points whose statistics are sorted segment sums on kernel
+  K1 (``kernels/segment_sum.py``).
 
 Reference quirks kept: coordinates truncate toward zero (torch ``.int()``),
 ``voxel_centers`` come from the unclamped coordinates, padding and
@@ -25,6 +28,7 @@ import torch
 from gloc3d_tpu_torch.kernels.bin_sums import (
     pillar_bin_sums, pillar_bin_sums_grad,
 )
+from gloc3d_tpu_torch.kernels.segment_sum import segment_sum_sorted_grad
 
 Bound = Sequence[float]
 
@@ -166,6 +170,80 @@ def points_to_voxels(points_xyz: torch.Tensor, points_mask: torch.Tensor,
         "voxel_point_count": voxel_point_count,
         "points_per_voxel": points_per_voxel,
         "raw_counts": raw_counts,
+    }
+
+
+def points_to_voxels_presorted(
+    points_xyz: torch.Tensor,   # (B, N, 3) pillar-sorted
+    valid: torch.Tensor,        # (B, N) 1.0 = real decoded row
+    ids: torch.Tensor,          # (B, N) int32 pillar ids (padding/OOB → 0)
+    starts: torch.Tensor,       # (B, V+1) int32 segment offsets
+    xbound: Bound, ybound: Bound, zbound: Bound,
+) -> Dict[str, torch.Tensor]:
+    """``points_to_voxels`` for pillar-sorted input (the host pass's
+    ``points, valid, ids, starts``): the same per-point values up to the
+    order of the points. The per-pillar sums are one sorted segment sum on
+    K1 of the payload ``[valid, xyz − centre of the assigned pillar]``:
+    centre-relative coordinates bound the fp32 error of the sums. The raw
+    counts are ``diff(starts)``; empty pillars have centroid 0."""
+    dev, dt = points_xyz.device, points_xyz.dtype
+    gx, gy, gz = grid_shape(xbound, ybound, zbound)
+    num_voxels = gx * gy * gz
+    voxel_size = torch.tensor([xbound[2], ybound[2], zbound[2]], dtype=dt,
+                              device=dev)
+    grid_offset = torch.tensor([xbound[0], ybound[0], zbound[0]], dtype=dt,
+                               device=dev)
+    grid_size = torch.tensor([gx, gy, gz], dtype=torch.int32, device=dev)
+
+    shifted = points_xyz - grid_offset
+    voxel_xyz = shifted / voxel_size
+    coords = _trunc_int(voxel_xyz)
+    padding = (valid < 1.0) | ((coords >= grid_size) | (coords < 0)).any(-1)
+    voxel_centers = (coords.to(dt) + 0.5) * voxel_size + grid_offset
+
+    ids = ids.to(torch.int32)
+    idl = ids.long()
+    seg = torch.stack([idl // (gy * gz), (idl // gz) % gy, idl % gz], -1)
+    rel = points_xyz - ((seg.to(dt) + 0.5) * voxel_size + grid_offset)
+    valid_f = 1.0 - padding.to(dt)
+    payload = torch.cat([valid_f[..., None], rel], dim=-1).contiguous()
+    sums = segment_sum_sorted_grad(payload, starts.contiguous(), ids)
+    points_per_voxel = sums[..., 0]
+    raw_counts = starts.diff(dim=-1).to(dt)
+
+    cell = torch.arange(num_voxels, device=dev)
+    cell_center = (torch.stack([cell // (gy * gz), (cell // gz) % gy,
+                                cell % gz], -1).to(dt) + 0.5
+                   ) * voxel_size + grid_offset
+    voxel_centroids = torch.where(
+        (raw_counts > 0)[..., None],
+        sums[..., 1:] / raw_counts.clamp_min(1.0)[..., None] + cell_center,
+        0.0)
+    table = torch.cat([points_per_voxel[..., None], voxel_centroids], dim=-1)
+    g = torch.gather(table, 1, idl[..., None].expand(-1, -1, 4))
+    voxel_point_count = g[..., 0]
+    point_centroids = g[..., 1:]
+
+    return {
+        "local_points_xyz": points_xyz - point_centroids,
+        "shifted_points_xyz": shifted,
+        "point_centroids": point_centroids,
+        "points_xyz": points_xyz,
+        "grid_offset": grid_offset,
+        "voxel_coords": torch.where(padding[..., None], 0, coords),
+        "voxel_centers": voxel_centers,
+        "voxel_indices": ids,
+        "voxel_paddings": padding.to(dt),
+        "points_mask": valid_f,
+        "num_voxels": num_voxels,
+        "grid_size": grid_size,
+        "grid_shape": (gx, gy, gz),
+        "voxel_xyz": torch.where(padding[..., None], 0.0, voxel_xyz),
+        "voxel_size": voxel_size,
+        "voxel_point_count": voxel_point_count,
+        "points_per_voxel": points_per_voxel,
+        "raw_counts": raw_counts,
+        "segment_starts": starts,
     }
 
 

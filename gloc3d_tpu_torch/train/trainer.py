@@ -1,6 +1,7 @@
 """Triplet trainer: cache-refresh mining loop, SGD, checkpoints, early stop.
 
-Port of ``gloc3d_tpu/train/trainer.py`` for the s2s (PointPillar) model:
+Port of ``gloc3d_tpu/train/trainer.py``, for the s2s (PointPillar) model
+on padded clouds and for the i2i image encoders on (N, S, S, 3) BEV images:
 
   per epoch, per cache-refresh subset of the queries:
     1. refresh the feature cache: an eval-mode forward over the whole set;
@@ -10,12 +11,21 @@ Port of ``gloc3d_tpu/train/trainer.py`` for the s2s (PointPillar) model:
   per ``eval_every`` epochs: recall@{1,5,10,20}, the latest and best
   checkpoints, early stop after ``patience`` evaluations without a gain.
 
-Two train paths, as in JAX. The all-device path (``host_stats=False``) bins
+Two s2s train paths, as in JAX. The all-device path (``host_stats=False``) bins
 on the card: kernel K2 for the pillar statistics and for the feature mean,
 whose backward is ``pillar_bin_sums_grad``'s row gather. The host-stats path
 bins and pillar-sorts each batch on the host (the native host pass) and
 takes the feature mean on kernel K1, backward through
-``segment_sum_sorted_grad``.
+``segment_sum_sorted_grad``. Images take one path: the model is called on
+the images alone (masks are None), and ``host_stats`` and ``augment_yaw``
+are ignored for them, as in JAX.
+
+Freezing: ``trainable_mask`` (``models/encoders.py::train_mask`` builds the
+reference's for a pretrained image encoder) takes a frozen parameter out of
+the optimizer (``requires_grad=False``), so neither the update nor the
+weight decay or momentum touches it, as JAX's ``optax.masked(set_to_zero)``
+leaves it; in train mode a frozen layer's BatchNorm still moves its
+running statistics, in both frameworks.
 
 Optimizer: ``torch.optim.SGD(momentum, weight_decay)`` is optax's
 ``add_decayed_weights`` then ``sgd`` (coupled L2, then momentum). The
@@ -72,10 +82,11 @@ class Trainer:
 
     Args:
       cfg: a PipelineConfig (the port's or the JAX package's).
-      model: an s2s DescriptorModel with ``fold_bn=False``; moved to
+      model: a DescriptorModel with ``fold_bn=False``; moved to
         ``device`` and trained in place.
       dataset, eval_dataset: ``TripletDataset``s (``data/dataset.py``)
-        with (N, P, 4) clouds and their prefix-contiguous (N, P) masks.
+        with (N, P, 4) clouds and their prefix-contiguous (N, P) masks, or
+        (N, S, S, 3) images and no masks.
       workdir: checkpoints, ``config.json`` and ``history.json``.
       seed: seed of the trainer's generator (default ``cfg.train.seed``).
       mesh: data-parallel training is not ported yet (ROADMAP item 16).
@@ -92,9 +103,6 @@ class Trainer:
         if mesh is not None:
             raise _not_ported("Trainer(mesh=...) data-parallel training",
                               "item 16")
-        if cfg.model.encoder != "pointpillar":
-            raise _not_ported(f"training the {cfg.model.encoder!r} encoder",
-                              "item 12b")
         if cfg.model.fold_bn:
             raise ValueError("training needs live BatchNorm: build the "
                              "model with fold_bn=False")
@@ -106,7 +114,8 @@ class Trainer:
         self.device = resolve_device(device, "Trainer")
         os.makedirs(workdir, exist_ok=True)
         self.model = model.to(self.device)
-        self.host_stats = bool(t.host_stats)
+        self.is_s2s = cfg.model.encoder == "pointpillar"
+        self.host_stats = bool(t.host_stats) and self.is_s2s
         self.generator = torch.Generator().manual_seed(
             seed if seed is not None else t.seed)
 
@@ -145,7 +154,9 @@ class Trainer:
         return t.lr * t.lr_gamma ** (self.step // self.transition_steps)
 
     # --------------------------------------------------------------- forward
-    def _tensor(self, a) -> torch.Tensor:
+    def _tensor(self, a) -> Optional[torch.Tensor]:
+        if a is None:
+            return None
         return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
 
     def _host_sorted(self, inputs: np.ndarray, masks: np.ndarray):
@@ -175,13 +186,15 @@ class Trainer:
     @torch.no_grad()
     def compute_cache(self, inputs: np.ndarray, masks: np.ndarray,
                       batch: int = 8) -> torch.Tensor:
-        """Eval-mode descriptors (N, D) of a whole set, ``batch`` scans at a
-        time, on the device. (JAX pads the tail batch to one jit shape; in
-        eval mode the rows are independent, so the port does not.)"""
+        """Eval-mode descriptors (N, D) of a whole set (``masks`` None for
+        images), ``batch`` inputs at a time, on the device. (JAX pads the
+        tail batch to one jit shape; in eval mode the rows are independent,
+        so the port does not.)"""
         self.model.eval()
         outs = []
         for i in range(0, len(inputs), batch):
-            x, mk = inputs[i:i + batch], masks[i:i + batch]
+            x = inputs[i:i + batch]
+            mk = None if masks is None else masks[i:i + batch]
             if self.host_stats:
                 p, vl, vs = self._host_sorted(x, mk)
                 outs.append(self.model(p, vl, voxel_stats=vs))
@@ -194,13 +207,15 @@ class Trainer:
                    q_valid, yaw=None) -> torch.Tensor:
         """All-device step on one mined batch: (B, N, 4) queries and
         positives, (B·n_neg, N, 4) negatives, their masks, (B, n_neg)
-        ``neg_valid`` and (B,) ``q_valid``. ``yaw`` (B,)
-        rotates the queries first. Returns the loss (a device scalar)."""
+        ``neg_valid`` and (B,) ``q_valid``; or images with masks None.
+        ``yaw`` (B,) rotates the query clouds first (ignored for images).
+        Returns the loss (a device scalar)."""
         q = self._tensor(q_in)
-        if yaw is not None:
+        if yaw is not None and self.is_s2s:
             q = rotate_clouds_z(q, torch.as_tensor(np.array(yaw, np.float32)))
         inputs = torch.cat([q, self._tensor(p_in), self._tensor(n_in)])
-        masks = torch.cat([self._tensor(m) for m in (q_mk, p_mk, n_mk)])
+        masks = (torch.cat([self._tensor(m) for m in (q_mk, p_mk, n_mk)])
+                 if self.is_s2s else None)
         return self._step(inputs, masks, None, neg_valid, q_valid)
 
     def train_step_hs(self, inputs, valid, vs, neg_valid, q_valid
@@ -247,10 +262,11 @@ class Trainer:
         neg = mined.neg_idx.cpu().numpy().reshape(-1)
         q_in, p_in, n_in = (ds.q_inputs[batch_idx], ds.db_inputs[pos],
                             ds.db_inputs[neg])
-        q_mk, p_mk, n_mk = (ds.q_masks[batch_idx], ds.db_masks[pos],
-                            ds.db_masks[neg])
+        q_mk, p_mk, n_mk = ((ds.q_masks[batch_idx], ds.db_masks[pos],
+                             ds.db_masks[neg]) if self.is_s2s
+                            else (None, None, None))
         yaw = (draw_aug_yaw(self.generator, len(batch_idx))
-               if t.augment_yaw else None)
+               if t.augment_yaw and self.is_s2s else None)
         q_valid = mined.valid.float()
         if not self.host_stats:
             return self.train_step(q_in, q_mk, p_in, p_mk, n_in, n_mk,

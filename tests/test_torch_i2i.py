@@ -446,12 +446,28 @@ def test_images_need_an_image_encoder():
 
 
 def test_trainer_refuses_image_encoders(port_model, tmp_path):
-    """i2i training (the conv10+ freeze, image triplets) is not ported."""
+    """The Trainer no longer refuses an image encoder: on the rendered BEVs
+    it takes a step with masks None under the VGG16 freeze mask, which
+    leaves conv0-9 bit-unchanged (tests/test_torch_train_i2i.py holds the
+    step to JAX's)."""
+    import copy
+
     from gloc3d_tpu_torch.data.dataset import TripletDataset
+    from gloc3d_tpu_torch.models.encoders import train_mask
     from gloc3d_tpu_torch.train import Trainer
 
     images, _ = _render(DB_POSES[:2])
     ds = TripletDataset(db_inputs=images, q_inputs=images[:1],
                         utm_db=np.zeros((2, 2)), utm_q=np.zeros((1, 2)))
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        Trainer(CFG, port_model, ds, str(tmp_path), device="cpu")
+    cfg = CFG.replace(train=CFG.train.replace(n_neg=1, batch_size=1,
+                                              margin=10.0))
+    model = copy.deepcopy(port_model).train()
+    tr = Trainer(cfg, model, ds, str(tmp_path), device="cpu",
+                 trainable_mask=train_mask(model, "vgg16"))
+    before = model.encoder[0].weight.detach().clone()
+    loss = tr.train_step(images[:1], None, images[:1], None, images[1:2],
+                         None, np.ones((1, 1), np.float32),
+                         np.ones(1, np.float32))
+    assert np.isfinite(float(loss)) and tr.step == 1 and not tr.host_stats
+    assert torch.equal(model.encoder[0].weight, before)
+    assert model.encoder[28].weight.grad is not None

@@ -203,8 +203,9 @@ def test_port_runs_without_jax():
     matcher preset, located and fused queries on the int8 flat bank and
     the IVF index with int8 cells, ``locate`` with the ICP polish and
     ``match_keyframe``, an i2i fused query on a 64² BEV image, and a
-    sweep's BEV matched into a two-sweep submap) and a training epoch on
-    each path with jax, flax and the JAX package blocked: the port never
+    sweep's BEV matched into a two-sweep submap), a training epoch on
+    each path, an i2i train step under the freeze mask and a pose train
+    step with jax, flax and the JAX package blocked: the port never
     needs JAX, and no module it loads and no shared library it maps lies
     under gloc3d_tpu/ or native/."""
     script = textwrap.dedent("""
@@ -361,6 +362,35 @@ def test_port_runs_without_jax():
             with tempfile.TemporaryDirectory() as workdir:
                 tr = Trainer(c, tmodel, ds, workdir, device="cpu")
                 assert np.isfinite(tr.train_epoch(1)) and tr.step == 2
+
+        # one i2i train step (VGG16 on 64² images, the reference's freeze
+        # mask) and one pose step (the pose model on the small grid)
+        from gloc3d_tpu_torch.models.encoders import train_mask
+        from gloc3d_tpu_torch.train import pose
+        rng = np.random.RandomState(1)
+        ids = dataset.TripletDataset(
+            db_inputs=rng.rand(4, 64, 64, 3).astype(np.float32),
+            q_inputs=rng.rand(2, 64, 64, 3).astype(np.float32),
+            utm_db=np.array(sites, float),
+            utm_q=np.array([(1, 0), (31, 0)], float))
+        itcfg = icfg.replace(train=tcfg.train)
+        imodel = g.init_params(g.build_model(itcfg.model, itcfg.voxel))
+        with tempfile.TemporaryDirectory() as workdir:
+            tr = Trainer(itcfg, imodel, ids, workdir, device="cpu",
+                         trainable_mask=train_mask(imodel, "vgg16"))
+            frozen = imodel.encoder[0].weight.detach().clone()
+            loss = tr.train_step(ids.q_inputs[:1], None, ids.db_inputs[:1],
+                                 None, ids.db_inputs[2:3], None,
+                                 np.ones((1, 1), np.float32),
+                                 np.ones(1, np.float32))
+            assert np.isfinite(float(loss)) and tr.step == 1
+            assert torch.equal(imodel.encoder[0].weight, frozen)
+        st = pose.init_pose_state(pose.make_pose_model(tcfg), device="cpu")
+        pb = [torch.from_numpy(np.stack([d[i] for d in db[:2]]))
+              for i in (0, 1)]
+        loss = pose.pose_train_step(st, (pb[0], pb[1], pb[0], pb[1]),
+                                    np.zeros((2, 6), np.float32))
+        assert np.isfinite(float(loss))
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
         repo = os.getcwd()
