@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's s2s and i2i located queries, the refinement
-stage, the SLAM submap, s2s, i2i and pose training and the packed and
-pillar-sorted PointPillar once on one NVIDIA card.
+stage, the SLAM submap, s2s, i2i and pose training, the packed and
+pillar-sorted PointPillar and the evaluator over a dataset read from disk
+once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -181,11 +182,33 @@ Phases, each printing its own lines:
      pass, K1 on the 4-channel payload and the 64-channel features) from
      one fp32 state dict: pillar means within 1e-5 and outputs within 1e-4
      of PointPillar's largest; forward times, launches.
+ 23. [eval], after [submap]: one KITTI odometry sequence written into a
+     temporary directory (sequences/08/velodyne/NNNNNN.bin, poses/08.txt,
+     calib.txt): 50 walled-world scans at the 122 480-point pad, 2 m
+     apart with yaw changes, cam0 poses written through a non-identity Tr;
+     generate_split (40 db, 10 queries) and load_split_scans through the
+     port's native loader, the scans bit-equal to the written ones and the
+     velodyne poses within 1e-5; one more query, 140 m from every frame;
+     evaluate_split (batch 8, recall@{1, 5, 10, 20}) with the folded bf16
+     model on the host-stats path (K1) and the aligned all-device path
+     (K2): the full EvalReport, K1 / K2 launches, every launch of one
+     evaluator batch against its plain version (bound 1e-5 of L1 mass),
+     gates: (a) on the fp32 host-stats map the evaluator's per-query
+     results = locate's query by query, (b) num_total = 11, success rate
+     and recall@5 at least 2/3, mean position error below 1 m, (c) the far
+     query a failed registration with its overlay rendered (a PNG only
+     where matplotlib is installed), npz dumps exactly for the failed
+     detections, the failed-index files written, (d) the CPU's fp32 run
+     on the first 16 db and 4 queries = the card's (candidates,
+     successes, failed indices; errors within 1e-3 m / 1e-3 rad); db
+     build per scan, locate per query, p50 / p95 beside the card's name
+     and power limit.
 The kernel-only times of phase 17 come from complete traces only (both
 kernels of every traced call); a timing with none in six traces prints
 that it was not measured.
 `python3 chip_smoke.py --kernels` runs phases 1-4 and 17 only;
 `python3 chip_smoke.py --submap` phases 1 and 19 only;
+`python3 chip_smoke.py --eval` phases 1, 2 and 23 only;
 `--i2i-train`, `--pose-train` and `--packed` run phases 1, 2 and the
 phase (or phases) named, alone;
 `--seed N` seeds the map-scale rows (default 0).
@@ -2482,6 +2505,334 @@ def run_refine(torch, cfg, lq_set, kf_set, q_set, centroids, model,
             "seconds": seconds}, k1, k2
 
 
+# ---------------------------------------------------------------- [eval]
+EVAL_FRAMES = 50          # one KITTI odometry sequence, ~2 m apart
+EVAL_SEQ = "08"
+EVAL_BATCH = 8
+EVAL_N_VALUES = (1, 5, 10, 20)
+EVAL_FAR = (0.0, 95.0, 0.4)   # > 140 m from every frame: no wall in common
+# a KITTI-like T_cam0_velo (the calib.txt "Tr"): the axis swap (velodyne
+# x forward, z up → camera z forward, y down), a small tilt, the offset
+EVAL_TR = np.array([[-0.0018, -0.9999, -0.0125, -0.0047],
+                    [-0.0065, 0.0125, -0.9999, -0.0716],
+                    [0.9999, -0.0019, -0.0065, -0.3442],
+                    [0.0, 0.0, 0.0, 1.0]])
+
+
+def eval_trajectory(n: int = EVAL_FRAMES):
+    """(x, y, yaw) of n frames 2 m apart along y ≈ -55 m, heading swaying
+    within ±0.35 rad."""
+    poses, x, y = [], -50.0, -55.0
+    for i in range(n):
+        yaw = 0.35 * math.sin(i / 5.0)
+        poses.append((x, y, yaw))
+        x, y = x + 2.0 * math.cos(yaw), y + 2.0 * math.sin(yaw)
+    return poses
+
+
+def velo_pose(x, y, yaw) -> np.ndarray:
+    t = np.eye(4)
+    t[:2, :2] = [[math.cos(yaw), -math.sin(yaw)],
+                 [math.sin(yaw), math.cos(yaw)]]
+    t[:2, 3] = x, y
+    return t
+
+
+def write_kitti_sequence(world, root: str, n_pad: int):
+    """The KITTI odometry layout of one sequence under ``root``:
+    sequences/08/velodyne/NNNNNN.bin (float32 x, y, z, intensity of the real
+    rows of each walled-world scan), poses/08.txt (cam0 poses: T_w_velo ·
+    Tr⁻¹) and sequences/08/calib.txt (P0 and Tr). Returns (velodyne poses
+    (N, 4, 4), the padded scans as written, the bytes written)."""
+    seq = os.path.join(root, "sequences", EVAL_SEQ)
+    os.makedirs(os.path.join(seq, "velodyne"))
+    os.makedirs(os.path.join(root, "poses"))
+    velo, scans, cam, nbytes = [], [], [], 0
+    for i, p in enumerate(eval_trajectory()):
+        pts, mask = scan_at(world, p, n_pad, seed=500 + i)
+        pts[mask > 0].tofile(os.path.join(seq, "velodyne", f"{i:06d}.bin"))
+        nbytes += pts[mask > 0].nbytes
+        velo.append(velo_pose(*p))
+        cam.append((velo[-1] @ np.linalg.inv(EVAL_TR))[:3].reshape(-1))
+        scans.append((pts, mask))
+    np.savetxt(os.path.join(root, "poses", f"{EVAL_SEQ}.txt"), np.stack(cam))
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        f.write("P0: " + " ".join(["0.0"] * 12) + "\n")
+        f.write("Tr: " + " ".join(f"{v:.12e}" for v in
+                                  EVAL_TR[:3].reshape(-1)) + "\n")
+    return np.stack(velo), scans, nbytes
+
+
+def eval_dataset(world, root: str, n_pad: int):
+    """Write the sequence, split it (40 db, 10 queries), read it back
+    through the port's native loader, and add a query scanned 140 m from
+    every frame (no wall in common with any db scan: registration must
+    fail)."""
+    from gloc3d_tpu_torch.data import kitti
+
+    t0 = time.perf_counter()
+    velo, written, nbytes = write_kitti_sequence(world, root, n_pad)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    split = kitti.generate_split(root, sequences=(EVAL_SEQ,), skip_frames=1,
+                                 query_fraction=0.2, seed=0)
+    ds = kitti.load_split_scans(split, max_points=n_pad)
+    t_read = time.perf_counter() - t0
+    check((ds.num_db, ds.num_q) == (40, 10),
+          f"[eval] split {ds.num_db} db / {ds.num_q} queries, not 40 / 10")
+    frame = {f: int(os.path.basename(f)[:6]) for f in
+             split.db_files + split.q_files}
+    worst, same = 0.0, True
+    for files, inputs, masks, poses in (
+            (split.db_files, ds.db_inputs, ds.db_masks, ds.db_poses),
+            (split.q_files, ds.q_inputs, ds.q_masks, ds.q_poses)):
+        for f, x, m, pose in zip(files, inputs, masks, poses):
+            pts, mask = written[frame[f]]
+            same &= np.array_equal(x, pts) and np.array_equal(m, mask)
+            worst = max(worst, float(np.abs(pose - velo[frame[f]]).max()))
+    print(f"[eval] wrote {EVAL_FRAMES} scans ({n_pad}-point pad, "
+          f"{nbytes / 1e6:.1f} MB) in {t_write:.2f} s; split and read back "
+          f"(native loader) in {t_read:.2f} s: {ds.num_db} db, "
+          f"{ds.num_q} queries; scans "
+          f"bit-equal {same}; velodyne poses through Tr within {worst:.2e} "
+          f"(bound 1e-5)")
+    check(same, "[eval] the loaded scans differ from the written ones")
+    check(worst < 1e-5, f"[eval] velodyne poses off by {worst:.2e}")
+
+    far, far_mask = scan_at(world, EVAL_FAR, n_pad, seed=600)
+    far_pose = velo_pose(*EVAL_FAR)
+    ds.q_inputs = np.concatenate([ds.q_inputs, far[None]])
+    ds.q_masks = np.concatenate([ds.q_masks, far_mask[None]])
+    ds.q_poses = np.concatenate([ds.q_poses, far_pose[None]])
+    ds.utm_q = np.concatenate([ds.utm_q, far_pose[None, :2, 3]])
+    return ds
+
+
+class BatchRecorder:
+    """Keeps the results of every ``locate_batch`` call of a localizer, so
+    the evaluator's per-query results can be compared with ``locate``."""
+
+    def __init__(self, loc):
+        self.calls, self._real = [], loc.locate_batch
+        loc.locate_batch = self
+
+    def __call__(self, *args):
+        out = self._real(*args)
+        self.calls.append(out)
+        return out
+
+    def results(self, nq: int, batch: int):
+        """The first nq results, the padding of each batch dropped."""
+        return [r for i, rs in enumerate(self.calls)
+                for r in rs[: max(0, min(batch, nq - i * batch))]]
+
+
+def eval_subset(ds, n_db: int, n_q: int):
+    from gloc3d_tpu_torch.data.dataset import TripletDataset
+
+    return TripletDataset(
+        db_inputs=ds.db_inputs[:n_db], q_inputs=ds.q_inputs[:n_q],
+        utm_db=ds.utm_db[:n_db], utm_q=ds.utm_q[:n_q],
+        db_masks=ds.db_masks[:n_db], q_masks=ds.q_masks[:n_q],
+        db_poses=ds.db_poses[:n_db], q_poses=ds.q_poses[:n_q])
+
+
+def check_eval_report(tag, report, nq: int, far: int, out_dir: str,
+                      overlays, card: str):
+    """Gates (b) and (c); the report and its latencies printed.
+    ``overlays`` holds the paths the evaluator handed to save_png."""
+    reg = report.registration
+    print(f"[eval] {tag} report: " + json.dumps(json.loads(
+        report.to_json())))
+    lat = report.latency_ms
+    print(f"[eval] {tag}: db build {lat['db_build_per_scan']:.3f} ms per "
+          f"scan, locate {lat['locate_per_query']:.3f} ms per query (p50 "
+          f"{lat['locate_per_query_p50']:.3f}, p95 "
+          f"{lat['locate_per_query_p95']:.3f} over the batches after the "
+          f"first), host clock, batch {EVAL_BATCH}; {card}")
+    check(reg["num_total"] == nq, f"[eval] {tag}: num_total "
+          f"{reg['num_total']} != {nq}")
+    check(reg["success_rate"] >= 2 / 3 and reg["mean_pos_err_m"] < 1.0
+          and report.recognition_recall[5] >= 2 / 3,
+          f"[eval] {tag}: success {reg['success_rate']:.3f}, mean error "
+          f"{reg['mean_pos_err_m']:.3f} m, recall@5 "
+          f"{report.recognition_recall[5]:.3f} (gates 2/3, 1 m, 2/3)")
+    check(far in report.failed_registration_indices,
+          f"[eval] {tag}: the far query {far} registered")
+    # npz dumps go to failed detections only (a GT positive, none in the
+    # top-k); the far query has no positive, so its dump is the overlay
+    fc = os.path.join(out_dir, "failure_cases")
+    npz = sorted(f for f in os.listdir(fc) if f.endswith(".npz"))
+    want = sorted(f"query_{i}.npz" for i in report.failed_detect_indices[:50])
+    check(npz == want, f"[eval] {tag}: npz dumps {npz}, expected {want}")
+    for name in npz:
+        with np.load(os.path.join(fc, name)) as d:
+            check(d["query"].dtype == np.uint8 and d["query"].shape
+                  == d["gt_positive"].shape == d["top_prediction"].shape,
+                  f"[eval] {tag}: {name}'s arrays")
+    rendered = [os.path.basename(p) for p in overlays]
+    check(any(r.startswith(f"reg_fail_overlay_{far}_vs_") for r in rendered),
+          f"[eval] {tag}: no overlay rendered for the far query: {rendered}")
+    for name, listed in (("failed_detect_indices.txt",
+                          report.failed_detect_indices),
+                         ("failed_registration_indices.txt",
+                          report.failed_registration_indices)):
+        with open(os.path.join(out_dir, name)) as f:
+            got = [int(v) for v in f.read().split()]
+        check(got == listed, f"[eval] {tag}: {name} lists {got}")
+    try:
+        import matplotlib  # noqa: F401
+        backend = True
+    except ImportError:
+        backend = False
+    pngs = sorted(f for f in os.listdir(fc) if f.endswith(".png"))
+    check(pngs == (sorted(rendered) if backend else []),
+          f"[eval] {tag}: overlay PNGs {pngs}, rendered {rendered}, "
+          f"matplotlib {'present' if backend else 'absent'}")
+    print(f"[eval] {tag}: far query {far} in failed_registration_indices; "
+          f"overlays rendered {rendered}, PNGs written {len(pngs)} "
+          f"(matplotlib {'present' if backend else 'absent'}); npz dumps "
+          f"{npz} (= the failed detections); failed-index files written")
+
+
+def check_eval_launches(torch, tag, loc, ds):
+    """Every K1 / K2 launch of one evaluator batch (locate_batch of the
+    first EVAL_BATCH queries) against its plain version."""
+    calls = record_launches(lambda: loc.locate_batch(
+        ds.q_inputs[:EVAL_BATCH], ds.q_masks[:EVAL_BATCH]))
+    parts = []
+    for key, launches in calls.items():
+        for args in launches:
+            label = f"[eval] {tag} {key} {tuple(args[0].shape)}"
+            rel = (check_k1(torch, label, *args)[0] if key == "K1"
+                   else check_k2(torch, label, *args)[0])
+            check(rel < 1e-5, f"{label} disagrees with its plain version: "
+                  f"{rel:.3e}")
+            parts.append(f"{key} {tuple(args[0].shape)} {rel:.2e}")
+    check(parts, f"[eval] {tag}: no kernel launch recorded")
+    print(f"[eval] {tag}: every kernel launch of one evaluator batch "
+          f"against its plain version, error relative to L1 mass (bound "
+          f"1e-5): " + ", ".join(parts))
+
+
+def run_eval(loc, ds, out_dir=None, batch: int = EVAL_BATCH):
+    """evaluate_split on ``loc`` → (report, per-query results, seconds)."""
+    from gloc3d_tpu_torch.eval.evaluator import evaluate_split
+
+    rec = BatchRecorder(loc)
+    t0 = time.perf_counter()
+    report = evaluate_split(loc, ds, out_dir=out_dir, batch=batch,
+                            n_values=EVAL_N_VALUES)
+    return report, rec.results(ds.num_q, batch), time.perf_counter() - t0
+
+
+def phase_eval(torch, cfg, world, card, dev: str = "cuda"):
+    """[eval]: evaluate_split over a KITTI-layout sequence read from disk,
+    on the host-stats (K1) and the aligned all-device (K2) path, with gates
+    (a)-(d). Returns the JSON record and both kernels' launches."""
+    from gloc3d_tpu_torch.eval import evaluator
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
+
+    t_phase = time.perf_counter()
+    n_pad = cfg.voxel.max_points
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = eval_dataset(world, os.path.join(tmp, "kitti"), n_pad)
+        nq = ds.num_q
+        far = nq - 1
+        centroids = vlad_centroids(torch, cfg, list(zip(
+            ds.db_inputs[:4], ds.db_masks[:4])), device=dev)
+        model = build_serving_model(torch, cfg, "bfloat16", centroids)
+        rendered = []
+        real_save = evaluator.save_png
+
+        def save_png(path, rgb):
+            rendered.append(path)
+            return real_save(path, rgb)
+
+        evaluator.save_png = save_png
+        paths = {"host-stats": dict(host_stats=True),
+                 "aligned all-device": dict(host_stats=False,
+                                            align_ground=True)}
+        launches = {}
+        try:
+            for tag, kw in paths.items():
+                counter = ss.segment_sum_sorted if kw["host_stats"] else \
+                    bs.pillar_bin_sums
+                loc = GlobalLocalizer(cfg, model, device=torch.device(dev),
+                                      **kw)
+                rendered.clear()
+                counter.launches = 0
+                run_dir = os.path.join(tmp, tag.replace(" ", "_"))
+                report, _, _ = run_eval(loc, ds, run_dir)
+                launches[tag] = counter.launches
+                need = (ds.num_db // EVAL_BATCH + -(-nq // EVAL_BATCH)) * (
+                    1 if kw["host_stats"] else 2)
+                print(f"[eval] {tag}: "
+                      f"{'K1' if kw['host_stats'] else 'K2'} launches "
+                      f"{launches[tag]} (at least {need})")
+                check(launches[tag] >= need,
+                      f"[eval] {tag}: {launches[tag]} launches")
+                check_eval_report(tag, report, nq, far, run_dir, rendered,
+                                  card)
+                check_eval_launches(torch, tag, loc, ds)
+                out[tag] = json.loads(report.to_json())
+        finally:
+            evaluator.save_png = real_save
+
+        # (a) the evaluator adds bookkeeping, not results: on the fp32
+        # host-stats map its per-query results equal locate's, query by
+        # query (in bf16 the batch of 8 and the batch of 1 may round the
+        # descriptors apart and reorder near-tied candidates)
+        model32 = build_serving_model(torch, cfg, "float32", centroids)
+        loc = GlobalLocalizer(cfg, model32, device=torch.device(dev),
+                              host_stats=True)
+        _, batched, _ = run_eval(loc, ds)
+        single = [loc.locate(ds.q_inputs[i], ds.q_masks[i])
+                  for i in range(nq)]
+        worst, _ = same_results("[eval] evaluator vs locate", batched,
+                                single)
+        print(f"[eval] (a) fp32 host stats: the evaluator's {nq} results = "
+              f"locate's query by query (success, keyframe, ranked "
+              f"candidates; (dx, dy, yaw) within {worst:.2e}, bound 1e-4)")
+
+        # (d) the CPU's run on the first 16 db and 4 query scans
+        sub = eval_subset(ds, 16, 4)
+        runs = {}
+        for d in (dev, "cpu"):
+            m = build_serving_model(torch, cfg, "float32", centroids)
+            runs[d] = run_eval(GlobalLocalizer(
+                cfg, m, device=torch.device(d), host_stats=True), sub,
+                batch=4)
+        (r_dev, q_dev, _), (r_cpu, q_cpu, t_cpu) = runs[dev], runs["cpu"]
+        worst, _ = same_results("[eval] card vs CPU", q_dev, q_cpu,
+                                xy_tol=1e-3)
+        check(r_dev.failed_detect_indices == r_cpu.failed_detect_indices
+              and r_dev.failed_registration_indices
+              == r_cpu.failed_registration_indices
+              and r_dev.recognition_recall == r_cpu.recognition_recall
+              and r_dev.registration["num_success"]
+              == r_cpu.registration["num_success"],
+              "[eval] card report != CPU report")
+        derr = max(abs(r_dev.registration[k] - r_cpu.registration[k])
+                   for k in ("mean_pos_err_m", "std_pos_err_m"))
+        rerr = max(abs(r_dev.registration[k] - r_cpu.registration[k])
+                   for k in ("mean_rot_err_deg", "std_rot_err_deg"))
+        print(f"[eval] (d) card vs CPU, fp32, 16 db + 4 queries: same "
+              f"candidates, successes and failed indices; (dx, dy, yaw) "
+              f"within {worst:.2e}, mean/std errors within {derr:.2e} m / "
+              f"{math.radians(rerr):.2e} rad (bounds 1e-3); CPU run "
+              f"{t_cpu:.1f} s")
+        check(derr <= 1e-3 and math.radians(rerr) <= 1e-3,
+              "[eval] card errors differ from the CPU's")
+    seconds = time.perf_counter() - t_phase
+    print(f"[eval] phase wall time {seconds:.1f} s")
+    out["seconds"] = seconds
+    return out, launches["host-stats"], launches["aligned all-device"]
+
+
 # ---------------------------------------------------------------- [submap]
 SUBMAP_EXTENT_M = 100.0   # tools/bench_submap.py: ±100 m, z in [-4, 4]
 SUBMAP_SWEEPS = 10
@@ -4005,6 +4356,11 @@ def main(argv) -> int:
     cfg = PipelineConfig.s2s()
     cfg = cfg.replace(model=cfg.model.replace(fold_bn=True))
     world = make_world()
+    if "--eval" in argv:
+        phase_build()
+        print(json.dumps({"card": card,
+                          "eval": phase_eval(torch, cfg, world, card)[0]}))
+        return 0
     kf_set, q_set = aligned_world_scans(world, cfg.voxel.max_points)
     phase_build()
     centroids = vlad_centroids(torch, cfg, kf_set[2][:4])
@@ -4046,6 +4402,8 @@ def main(argv) -> int:
         torch, cfg, lq_set, kf_set, q_set, centroids, model, a_results, card)
     print(json.dumps({"card": card, "refine": refine}))
     print(json.dumps({"submap": phase_submap(torch, card, world)}))
+    eval_rec, k1_eval, k2_eval = phase_eval(torch, cfg, world, card)
+    print(json.dumps({"card": card, "eval": eval_rec}))
 
     ds = training_dataset(world, cfg.voxel.max_points)
     train_counts = phase_training(torch, cfg, ds, card)
@@ -4062,11 +4420,13 @@ def main(argv) -> int:
                 "fused query, host-stats": k1_fused,
                 "training, host-stats": train_counts["host-stats"][0],
                 "refine, host-stats": k1_refine,
+                "eval, host-stats": k1_eval,
                 "sorted": packed["PointPillarSorted"]["K1"]}
     k2_paths = {"aligned query": k2_launches,
                 "fused query, aligned all-device": k2_fused,
                 "training, all-device": train_counts["all-device"][1],
                 "refine, aligned all-device": k2_refine,
+                "eval, aligned all-device": k2_eval,
                 "pose training, all-device": pose_train["k2_launches"],
                 "packed": packed["PointPillarPacked"]["K2"]}
     print(json.dumps({"kernels": [

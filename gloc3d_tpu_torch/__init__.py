@@ -3,10 +3,12 @@
 The s2s located query (scan → PointPillar + NetVLAD descriptor → exact
 top-k → FFT BEV registration → 6-DoF pose), on the host-stats serving path
 and on the all-device path, plain or gravity-aligned (ground RANSAC on the
-device), and s2s triplet training. The JAX package ``gloc3d_tpu`` is the
+device), and s2s triplet training; ``eval/evaluator.py::evaluate_split``
+evaluates a localizer over a split read from disk (``data/kitti.py``,
+``nclt.py``, ``nuscenes.py``). The JAX package ``gloc3d_tpu`` is the
 reference; this package imports no JAX and loads no file of the JAX
 package: it keeps its own copies of the config, the dataset container,
-recall and the native host pass. Entry points run on the card unless the
+recall, the data readers and the native host pass and file loaders. Entry points run on the card unless the
 caller passes ``device="cpu"``. Both TPU kernels of the JAX package are
 hand-written CUDA kernels here: ``_cumsum_rows_128`` as
 ``csrc/segment_sum.cu`` (``kernels/segment_sum.py``, the sorted feature

@@ -1,7 +1,8 @@
 """6-DoF pose composition from a 2-D BEV match, and the success metric.
 
-Port of ``gloc3d_tpu/eval/registration.py::compose_6dof`` and
-``registration_errors``. With both ground frames given:
+Port of ``gloc3d_tpu/eval/registration.py``: ``compose_6dof``,
+``registration_errors`` and the aggregate ``registration_stats``. With
+both ground frames given:
     T_rpz   = T_db_l2g⁻¹ · T_q_l2g                    → roll, pitch, dz
     T_yawxy = T_db_l2g⁻¹ · Embed3D(xy_yaw) · T_q_l2g  → dx, dy, yaw
     pose    = (RollPitchYaw(roll, pitch, yaw), (dx, dy, dz));
@@ -13,8 +14,9 @@ canonical ZYX Euler angles, as in the JAX function.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from gloc3d_tpu_torch.core.transforms import (
@@ -72,3 +74,38 @@ def registration_errors(pred: Rigid3, gt: Rigid3
     err_pos = torch.linalg.vector_norm(gt.translation - pred.translation,
                                        dim=-1)
     return err_pos, err_rot
+
+
+class RegistrationStats(NamedTuple):
+    success_rate: float
+    mean_rot_err: float
+    std_rot_err: float
+    mean_pos_err: float
+    std_pos_err: float
+    num_success: int
+    num_total: int
+
+
+def registration_stats(
+    err_pos: np.ndarray, err_rot: np.ndarray, attempted: np.ndarray,
+    pos_thresh: float = 1.0, rot_thresh: float = 5.0,
+) -> RegistrationStats:
+    """Aggregate like registration_recalls (global_localization.cpp:270-335):
+    success = attempted & thresholds; means over successes only; rate over
+    all queries (failed registrations count in the denominator)."""
+    err_pos = np.asarray(err_pos)
+    err_rot = np.asarray(err_rot)
+    attempted = np.asarray(attempted).astype(bool)
+    ok = attempted & (err_pos < pos_thresh) & (err_rot < rot_thresh)
+    n = len(err_pos)
+    if ok.sum() == 0:
+        return RegistrationStats(0.0, 0.0, 0.0, 0.0, 0.0, 0, n)
+    return RegistrationStats(
+        success_rate=float(ok.sum()) / max(n, 1),
+        mean_rot_err=float(err_rot[ok].mean()),
+        std_rot_err=float(err_rot[ok].std()),
+        mean_pos_err=float(err_pos[ok].mean()),
+        std_pos_err=float(err_pos[ok].std()),
+        num_success=int(ok.sum()),
+        num_total=n,
+    )

@@ -1,19 +1,21 @@
-// Host pass of the port's host-stats path: pillar statistics with a
-// counting sort, and the BEV probability image, over already-decoded
-// padded scans, threaded over the scans of a batch.
+// Host pass of the port: threaded decoding of LiDAR scan files into padded
+// batches (optionally pillar-sorted, or with pillar statistics), pillar
+// statistics with a counting sort over already-decoded scans, and the BEV
+// probability image, threaded over the scans of a batch.
 //
-// The port's own copy of the two passes of the JAX package's native scan
-// loader that the port calls (compute_voxel_stats_sorted[_pp] and
-// compute_bev_batch of native/scan_loader.cpp), with the same arithmetic,
-// so both give bit-equal outputs. File decoding comes with the port's data
-// readers. Built with g++ into a plain-C shared library and loaded with
-// ctypes by gloc3d_tpu_torch/data/native.py.
+// The port's own copy of the JAX package's native scan loader
+// (native/scan_loader.cpp), with the same arithmetic, so both give
+// bit-equal outputs. The file loaders also report, per file, the points
+// decoded or -1, so that the caller can name a file that failed. Built with
+// g++ into a plain-C shared library and loaded with ctypes by
+// gloc3d_tpu_torch/data/native.py.
 
 #include <algorithm>
 #include <atomic>
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstring>
 #include <thread>
 #include <vector>
@@ -30,6 +32,64 @@ void for_each_scan(int64_t num_scans, int num_threads, F&& body) {
     workers.emplace_back([&]() { body(next); });
   }
   for (auto& w : workers) w.join();
+}
+
+// Decodes one file into out (max_points, 4), pre-zeroed by the caller: KITTI
+// stride-4 / nuScenes stride-5 float32 rows (x, y, z, intensity[, ring]),
+// or NCLT packed records (3x uint16 x, y, z at 5 mm, offset -100 m, then
+// uint8 intensity and laser id). Returns the points written (<= max_points,
+// whole records only), or -1 when the file cannot be opened or read.
+int64_t decode_file(const char* path, int fmt, float* out, int64_t max_points) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return -1;
+  std::fseek(f, 0, SEEK_END);
+  const int64_t bytes = std::ftell(f);
+  std::fseek(f, 0, SEEK_SET);
+
+  int64_t n = 0;
+  if (fmt == 0 || fmt == 1) {  // KITTI stride-4 / nuScenes stride-5 float32
+    const int stride = (fmt == 0) ? 4 : 5;
+    const int64_t count = bytes / (stride * (int64_t)sizeof(float));
+    std::vector<float> buf(count * stride);
+    if (std::fread(buf.data(), sizeof(float), buf.size(), f) !=
+        buf.size()) {
+      std::fclose(f);
+      return -1;
+    }
+    n = count < max_points ? count : max_points;
+    for (int64_t i = 0; i < n; ++i) {
+      out[i * 4 + 0] = buf[i * stride + 0];
+      out[i * 4 + 1] = buf[i * stride + 1];
+      out[i * 4 + 2] = buf[i * stride + 2];
+      out[i * 4 + 3] = buf[i * stride + 3];
+    }
+  } else if (fmt == 2) {  // NCLT packed: 3x uint16 (x,y,z) + 2x uint8 (i,l)
+    const int64_t count = bytes / 8;
+    std::vector<uint8_t> buf(count * 8);
+    if (std::fread(buf.data(), 1, buf.size(), f) != buf.size()) {
+      std::fclose(f);
+      return -1;
+    }
+    n = count < max_points ? count : max_points;
+    constexpr float kScale = 0.005f;
+    constexpr float kOffset = -100.0f;
+    for (int64_t i = 0; i < n; ++i) {
+      const uint8_t* r = &buf[i * 8];
+      uint16_t xs, ys, zs;
+      std::memcpy(&xs, r + 0, 2);
+      std::memcpy(&ys, r + 2, 2);
+      std::memcpy(&zs, r + 4, 2);
+      out[i * 4 + 0] = xs * kScale + kOffset;
+      out[i * 4 + 1] = ys * kScale + kOffset;
+      out[i * 4 + 2] = zs * kScale + kOffset;
+      out[i * 4 + 3] = (float)r[6];
+    }
+  } else {
+    std::fclose(f);
+    return -1;
+  }
+  std::fclose(f);
+  return n;
 }
 
 // ---------------------------------------------------------------------------
@@ -154,11 +214,14 @@ extern "C" {
 // Voxel stats + pillar COUNTING SORT: real rows in their original order
 // within each pillar, padding rows at the tail of pillar 0 (a stable argsort
 // of the unsorted output), per-pillar start offsets, and, where pp_out is
-// not null, the per-point stats rows. Outputs are pre-zeroed by the caller:
-// points_out (B, M, 4), valid_out (B, M), ids_out (B, M), counts_out (B, V),
-// centroids_out (B, V, 3), starts_out (B, V + 1), pp_out (B, M, 4).
+// not null, the per-point stats rows. points: (B, in_rows, 4), n_real (B,)
+// real rows per scan. Outputs are pre-zeroed by the caller: points_out
+// (B, M, 4), valid_out (B, M), ids_out (B, M), counts_out (B, V),
+// centroids_out (B, V, 3), starts_out (B, V + 1), pp_out (B, M, 4), where M
+// = max_points may differ from in_rows.
 int compute_voxel_stats_sorted(
     const float* points, const int64_t* n_real, int64_t num_scans,
+    int64_t in_rows,
     float xmin, float xstep, int64_t nx,
     float ymin, float ystep, int64_t ny,
     float zmin, float zstep, int64_t nz,
@@ -176,7 +239,7 @@ int compute_voxel_stats_sorted(
       const int64_t i = next.fetch_add(1);
       if (i >= num_scans) return;
       sorted_stats_one(
-          points + i * max_points * 4, n_real[i],
+          points + i * in_rows * 4, n_real[i],
           xmin, xstep, nx, ymin, ystep, ny, zmin, zstep, nz, crop,
           points_out + i * max_points * 4, valid_out + i * max_points,
           ids_out + i * max_points, counts_out + i * v,
@@ -280,6 +343,167 @@ int compute_bev_batch(
     }
   });
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// File loaders. paths: B C-strings; fmt: 0 = KITTI, 1 = nuScenes, 2 = NCLT.
+// counts_out (B,) receives the points decoded per file, or -1 where a file
+// could not be read; each returns 0 when every file decoded, 1 otherwise.
+
+// Decode files into points_out (B, max_points, 4), pre-zeroed by the caller.
+int load_scan_batch(const char** paths, int64_t num_files, int fmt,
+                    float* points_out, int64_t max_points, int64_t* counts_out,
+                    int num_threads) {
+  std::atomic<int> failed(0);
+  for_each_scan(num_files, num_threads, [&](std::atomic<int64_t>& next) {
+    for (;;) {
+      const int64_t i = next.fetch_add(1);
+      if (i >= num_files) return;
+      const int64_t n = decode_file(paths[i], fmt,
+                                    points_out + i * max_points * 4,
+                                    max_points);
+      counts_out[i] = n;
+      if (n < 0) failed.store(1);
+    }
+  });
+  return failed.load();
+}
+
+// Decode each file, give each row its pillar id with the voxelizer's
+// semantics (trunc-toward-zero binning; padding and out-of-bounds rows
+// alias to pillar 0), stable-sort the rows by id and emit per-pillar start
+// offsets. Outputs: points_out (B, M, 4) sorted, valid_out (B, M) 1.0 for a
+// decoded row, ids_out (B, M), starts_out (B, V + 1), V = nx * ny * nz.
+int load_scan_batch_pillar_sorted(
+    const char** paths, int64_t num_files, int fmt,
+    float xmin, float xstep, int64_t nx,
+    float ymin, float ystep, int64_t ny,
+    float zmin, float zstep, int64_t nz,
+    float* points_out, float* valid_out, int32_t* ids_out,
+    int32_t* starts_out, int64_t* counts_out,
+    int64_t max_points, int num_threads) {
+  const int64_t v = nx * ny * nz;
+  std::atomic<int> failed(0);
+  for_each_scan(num_files, num_threads, [&](std::atomic<int64_t>& next) {
+    std::vector<float> pts(max_points * 4);
+    std::vector<int32_t> ids(max_points);
+    std::vector<int32_t> order(max_points);
+    for (;;) {
+      const int64_t i = next.fetch_add(1);
+      if (i >= num_files) return;
+      std::fill(pts.begin(), pts.end(), 0.0f);
+      const int64_t n = decode_file(paths[i], fmt, pts.data(), max_points);
+      counts_out[i] = n;
+      if (n < 0) {
+        failed.store(1);
+        continue;
+      }
+      for (int64_t p = 0; p < max_points; ++p) {
+        if (p >= n) {  // padding -> pillar 0
+          ids[p] = 0;
+          continue;
+        }
+        // trunc toward zero, matching torch .int()
+        const float fx = (pts[p * 4 + 0] - xmin) / xstep;
+        const float fy = (pts[p * 4 + 1] - ymin) / ystep;
+        const float fz = (pts[p * 4 + 2] - zmin) / zstep;
+        const int64_t cx = (int64_t)fx, cy = (int64_t)fy, cz = (int64_t)fz;
+        const bool oob = cx < 0 || cx >= nx || cy < 0 || cy >= ny ||
+                         cz < 0 || cz >= nz;
+        ids[p] = oob ? 0 : (int32_t)(cx * ny * nz + cy * nz + cz);
+      }
+      for (int64_t p = 0; p < max_points; ++p) order[p] = (int32_t)p;
+      std::stable_sort(order.begin(), order.end(),
+                       [&](int32_t a, int32_t b) { return ids[a] < ids[b]; });
+      float* po = points_out + i * max_points * 4;
+      float* vo = valid_out + i * max_points;
+      int32_t* io = ids_out + i * max_points;
+      for (int64_t p = 0; p < max_points; ++p) {
+        const int32_t src = order[p];
+        std::memcpy(po + p * 4, &pts[src * 4], 4 * sizeof(float));
+        vo[p] = src < n ? 1.0f : 0.0f;
+        io[p] = ids[src];
+      }
+      // per-pillar start offsets (searchsorted-left over the sorted ids)
+      int32_t* so = starts_out + i * (v + 1);
+      int64_t p = 0;
+      for (int64_t cell = 0; cell <= v; ++cell) {
+        while (p < max_points && io[p] < cell) ++p;
+        so[cell] = (int32_t)p;
+      }
+    }
+  });
+  return failed.load();
+}
+
+// Pillar statistics over already-decoded padded scans, rows left in their
+// order (voxel_stats_one). points: (B, in_rows, 4). Outputs pre-zeroed by
+// the caller: points_out (B, M, 4), valid_out (B, M), ids_out (B, M),
+// counts_out (B, V), centroids_out (B, V, 3), M = max_points.
+int compute_voxel_stats(
+    const float* points, const int64_t* n_real, int64_t num_scans,
+    int64_t in_rows,
+    float xmin, float xstep, int64_t nx,
+    float ymin, float ystep, int64_t ny,
+    float zmin, float zstep, int64_t nz,
+    int crop,
+    float* points_out, float* valid_out, int32_t* ids_out,
+    float* counts_out, float* centroids_out,
+    int64_t max_points, int num_threads) {
+  const int64_t v = nx * ny * nz;
+  for_each_scan(num_scans, num_threads, [&](std::atomic<int64_t>& next) {
+    int64_t valid0 = 0;
+    for (;;) {
+      const int64_t i = next.fetch_add(1);
+      if (i >= num_scans) return;
+      voxel_stats_one(
+          points + i * in_rows * 4, n_real[i],
+          xmin, xstep, nx, ymin, ystep, ny, zmin, zstep, nz, crop,
+          points_out + i * max_points * 4, valid_out + i * max_points,
+          ids_out + i * max_points, counts_out + i * v,
+          centroids_out + i * v * 3, max_points, &valid0);
+    }
+  });
+  return 0;
+}
+
+// Decode files and compute their pillar statistics in one threaded pass,
+// with compute_voxel_stats's outputs. A file may hold up to 4 x max_points
+// rows before the crop (the rest are not read).
+int load_scan_batch_voxel_stats(
+    const char** paths, int64_t num_files, int fmt,
+    float xmin, float xstep, int64_t nx,
+    float ymin, float ystep, int64_t ny,
+    float zmin, float zstep, int64_t nz,
+    int crop,
+    float* points_out, float* valid_out, int32_t* ids_out,
+    float* counts_out, float* centroids_out, int64_t* decoded_out,
+    int64_t max_points, int num_threads) {
+  const int64_t v = nx * ny * nz;
+  std::atomic<int> failed(0);
+  for_each_scan(num_files, num_threads, [&](std::atomic<int64_t>& next) {
+    const int64_t scratch_rows = max_points * 4;
+    std::vector<float> pts(scratch_rows * 4);
+    int64_t valid0 = 0;
+    for (;;) {
+      const int64_t i = next.fetch_add(1);
+      if (i >= num_files) return;
+      std::fill(pts.begin(), pts.end(), 0.0f);
+      const int64_t n = decode_file(paths[i], fmt, pts.data(), scratch_rows);
+      decoded_out[i] = n;
+      if (n < 0) {
+        failed.store(1);
+        continue;
+      }
+      voxel_stats_one(
+          pts.data(), n,
+          xmin, xstep, nx, ymin, ystep, ny, zmin, zstep, nz, crop,
+          points_out + i * max_points * 4, valid_out + i * max_points,
+          ids_out + i * max_points, counts_out + i * v,
+          centroids_out + i * v * 3, max_points, &valid0);
+    }
+  });
+  return failed.load();
 }
 
 }  // extern "C"

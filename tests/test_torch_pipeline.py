@@ -199,7 +199,8 @@ def test_shared_config_round_trips_through_json():
 
 def test_port_runs_without_jax():
     """Import the port and run CPU located queries (host stats, all-device
-    binning, a fused query from the device keyframe store with the fm
+    binning, evaluate_split over a KITTI layout read from disk, a fused
+    query from the device keyframe store with the fm
     matcher preset, located and fused queries on the int8 flat bank and
     the IVF index with int8 cells, ``locate`` with the ICP polish and
     ``match_keyframe``, an i2i fused query on a 64² BEV image, and a
@@ -254,6 +255,41 @@ def test_port_runs_without_jax():
             res = loc.locate(*scan(20, 5))
             assert res.success and res.db_index == 1, res
             assert np.abs(res.pose.translation).max() < 1e-3, res.pose
+
+        # the evaluation surface from disk: a KITTI odometry layout, its
+        # split, the native loader and evaluate_split (with its dumps)
+        import tempfile
+        from gloc3d_tpu_torch import eval as port_eval  # noqa: F401
+        from gloc3d_tpu_torch.data import (  # noqa: F401
+            kitti, nclt, nuscenes, valset, viz)
+        from gloc3d_tpu_torch.eval import evaluator
+        with tempfile.TemporaryDirectory() as root:
+            velo = os.path.join(root, "sequences", "08", "velodyne")
+            os.makedirs(velo)
+            os.makedirs(os.path.join(root, "poses"))
+            rows = []
+            for i, (x, y) in enumerate([(0, 0), (20, 5), (0, 1), (20, 6),
+                                        (10, 0)]):
+                p, m = scan(x, y)
+                p[m > 0].tofile(os.path.join(velo, f"{i:06d}.bin"))
+                t = np.eye(4)
+                t[:2, 3] = x, y
+                rows.append(t[:3].reshape(-1))
+            np.savetxt(os.path.join(root, "poses", "08.txt"), np.stack(rows))
+            with open(os.path.join(root, "sequences", "08", "calib.txt"),
+                      "w") as f:
+                f.write("Tr: " + " ".join(["1 0 0 0 0 1 0 0 0 0 1 0"]))
+            split = kitti.generate_split(root, sequences=("08",),
+                                         skip_frames=1, query_fraction=0.4)
+            ds = kitti.load_split_scans(split, max_points=2048)
+            eloc = g.GlobalLocalizer(cfg, model, host_stats=True,
+                                     device="cpu")
+            rep = evaluator.evaluate_split(
+                eloc, ds, out_dir=os.path.join(root, "eval"), batch=2,
+                n_values=(1,))
+            assert rep.registration["num_total"] == 2, rep
+            assert os.path.exists(os.path.join(root, "eval",
+                                               "eval_report.json"))
 
         # the serving path: the device store without a host mirror
         loc = g.GlobalLocalizer(cfg.fast_match(fm=True), model,
