@@ -203,12 +203,44 @@ Phases, each printing its own lines:
      successes, failed indices; errors within 1e-3 m / 1e-3 rad); db
      build per scan, locate per query, p50 / p95 beside the card's name
      and power limit.
+ 24. [cli], after [eval]: every subcommand of gloc3d_tpu_torch/cli.py,
+     in-process through cli.main (launches counted) unless said otherwise,
+     on [eval]'s KITTI sequence (with an empty sequence 09, so that
+     `gen-split --which val` reads 08 alone) at the 122 480-point pad,
+     PipelineConfig.s2s() folded bf16, the smoke's seeded weights and
+     NetVLAD centroids saved as a port checkpoint (ckpt.pt) that every
+     subcommand loads with --checkpoint: (1) gen-split = [eval]'s split;
+     (2) build-index with host stats and the device store (K1) and with
+     --align-ground --device-keyframes --no-host-mirror (K2); (3) query
+     on each = locate in this process on the loaded map (db_index,
+     candidates ranked on the host-stats map and as a set on the aligned
+     one, translation within 1e-4 m); (4) one query as a
+     fresh `python -m gloc3d_tpu_torch.cli` process: its cold start split
+     into process start to imports, localizer built, index load, first
+     query; (5) serve over the 10 query paths and a missing file on the
+     host-stats map (fused): each line = that scan's locate, the missing
+     file an error line, warm ms per line; (6) export (fp32, --fold-bn)
+     on the card and with --device cpu: each graph holds
+     gloc3d::pillar_bin_sums and no index_add_ / bincount, K2 launches
+     when the program runs on the card, and a fresh process that imports
+     gloc3d_tpu_torch.kernels.ops alone reloads both onto the card with
+     descriptors within 1e-5 of the live model's; (7) query
+     --from-export = the live fp32 query (candidates as a set), and the
+     exported forward and
+     locate beside the live ones; (8) preprocess = batch_scan_to_bev bit
+     for bit, and stats; (9) match-submap of scan 0's BEV in scan 1's
+     grid within one 0.2 m cell and one of 512 angular steps of the
+     truth; (10) cluster, then train --init-centroids --host-stats, one
+     epoch (JSON keys, ckpt_*.pt, K1 launches); (11) eval --registration
+     --host-stats = evaluate_split in this process; (12)
+     profiling.trace around one locate names K1's kernel.
 The kernel-only times of phase 17 come from complete traces only (both
 kernels of every traced call); a timing with none in six traces prints
 that it was not measured.
 `python3 chip_smoke.py --kernels` runs phases 1-4 and 17 only;
 `python3 chip_smoke.py --submap` phases 1 and 19 only;
 `python3 chip_smoke.py --eval` phases 1, 2 and 23 only;
+`python3 chip_smoke.py --cli` phases 1, 2 and 24 only;
 `--i2i-train`, `--pose-train` and `--packed` run phases 1, 2 and the
 phase (or phases) named, alone;
 `--seed N` seeds the map-scale rows (default 0).
@@ -218,12 +250,15 @@ The line before the last is the kernels JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
 import subprocess
 import sys
 import tempfile
+import textwrap
 import time
 import warnings
 
@@ -2833,6 +2868,612 @@ def phase_eval(torch, cfg, world, card, dev: str = "cuda"):
     return out, launches["host-stats"], launches["aligned all-device"]
 
 
+# ---------------------------------------------------------------- [cli]
+CLI_BATCH = 8
+CLI_MISSING = "/nonexistent/scan.bin"
+CLI_ROTATIONS = 512       # match-submap: one angular step 2π/512
+
+# python -m gloc3d_tpu_torch.cli, with the moments it reaches printed to
+# stderr as JSON: imports done, localizer built (model, checkpoint, CUDA
+# context), index loaded, first query answered
+CLI_COLD_START = textwrap.dedent("""
+    import time
+    t_main = time.time()
+    import json, runpy, sys
+    import torch
+    from gloc3d_tpu_torch import pipeline
+    t_import = time.time()
+    marks = {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t0 = time.time()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            marks[name] = (t0, time.time())
+            return out
+        return run
+
+    G = pipeline.GlobalLocalizer
+    G.__init__ = timed("build", G.__init__)
+    G.load = timed("load", G.load)
+    G.locate = timed("locate", G.locate)
+    sys.argv = ["gloc"] + sys.argv[1:]
+    code = 0
+    try:
+        runpy.run_module("gloc3d_tpu_torch.cli", run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+    print(json.dumps({"t_main": t_main, "t_import": t_import,
+                      "marks": marks}), file=sys.stderr)
+    sys.exit(code)
+""")
+
+# a fresh process that reloads exported blobs onto the card with the ops
+# module alone and runs them on one scan
+CLI_RELOAD = textwrap.dedent("""
+    import io, sys
+    import numpy as np
+    import torch
+    import gloc3d_tpu_torch.kernels.ops  # registers the gloc3d:: ops
+    from gloc3d_tpu_torch.kernels import bin_sums
+    from torch.export.passes import move_to_device_pass
+
+    # the live model it is held to runs with TF32 off (phase_device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = np.load(sys.argv[1])
+    out = {}
+    for i, path in enumerate(sys.argv[2:-1]):
+        with open(path, "rb") as f:
+            prog = move_to_device_pass(torch.export.load(
+                io.BytesIO(f.read())), "cuda")
+        before = bin_sums.pillar_bin_sums.launches
+        with torch.no_grad():
+            d = prog.module()(torch.from_numpy(inputs["pts"]).cuda(),
+                              torch.from_numpy(inputs["mask"]).cuda())
+        out[f"desc{i}"] = d.cpu().numpy()
+        out[f"k2_{i}"] = bin_sums.pillar_bin_sums.launches - before
+    heavy = [m for m in sys.modules if m.startswith((
+        "gloc3d_tpu_torch.models", "gloc3d_tpu_torch.pipeline",
+        "gloc3d_tpu_torch.config", "jax", "flax"))
+        or m == "gloc3d_tpu" or m.startswith("gloc3d_tpu.")]
+    assert not heavy, heavy
+    np.savez(sys.argv[-1], **out)
+""")
+
+
+class _Stamped(io.StringIO):
+    """Captured stdout that stamps the time each line ends."""
+
+    def __init__(self):
+        super().__init__()
+        self.stamps = []
+
+    def write(self, s):
+        n = super().write(s)
+        if s.endswith("\n"):
+            self.stamps.append(time.perf_counter())
+        return n
+
+
+class _Lines:
+    """stdin of scan paths that stamps the time each line is read."""
+
+    def __init__(self, lines):
+        self.lines, self.stamps = lines, []
+
+    def __iter__(self):
+        for line in self.lines:
+            self.stamps.append(time.perf_counter())
+            yield line + "\n"
+
+
+def cli_call(argv, stdin=None, stdout=None):
+    """``cli.main(argv)`` in this process, stdout captured → (lines,
+    seconds); a non-zero exit fails the smoke."""
+    from gloc3d_tpu_torch import cli
+
+    out = stdout if stdout is not None else io.StringIO()
+    real_stdin = sys.stdin
+    if stdin is not None:
+        sys.stdin = stdin
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([str(a) for a in argv])
+    finally:
+        sys.stdin = real_stdin
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"[cli] {argv[0]} exited {rc}: {out.getvalue()[-2000:]}")
+    return out.getvalue().strip().splitlines(), seconds
+
+
+def same_json(tag, got, want, ranked=True, xy_tol=1e-4):
+    """Two result JSONs: success and keyframe equal, the same candidates
+    (ranked, or as a set), translation within xy_tol m."""
+    cands = ((got["candidates"] == want["candidates"]) if ranked else
+             sorted(got["candidates"]) == sorted(want["candidates"]))
+    check(got["success"] == want["success"]
+          and got["db_index"] == want["db_index"] and cands,
+          f"{tag}: {got} != {want}")
+    if "translation" in want:
+        d = float(np.abs(np.subtract(got["translation"],
+                                     want["translation"])).max())
+        check(d <= xy_tol, f"{tag}: translations {d:.3e} m apart")
+        return d
+    check("translation" not in got, f"{tag}: only one side registered")
+    return 0.0
+
+
+def relative_xy_yaw(a, b):
+    """Pose of frame a in frame b, (x, y, yaw), from (x, y, yaw) poses."""
+    t = np.linalg.inv(velo_pose(*b)) @ velo_pose(*a)
+    return t[0, 3], t[1, 3], math.atan2(t[1, 0], t[0, 0])
+
+
+def cli_dataset(world, root: str, n_pad: int):
+    """[eval]'s KITTI sequence 08 under ``root``, and an empty sequence 09
+    (no frames), so that ``gen-split --which val`` (sequences 08 and 09)
+    reads sequence 08 alone."""
+    write_kitti_sequence(world, root, n_pad)
+    seq = os.path.join(root, "sequences", "09")
+    os.makedirs(os.path.join(seq, "velodyne"))
+    open(os.path.join(root, "poses", "09.txt"), "w").close()
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        f.write("Tr: " + " ".join(f"{v:.12e}" for v in
+                                  EVAL_TR[:3].reshape(-1)) + "\n")
+
+
+def phase_cli(torch, cfg, world, card):
+    """[cli]: every subcommand of gloc3d_tpu_torch/cli.py at full width on
+    a KITTI layout read from disk (steps 1-12 of the module docstring).
+    Returns (the JSON record, K1 launches, K2 launches, exported-program
+    K2 launches)."""
+    from gloc3d_tpu_torch import cli
+    from gloc3d_tpu_torch.data import kitti, native
+    from gloc3d_tpu_torch.export import (
+        ExportedDescriptorModel, load_exported, load_program)
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+    from gloc3d_tpu_torch.ops.bev import batch_scan_to_bev
+    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
+    from gloc3d_tpu_torch.profiling import TRACE_FILE, trace
+
+    t_phase = time.perf_counter()
+    n_pad = cfg.voxel.max_points
+    dev = torch.device("cuda")
+    rec, times = {}, {}
+    k1 = k2 = k2_export = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "kitti")
+        cli_dataset(world, root, n_pad)
+        p = {k: os.path.join(tmp, k) for k in (
+            "split.npz", "cfg.json", "cfg32.json", "cfg_train.json",
+            "ckpt.pt", "idx_hs", "idx_al", "blob_card.pt2", "blob_cpu.pt2",
+            "imgs", "cents.npz", "train", "eval", "trace", "inputs.npz",
+            "reloaded.npz")}
+        cfg32 = cfg.replace(model=cfg.model.replace(compute_dtype="float32"))
+        cfg_train = cfg.replace(
+            model=cfg.model.replace(fold_bn=False),
+            train=cfg.train.replace(epochs=1))
+        for key, c in (("cfg.json", cfg), ("cfg32.json", cfg32),
+                       ("cfg_train.json", cfg_train)):
+            with open(p[key], "w") as f:
+                f.write(c.to_json())
+
+        # 1. gen-split = [eval]'s split
+        cli_call(["gen-split", "--root", root, "--which", "val",
+                  "--skip-frames", "1", "--query-fraction", "0.2",
+                  "--out", p["split.npz"]])
+        split = kitti.SplitIndex.load(p["split.npz"])
+        want = kitti.generate_split(root, sequences=(EVAL_SEQ,),
+                                    skip_frames=1, query_fraction=0.2,
+                                    seed=0)
+        check(split.db_files == want.db_files
+              and split.q_files == want.q_files
+              and np.array_equal(split.db_poses, want.db_poses)
+              and np.array_equal(split.q_poses, want.q_poses),
+              "[cli] gen-split differs from [eval]'s split")
+        print(f"[cli] 1. gen-split: {len(split.db_files)} db, "
+              f"{len(split.q_files)} queries = [eval]'s split")
+
+        # the smoke's seeded weights and NetVLAD centroids as a port
+        # checkpoint (the standard model; the CLI folds it into the
+        # fold_bn=True serving model)
+        first = native.load_scan_batch(split.db_files[:4], "kitti", n_pad)
+        masks = native.masks_from_counts(first[1], n_pad)
+        centroids = vlad_centroids(torch, cfg, list(zip(first[0], masks)))
+        std = seeded_standard_model(torch, cfg, "float32")
+        with torch.no_grad():
+            std.pool.centroids.copy_(centroids)
+            std.pool.conv.weight.copy_(30.0 * centroids[:, :, None, None])
+        torch.save({"model": std.state_dict()}, p["ckpt.pt"])
+        served = build_serving_model(torch, cfg, "bfloat16", centroids)
+        common = ["--config", p["cfg.json"], "--checkpoint", p["ckpt.pt"]]
+        hs_flags = ["--host-stats", "--device-keyframes"]
+        al_flags = ["--align-ground", "--device-keyframes",
+                    "--no-host-mirror"]
+
+        # 2. build-index, host stats (K1) and aligned all-device (K2)
+        for key, flags, counter in (
+                ("idx_hs", hs_flags, ss.segment_sum_sorted),
+                ("idx_al", al_flags, bs.pillar_bin_sums)):
+            counter.launches = 0
+            _, times[f"build-index {key}"] = cli_call(
+                ["build-index", "--split", p["split.npz"], "--out", p[key],
+                 "--batch", CLI_BATCH, *common, *flags])
+            n = counter.launches
+            need = -(-len(split.db_files) // CLI_BATCH) * (
+                1 if key == "idx_hs" else 2)
+            print(f"[cli] 2. build-index {' '.join(flags)}: "
+                  f"{len(split.db_files)} keyframes in "
+                  f"{times[f'build-index {key}']:.2f} s, "
+                  f"{'K1' if key == 'idx_hs' else 'K2'} launches {n} (at "
+                  f"least {need})")
+            check(n >= need, f"[cli] build-index {key}: {n} launches")
+            if key == "idx_hs":
+                k1 += n
+            else:
+                k2 += n
+
+        # 3. query on each index = locate in this process on the loaded map
+        q0 = split.q_files[0]
+        pts, counts = native.load_scan_batch([q0], "kitti", n_pad)
+        mask = native.masks_from_counts(counts, n_pad)
+        live = {}
+        for key, flags, kw, counter in (
+                ("idx_hs", hs_flags, dict(host_stats=True,
+                                          device_keyframes=True),
+                 ss.segment_sum_sorted),
+                ("idx_al", al_flags, dict(align_ground=True,
+                                          device_keyframes=True,
+                                          host_mirror=False),
+                 bs.pillar_bin_sums)):
+            counter.launches = 0
+            lines, times[f"query {key}"] = cli_call(
+                ["query", "--index", p[key], "--scan", q0, *common, *flags])
+            n = counter.launches
+            got = json.loads(lines[-1])
+            loc = GlobalLocalizer(cfg, served, device=dev, **kw)
+            loc.load(p[key])
+            live[key] = cli._result_json(loc.locate(pts[0], mask[0]))
+            # K2's float atomics reorder near-tied keyframes between two
+            # extractions: the aligned map's candidates compare as a set
+            d = same_json(f"[cli] 3. query {key}", got, live[key],
+                          ranked=key == "idx_hs")
+            check(n >= 1, f"[cli] query {key}: no kernel launch")
+            if key == "idx_hs":
+                k1 += n
+            else:
+                k2 += n
+            swapped = sum(a != b for a, b in zip(got["candidates"],
+                                                 live[key]["candidates"]))
+            print(f"[cli] 3. query {' '.join(flags)}: {json.dumps(got)} = "
+                  f"locate on the loaded map (keyframe, candidates "
+                  f"{'ranked' if key == 'idx_hs' else 'as a set'}, "
+                  f"{swapped} ranks swapped; translation within {d:.2e} m, "
+                  f"bound 1e-4); {times[f'query {key}']:.2f} s in-process "
+                  f"(localizer, map load, query)")
+
+        # 4. one query as a real subprocess: the cold start, split
+        env = dict(os.environ, PYTHONPATH=REPO)
+        t_launch = time.time()
+        r = subprocess.run(
+            [sys.executable, "-c", CLI_COLD_START, "query", "--index",
+             p["idx_hs"], "--scan", q0, *common, *hs_flags],
+            env=env, capture_output=True, text=True, timeout=300)
+        t_end = time.time()
+        check(r.returncode == 0, f"[cli] subprocess query failed: "
+              f"{r.stderr[-3000:]}")
+        marks = json.loads(r.stderr.strip().splitlines()[-1])
+        m = marks["marks"]
+        cold = {"start_to_import_s": marks["t_import"] - t_launch,
+                "interpreter_s": marks["t_main"] - t_launch,
+                "localizer_built_s": m["build"][1] - marks["t_import"],
+                "index_load_s": m["load"][1] - m["load"][0],
+                "first_query_s": m["locate"][1] - m["locate"][0],
+                "exit_s": t_end - m["locate"][1],
+                "total_s": t_end - t_launch}
+        same_json("[cli] 4. subprocess query", json.loads(
+            r.stdout.strip().splitlines()[-1]), live["idx_hs"])
+        print(f"[cli] 4. cold start of `python -m gloc3d_tpu_torch.cli "
+              f"query --host-stats` (kernels already built): process start "
+              f"to imports done {cold['start_to_import_s']:.2f} s (of it "
+              f"the interpreter {cold['interpreter_s']:.2f} s), localizer "
+              f"built (model, checkpoint, CUDA context) "
+              f"{cold['localizer_built_s']:.2f} s, index load "
+              f"{cold['index_load_s']:.2f} s, first query "
+              f"{cold['first_query_s']:.2f} s, exit {cold['exit_s']:.2f} s; "
+              f"total {cold['total_s']:.2f} s; the answer = step 3's; "
+              f"{card}")
+        rec["cold_start"] = cold
+
+        # 5. serve: the 10 query paths and a missing file on the
+        # host-stats map with the device store (fused)
+        stream = split.q_files[:5] + [CLI_MISSING] + split.q_files[5:]
+        stdin, stdout = _Lines(stream), _Stamped()
+        ss.segment_sum_sorted.launches = 0
+        lines, times["serve"] = cli_call(
+            ["serve", "--index", p["idx_hs"], *common, *hs_flags],
+            stdin=stdin, stdout=stdout)
+        k1 += ss.segment_sum_sorted.launches
+        out = [json.loads(ln) for ln in lines]
+        check(out[0]["ready"] and out[0]["fused"] is True
+              and out[0]["db_size"] == len(split.db_files),
+              f"[cli] 5. serve header {out[0]}")
+        check(len(out) == len(stream) + 1, f"[cli] 5. serve gave "
+              f"{len(out) - 1} lines for {len(stream)}")
+        loc = GlobalLocalizer(cfg, served, device=dev, host_stats=True,
+                              device_keyframes=True)
+        loc.load(p["idx_hs"])
+        worst = 0.0
+        for path, got in zip(stream, out[1:]):
+            check(got["scan"] == path, f"[cli] 5. line for {got['scan']}")
+            if path == CLI_MISSING:
+                check(got["success"] is False and "error" in got,
+                      f"[cli] 5. missing file: {got}")
+                continue
+            x, c = native.load_scan_batch([path], "kitti", n_pad)
+            want = cli._result_json(loc.locate(
+                x[0], native.masks_from_counts(c, n_pad)[0]))
+            worst = max(worst, same_json(f"[cli] 5. serve {path}", got,
+                                         want))
+        per_line = [(stdout.stamps[i + 1] - stdin.stamps[i]) * 1e3
+                    for i in range(len(stream))]
+        warm = [t for path, t in zip(stream[1:], per_line[1:])
+                if path != CLI_MISSING]
+        rec["serve_ms_per_line"] = {"first": per_line[0],
+                                    "warm_median": float(np.median(warm)),
+                                    "warm_max": max(warm)}
+        err_line = out[stream.index(CLI_MISSING) + 1]["error"][:60]
+        print(f"[cli] 5. serve (fused {out[0]['fused']}): "
+              f"{len(stream) - 1} lines = each scan's locate on the loaded "
+              f"map (translations within {worst:.2e} m), the missing file "
+              f"an error line ({err_line}...) and the stream went on; ms "
+              f"per line (read to "
+              f"answer written, host clock): first {per_line[0]:.1f}, warm "
+              f"median {np.median(warm):.1f}, max {max(warm):.1f}; {card}")
+
+        # 6. export on the card and on the CPU (fp32), the CPU blob moved
+        # to the card by load_exported
+        np.savez(p["inputs.npz"], pts=pts, mask=mask)
+        for key, flags in (("blob_card.pt2", []),
+                           ("blob_cpu.pt2", ["--device", "cpu"])):
+            _, times[f"export {key}"] = cli_call(
+                ["export", "--out", p[key], "--config", p["cfg32.json"],
+                 "--checkpoint", p["ckpt.pt"], "--fold-bn", *flags])
+        live32 = build_serving_model(torch, cfg32, "float32", centroids
+                                     ).to(dev)
+        with torch.no_grad():
+            want = live32(torch.from_numpy(pts).to(dev),
+                          torch.from_numpy(mask).to(dev)).cpu().numpy()
+        for key in ("blob_card.pt2", "blob_cpu.pt2"):
+            with open(p[key], "rb") as f:
+                blob = f.read()
+            targets = [str(n.target) for n in load_program(blob).graph.nodes
+                       if n.op == "call_function"]
+            plain = [t for t in targets if "index_add" in t
+                     or "bincount" in t]
+            n_op = targets.count("gloc3d.pillar_bin_sums.default")
+            check(n_op == 2 and not plain, f"[cli] 6. {key}: "
+                  f"{n_op} gloc3d::pillar_bin_sums nodes, plain {plain}")
+            fn = load_exported(blob)
+            bs.pillar_bin_sums.launches = 0
+            got = fn(pts, mask).cpu().numpy()
+            n = bs.pillar_bin_sums.launches
+            k2_export += n
+            err = float(np.abs(got - want).max())
+            check(n == 2 and err <= 1e-5, f"[cli] 6. {key} on the card: "
+                  f"{n} K2 launches, descriptors {err:.3e} from the live "
+                  f"model's")
+            print(f"[cli] 6. export {key} ({len(blob)} bytes, "
+                  f"{times[f'export {key}']:.2f} s): the graph holds "
+                  f"gloc3d::pillar_bin_sums x{n_op} and no index_add_ / "
+                  f"bincount; on the card K2 launched {n} times, "
+                  f"descriptors {err:.2e} from the live fp32 model's "
+                  f"(bound 1e-5)")
+        r = subprocess.run(
+            [sys.executable, "-c", CLI_RELOAD, p["inputs.npz"],
+             p["blob_card.pt2"], p["blob_cpu.pt2"], p["reloaded.npz"]],
+            env=env, capture_output=True, text=True, timeout=300)
+        check(r.returncode == 0, f"[cli] 6. fresh reload failed: "
+              f"{r.stderr[-3000:]}")
+        with np.load(p["reloaded.npz"]) as d:
+            errs = [float(np.abs(d[f"desc{i}"] - want).max())
+                    for i in range(2)]
+            fresh_k2 = [int(d[f"k2_{i}"]) for i in range(2)]
+        k2_export += sum(fresh_k2)
+        check(max(errs) <= 1e-5 and fresh_k2 == [2, 2],
+              f"[cli] 6. fresh process: errors {errs}, K2 {fresh_k2}")
+        print(f"[cli] 6. a fresh process with gloc3d_tpu_torch.kernels.ops "
+              f"alone (no models, pipeline or config imported) reloaded "
+              f"both blobs onto the card: K2 launches {fresh_k2}, "
+              f"descriptors within {max(errs):.2e} of the live model's "
+              f"(bound 1e-5; K2's float atomics rule out bit-equality)")
+
+        # 7. query --from-export = the live query (fp32, aligned map)
+        res = {}
+        for key, flags in (("live", ["--checkpoint", p["ckpt.pt"]]),
+                           ("export", ["--from-export",
+                                       p["blob_cpu.pt2"]])):
+            bs.pillar_bin_sums.launches = 0
+            lines, times[f"query {key}"] = cli_call(
+                ["query", "--index", p["idx_al"], "--scan", q0,
+                 "--config", p["cfg32.json"], *flags, *al_flags])
+            if key == "export":
+                k2_export += bs.pillar_bin_sums.launches
+            else:
+                k2 += bs.pillar_bin_sums.launches
+            res[key] = json.loads(lines[-1])
+        d = same_json("[cli] 7. query --from-export", res["export"],
+                      res["live"], ranked=False)
+        print(f"[cli] 7. query --from-export (CPU blob on the card) = the "
+              f"live fp32 query on the aligned map (keyframe, candidates "
+              f"as a set, translation within {d:.2e} m); in-process "
+              f"{times['query export']:.2f} s vs "
+              f"{times['query live']:.2f} s live")
+        # the exported against the live descriptor forward, warm
+        with open(p["blob_cpu.pt2"], "rb") as f:
+            fn = load_exported(f.read())
+        x_d = torch.from_numpy(pts).to(dev)
+        m_d = torch.from_numpy(mask).to(dev)
+        with torch.no_grad():
+            rec["forward_ms"] = {
+                "exported": cuda_ms(torch, lambda: fn(x_d, m_d), 20),
+                "live": cuda_ms(torch, lambda: live32(x_d, m_d), 20)}
+        with open(p["blob_cpu.pt2"], "rb") as f:
+            exported = ExportedDescriptorModel(f.read(), dev)
+        loc_x = GlobalLocalizer(cfg32, exported, device=dev,
+                                align_ground=True, device_keyframes=True,
+                                host_mirror=False)
+        loc_l = GlobalLocalizer(cfg32, live32, device=dev, align_ground=True,
+                                device_keyframes=True, host_mirror=False)
+        for loc in (loc_x, loc_l):
+            loc.load(p["idx_al"])
+        rec["locate_ms"] = {
+            "exported": host_ms(torch, lambda: loc_x.locate(pts[0], mask[0]),
+                                10),
+            "live": host_ms(torch, lambda: loc_l.locate(pts[0], mask[0]),
+                            10)}
+        print(f"[cli] 7. descriptor forward, CUDA events, warm: exported "
+              f"{rec['forward_ms']['exported']:.3f} ms, live "
+              f"{rec['forward_ms']['live']:.3f} ms; aligned locate, host "
+              f"clock: exported {rec['locate_ms']['exported']:.2f} ms, "
+              f"live {rec['locate_ms']['live']:.2f} ms (fp32, 40 "
+              f"keyframes); {card}")
+
+        # 8. preprocess + stats = batch_scan_to_bev
+        scans_dir = os.path.join(root, "sequences", EVAL_SEQ, "velodyne")
+        _, times["preprocess"] = cli_call(
+            ["preprocess", "--scans", scans_dir, "--out", p["imgs"],
+             "--config", p["cfg.json"], "--batch", CLI_BATCH])
+        files = sorted(os.path.join(scans_dir, f)
+                       for f in os.listdir(scans_dir))
+        x, c = native.load_scan_batch(files, "kitti", cfg.bev.max_points)
+        m = native.masks_from_counts(c, cfg.bev.max_points)
+        s = n_px = ss_ = 0.0
+        for i in range(0, len(files), CLI_BATCH):
+            with torch.no_grad():
+                bev = batch_scan_to_bev(
+                    torch.from_numpy(x[i:i + CLI_BATCH, :, :3].copy()).to(dev),
+                    torch.from_numpy(m[i:i + CLI_BATCH]).to(dev), cfg.bev)
+            imgs = (bev.image * 255.0).cpu().numpy().astype(np.uint8)
+            for j, f in enumerate(files[i:i + CLI_BATCH]):
+                stem = os.path.splitext(os.path.basename(f))[0]
+                with np.load(os.path.join(p["imgs"], stem + ".npz")) as d:
+                    check(np.array_equal(d["image"], imgs[j])
+                          and np.array_equal(d["origin_xy"],
+                                             bev.origin_xy[j].cpu().numpy()),
+                          f"[cli] 8. preprocess {stem} != batch_scan_to_bev")
+                img = imgs[j].astype(np.float64) / 255.0
+                s, ss_, n_px = s + img.sum(), ss_ + (img * img).sum(), \
+                    n_px + img.size
+        stats = json.loads(cli_call(["stats", "--images", p["imgs"]])[0][-1])
+        mean = s / n_px
+        check(stats["files"] == len(files)
+              and stats["mean"] == mean
+              and abs(stats["std"] - math.sqrt(ss_ / n_px - mean * mean))
+              < 1e-12, f"[cli] 8. stats {stats}")
+        print(f"[cli] 8. preprocess: {len(files)} images "
+              f"({times['preprocess']:.2f} s) = batch_scan_to_bev on the "
+              f"card, bit for bit; stats {json.dumps(stats)}")
+
+        # 9. match-submap: scan 0's BEV placed in scan 1's grid
+        traj = eval_trajectory()
+        lines, times["match-submap"] = cli_call(
+            ["match-submap", "--grid", os.path.join(p["imgs"], "000001.npz"),
+             "--scan", os.path.join(p["imgs"], "000000.npz"), "--config",
+             p["cfg.json"], "--rotations", CLI_ROTATIONS])
+        got = json.loads(lines[-1])
+        gt = relative_xy_yaw(traj[0], traj[1])
+        dx, dy = (abs(got["pose_xy_yaw"][i] - gt[i]) for i in (0, 1))
+        dyaw = abs(got["pose_xy_yaw"][2] - gt[2])
+        step = 2 * math.pi / CLI_ROTATIONS
+        check(dx <= cfg.bev.resolution and dy <= cfg.bev.resolution
+              and dyaw <= step, f"[cli] 9. match-submap {got}, truth "
+              f"{gt}")
+        print(f"[cli] 9. match-submap: {json.dumps(got)}; truth "
+              f"({gt[0]:.4f}, {gt[1]:.4f}, {gt[2]:.6f}): within "
+              f"({dx:.3f}, {dy:.3f}) m and {dyaw:.5f} rad (bounds one cell "
+              f"{cfg.bev.resolution} m, one step {step:.5f} rad); "
+              f"{times['match-submap']:.2f} s")
+
+        # 10. cluster, then train --init-centroids (host stats: K1)
+        _, times["cluster"] = cli_call(
+            ["cluster", "--split", p["split.npz"], "--out", p["cents.npz"],
+             "--config", p["cfg_train.json"], "--num-images", 8,
+             "--per-image", 100])
+        with np.load(p["cents.npz"]) as d:
+            check(d["centroids"].shape == (cfg.model.num_clusters,
+                                           cfg.model.encoder_dim)
+                  and d["descriptors"].shape == (800, cfg.model.encoder_dim),
+                  "[cli] 10. cluster file shapes")
+        ss.segment_sum_sorted.launches = 0
+        lines, times["train"] = cli_call(
+            ["train", "--split", p["split.npz"], "--workdir", p["train"],
+             "--config", p["cfg_train.json"], "--init-centroids",
+             p["cents.npz"], "--host-stats"])
+        n = ss.segment_sum_sorted.launches
+        k1 += n
+        got = json.loads(lines[-1])
+        ckpts = sorted(f for f in os.listdir(p["train"])
+                       if f.startswith("ckpt_") and f.endswith(".pt"))
+        check(set(got) == {"best_recall5", "epochs"} and got["epochs"] == 1
+              and "ckpt_latest.pt" in ckpts and n > 0,
+              f"[cli] 10. train {got}, {ckpts}, K1 {n}")
+        print(f"[cli] 10. cluster ({times['cluster']:.2f} s) then train "
+              f"--init-centroids --host-stats, one epoch "
+              f"({times['train']:.2f} s): {json.dumps(got)}, wrote "
+              f"{ckpts}, K1 launches {n}")
+
+        # 11. eval --registration --host-stats = evaluate_split
+        from gloc3d_tpu_torch.eval.evaluator import evaluate_split
+
+        ss.segment_sum_sorted.launches = 0
+        lines, times["eval"] = cli_call(
+            ["eval", "--split", p["split.npz"], *common, "--registration",
+             "--host-stats", "--workdir", p["eval"], "--batch", CLI_BATCH])
+        k1 += ss.segment_sum_sorted.launches
+        got = json.loads("\n".join(lines))
+        want = json.loads(evaluate_split(
+            GlobalLocalizer(cfg, served, device=dev, host_stats=True),
+            kitti.load_split_scans(split, n_pad), batch=CLI_BATCH).to_json())
+        for key in ("recognition_recall", "failed_detect_indices",
+                    "failed_registration_indices", "banded_success"):
+            check(got[key] == want[key], f"[cli] 11. eval {key}: "
+                  f"{got[key]} != {want[key]}")
+        worst = max(abs(got["registration"][k] - v)
+                    for k, v in want["registration"].items())
+        check(worst <= 1e-4, f"[cli] 11. eval registration {worst:.3e}")
+        print(f"[cli] 11. eval --registration --host-stats "
+              f"({times['eval']:.2f} s) = evaluate_split in this process: "
+              f"recall {got['recognition_recall']}, registration "
+              f"{json.dumps(got['registration'])} (within {worst:.1e})")
+
+        # 12. profiling.trace around one locate names K1's kernel
+        loc = GlobalLocalizer(cfg, served, device=dev, host_stats=True)
+        loc.load(p["idx_hs"])
+        loc.locate(pts[0], mask[0])
+        with trace(p["trace"]):
+            loc.locate(pts[0], mask[0])
+        with open(os.path.join(p["trace"], TRACE_FILE)) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+        k1_names = sorted(n for n in names if "segment_sum_sorted" in n)
+        check(k1_names, f"[cli] 12. no K1 kernel in the trace "
+              f"({len(names)} kernel names)")
+        print(f"[cli] 12. profiling.trace around one locate: "
+              f"{TRACE_FILE} names K1's kernels {k1_names[:2]} among "
+              f"{len(names)} kernel names")
+    seconds = time.perf_counter() - t_phase
+    rec["seconds"] = {"phase": seconds, **times}
+    print(f"[cli] K1 launches {k1} (cli, host-stats), K2 {k2} (cli, "
+          f"aligned), K2 {k2_export} (exported program); phase wall time "
+          f"{seconds:.1f} s")
+    return rec, k1, k2, k2_export
+
+
 # ---------------------------------------------------------------- [submap]
 SUBMAP_EXTENT_M = 100.0   # tools/bench_submap.py: ±100 m, z in [-4, 4]
 SUBMAP_SWEEPS = 10
@@ -4361,6 +5002,11 @@ def main(argv) -> int:
         print(json.dumps({"card": card,
                           "eval": phase_eval(torch, cfg, world, card)[0]}))
         return 0
+    if "--cli" in argv:
+        phase_build()
+        print(json.dumps({"card": card,
+                          "cli": phase_cli(torch, cfg, world, card)[0]}))
+        return 0
     kf_set, q_set = aligned_world_scans(world, cfg.voxel.max_points)
     phase_build()
     centroids = vlad_centroids(torch, cfg, kf_set[2][:4])
@@ -4404,6 +5050,8 @@ def main(argv) -> int:
     print(json.dumps({"submap": phase_submap(torch, card, world)}))
     eval_rec, k1_eval, k2_eval = phase_eval(torch, cfg, world, card)
     print(json.dumps({"card": card, "eval": eval_rec}))
+    cli_rec, k1_cli, k2_cli, k2_export = phase_cli(torch, cfg, world, card)
+    print(json.dumps({"card": card, "cli": cli_rec}))
 
     ds = training_dataset(world, cfg.voxel.max_points)
     train_counts = phase_training(torch, cfg, ds, card)
@@ -4421,12 +5069,15 @@ def main(argv) -> int:
                 "training, host-stats": train_counts["host-stats"][0],
                 "refine, host-stats": k1_refine,
                 "eval, host-stats": k1_eval,
+                "cli, host-stats": k1_cli,
                 "sorted": packed["PointPillarSorted"]["K1"]}
     k2_paths = {"aligned query": k2_launches,
                 "fused query, aligned all-device": k2_fused,
                 "training, all-device": train_counts["all-device"][1],
                 "refine, aligned all-device": k2_refine,
                 "eval, aligned all-device": k2_eval,
+                "cli, aligned": k2_cli,
+                "exported program": k2_export,
                 "pose training, all-device": pose_train["k2_launches"],
                 "packed": packed["PointPillarPacked"]["K2"]}
     print(json.dumps({"kernels": [

@@ -29,6 +29,12 @@ descriptor model lacks; ``encoder_state_dict`` is the checkpoint's encoder
 alone, which loads strictly into a ``PointPillar`` built with the heads the
 checkpoint has (``mode="both"``).
 
+``restore_params`` loads any checkpoint file the command line takes into
+a DescriptorModel: the JAX package's path-encoded ``.npz``
+(``params/...``, ``batch_stats/...``), its VGGVLAD ``.npz``
+(``conv{i}_kernel``, ``pool_*``), a reference ``.pth.tar`` and the port
+trainer's ``ckpt_*.pt``.
+
 ``fold_batch_norm`` ports ``gloc3d_tpu/models/fold.py``: each eval-mode BN
 after a conv becomes the conv's scale and bias (same fp32 arithmetic as the
 JAX fold), for the ``fold_bn=True`` serving model.
@@ -329,3 +335,65 @@ def grid_state_to_numpy(state) -> Dict[str, Any]:
     else:
         out["origin_xy"] = state.origin_xy.cpu().numpy()
     return out
+
+
+def _unflatten(data: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """``{"a/b/c": array}`` → ``{"a": {"b": {"c": array}}}``."""
+    tree: Dict[str, Any] = {}
+    for key, value in data.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(value)
+    return tree
+
+
+def _vggvlad_variables(data: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """A VGGVLAD ``.npz`` of the JAX package's converter (``conv{i}_kernel``
+    and ``_bias``, ``pool_conv_weight``, ``pool_centroids``,
+    ``pool_hidden1_weights``, optionally ``pool_conv_bias``) → the Flax
+    variables ``flax_to_state_dict(..., "vgg16")`` takes."""
+    enc = {f"conv{i}": {"kernel": data[f"conv{i}_kernel"],
+                        "bias": data[f"conv{i}_bias"]}
+           for i in range(len(VGG16_CONV_IDX))}
+    pool = {k[len("pool_"):]: data[k] for k in data if k.startswith("pool_")}
+    return {"params": {"encoder": enc, "pool": pool}}
+
+
+def restore_params(model: torch.nn.Module, path: str,
+                   encoder: str = "pointpillar") -> torch.nn.Module:
+    """Load the checkpoint at ``path`` into ``model`` in place:
+
+    - ``.npz`` with ``params/...`` keys: the JAX package's path-encoded
+      variables (``models/pointpillar.py::load_pointpillar_npz``);
+    - another ``.npz``: a VGGVLAD checkpoint (``models/vgg.py::
+      load_vggvlad_npz``);
+    - ``.pt``: the port trainer's ``ckpt_*.pt`` (``{"model": ...}``);
+    - anything else: a reference checkpoint (``.pth.tar``), loaded as
+      ``load_reference_into`` loads it.
+
+    From an ``.npz``, entries the model lacks are skipped and entries the
+    file lacks keep their current values, as in JAX. A standard checkpoint
+    loaded into a ``fold_bn=True`` model is folded first."""
+    own = model.state_dict()
+    if path.endswith(".npz"):
+        with np.load(path) as f:
+            data = {k: f[k] for k in f.files}
+        variables = (_unflatten(data)
+                     if any(k.startswith("params/") for k in data)
+                     else _vggvlad_variables(data))
+        sd = flax_to_state_dict(variables, encoder)
+    elif path.endswith(".pt"):
+        sd = torch.load(path, map_location="cpu", weights_only=True)["model"]
+    else:
+        sd = load_reference_checkpoint(path)
+    if not any(k.endswith(".running_mean") and k.startswith("encoder.")
+               for k in own):
+        sd = fold_batch_norm(sd)
+    if path.endswith(".npz"):
+        sd = {**own, **{k: v for k, v in sd.items() if k in own}}
+        model.load_state_dict(sd)
+    else:
+        load_reference_into(model, sd)
+    return model

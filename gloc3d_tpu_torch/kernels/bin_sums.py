@@ -10,11 +10,14 @@ of ``ops/voxelize.py::points_to_voxels`` and the PointNet feature mean of
 carry id 0). Sums are fp32, as the XLA scatter of the JAX serving path; the
 TPU kernel's bf16 one-hot products are not the semantics held.
 
-On a CUDA tensor the wrapper launches ``csrc/pillar_bin_sums.cu`` (design
-and bound in that file's header: a narrow kernel for C <= 8, a wide one
-for larger C, pillar 0 summed in a fixed order from per-block partials by
-a second launch) or raises; on a CPU tensor it runs the plain version.
-There is no fallback between the two. The wrapper types the C entry once
+The wrapper calls the custom op ``gloc3d::pillar_bin_sums`` (``ops.py``),
+so a traced or exported program carries the op and not the version its
+tracing device ran. On a CUDA tensor the op launches
+``csrc/pillar_bin_sums.cu`` (design and bound in that file's header: a
+narrow kernel for C <= 8, a wide one for larger C, pillar 0 summed in a
+fixed order from per-block partials by a second launch) or raises; on a
+CPU tensor it runs the plain version. There is no fallback between the
+two. The wrapper types the C entry once
 and allocates with ``torch.empty``; the C entry sizes the grid and zeroes
 the outputs on the stream. The id-range check still reads the range back
 to the host.
@@ -104,18 +107,13 @@ def _check(features: torch.Tensor, ids: torch.Tensor, num_voxels: int
 def pillar_bin_sums(features: torch.Tensor, ids: torch.Tensor,
                     num_voxels: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(..., N, C)`` fp32 rows binned by ``(..., N)`` int32 ids →
-    ``(sums (..., V, C), counts (..., V))``.
+    ``(sums (..., V, C), counts (..., V))``, through the custom op
+    ``gloc3d::pillar_bin_sums`` (``ops.py``).
 
     CUDA tensors launch the hand-written kernel (counted in
     ``pillar_bin_sums.launches``); CPU tensors take the plain version.
     """
-    if features.device.type == "cpu" and ids.device.type == "cpu":
-        return pillar_bin_sums_plain(features, ids, num_voxels)
-    _check(features, ids, num_voxels)
-    if features.device.type != "cuda":
-        raise ValueError(f"no pillar-binning kernel for device "
-                         f"{features.device}")
-    return _launch(features, ids, num_voxels)
+    return torch.ops.gloc3d.pillar_bin_sums(features, ids, num_voxels)
 
 
 _fns = None

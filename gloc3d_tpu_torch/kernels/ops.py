@@ -1,0 +1,68 @@
+"""Kernels K1 and K2 as ``torch.library`` custom ops.
+
+``gloc3d::segment_sum_sorted(values, starts)`` (K1, ``segment_sum.py``)
+and ``gloc3d::pillar_bin_sums(features, ids, num_voxels)`` (K2,
+``bin_sums.py``) are the only route to either kernel. The dispatcher picks
+the implementation from the tensors' device: on CUDA tensors the
+hand-written kernel (the wrapper's checks, then its ctypes launch, counted
+in ``segment_sum_sorted.launches`` / ``pillar_bin_sums.launches``), on CPU
+tensors the plain version; any other device has no implementation and
+raises. Each op also has a fake implementation, which gives the output
+shapes from the arguments alone (V from ``starts.shape[-1] - 1`` or from
+``num_voxels``), so ``torch.export`` and ``torch.compile`` trace the op as
+one node: an exported program carries the op and runs the kernel wherever
+it is loaded onto a card, never the plain version that the tracing device
+happened to run.
+
+A process that only runs an exported program imports this module (which
+registers both ops) and nothing of the models or the pipeline.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from gloc3d_tpu_torch.kernels import bin_sums as _bs
+from gloc3d_tpu_torch.kernels import segment_sum as _ss
+
+
+@torch.library.custom_op("gloc3d::segment_sum_sorted", mutates_args=(),
+                         device_types="cpu")
+def segment_sum_sorted(values: torch.Tensor,
+                       starts: torch.Tensor) -> torch.Tensor:
+    return _ss.segment_sum_sorted_plain(values, starts)
+
+
+@segment_sum_sorted.register_kernel("cuda")
+def _segment_sum_sorted_cuda(values, starts):
+    _ss._check(values, starts)
+    return _ss._launch(values, starts)
+
+
+@segment_sum_sorted.register_fake
+def _segment_sum_sorted_fake(values, starts):
+    return values.new_empty(values.shape[:-2] + (
+        starts.shape[-1] - 1, values.shape[-1]), dtype=torch.float32)
+
+
+@torch.library.custom_op("gloc3d::pillar_bin_sums", mutates_args=(),
+                         device_types="cpu")
+def pillar_bin_sums(features: torch.Tensor, ids: torch.Tensor,
+                    num_voxels: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _bs.pillar_bin_sums_plain(features, ids, num_voxels)
+
+
+@pillar_bin_sums.register_kernel("cuda")
+def _pillar_bin_sums_cuda(features, ids, num_voxels):
+    _bs._check(features, ids, num_voxels)
+    return _bs._launch(features, ids, num_voxels)
+
+
+@pillar_bin_sums.register_fake
+def _pillar_bin_sums_fake(features, ids, num_voxels):
+    lead = features.shape[:-2]
+    return (features.new_empty(lead + (num_voxels, features.shape[-1]),
+                               dtype=torch.float32),
+            features.new_empty(lead + (num_voxels,), dtype=torch.float32))

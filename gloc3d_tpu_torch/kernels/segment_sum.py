@@ -7,12 +7,15 @@ runs on every query. Semantics: ``values (..., N, C)`` sorted by segment and
 ``starts (..., V+1)`` segment offsets give ``(..., V, C)`` sums, with empty
 segments 0.
 
-On a CUDA tensor the wrapper launches ``csrc/segment_sum.cu`` (design and
-bound in that file's header: memory-bound, ~31 MB read and 2.9 MB written
-per scan at the main-path shape; a second small launch adds the partial
-sums of blocks that lie wholly inside one segment, in a fixed order, so
-the result is the same on every launch) or raises; on a CPU tensor it runs
-the plain version. There is no fallback between the two. The wrapper types
+The wrapper calls the custom op ``gloc3d::segment_sum_sorted``
+(``ops.py``), so a traced or exported program carries the op and not the
+version its tracing device ran. On a CUDA tensor the op launches
+``csrc/segment_sum.cu`` (design and bound in that file's header:
+memory-bound, ~31 MB read and 2.9 MB written per scan at the main-path
+shape; a second small launch adds the partial sums of blocks that lie
+wholly inside one segment, in a fixed order, so the result is the same on
+every launch) or raises; on a CPU tensor it runs the plain version. There
+is no fallback between the two. The wrapper types
 the C entry once and allocates the output and the per-block partials with
 ``torch.empty``; the C entry zeroes the output on the stream. Times: PERF.md.
 
@@ -81,17 +84,13 @@ def _check(values: torch.Tensor, starts: torch.Tensor) -> None:
 
 def segment_sum_sorted(values: torch.Tensor,
                        starts: torch.Tensor) -> torch.Tensor:
-    """``(..., N, C)`` fp32 rows sorted by segment → ``(..., V, C)`` sums.
+    """``(..., N, C)`` fp32 rows sorted by segment → ``(..., V, C)`` sums,
+    through the custom op ``gloc3d::segment_sum_sorted`` (``ops.py``).
 
     CUDA tensors launch the hand-written kernel (counted in
     ``segment_sum_sorted.launches``); CPU tensors take the plain version.
     """
-    if values.device.type == "cpu" and starts.device.type == "cpu":
-        return segment_sum_sorted_plain(values, starts)
-    _check(values, starts)
-    if values.device.type != "cuda":
-        raise ValueError(f"no segment-sum kernel for device {values.device}")
-    return _launch(values, starts)
+    return torch.ops.gloc3d.segment_sum_sorted(values, starts)
 
 
 _fns = None

@@ -271,10 +271,12 @@ class GlobalLocalizer:
 
     Args:
       cfg: a PipelineConfig (the port's or the JAX package's).
-      model: a DescriptorModel (models/descriptor.py).
+      model: a DescriptorModel (models/descriptor.py), or an
+        ``export.py::ExportedDescriptorModel`` (weights inside the
+        program; ``params`` stays None, B=1 queries only).
       params: optional state_dict to load into ``model``.
       host_stats: bin and draw the BEV on the host, or on the device
-        (default); ignored for an image encoder.
+        (default); ignored for an image encoder and an exported model.
       device: where the model, the bank and the matcher run (default:
         ``cuda``; without a card, pass ``device="cpu"``).
       align_ground: gravity-align scans before BEV / descriptor extraction.
@@ -299,7 +301,9 @@ class GlobalLocalizer:
                 "workarounds); host_stats=False bins on the device")
         self.cfg = cfg
         self.i2i = is_image_encoder(cfg.model.encoder)
-        self.host_stats = host_stats and not self.i2i
+        # an exported model (export.py) runs the plain forward only
+        self.host_stats = (host_stats and not self.i2i
+                           and getattr(model, "supports_voxel_stats", True))
         self.align_ground = align_ground
         self.device_keyframes = device_keyframes
         self.host_mirror = host_mirror
