@@ -27,7 +27,8 @@ Phases, each printing its own lines:
      pillars, C in {1, 3, 4, 65, 256} on the scan's ids and features at a
      4-byte offset; error relative to per-pillar L1 mass (bound 1e-5),
      counts exactly equal, empty pillars exactly 0; CUDA-event times of
-     both; pillar 0 bit-equal over four launches on each main-path input;
+     both; every pillar and the counts bit-equal over four launches on each
+     main-path input;
   5. the located query on the host-stats path at full PipelineConfig.s2s()
      width (122 480-point scans, 768² BEV, top-20, 120 coarse / 11 fine
      rotations) with the folded bf16 serving model from the port's seeded
@@ -726,21 +727,23 @@ def check_k1_pillar0_determinism(torch, x, starts):
     return same
 
 
-def check_k2_pillar0_determinism(torch, main_path):
-    """Two launches on the same input give bit-equal pillar-0 rows (and
-    counts): K2 sums pillar 0 through per-block partials in a fixed order.
-    Run on both of the main path's binnings."""
+def check_k2_determinism(torch, main_path):
+    """Four launches on the same input give bit-equal sums in every pillar
+    and bit-equal counts (K2 v3 adds exact int64 sums, and pillar 0 from
+    per-block partials in a fixed order). Run on both of the main path's
+    binnings. Returns whether they did."""
     from gloc3d_tpu_torch.kernels import bin_sums as bs
 
     for label, (x, ids, v) in main_path.items():
         first = bs.pillar_bin_sums(x, ids, v)
         same = all(
-            torch.equal(first[0][..., 0, :], again[0][..., 0, :])
-            and torch.equal(first[1], again[1])
+            torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
             for again in (bs.pillar_bin_sums(x, ids, v) for _ in range(3)))
-        print(f"[k2] {label} {tuple(x.shape)}: pillar 0 over four launches "
-              f"bit-equal {same} ({int(first[1][..., 0].sum())} rows)")
-        check(same, f"K2 {label}: pillar 0 differs between launches")
+        print(f"[k2] {label} {tuple(x.shape)}: every pillar and the counts "
+              f"over four launches bit-equal {same} "
+              f"({int((first[1] > 0).sum())} non-empty pillars)")
+        check(same, f"K2 {label}: sums or counts differ between launches")
+    return True
 
 
 def seeded_standard_model(torch, cfg, dtype: str):
@@ -5014,13 +5017,13 @@ def main(argv) -> int:
     k1_pillar0_same = check_k1_pillar0_determinism(torch, *k1_main)
     k2_err, k2_ms, k2_plain_ms, k2_main = phase_k2(torch, cfg, world, card,
                                                    centroids)
+    k2_bit_equal = check_k2_determinism(torch, k2_main)
     if kernels_only:
         ds = training_dataset(world, cfg.voxel.max_points)
         times = phase_kernel_times(torch, card, *kernel_time_cases(
             torch, cfg, ds, k1_main, k2_main))
         print(json.dumps({"card": card, "kernel_times": times}))
         return 0
-    check_k2_pillar0_determinism(torch, k2_main)
     lq_set = located_world_scans(world, cfg.voxel.max_points)
     loc, kf, qs, k1_launches = phase_located_query(torch, cfg, lq_set,
                                                    centroids)
@@ -5093,6 +5096,7 @@ def main(argv) -> int:
          "replaces": K2_REPLACES, "launches": sum(k2_paths.values()),
          "launches_by_path": k2_paths,
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bit_equal": k2_bit_equal,
          **kernel_entry("K2", times, "main path, features"),
          "backward_max_abs_err": bwd["K2"][0], "backward_ms": bwd["K2"][1],
          "plain_backward_ms": bwd["K2"][2]}]}))

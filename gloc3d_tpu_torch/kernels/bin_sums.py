@@ -13,14 +13,15 @@ TPU kernel's bf16 one-hot products are not the semantics held.
 The wrapper calls the custom op ``gloc3d::pillar_bin_sums`` (``ops.py``),
 so a traced or exported program carries the op and not the version its
 tracing device ran. On a CUDA tensor the op launches
-``csrc/pillar_bin_sums.cu`` (design and bound in that file's header: a
-narrow kernel for C <= 8, a wide one for larger C, pillar 0 summed in a
-fixed order from per-block partials by a second launch) or raises; on a
+``csrc/pillar_bin_sums.cu`` (design and bound in that file's header: exact
+int64 sums at a power-of-two scale per pillar and channel, so every launch
+gives the same bits; a narrow row walk for C <= 8, a wide one for larger C;
+pillar 0 summed in a fixed order from per-block partials) or raises; on a
 CPU tensor it runs the plain version. There is no fallback between the
-two. The wrapper types the C entry once
-and allocates with ``torch.empty``; the C entry sizes the grid and zeroes
-the outputs on the stream. The id-range check still reads the range back
-to the host.
+two. The wrapper types the C entry once and allocates the outputs and the
+scratch with ``torch.empty``; the C entry sizes the grid and zeroes the
+scratch on the stream. The id-range check still reads the range back to
+the host.
 
 The ctypes launch leaves no autograd history: ``pillar_bin_sums_grad`` wraps
 the binning in an autograd Function for the PointNet feature mean, with the
@@ -128,19 +129,20 @@ def _kernel_fns():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 4 + [
             ctypes.c_void_p]
-        size = lib.gloc3d_pillar_bin_sums_scratch_floats
+        size = lib.gloc3d_pillar_bin_sums_scratch_bytes
         size.restype = ctypes.c_int64
-        size.argtypes = [ctypes.c_int64] * 3
+        size.argtypes = [ctypes.c_int64] * 4
         _fns = fn, size
     return _fns
 
 
 def _launch(features: torch.Tensor, ids: torch.Tensor, num_voxels: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Allocate the outputs and the pillar-0 partials (``torch.empty``: the
-    C entry zeroes the outputs on the stream and sizes the grid) and launch
-    the kernels on CUDA tensors that passed ``_check`` (the check reads the
-    id range back to the host; the launch itself does not synchronise)."""
+    """Allocate the outputs and the scratch (``torch.empty``: the C entry
+    zeroes the integer accumulators on the stream and sizes the grid) and
+    launch the kernels on CUDA tensors that passed ``_check`` (the check
+    reads the id range back to the host; the launch itself does not
+    synchronise)."""
     lead = features.shape[:-2]
     n, c = features.shape[-2:]
     b = math.prod(lead)
@@ -151,16 +153,16 @@ def _launch(features: torch.Tensor, ids: torch.Tensor, num_voxels: int
                          device=dev)
     if b == 0:
         return sums, counts
-    fn, scratch_floats = _kernel_fns()
+    fn, scratch_bytes = _kernel_fns()
     guard = (torch.cuda.device(dev) if dev.index is not None
              and dev.index != torch.cuda.current_device()
              else contextlib.nullcontext())
     with guard:
-        size = scratch_floats(b, n, c)
+        size = scratch_bytes(b, n, num_voxels, c)
         if size < 0:
             raise RuntimeError("pillar_bin_sums: cannot read the device's "
                                "SM count")
-        scratch = torch.empty(size, dtype=torch.float32, device=dev)
+        scratch = torch.empty(size, dtype=torch.uint8, device=dev)
         rc = fn(features.data_ptr(), ids.data_ptr(), sums.data_ptr(),
                 counts.data_ptr(), scratch.data_ptr(), b, n, num_voxels, c,
                 torch.cuda.current_stream(dev).cuda_stream)

@@ -104,6 +104,49 @@ def test_every_row_in_pillar_zero_plain():
     assert (sums[0, 1:] == 0).all()
 
 
+def _non_finite_case():
+    """Rows with NaN, +inf and -inf in some pillars and channels: pillar 1
+    channel 0 NaN, pillar 2 channel 1 +inf and -inf (NaN), pillar 3 channel
+    2 +inf, pillar 4 channel 2 -inf, pillar 0 channel 3 +inf; every other
+    pillar-channel finite."""
+    rng = np.random.RandomState(3)
+    ids = np.array([0, 1, 1, 2, 2, 3, 3, 4, 5, 5, 0, 6], np.int32)
+    x = rng.randn(len(ids), 4).astype(np.float32)
+    x[1, 0] = np.nan
+    x[3, 1], x[4, 1] = np.inf, -np.inf
+    x[5, 2], x[7, 2] = np.inf, -np.inf
+    x[0, 3] = np.inf
+    return x, ids
+
+
+def test_plain_non_finite_matches_jax():
+    """Non-finite rows: the plain version (and so the kernel, which copies
+    it) gives each pillar-channel the fp32 XLA scatter's value, JAX's
+    ``.at[].add`` on the serving path: NaN where a row is NaN or both
+    infinities meet, the infinity that occurs, finite sums elsewhere.
+    JAX's Pallas ``pillar_bin_sums`` (interpret mode) cannot give per-pillar
+    results: its one-hot product multiplies every non-finite value by the
+    zeros of the other pillars' columns (0 · inf = NaN), so every
+    pillar-channel whose scatter sum is finite reads NaN there; the port
+    holds the scatter's semantics, as for finite rows, and counts agree
+    with both."""
+    import jax.numpy as jnp
+    from gloc3d_tpu.ops.pallas_scatter import pillar_bin_sums as jax_pallas
+
+    x, ids = _non_finite_case()
+    v = 8
+    sums, cnt = bs.pillar_bin_sums(torch.from_numpy(x), torch.from_numpy(ids),
+                                   v)
+    want = np.asarray(jnp.zeros((v, 4)).at[ids].add(x))
+    np.testing.assert_array_equal(sums.numpy(), want)  # NaN == NaN here
+    assert np.isnan(want[1, 0]) and np.isnan(want[2, 1])
+    assert want[3, 2] == np.inf and want[4, 2] == -np.inf
+    assert want[0, 3] == np.inf and np.isfinite(want[5:]).all()
+    p_sums, p_cnt = jax_pallas(jnp.asarray(x), jnp.asarray(ids), v)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(p_cnt))
+    assert np.isnan(np.asarray(p_sums)[np.isfinite(want)]).all()
+
+
 def test_cpu_tensors_take_the_plain_version():
     x, ids = _case(2, 1, 300, 64, 20)
     before = bs.pillar_bin_sums.launches
@@ -177,9 +220,9 @@ def test_cuda_kernel_matches_plain():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [4, 64, 65])
-def test_cuda_pillar_zero_is_deterministic(c):
-    """Pillar 0 (every padding and out-of-grid row) is summed through
-    per-block partials in a fixed order: two launches give the same bits,
+def test_cuda_kernel_is_deterministic(c):
+    """Every pillar's sums and every count are the same bits over four
+    launches (exact int64 sums, pillar 0 from partials in a fixed order),
     also when every row lies in pillar 0 or the features are misaligned."""
     _cuda_or_skip()
     x, ids = _case(7, 2, 122480, c, 11200, p0=82000)
@@ -189,10 +232,32 @@ def test_cuda_pillar_zero_is_deterministic(c):
     shifted.copy_(x)
     for feats, i in ((x, ids), (x, zero), (shifted, ids)):
         a, ca = bs.pillar_bin_sums(feats, i, 11200)
-        b_, cb = bs.pillar_bin_sums(feats, i, 11200)
-        assert torch.equal(a[:, 0], b_[:, 0]) and torch.equal(ca, cb)
+        for _ in range(3):
+            b_, cb = bs.pillar_bin_sums(feats, i, 11200)
+            assert torch.equal(a, b_) and torch.equal(ca, cb)
         p_sums, p_cnt = bs.pillar_bin_sums_plain(feats, i, 11200)
         l1, _ = bs.pillar_bin_sums_plain(feats.abs(), i, 11200)
         err = ((a - p_sums).double().abs()
                / l1.double().clamp_min(1e-30)).max()
         assert float(err) < 1e-5 and torch.equal(ca, p_cnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 64])
+def test_cuda_non_finite_matches_plain(c):
+    """NaN, +inf and -inf rows give the plain version's value in their own
+    pillar-channel (both kernels' row walks), and only there."""
+    _cuda_or_skip()
+    x, ids = _non_finite_case()
+    xs = np.zeros((len(ids), c), np.float32)
+    xs[:, :4] = x
+    x = torch.from_numpy(np.tile(xs, (3, 1))).cuda()
+    ids = torch.from_numpy(np.tile(ids, 3)).cuda()
+    got, cnt = bs.pillar_bin_sums(x, ids, 8)
+    want, p_cnt = bs.pillar_bin_sums_plain(x, ids, 8)
+    assert torch.equal(cnt, p_cnt)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = torch.isfinite(want)
+    assert torch.equal(got[~fin & ~torch.isnan(want)],
+                       want[~fin & ~torch.isnan(want)])
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-6, atol=1e-6)
