@@ -214,8 +214,7 @@ Phases, each printing its own lines:
      (2) build-index with host stats and the device store (K1) and with
      --align-ground --device-keyframes --no-host-mirror (K2); (3) query
      on each = locate in this process on the loaded map (db_index,
-     candidates ranked on the host-stats map and as a set on the aligned
-     one, translation within 1e-4 m); (4) one query as a
+     candidates ranked, translation within 1e-4 m); (4) one query as a
      fresh `python -m gloc3d_tpu_torch.cli` process: its cold start split
      into process start to imports, localizer built, index load, first
      query; (5) serve over the 10 query paths and a missing file on the
@@ -226,7 +225,7 @@ Phases, each printing its own lines:
      when the program runs on the card, and a fresh process that imports
      gloc3d_tpu_torch.kernels.ops alone reloads both onto the card with
      descriptors within 1e-5 of the live model's; (7) query
-     --from-export = the live fp32 query (candidates as a set), and the
+     --from-export = the live fp32 query (candidates ranked), and the
      exported forward and
      locate beside the live ones; (8) preprocess = batch_scan_to_bev bit
      for bit, and stats; (9) match-submap of scan 0's BEV in scan 1's
@@ -235,13 +234,26 @@ Phases, each printing its own lines:
      epoch (JSON keys, ckpt_*.pt, K1 launches); (11) eval --registration
      --host-stats = evaluate_split in this process; (12)
      profiling.trace around one locate names K1's kernel.
-The kernel-only times of phase 17 come from complete traces only (both
-kernels of every traced call); a timing with none in six traces prints
-that it was not measured.
+ 25. [shard], after [city]: the sharded search (gloc3d_tpu_torch/parallel/,
+     index/ivf.py::ShardedIVF, GlobalLocalizer.shard_bank). World size 1
+     over NCCL in this process: sharded_topk, sharded_topk_int8 and
+     ShardedBank (fp32, int8) at [map-scale]'s 1 000 000 rows, D = 512,
+     Q = 8, k = 20, and ShardedIVF over [city]'s IVF + int8 index (100 000
+     rows, 1024 cells, nprobe 32), each = its unsharded call (ids equal,
+     distances bit-equal); shard_bank + locate on phase 5's host-stats map
+     = its unsharded locate, ranked. World size 2 over gloo: two ranks
+     spawned with torch.multiprocessing on the one card, 500 000 rows each,
+     ids equal to the unsharded call's wherever neighbouring distances lie
+     1e-5 apart (CPU tensors, said so, where gloo refuses CUDA ones). The
+     sharded times beside the unsharded ones.
+The kernel-only times of phase 17 come from complete traces only (every
+kernel of every traced call: K1 launches two a call, K2 four); a timing
+with none in six traces prints that it was not measured.
 `python3 chip_smoke.py --kernels` runs phases 1-4 and 17 only;
 `python3 chip_smoke.py --submap` phases 1 and 19 only;
 `python3 chip_smoke.py --eval` phases 1, 2 and 23 only;
 `python3 chip_smoke.py --cli` phases 1, 2 and 24 only;
+`python3 chip_smoke.py --shard` phases 1, 2, 5 and 25 only;
 `--i2i-train`, `--pose-train` and `--packed` run phases 1, 2 and the
 phase (or phases) named, alone;
 `--seed N` seeds the map-scale rows (default 0).
@@ -1119,16 +1131,13 @@ def fused_results(loc, qs, tag):
     return results
 
 
-def same_results(tag, a, b, xy_tol=1e-4, ranked=True):
+def same_results(tag, a, b, xy_tol=1e-4):
     """Two runs of the same queries: success and keyframe equal, the same
-    candidates (in the same order, or as a set when not ``ranked``), (dx,
-    dy, yaw) within xy_tol. Returns the largest (dx, dy, yaw) difference
-    and the number of candidate ranks that differ."""
-    worst, swapped = 0.0, 0
+    candidates in the same order, (dx, dy, yaw) within xy_tol. Returns the
+    largest (dx, dy, yaw) difference."""
+    worst = 0.0
     for i, (x, y) in enumerate(zip(a, b)):
-        same = (np.array_equal(x.candidates, y.candidates) if ranked else
-                np.array_equal(np.sort(x.candidates), np.sort(y.candidates)))
-        swapped += int((x.candidates != y.candidates).sum())
+        same = np.array_equal(x.candidates, y.candidates)
         check(x.success == y.success and x.db_index == y.db_index and same,
               f"{tag} query {i}: success {x.success}/{y.success}, db "
               f"{x.db_index}/{y.db_index}, candidates {x.candidates} / "
@@ -1137,7 +1146,7 @@ def same_results(tag, a, b, xy_tol=1e-4, ranked=True):
             d = float(np.abs(x.match_xy_yaw - y.match_xy_yaw).max())
             worst = max(worst, d)
             check(d <= xy_tol, f"{tag} query {i}: xy_yaw differs by {d:.3e}")
-    return worst, swapped
+    return worst
 
 
 def phase_fused_query(torch, cfg, lq_set, kf_set, q_set, centroids):
@@ -1182,42 +1191,31 @@ def phase_fused_query(torch, cfg, lq_set, kf_set, q_set, centroids):
     r_batch = loc32.locate_batch(np.stack([q[0] for q in qs]),
                                  np.stack([q[1] for q in qs]))
     r_fused = [loc32.locate_fused(*q) for q in qs]
-    d1, _ = same_results("locate vs locate_batch", r_loc, r_batch)
-    d2, _ = same_results("locate vs locate_fused", r_loc, r_fused)
-    # the aligned map: the all-device forward sums all pillars but pillar 0
-    # with K2's float atomics, whose order varies between launches, so two
-    # extractions of one scan differ in their last bits, and keyframes whose
-    # distances nearly tie may swap ranks, the top one included (which then
-    # changes the registered keyframe). So locate and locate_fused share one
-    # extraction and are held equal, ranks and all; a second extraction
-    # with the same ground draws counts the ranks the atomics swap
+    d1 = same_results("locate vs locate_batch", r_loc, r_batch)
+    d2 = same_results("locate vs locate_fused", r_loc, r_fused)
+    # the aligned map: locate and locate_fused each extract the query with
+    # the same ground draws and must agree ranks and all (K2 v3 sums every
+    # pillar in exact integers); a third extraction with those draws must
+    # swap no candidate rank
     d3, swaps = 0.0, 0
-    extract = a_loc.extract
     for i, q in enumerate(q_set[2]):
-        memo = []
-
-        def extract_once(*args, memo=memo):
-            if not memo:
-                memo.append(extract(*args))
-            return memo[0]
-
         a_loc._gen.manual_seed(100 + i)
-        a_loc.extract = extract_once
-        try:
-            x, y = a_loc.locate(*q), a_loc.locate_fused(*q)
-        finally:
-            del a_loc.extract
-        d, _ = same_results("aligned locate vs locate_fused", [x], [y])
+        x = a_loc.locate(*q)
+        a_loc._gen.manual_seed(100 + i)
+        y = a_loc.locate_fused(*q)
+        d = same_results("aligned locate vs locate_fused", [x], [y])
         d3 = max(d3, d)
         a_loc._gen.manual_seed(100 + i)
         swaps += int((a_loc.locate_fused(*q).candidates != y.candidates).sum())
     print(f"[fused] fp32 host-stats map: locate = locate_batch = "
           f"locate_fused for {len(qs)}/{len(qs)} queries "
           f"({sum(r.success for r in r_loc)} localized); xy_yaw max |diff| "
-          f"{d1:.2e} / {d2:.2e}; aligned bf16 map: locate = locate_fused on "
-          f"one extraction, max |diff| {d3:.2e} (bound 1e-4); a second "
-          f"extraction with the same draws swapped {swaps} of "
-          f"{len(q_set[2]) * cfg.index.top_k} candidate ranks (K2's atomics)")
+          f"{d1:.2e} / {d2:.2e}; aligned bf16 map: locate = locate_fused, "
+          f"each on its own extraction, max |diff| {d3:.2e} (bound 1e-4); "
+          f"a third extraction with the same draws swapped {swaps} of "
+          f"{len(q_set[2]) * cfg.index.top_k} candidate ranks (must be 0)")
+    check(swaps == 0, f"[fused] a repeated aligned extraction swapped "
+          f"{swaps} candidate ranks")
     return k1, k2
 
 
@@ -1672,6 +1670,218 @@ def phase_city(torch, cfg, centroids, card, flat_ms):
             "device_bytes": held}
 
 
+# ------------------------------------------------------------------ shard
+SHARD_D = 512      # [map-scale]'s wider D
+SHARD_TOL = 1e-5   # world size 2: fp32 d2 of unit rows, ~10x its rounding
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def shard_rank(rank: int, port: int, n: int, seed: int, out: str) -> None:
+    """One of [shard]'s two gloo ranks (torch.multiprocessing spawn), both
+    on the one card: each makes [map-scale]'s n rows from ``seed``, keeps
+    its half in a ShardedBank (fp32, then int8) and answers the 8 queries;
+    rank 0 writes the results and the host-clock ms per query to ``out``.
+    Where gloo refuses CUDA tensors the ranks say so and take CPU tensors."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from gloc3d_tpu_torch.parallel import ShardedBank
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        rows, queries, _ = map_rows(torch, n, SHARD_D, seed)
+        rec = {}
+        for device in ("cuda", "cpu"):
+            try:
+                for quant in ("none", "int8"):
+                    bank = ShardedBank(None, SHARD_D, n, quantize=quant,
+                                       device=device)
+                    bank.add(rows)
+                    q = queries.to(device)
+                    bank.query(q, MAP_K)
+                    t0 = time.perf_counter()
+                    for _ in range(5):
+                        d2, idx = bank.query(q, MAP_K)
+                    rec[f"{quant}_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+                    rec[f"{quant}_d2"], rec[f"{quant}_id"] = d2, idx
+                    rec[f"{quant}_rows"] = bank._bank.shape[0]
+                    del bank
+                rec["device"] = device
+                break
+            except RuntimeError as e:
+                if device == "cpu":
+                    raise
+                rec["refused"] = f"{type(e).__name__}: {e}"[:400]
+                torch.cuda.synchronize()
+        if rank == 0:
+            np.savez(out, **rec)
+    finally:
+        dist.destroy_process_group()
+
+
+def same_ids_where_gapped(tag, got, want_d2, want_id, tol):
+    """Ids equal wherever the unsharded distances lie more than ``tol``
+    from both neighbours, and every distance within ``tol``."""
+    d = np.diff(want_d2, axis=1)
+    gap = np.minimum(np.concatenate([np.full((len(d), 1), np.inf), d], 1),
+                     np.concatenate([d, np.full((len(d), 1), np.inf)], 1))
+    firm = gap > tol
+    check(np.array_equal(got[1][firm], want_id[firm]),
+          f"{tag}: ids differ where the distances are {tol} apart")
+    err = float(np.abs(got[0] - want_d2).max())
+    check(err <= tol, f"{tag}: distances {err:.3e} from the unsharded ones")
+    return int(firm.sum()), err
+
+
+def phase_shard(torch, card, cfg, loc, qs, seed: int = 0):
+    """[shard]: the sharded search on the card. World size 1 over NCCL in
+    this process: sharded_topk, sharded_topk_int8 and ShardedBank at
+    [map-scale]'s shapes (MAP_N rows, D = 512, Q = 8, k = 20) and a
+    ShardedIVF over [city]'s index (CITY_N rows, IVF + int8, 1024 cells,
+    nprobe 32), each held to its unsharded call (ids equal, distances
+    bit-equal), and shard_bank + locate on the host-stats located map = its
+    unsharded locate (ranked); then world size 2 over gloo, two spawned
+    ranks on the one card with MAP_N / 2 rows each, ids equal to the
+    unsharded call's wherever neighbouring distances lie SHARD_TOL apart.
+    Prints the sharded times beside the unsharded ones (the all-gather's
+    cost): CUDA events for the device-side calls, host clock for the
+    calls that return numpy."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from gloc3d_tpu_torch.config import IndexConfig
+    from gloc3d_tpu_torch.index.bank import DescriptorBank
+    from gloc3d_tpu_torch.index.ivf import IVFBank, ShardedIVF
+    from gloc3d_tpu_torch.ops.topk import l2_topk, l2_topk_int8, quantize_rows
+    from gloc3d_tpu_torch.parallel import (
+        ShardedBank, sharded_topk, sharded_topk_int8,
+    )
+
+    rec = {}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        rows, queries, _ = map_rows(torch, MAP_N, SHARD_D, seed)
+        codes, scales, bsq = quantize_rows(rows)
+        calls = {
+            "flat fp32": (lambda: l2_topk(queries, rows, MAP_K),
+                          lambda: sharded_topk(None, queries, rows, MAP_K)),
+            "flat int8": (lambda: l2_topk_int8(queries, codes, scales, bsq,
+                                               MAP_K),
+                          lambda: sharded_topk_int8(None, queries, codes,
+                                                    scales, bsq, MAP_K))}
+        for name, (plain, sharded) in calls.items():
+            a, b = plain(), sharded()
+            check(torch.equal(a[1], b[1]) and torch.equal(a[0], b[0]),
+                  f"[shard] {name}: sharded_topk differs from l2_topk")
+            rec[name] = [cuda_ms(torch, plain, 20), cuda_ms(torch, sharded, 20)]
+        for quant in ("none", "int8"):
+            flat = DescriptorBank(IndexConfig(dim=SHARD_D, capacity=MAP_N,
+                                              top_k=MAP_K, quantize=quant),
+                                  device="cuda")
+            flat.add(rows)
+            bank = ShardedBank(None, SHARD_D, MAP_N, quantize=quant,
+                               device="cuda")
+            bank.add(rows)
+            a, b = flat.query(queries, MAP_K), bank.query(queries, MAP_K)
+            check(np.array_equal(a[1], b[1]) and np.array_equal(a[0], b[0]),
+                  f"[shard] ShardedBank {quant} differs from DescriptorBank")
+            rec[f"ShardedBank {quant}"] = [
+                host_ms(torch, lambda: flat.query(queries, MAP_K), 20),
+                host_ms(torch, lambda: bank.query(queries, MAP_K), 20)]
+            del flat, bank
+        del rows, codes, scales, bsq
+        torch.cuda.empty_cache()
+
+        city, cq, _ = map_rows(torch, CITY_N, cfg.index.dim, seed + 1)
+        ivf = IVFBank(cfg.index.dim, 1024, 256, 32, quantize="int8",
+                      device="cuda")
+        ivf.train(city[:IVF_TRAIN].cpu().numpy(),
+                  torch.Generator().manual_seed(seed), iters=10)
+        ivf.add(city.cpu().numpy())
+        sharded_ivf = ShardedIVF(None, ivf)
+        a, b = ivf.query_device(cq, MAP_K), sharded_ivf.query_device(cq, MAP_K)
+        check(torch.equal(a[1], b[1]) and torch.equal(a[0], b[0]),
+              "[shard] ShardedIVF differs from IVFBank")
+        rec["IVF int8 (city)"] = [
+            cuda_ms(torch, lambda: ivf.query_device(cq, MAP_K), 20),
+            cuda_ms(torch, lambda: sharded_ivf.query_device(cq, MAP_K), 20)]
+        del city, ivf, sharded_ivf
+
+        flat_bank = loc.bank
+        want = [loc.locate(*q) for q in qs]
+        t_flat = host_ms(torch, lambda: loc.locate(*qs[0]), 5)
+        try:
+            loc.shard_bank(None)
+            got = [loc.locate(*q) for q in qs]
+            t_shard = host_ms(torch, lambda: loc.locate(*qs[0]), 5)
+        finally:
+            loc.bank = flat_bank
+        dxy = same_results("[shard] shard_bank locate vs locate", got,
+                              want)
+        rec["locate, host-stats map"] = [t_flat, t_shard]
+    finally:
+        dist.destroy_process_group()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank0.npz")
+        t0 = time.perf_counter()
+        mp.spawn(shard_rank, args=(free_port(), MAP_N, seed, out), nprocs=2,
+                 join=True)
+        spawn_s = time.perf_counter() - t0
+        two = dict(np.load(out))
+    rows, queries, _ = map_rows(torch, MAP_N, SHARD_D, seed)
+    codes, scales, bsq = quantize_rows(rows)
+    world2 = {"device": str(two["device"]), "seconds": spawn_s}
+    if "refused" in two:
+        world2["gloo_refused_cuda"] = str(two["refused"])
+    for quant, want in (("none", l2_topk(queries, rows, MAP_K)),
+                        ("int8", l2_topk_int8(queries, codes, scales, bsq,
+                                              MAP_K))):
+        check(int(two[f"{quant}_rows"]) == MAP_N // 2,
+              f"[shard] world 2: a rank holds {two[f'{quant}_rows']} rows")
+        firm, err = same_ids_where_gapped(
+            f"[shard] world 2 {quant}", (two[f"{quant}_d2"],
+                                         two[f"{quant}_id"]),
+            _host(want[0]), _host(want[1]), SHARD_TOL)
+        world2[quant] = {"query_ms": float(two[f"{quant}_ms"]),
+                         "ids_held": firm, "max_d2_err": err}
+    rec["world 2 (gloo)"] = world2
+    del rows, codes, scales, bsq
+    torch.cuda.empty_cache()
+    times = "; ".join(f"{k} {v[0]:.4f} → {v[1]:.4f} ms"
+                      for k, v in rec.items() if isinstance(v, list))
+    print(f"[shard] world size 1 (NCCL) on {card}: every sharded call = its "
+          f"unsharded one (ids equal, distances bit-equal; locate ranked, "
+          f"xy_yaw {dxy:.1e}); unsharded → sharded: {times}")
+    print(f"[shard] world size 2 (gloo, two spawned ranks on one card, "
+          f"{MAP_N // 2} rows each, tensors on {world2['device']}"
+          + (f"; gloo refused CUDA tensors: {world2['gloo_refused_cuda']}"
+             if "gloo_refused_cuda" in world2 else "")
+          + f"): ids equal where the distances lie {SHARD_TOL} apart "
+          f"({world2['none']['ids_held']} / {world2['int8']['ids_held']} of "
+          f"{8 * MAP_K}, fp32 / int8), distances within "
+          f"{world2['none']['max_d2_err']:.1e} / "
+          f"{world2['int8']['max_d2_err']:.1e}; query "
+          f"{world2['none']['query_ms']:.3f} / {world2['int8']['query_ms']:.3f}"
+          f" ms (host clock, rank 0); spawn to join {spawn_s:.1f} s")
+    return rec
+
+
 DEVICE_CLASSES = (  # kernel-name fragment → class, first match wins
     ("segment_sum_sorted_kernel", "K1"), ("pillar_bin_sums", "K2"),
     ("xmma", "conv/matmul"), ("conv", "conv/matmul"), ("gemm", "conv/matmul"),
@@ -2053,22 +2263,20 @@ def phase_i2i_fused(torch, cfg, centroids, lq_set, card):
           "host_mirror=False kept images on the host")
     fused = [loc.locate_fused(i, origin=o) for i, o in zip(q_img, q_org)]
     check_located("i2i-fused", fused, kf_poses, q_poses, cfg.index.top_k)
-    d0, _ = same_results("i2i bf16 locate vs locate_fused",
+    d0 = same_results("i2i bf16 locate vs locate_fused",
                          [loc.locate(i, origin=o)
                           for i, o in zip(q_img, q_org)], fused)
     loc32 = serving(i2i_model(torch, cfg, "float32", centroids))
     r_loc = [loc32.locate(i, origin=o) for i, o in zip(q_img, q_org)]
     r_batch = loc32.locate_batch(q_img, origins=q_org)
     r_fused = [loc32.locate_fused(i, origin=o) for i, o in zip(q_img, q_org)]
-    d1, _ = same_results("i2i fp32 locate vs locate_batch", r_loc, r_batch,
-                         ranked=False)
-    d2, _ = same_results("i2i fp32 locate vs locate_fused", r_loc, r_fused,
-                         ranked=False)
+    d1 = same_results("i2i fp32 locate vs locate_batch", r_loc, r_batch)
+    d2 = same_results("i2i fp32 locate vs locate_fused", r_loc, r_fused)
     print(f"[i2i-fused] locate = locate_fused on the bf16 map (max |diff| "
           f"{d0:.2e}); fp32 map: locate = locate_batch = locate_fused for "
           f"{len(qs)}/{len(qs)} queries ({sum(r.success for r in r_loc)} "
-          f"localized; same db_index and candidate set), xy_yaw max |diff| "
-          f"{d1:.2e} / {d2:.2e} (bound 1e-4)")
+          f"localized; same db_index and candidates, ranked), xy_yaw max "
+          f"|diff| {d1:.2e} / {d2:.2e} (bound 1e-4)")
 
     img, org = q_img[0], q_org[0]
 
@@ -2830,7 +3038,7 @@ def phase_eval(torch, cfg, world, card, dev: str = "cuda"):
         _, batched, _ = run_eval(loc, ds)
         single = [loc.locate(ds.q_inputs[i], ds.q_masks[i])
                   for i in range(nq)]
-        worst, _ = same_results("[eval] evaluator vs locate", batched,
+        worst = same_results("[eval] evaluator vs locate", batched,
                                 single)
         print(f"[eval] (a) fp32 host stats: the evaluator's {nq} results = "
               f"locate's query by query (success, keyframe, ranked "
@@ -2845,7 +3053,7 @@ def phase_eval(torch, cfg, world, card, dev: str = "cuda"):
                 cfg, m, device=torch.device(d), host_stats=True), sub,
                 batch=4)
         (r_dev, q_dev, _), (r_cpu, q_cpu, t_cpu) = runs[dev], runs["cpu"]
-        worst, _ = same_results("[eval] card vs CPU", q_dev, q_cpu,
+        worst = same_results("[eval] card vs CPU", q_dev, q_cpu,
                                 xy_tol=1e-3)
         check(r_dev.failed_detect_indices == r_cpu.failed_detect_indices
               and r_dev.failed_registration_indices
@@ -2992,13 +3200,12 @@ def cli_call(argv, stdin=None, stdout=None):
     return out.getvalue().strip().splitlines(), seconds
 
 
-def same_json(tag, got, want, ranked=True, xy_tol=1e-4):
-    """Two result JSONs: success and keyframe equal, the same candidates
-    (ranked, or as a set), translation within xy_tol m."""
-    cands = ((got["candidates"] == want["candidates"]) if ranked else
-             sorted(got["candidates"]) == sorted(want["candidates"]))
+def same_json(tag, got, want, xy_tol=1e-4):
+    """Two result JSONs: success and keyframe equal, the same candidates in
+    the same order, translation within xy_tol m."""
     check(got["success"] == want["success"]
-          and got["db_index"] == want["db_index"] and cands,
+          and got["db_index"] == want["db_index"]
+          and got["candidates"] == want["candidates"],
           f"{tag}: {got} != {want}")
     if "translation" in want:
         d = float(np.abs(np.subtract(got["translation"],
@@ -3141,21 +3348,15 @@ def phase_cli(torch, cfg, world, card):
             loc = GlobalLocalizer(cfg, served, device=dev, **kw)
             loc.load(p[key])
             live[key] = cli._result_json(loc.locate(pts[0], mask[0]))
-            # K2's float atomics reorder near-tied keyframes between two
-            # extractions: the aligned map's candidates compare as a set
-            d = same_json(f"[cli] 3. query {key}", got, live[key],
-                          ranked=key == "idx_hs")
+            d = same_json(f"[cli] 3. query {key}", got, live[key])
             check(n >= 1, f"[cli] query {key}: no kernel launch")
             if key == "idx_hs":
                 k1 += n
             else:
                 k2 += n
-            swapped = sum(a != b for a, b in zip(got["candidates"],
-                                                 live[key]["candidates"]))
             print(f"[cli] 3. query {' '.join(flags)}: {json.dumps(got)} = "
                   f"locate on the loaded map (keyframe, candidates "
-                  f"{'ranked' if key == 'idx_hs' else 'as a set'}, "
-                  f"{swapped} ranks swapped; translation within {d:.2e} m, "
+                  f"ranked; translation within {d:.2e} m, "
                   f"bound 1e-4); {times[f'query {key}']:.2f} s in-process "
                   f"(localizer, map load, query)")
 
@@ -3293,7 +3494,7 @@ def phase_cli(torch, cfg, world, card):
               f"alone (no models, pipeline or config imported) reloaded "
               f"both blobs onto the card: K2 launches {fresh_k2}, "
               f"descriptors within {max(errs):.2e} of the live model's "
-              f"(bound 1e-5; K2's float atomics rule out bit-equality)")
+              f"(bound 1e-5)")
 
         # 7. query --from-export = the live query (fp32, aligned map)
         res = {}
@@ -3310,10 +3511,10 @@ def phase_cli(torch, cfg, world, card):
                 k2 += bs.pillar_bin_sums.launches
             res[key] = json.loads(lines[-1])
         d = same_json("[cli] 7. query --from-export", res["export"],
-                      res["live"], ranked=False)
+                      res["live"])
         print(f"[cli] 7. query --from-export (CPU blob on the card) = the "
               f"live fp32 query on the aligned map (keyframe, candidates "
-              f"as a set, translation within {d:.2e} m); in-process "
+              f"ranked, translation within {d:.2e} m); in-process "
               f"{times['query export']:.2f} s vs "
               f"{times['query live']:.2f} s live")
         # the exported against the live descriptor forward, warm
@@ -3893,7 +4094,7 @@ def kernel_device_ms(torch, fn, frag: str, iters: int, flush=None,
     (after three untraced ones): the wrapper's host work, its fills and its
     checks are out of it. With ``flush`` the L2 cache is overwritten before
     each call. A trace is complete when it holds ``per_call`` kernel names
-    (each of K1 and K2 launches two kernels a call), each ``iters`` times.
+    (K1 launches two kernels a call, K2 four), each ``iters`` times.
     A trace's first events now and then go missing (late in a full smoke
     more often), so each trace records a second run of the calls after a
     profiler warm-up run (``schedule(warmup=1, active=1)``), and up to
@@ -4009,9 +4210,11 @@ def phase_kernel_times(torch, card, k1_cases, k2_cases):
             # version accumulates in fp64): a sanity bound, not a tolerance
             check(lib_err < 1e-3, f"{key} library call {label} disagrees "
                   f"with the plain version: {lib_err:.3e} of L1 mass")
-            warm = kernel_device_ms(torch, lambda: launch(*args), frag, 20)
+            per_call = 2 if key == "K1" else 4
+            warm = kernel_device_ms(torch, lambda: launch(*args), frag, 20,
+                                    per_call=per_call)
             cold = kernel_device_ms(torch, lambda: launch(*args), frag, 20,
-                                    flush)
+                                    flush, per_call=per_call)
             r = {"shape": list(args[0].shape),
                  "kernel_only_ms": cold[0], "kernel_only_warm_ms": warm[0],
                  "wrapper_ms": cuda_ms(torch, lambda: wrapper(*args), 50),
@@ -4034,11 +4237,13 @@ def phase_kernel_times(torch, card, k1_cases, k2_cases):
             def timed(t, cache):
                 return (f"{t[0]:.4f} ms {cache}" if t[0] is not None else
                         f"not measured {cache} (no complete trace in six: "
-                        f"the fullest kept {t[1]:g} of 2 kernels a call)")
+                        f"the fullest kept {t[1]:g} of {per_call} "
+                        f"kernels a call)")
 
             kernel = (f"kernel only {timed(cold, 'L2-flushed')} / "
-                      f"{timed(warm, 'L2-warm')} (torch.profiler, both "
-                      f"kernels of every traced call)")
+                      f"{timed(warm, 'L2-warm')} (torch.profiler, all "
+                      f"{per_call} kernels of every traced call, not the "
+                      f"fills)")
             if cold[0] is not None:
                 r[f"{second}_ms"] = sum(ms for name, ms in cold[1].items()
                                         if second in name)
@@ -4773,15 +4978,18 @@ def phase_pose_train(torch, world, card, steps: int = 25):
 def phase_pose_train_reference(torch, cfg, batch, gt, n_pts: int = 16384):
     """One fp32 pose step, card against CPU, from the same weights at a
     16 384-point pad: loss within rtol 1e-4, gradients within twice the
-    CPU's own floor. The card changes the order of K2's float atomics and
-    of every reduction at once, so the floor is the largest of four CPU
-    reruns that change only orders of summation: mkldnn convolutions off;
+    CPU's own floor. The card sums in other orders than the CPU in every
+    convolution and reduction (K2's exact integer sums round once, as the
+    plain version's float64 sums do, but the features it bins differ in
+    their last bits), so the floor is the largest of four CPU reruns that
+    change only orders of summation: mkldnn convolutions off;
     every cloud's rows (and mask) permuted, which reorders the pillar sums
     and the PointNet BatchNorm's statistics; and the rows permuted on one
     thread without mkldnn, and on three threads, which reorders every
-    reduction. (On an H100 the card read 9.2e-3-1.0e-2 from the CPU, where
+    reduction. (On an H100 the card read 9.2e-3-1.0e-2 from the CPU with
+    K2 v2's float atomics and 9.1e-3-9.8e-3 with v3's integer sums, where
     mkldnn off or permuted rows alone moved the CPU by 2.1e-3-6.2e-3 and
-    the thread count by 1.1e-2-1.8e-2.)
+    the thread count by 1.1e-2-1.9e-2: K2 never set the floor.)
 
     A control shows the bound still fails a wrong step: the same step on
     the card with the convolutions and matmuls in bf16 must lie beyond
@@ -4867,9 +5075,10 @@ def phase_packed(torch, world, card):
     """[packed]: one full-pad scan through the port's PointPillar (K2),
     PointPillarPacked (pack_points + K2) and PointPillarSorted (the host
     pass + K1), one fp32 state dict: the pillar means within 1e-5 of the
-    largest of PointPillar's (K2's float atomics leave pillars other than
-    pillar 0 non-bit-equal, and the sorted path's centre-relative
-    statistics change per-point features in their last bits), the outputs
+    largest of PointPillar's (K2 v3's sums depend on no row order, so the
+    packed path came out bit-equal on an H100; the sorted path's
+    centre-relative statistics change per-point features in their last
+    bits), the outputs
     within 1e-4 of their largest element; forward times; K1 / K2
     launches."""
     from gloc3d_tpu_torch import PipelineConfig
@@ -5010,6 +5219,14 @@ def main(argv) -> int:
         print(json.dumps({"card": card,
                           "cli": phase_cli(torch, cfg, world, card)[0]}))
         return 0
+    if "--shard" in argv:
+        phase_build()
+        lq_set = located_world_scans(world, cfg.voxel.max_points)
+        centroids = vlad_centroids(torch, cfg, lq_set[0][1][:4])
+        loc, _, qs, _ = phase_located_query(torch, cfg, lq_set, centroids)
+        print(json.dumps({"card": card, "shard": phase_shard(
+            torch, card, cfg, loc, qs, seed)}))
+        return 0
     kf_set, q_set = aligned_world_scans(world, cfg.voxel.max_points)
     phase_build()
     centroids = vlad_centroids(torch, cfg, kf_set[2][:4])
@@ -5041,7 +5258,9 @@ def main(argv) -> int:
     phase_fused_reference(torch, cfg, lq_set, centroids)
     map_scale = phase_map_scale(torch, card, seed)
     city = phase_city(torch, cfg, centroids, card, flat_ms)
-    print(json.dumps({"card": card, "map_scale": map_scale, "city": city}))
+    shard = phase_shard(torch, card, cfg, loc, qs, seed)
+    print(json.dumps({"card": card, "map_scale": map_scale, "city": city,
+                      "shard": shard}))
 
     phase_timing(torch, cfg, loc, kf, qs, card)
     phase_aligned_timing(torch, cfg, a_loc, q_set[2], card)

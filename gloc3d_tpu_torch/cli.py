@@ -103,7 +103,7 @@ def _no_mesh(args):
     if getattr(args, "dp_devices", 1) > 1:
         raise NotImplementedError(
             "--dp-devices: data-parallel extraction over several cards is "
-            "not ported yet (ROADMAP Queue 1, item 16)")
+            "not ported yet (ROADMAP Queue 1, item 16b)")
 
 
 def cmd_preprocess(args):
@@ -689,7 +689,7 @@ def main(argv=None):
     sp.add_argument("--align-ground", action="store_true")
     sp.add_argument("--dp-devices", type=int, default=1,
                     help="data-parallel extraction over this many devices "
-                         "(not ported yet: ROADMAP item 16; only 1)")
+                         "(not ported yet: ROADMAP item 16b; only 1)")
     common(sp)
     sp.set_defaults(fn=cmd_build_index)
 

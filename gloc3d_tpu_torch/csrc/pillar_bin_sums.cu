@@ -34,7 +34,9 @@
 //     largest biased exponent e of a finite |x| over the pillar's rows by
 //     atomicMax, with flags for NaN, +inf and -inf above it by atomicOr (a
 //     max after a flag leaves the flag, a flag after a max keeps both); the
-//     row count by an int atomicAdd. Pillar 0's per-block fp32 partials are
+//     row count by an int atomicAdd. A key is read before its atomics,
+//     which are skipped where they would not change it (most rows of a
+//     pillar share their exponents). Pillar 0's per-block fp32 partials are
 //     stored here, as in v2.
 //  2. Sums: every row of pillar p >= 1 adds llrint(x * 2^s) into an int64
 //     accumulator, where |x| < 2^t, t = max(e, 1) - 126, and s = 62 - lg - t
@@ -144,10 +146,14 @@ __device__ __forceinline__ double scale_of(unsigned key, int lg) {
   return (key & FLAGS) ? 0.0 : pow2(scale_exp(key, lg));
 }
 
+// Keys only grow (max, or), so a value read here is at most the key's
+// value: the atomics are skipped only where they would change nothing.
 __device__ __forceinline__ void flush_key(unsigned* k, unsigned e,
                                           unsigned f) {
-  if (f) atomicOr(k, f);
-  if (e) atomicMax(k, e);
+  if (!e && !f) return;
+  const unsigned seen = __ldcg(k);
+  if (f & ~seen) atomicOr(k, f);
+  if (e > seen) atomicMax(k, e);
 }
 
 __device__ __forceinline__ void add_term(unsigned long long* p, float x,

@@ -26,8 +26,14 @@ column: up to 8 × the multiply-adds of the batched product, but the
 candidate rows, which set the time, are read once. ``train`` takes the
 port's k-means draws (a ``torch.Generator``, or ``seed_draws`` to replay
 JAX's): torch cannot replay a JAX key, so a map the port trains gets other
-centroids than JAX's for the same rows. The mesh-sharded ``ShardedIVF`` is
-ROADMAP Queue 1 item 16 (multi-GPU).
+centroids than JAX's for the same rows.
+
+``ShardedIVF`` (JAX's ``ShardedIVF``) spreads the cells over the ranks of
+a ``torch.distributed`` process group on the cell axis (see
+``parallel/sharding.py`` for how a mesh maps onto a group): the centroids
+are replicated and must hold the same bits on every rank; each rank routes
+every query, scans only the probed cells it owns and keeps its local top-k,
+and one all-gather merges the ranks' candidates.
 """
 
 from __future__ import annotations
@@ -36,23 +42,25 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gloc3d_tpu_torch.core.device import resolve_device
 from gloc3d_tpu_torch.index.kmeans import kmeans
 from gloc3d_tpu_torch.ops.topk import (
     int8_dots, l2_topk, quantize_rows, select_topk,
 )
+from gloc3d_tpu_torch.parallel.sharding import (
+    gather_merge, group_shape, same_on_every_rank,
+)
 
 NO_LIMIT = 2**31 - 1
 _ROUTE_CHUNK = 131072
 
 
-def _probe(centroids: torch.Tensor, q32: torch.Tensor, nprobe: int,
-           *tables: torch.Tensor):
-    """The probed cells of each query, nearest first, and each table
-    (C, P, …) gathered at them as (Q, nprobe · P, …)."""
-    _, probe = l2_topk(q32, centroids, nprobe)          # (Q, nprobe)
-    qn = q32.shape[0]
+def _gathered(probe: torch.Tensor, *tables: torch.Tensor):
+    """Each table (C, P, …) gathered at the (Q, nprobe) cells ``probe`` as
+    (Q, nprobe · P, …)."""
+    qn = probe.shape[0]
     return [t[probe].reshape((qn, -1) + t.shape[2:]) for t in tables]
 
 
@@ -71,16 +79,13 @@ def select_ids(d2: torch.Tensor, cand_ids: torch.Tensor, k: int
     return d2, torch.where(torch.isfinite(d2), picked, -1)
 
 
-def _ivf_dists(centroids, cells, bsq, cell_ids, queries, nprobe: int,
-               limit: int = NO_LIMIT):
-    """The distance pass over fp32 cells: (dists² (Q, M), ids (Q, M)) of
-    the M = nprobe · P probed slots."""
-    q32 = queries.float()
-    cand, cand_sq, cand_ids = _probe(centroids, q32, nprobe, cells, bsq,
-                                     cell_ids)
+def _cell_dists(probe, cells, bsq, cell_ids, q32):
+    """fp32 cells (C, P, D) with norms and ids (C, P), scanned at the
+    probed cells ``probe`` (Q, nprobe) → (dists² (Q, M), ids (Q, M)) of the
+    M = nprobe · P slots, unmasked."""
+    cand, cand_sq, cand_ids = _gathered(probe, cells, bsq, cell_ids)
     dots = torch.bmm(cand, q32[:, :, None])[..., 0]     # (Q, M)
-    d2 = (q32 * q32).sum(1)[:, None] - 2.0 * dots + cand_sq
-    return _masked(d2, cand_ids, limit)
+    return (q32 * q32).sum(1)[:, None] - 2.0 * dots + cand_sq, cand_ids
 
 
 def _batched_int8_dots(cand: torch.Tensor, qq: torch.Tensor
@@ -97,19 +102,33 @@ def _batched_int8_dots(cand: torch.Tensor, qq: torch.Tensor
     return torch.cat(out)
 
 
-def _ivf_dists_int8(centroids, cells_q, scales, bsq, cell_ids, queries,
-                    nprobe: int, limit: int = NO_LIMIT):
-    """``_ivf_dists`` over int8 cells with per-row scales (C, P): routing
-    in fp32, the cross term an exact int8 product, JAX's order of
-    operations after it."""
-    q32 = queries.float()
-    cand, cand_sc, cand_sq, cand_ids = _probe(
-        centroids, q32, nprobe, cells_q, scales, bsq, cell_ids)
+def _cell_dists_int8(probe, cells_q, scales, bsq, cell_ids, q32):
+    """``_cell_dists`` over int8 cells with per-row scales (C, P): the cross
+    term an exact int8 product, JAX's order of operations after it."""
+    cand, cand_sc, cand_sq, cand_ids = _gathered(
+        probe, cells_q, scales, bsq, cell_ids)
     qq, q_scale, q_sq = quantize_rows(q32)
     idots = _batched_int8_dots(cand, qq)                # (Q, M) int32
     dots = idots.float() * (q_scale[:, None] * cand_sc)
-    d2 = q_sq[:, None] - 2.0 * dots + cand_sq
-    return _masked(d2, cand_ids, limit)
+    return q_sq[:, None] - 2.0 * dots + cand_sq, cand_ids
+
+
+def _scan(cells, bsq, scales, cell_ids, q32, probe):
+    """The distance pass over the cells ``probe``, fp32 cells or int8 ones
+    (``scales`` not None)."""
+    if scales is None:
+        return _cell_dists(probe, cells, bsq, cell_ids, q32)
+    return _cell_dists_int8(probe, cells, scales, bsq, cell_ids, q32)
+
+
+def _ivf_dists(centroids, cells, bsq, cell_ids, queries, nprobe: int,
+               limit: int = NO_LIMIT, scales=None):
+    """The distance pass: routing in fp32 to the ``nprobe`` nearest cells,
+    then (dists² (Q, M), ids (Q, M)) of their slots, empty and excluded
+    ones at +inf. ``scales`` (C, P) marks int8 cells."""
+    q32 = queries.float()
+    _, probe = l2_topk(q32, centroids, nprobe)          # (Q, nprobe)
+    return _masked(*_scan(cells, bsq, scales, cell_ids, q32, probe), limit)
 
 
 def _ivf_query(centroids: torch.Tensor, cells: torch.Tensor,
@@ -128,8 +147,8 @@ def _ivf_query_int8(centroids: torch.Tensor, cells_q: torch.Tensor,
                     nprobe: int, limit: int = NO_LIMIT
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_ivf_query`` over int8 cells with per-row scales (C, P)."""
-    return select_ids(*_ivf_dists_int8(centroids, cells_q, scales, bsq,
-                                       cell_ids, queries, nprobe, limit), k)
+    return select_ids(*_ivf_dists(centroids, cells_q, bsq, cell_ids,
+                                  queries, nprobe, limit, scales), k)
 
 
 class IVFBank:
@@ -309,10 +328,8 @@ class IVFBank:
         q = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32,
                                              device=self.device))
         cells, bsq, scales, ids = self.device_arrays()
-        if self.quantize == "int8":
-            return _ivf_dists_int8(self.centroids, cells, scales, bsq, ids,
-                                   q, nprobe, limit)
-        return _ivf_dists(self.centroids, cells, bsq, ids, q, nprobe, limit)
+        return _ivf_dists(self.centroids, cells, bsq, ids, q, nprobe, limit,
+                          scales)
 
     def query_device(self, queries, k: int = 20,
                      nprobe: Optional[int] = None,
@@ -368,3 +385,113 @@ class IVFBank:
         bank._sizes = d["sizes"].copy()
         bank._total = int(d["total"])
         return bank
+
+
+class ShardedIVF:
+    """An ``IVFBank`` spread over the ranks of ``mesh`` (a process group,
+    None for the default one) on its CELL axis.
+
+    The centroids are replicated: every rank routes a query to the same
+    ``nprobe`` cells, so the constructor refuses centroids whose bits
+    differ between ranks (train on one rank and ``broadcast``, or from the
+    same rows, seed and device on each). Rank r holds cells [r · C/P,
+    (r + 1) · C/P) of the cells, norms, scales and ids on the inner
+    bank's device. A query scans the probed cells a rank owns (exactly one
+    rank owns each), the others' slots at +inf, keeps the rank's top-k,
+    and one all-gather merges them: ids whose merged distance is +inf read
+    -1, distances are clamped at 0. The results equal the unsharded
+    ``IVFBank``'s but where distances tie exactly across ranks (the
+    earliest rank wins there, as in JAX's ``ShardedIVF``).
+
+    ``add`` ingests into the inner bank's host mirror and marks the shards
+    dirty; the next query uploads the rank's cells again (build once,
+    query many: an add on a sharded map costs an upload of the shard).
+    Every method is SPMD: every rank calls it with the same arguments."""
+
+    def __init__(self, mesh, inner: IVFBank):
+        if inner.centroids is None:
+            raise RuntimeError("ShardedIVF needs a trained IVFBank")
+        world, rank = group_shape(mesh)
+        if inner.num_cells % world != 0:
+            raise ValueError(f"num_cells {inner.num_cells} not divisible by "
+                             f"mesh size {world}")
+        if not same_on_every_rank(mesh, inner.centroids):
+            raise RuntimeError("ShardedIVF: the ranks hold different "
+                               "centroids; broadcast one rank's before "
+                               "adding rows")
+        self.mesh = mesh
+        self.inner = inner
+        self.dim = inner.dim
+        cps = inner.num_cells // world
+        self._cells = slice(rank * cps, (rank + 1) * cps)
+        self._first_cell = rank * cps
+        self._dirty = True
+
+    def __len__(self) -> int:
+        return len(self.inner)
+
+    @property
+    def centroids(self) -> torch.Tensor:
+        return self.inner.centroids
+
+    def add(self, feats) -> None:
+        self.inner.add(feats)
+        self._dirty = True
+
+    def _refresh(self) -> None:
+        """This rank's cells, norms, scales and ids on the device, uploaded
+        again after an add."""
+        if not self._dirty:
+            return
+        self._dev = None  # free the old shard before the new upload
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(
+                a[self._cells])).to(self.inner.device)
+
+        inner = self.inner
+        self._dev = (dev(inner._cells), dev(inner._bsq),
+                     dev(inner._scales) if inner.quantize == "int8"
+                     else None, dev(inner._ids))
+        self._dirty = False
+
+    def query_device(self, queries, k: int = 20,
+                     nprobe: Optional[int] = None,
+                     exclude_after: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Top-k over the probed cells of every rank → (dists² (Q, k), ids
+        (Q, k) int64, -1 for inf-distance filler) on the device, the same
+        on every rank; ids ≥ ``exclude_after`` are hidden in the scan."""
+        self._refresh()
+        nprobe = min(nprobe or self.inner.nprobe, self.inner.num_cells)
+        limit = NO_LIMIT if exclude_after is None else max(exclude_after, 0)
+        q32 = torch.atleast_2d(torch.as_tensor(
+            queries, dtype=torch.float32, device=self.inner.device))
+        cells, bsq, scales, ids = self._dev
+        cps = cells.shape[0]
+        _, probe = l2_topk(q32, self.centroids, nprobe)  # global cell ids
+        local = probe - self._first_cell
+        mine = (local >= 0) & (local < cps)
+        d2, cand = _scan(cells, bsq, scales, ids, q32, local.clamp(0, cps - 1))
+        d2, cand = _masked(torch.where(
+            mine.repeat_interleave(cells.shape[1], 1), d2, torch.inf), cand,
+            limit)
+        d2, sel = torch.sort(d2, dim=-1, stable=True)   # unclamped, as JAX
+        d2, idx = gather_merge(self.mesh, d2[:, :k],
+                               torch.gather(cand, 1, sel[:, :k]), k)
+        return d2, torch.where(torch.isfinite(d2), idx, -1)
+
+    def query(self, queries, k: int = 20, nprobe: Optional[int] = None,
+              exclude_after: Optional[int] = None
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """``query_device`` with the results on the host: (dists² (Q, k),
+        ids (Q, k) int32)."""
+        d2, idx = self.query_device(queries, k, nprobe, exclude_after)
+        return d2.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
+
+    def save(self, path: str) -> None:
+        """The inner index in JAX's npz format (every rank holds the whole
+        host mirror): rank 0 writes, every rank returns after a barrier."""
+        if group_shape(self.mesh)[1] == 0:
+            self.inner.save(path)
+        dist.barrier(group=self.mesh)

@@ -53,10 +53,16 @@ seeded by its (dx, dy, yaw), projected back to (dx, dy, yaw).
 ``match_keyframe`` registers a query against one chosen keyframe, the SLAM
 loop's verify step.
 
-Sharding the IVF bank raises ``NotImplementedError`` naming its ROADMAP
-item (16). ``device_sort`` is a TPU-only strategy that the port leaves
-out, and so are the JAX package's ``row_gather`` and the bucket padding of
-``locate_batch``, which only bound XLA shapes.
+``shard_bank`` spreads the bank over the ranks of a ``torch.distributed``
+process group (a JAX mesh, ``parallel/sharding.py``): the flat bank's rows
+(``ShardedBank``) or the IVF index's cells (``index/ivf.py::ShardedIVF``).
+Every rank then runs the localizer on the same calls (SPMD); ``locate``,
+``locate_batch``, ``detect``, ``add_keyframes`` and ``save`` work on a
+sharded bank, ``locate_fused`` refuses one. Sharded extraction, keyframe
+store and spatial partition raise ``NotImplementedError`` naming their
+ROADMAP items (16b, 16c). ``device_sort`` is a TPU-only strategy that the
+port leaves out, and so are the JAX package's ``row_gather`` and the bucket
+padding of ``locate_batch``, which only bound XLA shapes.
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gloc3d_tpu_torch.core.device import resolve_device
 from gloc3d_tpu_torch.core.transforms import (
@@ -74,12 +81,13 @@ from gloc3d_tpu_torch.core.transforms import (
 from gloc3d_tpu_torch.data import native
 from gloc3d_tpu_torch.eval.registration import compose_6dof
 from gloc3d_tpu_torch.index.bank import DescriptorBank
-from gloc3d_tpu_torch.index.ivf import IVFBank
+from gloc3d_tpu_torch.index.ivf import IVFBank, ShardedIVF
 from gloc3d_tpu_torch.models.encoders import is_image_encoder
 from gloc3d_tpu_torch.ops.bev import BEVImage, batch_scan_to_bev
 from gloc3d_tpu_torch.ops.bev_match import MatchResult, match_bev_topk
 from gloc3d_tpu_torch.ops.ground import GroundEstimate, estimate_ground
 from gloc3d_tpu_torch.ops.refine import icp_point_to_point
+from gloc3d_tpu_torch.parallel.sharding import ShardedBank, group_shape
 
 
 class Keyframe(NamedTuple):
@@ -111,6 +119,45 @@ def _not_ported(option: str, item: str) -> NotImplementedError:
 
 def _numpy(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class _ShardedBankAdapter:
+    """DescriptorBank-shaped facade over the ``ShardedBank``, so that the
+    localizer's API (``add_keyframes``, SLAM ``exclude_recent`` queries,
+    ``truncate``, ``save``) keeps working after ``shard_bank``."""
+
+    sharded = True
+
+    def __init__(self, inner: ShardedBank, cfg):
+        self._inner = inner
+        self.cfg = cfg
+        self.dim = inner.dim
+        self.mesh = inner.mesh
+
+    def __len__(self) -> int:
+        return len(self._inner)
+
+    def add(self, feats) -> None:
+        self._inner.add(feats)
+
+    def query(self, queries, k: Optional[int] = None,
+              exclude_recent: bool = False):
+        exclude_after = (len(self._inner) - self.cfg.num_exclude_recent
+                         if exclude_recent else None)
+        return self._inner.query(queries, k or self.cfg.top_k,
+                                 exclude_after=exclude_after)
+
+    def truncate(self, n: int) -> None:
+        self._inner.truncate(min(n, len(self._inner)))
+
+    def save(self, path: str) -> None:
+        """The flat ``bank.npz`` an unsharded ``DescriptorBank`` reloads
+        (the rows gathered from every rank, dequantized in int8 mode): rank
+        0 writes, every rank returns after a barrier."""
+        rows = self._inner.to_host()
+        if group_shape(self.mesh)[1] == 0:
+            np.savez(path, bank=rows, dim=self.dim, cfg=self.cfg.to_json())
+        dist.barrier(group=self.mesh)
 
 
 class _IVFBankAdapter:
@@ -157,15 +204,29 @@ class _IVFBankAdapter:
                 drop = 0
         self._size = n
 
+    @property
+    def sharded(self) -> bool:
+        return isinstance(self._ivf, ShardedIVF)
+
+    @property
+    def mesh(self):
+        return self._ivf.mesh
+
+    def _train(self) -> None:
+        """Fit the quantizer on a sample of the buffered rows, once."""
+        if self._ivf.centroids is not None or not self._pending:
+            return
+        batch = np.concatenate(self._pending)
+        sample = batch[np.random.RandomState(0).permutation(len(batch))[
+            : self.cfg.ivf_train_sample]]
+        self._ivf.train(sample, torch.Generator().manual_seed(0))
+
     def _flush(self) -> None:
         if not self._pending:
             return
+        self._train()
         batch = np.concatenate(self._pending)
         self._pending = []
-        if self._ivf.centroids is None:
-            sample = batch[np.random.RandomState(0).permutation(len(batch))[
-                : self.cfg.ivf_train_sample]]
-            self._ivf.train(sample, torch.Generator().manual_seed(0))
         self._ivf.add(batch)
 
     def _limit(self, exclude_recent: bool) -> Optional[int]:
@@ -187,7 +248,18 @@ class _IVFBankAdapter:
                                exclude_after=self._limit(exclude_recent))
 
     def shard(self, mesh) -> None:
-        raise _not_ported("sharding the IVF bank", "item 16")
+        """Spread the cells over the ranks of ``mesh`` (``ShardedIVF``);
+        queries keep the unsharded results. An index trained here takes
+        rank 0's centroids on every rank before it ingests the buffered
+        rows: k-means on the card may end in other bits on each rank."""
+        if self._ivf.centroids is None and self._pending:
+            self._train()
+            src = 0 if mesh is None else dist.get_global_rank(mesh, 0)
+            dist.broadcast(self._ivf.centroids, src=src, group=mesh)
+        self._flush()
+        if self._ivf.centroids is None:
+            raise RuntimeError("cannot shard an untrained/empty IVF index")
+        self._ivf = ShardedIVF(mesh, self._ivf)
 
     def save(self, path: str) -> None:
         self._flush()
@@ -562,6 +634,39 @@ class GlobalLocalizer:
         d2, idx = self.bank.query(desc, k=self.cfg.index.top_k)
         return d2, idx, bev, ground
 
+    def shard_bank(self, mesh=None) -> None:
+        """Spread the descriptor bank over the ranks of the process group
+        ``mesh`` (None: the default group), after the db build. Flat
+        backend: its rows (``ShardedBank``, capacity ``max(capacity,
+        ranks)``, fp32 or int8 as configured; an int8 bank is re-quantized
+        from its dequantized rows, as JAX does). IVF backend: its cells
+        (``ShardedIVF``). Every rank calls it, and then every query, with
+        the same arguments; results equal the unsharded bank's."""
+        if isinstance(self.bank, _IVFBankAdapter):
+            self.bank.shard(mesh)
+            return
+        if not isinstance(self.bank, DescriptorBank):
+            raise TypeError(
+                "shard_bank migrates a flat DescriptorBank or an IVF "
+                f"backend; current backend is {type(self.bank).__name__}")
+        world, _ = group_shape(mesh)
+        sharded = ShardedBank(mesh, dim=self.bank.dim,
+                              capacity=max(self.bank._capacity, world),
+                              quantize=self.cfg.index.quantize,
+                              device=self.device)
+        if len(self.bank):
+            sharded.add(self.bank.data)
+        self.bank = _ShardedBankAdapter(sharded, self.cfg.index)
+
+    def shard_extraction(self, mesh=None, axis: str = "data") -> None:
+        raise _not_ported("data-parallel extraction", "item 16b")
+
+    def shard_keyframes(self, mesh=None, axis: str = "data") -> None:
+        raise _not_ported("sharding the keyframe store", "item 16c")
+
+    def shard_spatial(self, mesh=None, axis: str = "data") -> None:
+        raise _not_ported("spatial sharding", "item 16c")
+
     def _candidates(self, rows):
         """Keyframes ``rows`` (numpy or a device tensor of indices) as a
         float image stack (K, S, S) and origins (K, 2) on the device: one
@@ -707,6 +812,9 @@ class GlobalLocalizer:
         if self.cfg.match.refine_icp:
             raise RuntimeError("locate_fused does not compose with "
                                "match.refine_icp (use locate)")
+        if getattr(self.bank, "sharded", False):
+            raise RuntimeError("locate_fused does not search a sharded bank "
+                               "(shard_bank); use locate or locate_batch")
         desc, bev, ground = self.extract(*_one(points, mask, origin))
         d2, idx = self.bank.query_device(desc, k=self.cfg.index.top_k)
         rows = idx[0].clamp(0, max(len(self.bank) - 1, 0))
@@ -722,9 +830,20 @@ class GlobalLocalizer:
         ``origins``, ``ground_q`` / ``ground_t`` when any keyframe has a
         ground frame, and ``clouds`` when every keyframe has an ICP cloud)
         and ``config.json``. With ``host_mirror=False`` the images are
-        rebuilt from the device store, 256 rows at a time."""
+        rebuilt from the device store, 256 rows at a time. With a sharded
+        bank every rank calls it; the bank is gathered, rank 0 writes the
+        files, and every rank returns after a barrier."""
         os.makedirs(out_dir, exist_ok=True)
         self.bank.save(os.path.join(out_dir, "bank.npz"))
+        if getattr(self.bank, "sharded", False):
+            if group_shape(self.bank.mesh)[1] == 0:
+                self._save_map(out_dir)
+            dist.barrier(group=self.bank.mesh)
+        else:
+            self._save_map(out_dir)
+
+    def _save_map(self, out_dir: str) -> None:
+        """``keyframes.npz`` and ``config.json`` of ``save``."""
         n = len(self.keyframes)
         if self.host_mirror:
             images = np.stack([k.image for k in self.keyframes])

@@ -89,7 +89,7 @@ class Trainer:
         (N, S, S, 3) images and no masks.
       workdir: checkpoints, ``config.json`` and ``history.json``.
       seed: seed of the trainer's generator (default ``cfg.train.seed``).
-      mesh: data-parallel training is not ported yet (ROADMAP item 16).
+      mesh: data-parallel training is not ported yet (ROADMAP item 16b).
       trainable_mask: optional ``{parameter name: bool}``; False freezes the
         parameter (``requires_grad=False``, left out of the optimizer).
       device: where the model, caches and steps run (default ``cuda``;
@@ -102,7 +102,7 @@ class Trainer:
                  device=None):
         if mesh is not None:
             raise _not_ported("Trainer(mesh=...) data-parallel training",
-                              "item 16")
+                              "item 16b")
         if cfg.model.fold_bn:
             raise ValueError("training needs live BatchNorm: build the "
                              "model with fold_bn=False")

@@ -133,7 +133,8 @@ def test_unported_options_raise(kwargs, cfg_change, item):
     cfg = CFG.replace(**cfg_change) if cfg_change else CFG
     with pytest.raises(NotImplementedError, match=item):
         loc = GlobalLocalizer(cfg, model, device="cpu", **kwargs)
-        loc.bank.shard(None)  # the IVF bank builds; its sharding waits
+        loc.shard_keyframes(None)  # the IVF bank builds; the store's
+        # sharding waits (item 16c)
 
 
 def test_host_stats_default_matches_jax():
@@ -205,8 +206,10 @@ def test_port_runs_without_jax():
     the IVF index with int8 cells, ``locate`` with the ICP polish and
     ``match_keyframe``, an i2i fused query on a 64² BEV image, and a
     sweep's BEV matched into a two-sweep submap), a training epoch on
-    each path, an i2i train step under the freeze mask and a pose train
-    step with jax, flax and the JAX package blocked: the port never
+    each path, an i2i train step under the freeze mask, a pose train
+    step and a sharded-bank query over a one-rank gloo group (the
+    ``parallel`` package) with jax, flax and the JAX package blocked: the
+    port never
     needs JAX, and no module it loads and no shared library it maps lies
     under gloc3d_tpu/ or native/."""
     script = textwrap.dedent("""
@@ -427,6 +430,22 @@ def test_port_runs_without_jax():
         loss = pose.pose_train_step(st, (pb[0], pb[1], pb[0], pb[1]),
                                     np.zeros((2, 6), np.float32))
         assert np.isfinite(float(loss))
+
+        # the sharded search: one query over a gloo group of one rank
+        import socket
+        import torch.distributed as dist
+        from gloc3d_tpu_torch import parallel
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=1, rank=0)
+        rows = torch.from_numpy(rng.randn(64, 16).astype(np.float32))
+        bank = parallel.ShardedBank(None, 16, 64, device="cpu")
+        bank.add(rows)
+        d2, idx = bank.query(rows[5:7], k=3)
+        assert idx[:, 0].tolist() == [5, 6] and d2[:, 0].max() < 1e-4, idx
+        dist.destroy_process_group()
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
         repo = os.getcwd()
