@@ -244,8 +244,7 @@ Phases, each printing its own lines:
      = its unsharded locate, ranked. World size 2 over gloo: two ranks
      spawned with torch.multiprocessing on the one card, 500 000 rows each,
      ids equal to the unsharded call's wherever neighbouring distances lie
-     1e-5 apart (CPU tensors, said so, where gloo refuses CUDA ones). The
-     sharded times beside the unsharded ones.
+     1e-5 apart. The sharded times beside the unsharded ones.
 The kernel-only times of phase 17 come from complete traces only (every
 kernel of every traced call: K1 launches two a call, K2 four); a timing
 with none in six traces prints that it was not measured.
@@ -1687,8 +1686,7 @@ def shard_rank(rank: int, port: int, n: int, seed: int, out: str) -> None:
     """One of [shard]'s two gloo ranks (torch.multiprocessing spawn), both
     on the one card: each makes [map-scale]'s n rows from ``seed``, keeps
     its half in a ShardedBank (fp32, then int8) and answers the 8 queries;
-    rank 0 writes the results and the host-clock ms per query to ``out``.
-    Where gloo refuses CUDA tensors the ranks say so and take CPU tensors."""
+    rank 0 writes the results and the host-clock ms per query to ``out``."""
     import datetime
 
     import torch
@@ -1704,28 +1702,18 @@ def shard_rank(rank: int, port: int, n: int, seed: int, out: str) -> None:
     try:
         rows, queries, _ = map_rows(torch, n, SHARD_D, seed)
         rec = {}
-        for device in ("cuda", "cpu"):
-            try:
-                for quant in ("none", "int8"):
-                    bank = ShardedBank(None, SHARD_D, n, quantize=quant,
-                                       device=device)
-                    bank.add(rows)
-                    q = queries.to(device)
-                    bank.query(q, MAP_K)
-                    t0 = time.perf_counter()
-                    for _ in range(5):
-                        d2, idx = bank.query(q, MAP_K)
-                    rec[f"{quant}_ms"] = (time.perf_counter() - t0) / 5 * 1e3
-                    rec[f"{quant}_d2"], rec[f"{quant}_id"] = d2, idx
-                    rec[f"{quant}_rows"] = bank._bank.shape[0]
-                    del bank
-                rec["device"] = device
-                break
-            except RuntimeError as e:
-                if device == "cpu":
-                    raise
-                rec["refused"] = f"{type(e).__name__}: {e}"[:400]
-                torch.cuda.synchronize()
+        for quant in ("none", "int8"):
+            bank = ShardedBank(None, SHARD_D, n, quantize=quant,
+                               device="cuda")
+            bank.add(rows)
+            bank.query(queries, MAP_K)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                d2, idx = bank.query(queries, MAP_K)
+            rec[f"{quant}_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+            rec[f"{quant}_d2"], rec[f"{quant}_id"] = d2, idx
+            rec[f"{quant}_rows"] = bank._bank.shape[0]
+            del bank
         if rank == 0:
             np.savez(out, **rec)
     finally:
@@ -1846,9 +1834,7 @@ def phase_shard(torch, card, cfg, loc, qs, seed: int = 0):
         two = dict(np.load(out))
     rows, queries, _ = map_rows(torch, MAP_N, SHARD_D, seed)
     codes, scales, bsq = quantize_rows(rows)
-    world2 = {"device": str(two["device"]), "seconds": spawn_s}
-    if "refused" in two:
-        world2["gloo_refused_cuda"] = str(two["refused"])
+    world2 = {"seconds": spawn_s}
     for quant, want in (("none", l2_topk(queries, rows, MAP_K)),
                         ("int8", l2_topk_int8(queries, codes, scales, bsq,
                                               MAP_K))):
@@ -1869,10 +1855,8 @@ def phase_shard(torch, card, cfg, loc, qs, seed: int = 0):
           f"unsharded one (ids equal, distances bit-equal; locate ranked, "
           f"xy_yaw {dxy:.1e}); unsharded → sharded: {times}")
     print(f"[shard] world size 2 (gloo, two spawned ranks on one card, "
-          f"{MAP_N // 2} rows each, tensors on {world2['device']}"
-          + (f"; gloo refused CUDA tensors: {world2['gloo_refused_cuda']}"
-             if "gloo_refused_cuda" in world2 else "")
-          + f"): ids equal where the distances lie {SHARD_TOL} apart "
+          f"{MAP_N // 2} rows each, CUDA tensors): ids equal where the "
+          f"distances lie {SHARD_TOL} apart "
           f"({world2['none']['ids_held']} / {world2['int8']['ids_held']} of "
           f"{8 * MAP_K}, fp32 / int8), distances within "
           f"{world2['none']['max_d2_err']:.1e} / "
@@ -4247,9 +4231,18 @@ def phase_kernel_times(torch, card, k1_cases, k2_cases):
             if cold[0] is not None:
                 r[f"{second}_ms"] = sum(ms for name, ms in cold[1].items()
                                         if second in name)
+                # each launch by its name without the namespace and the
+                # parameter list, e.g. pillar_bin_sums_wide<2, 1, true>
+                r["by_kernel_ms"] = {
+                    name.replace("(anonymous namespace)::", "").split("(")[0]
+                    .removeprefix("void "): ms
+                    for name, ms in cold[1].items()}
                 kernel += (f", of it the {second} launch "
                            f"{r[f'{second}_ms']:.4f} ms flushed, "
-                           f"{r['bound_ms'] / cold[0]:.1%} of the bound")
+                           f"{r['bound_ms'] / cold[0]:.1%} of the bound; "
+                           f"by launch " + ", ".join(
+                               f"{n} {ms:.4f}"
+                               for n, ms in r["by_kernel_ms"].items()))
             print(f"[kernel-times] {key} {label} {tuple(args[0].shape)} on "
                   f"{card}: {kernel}; bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}); wrapper "

@@ -424,7 +424,6 @@ class ShardedIVF:
         self.dim = inner.dim
         cps = inner.num_cells // world
         self._cells = slice(rank * cps, (rank + 1) * cps)
-        self._first_cell = rank * cps
         self._dirty = True
 
     def __len__(self) -> int:
@@ -470,7 +469,7 @@ class ShardedIVF:
         cells, bsq, scales, ids = self._dev
         cps = cells.shape[0]
         _, probe = l2_topk(q32, self.centroids, nprobe)  # global cell ids
-        local = probe - self._first_cell
+        local = probe - self._cells.start
         mine = (local >= 0) & (local < cps)
         d2, cand = _scan(cells, bsq, scales, ids, q32, local.clamp(0, cps - 1))
         d2, cand = _masked(torch.where(

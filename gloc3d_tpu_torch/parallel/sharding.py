@@ -54,12 +54,17 @@ def all_gather(mesh, x: torch.Tensor) -> torch.Tensor:
     return out.view((world,) + x.shape)
 
 
+def broadcast_rank0(mesh, x: torch.Tensor) -> None:
+    """Overwrite ``x`` on every rank with the group's rank 0's."""
+    src = 0 if mesh is None else dist.get_global_rank(mesh, 0)
+    dist.broadcast(x, src=src, group=mesh)
+
+
 def same_on_every_rank(mesh, x: torch.Tensor) -> bool:
     """Whether ``x`` holds the same bits on every rank (every rank gets
     the same answer)."""
     ref = x.clone()
-    src = 0 if mesh is None else dist.get_global_rank(mesh, 0)
-    dist.broadcast(ref, src=src, group=mesh)
+    broadcast_rank0(mesh, ref)
     ok = torch.tensor([int(torch.equal(ref, x))], device=x.device)
     dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=mesh)
     return bool(ok.item())

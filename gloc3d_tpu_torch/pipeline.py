@@ -87,7 +87,9 @@ from gloc3d_tpu_torch.ops.bev import BEVImage, batch_scan_to_bev
 from gloc3d_tpu_torch.ops.bev_match import MatchResult, match_bev_topk
 from gloc3d_tpu_torch.ops.ground import GroundEstimate, estimate_ground
 from gloc3d_tpu_torch.ops.refine import icp_point_to_point
-from gloc3d_tpu_torch.parallel.sharding import ShardedBank, group_shape
+from gloc3d_tpu_torch.parallel.sharding import (
+    ShardedBank, broadcast_rank0, group_shape,
+)
 
 
 class Keyframe(NamedTuple):
@@ -254,8 +256,7 @@ class _IVFBankAdapter:
         rows: k-means on the card may end in other bits on each rank."""
         if self._ivf.centroids is None and self._pending:
             self._train()
-            src = 0 if mesh is None else dist.get_global_rank(mesh, 0)
-            dist.broadcast(self._ivf.centroids, src=src, group=mesh)
+            broadcast_rank0(mesh, self._ivf.centroids)
         self._flush()
         if self._ivf.centroids is None:
             raise RuntimeError("cannot shard an untrained/empty IVF index")
