@@ -212,8 +212,10 @@ Phases, each printing its own lines:
      NetVLAD centroids saved as a port checkpoint (ckpt.pt) that every
      subcommand loads with --checkpoint: (1) gen-split = [eval]'s split;
      (2) build-index with host stats and the device store (K1) and with
-     --align-ground --device-keyframes --no-host-mirror (K2); (3) query
-     on each = locate in this process on the loaded map (db_index,
+     --align-ground --device-keyframes --no-host-mirror (K2); (2b)
+     build-index --dp-devices 2 (two gloo ranks spawned on the card, fp32,
+     host stats) = --dp-devices 1 (keyframes equal, descriptors 1e-5);
+     (3) query on each = locate in this process on the loaded map (db_index,
      candidates ranked, translation within 1e-4 m); (4) one query as a
      fresh `python -m gloc3d_tpu_torch.cli` process: its cold start split
      into process start to imports, localizer built, index load, first
@@ -245,6 +247,22 @@ Phases, each printing its own lines:
      spawned with torch.multiprocessing on the one card, 500 000 rows each,
      ids equal to the unsharded call's wherever neighbouring distances lie
      1e-5 apart. The sharded times beside the unsharded ones.
+ 26. [dp], after [shard]: data parallelism (Trainer(mesh=...),
+     GlobalLocalizer.shard_extraction) in fp32 with TF32 off. One step on
+     the fixed batch of 24 scans (122 480 points) or 24 768² images on
+     each case (s2s all-device: K2 forward and backward; s2s host stats:
+     K1; ResNet18 i2i under its freeze mask, BatchNorm in the encoder),
+     from the same weights as the unsharded trainer's step: world size 1
+     over NCCL in this process and world size 2 over gloo (two ranks
+     spawned by gloc3d_tpu_torch/parallel/launch.py, sharing the card),
+     each held to the unsharded step (loss rtol 1e-4, the gradients within
+     DP_GRAD_TOL of their norm, beside the unsharded step's own change on
+     its batch reversed), the world-2 parameters bit-equal on both
+     ranks; shard_extraction of the located map's 16 keyframes, host stats
+     and all-device, = the unsharded extract (descriptors 1e-5, BEV
+     bit-equal); K1 / K2 launches of each path; host-clock ms of the step
+     and of the extraction at world sizes 1 and 2 beside the unsharded
+     ones.
 The kernel-only times of phase 17 come from complete traces only (every
 kernel of every traced call: K1 launches two a call, K2 four); a timing
 with none in six traces prints that it was not measured.
@@ -253,6 +271,7 @@ with none in six traces prints that it was not measured.
 `python3 chip_smoke.py --eval` phases 1, 2 and 23 only;
 `python3 chip_smoke.py --cli` phases 1, 2 and 24 only;
 `python3 chip_smoke.py --shard` phases 1, 2, 5 and 25 only;
+`python3 chip_smoke.py --dp` phases 1, 2 and 26 only;
 `--i2i-train`, `--pose-train` and `--packed` run phases 1, 2 and the
 phase (or phases) named, alone;
 `--seed N` seeds the map-scale rows (default 0).
@@ -1866,6 +1885,401 @@ def phase_shard(torch, card, cfg, loc, qs, seed: int = 0):
     return rec
 
 
+DP_ENCODER = "resnet18"  # [dp]'s i2i case: a zoo encoder with BatchNorm
+# The DP step's gradients against the unsharded step's, all together,
+# relative to their norm. A step's gradients are chaotic in fp32: on a CPU
+# rehearsal (4096-point pad, ResNet18 at 128²) summing the batch in another
+# order moved them by 0.2-0.9e-2, and BatchNorm's statistics taken in
+# float64, as the DP path takes them, by 2.8e-2 (s2s) and 5.4e-2 (i2i);
+# a per-rank BatchNorm or loss normaliser moves the updates by 0.7-1.6 of
+# their norm (tests/test_torch_dp.py).
+DP_GRAD_TOL = 0.2
+DP_TIMED = 3             # timed _train_batch calls after one warm-up
+
+
+def dp_cases(cfg):
+    """[dp]'s train configurations, fp32 (TF32 off): the [train] phase's
+    s2s model on the all-device and host-stats paths, and the [i2i-train]
+    zoo's ResNet18 at 768² (BatchNorm in the encoder) under its freeze
+    mask, margin 10."""
+    from gloc3d_tpu_torch import PipelineConfig
+
+    s2s = cfg.replace(
+        model=cfg.model.replace(fold_bn=False, compute_dtype="float32"),
+        train=cfg.train.replace(cache_refresh_rate=N_TRAIN_Q))
+    i2i = PipelineConfig.i2i(DP_ENCODER)
+    i2i = i2i.replace(model=i2i.model.replace(compute_dtype="float32"),
+                      train=i2i.train.replace(cache_refresh_rate=N_TRAIN_Q,
+                                              margin=10.0))
+    return {"all-device": s2s.replace(train=s2s.train.replace(
+                host_stats=False)),
+            "host-stats": s2s.replace(train=s2s.train.replace(
+                host_stats=True)),
+            "i2i": i2i}
+
+
+def dp_datasets(torch, cases, world):
+    """The training world's scans (training_dataset) for the s2s cases and
+    their 768² BEVs (i2i_training_dataset) for the i2i case."""
+    s2s = training_dataset(world, cases["all-device"].voxel.max_points)
+    return {"all-device": s2s, "host-stats": s2s,
+            "i2i": i2i_training_dataset(torch, cases["i2i"], world)}
+
+
+def dp_batch(torch, ds, cfg, s2s: bool, reverse: bool = False):
+    """The fixed mined batch of [dp]'s steps: queries 0-1, each one's
+    nearest db scan as its positive and its first n_neg db scans beyond
+    20 m as its negatives, the last negative slot of query 1 padding, and a
+    fixed yaw (s2s); with ``reverse``, the queries and each query's
+    negatives in reverse order (the same step, summed in another order).
+    → step arguments, and for the host-stats path the concatenated batch
+    with the queries rotated, as _train_batch bins it."""
+    from gloc3d_tpu_torch.train.trainer import draw_aug_yaw, rotate_clouds_z
+
+    b, n_neg = cfg.train.batch_size, cfg.train.n_neg
+    order = np.arange(b)[::-1] if reverse else np.arange(b)
+    dist = np.linalg.norm(ds.utm_q[order, None] - ds.utm_db[None], axis=-1)
+    pos = dist.argmin(1)
+    negs = np.stack([np.flatnonzero(d > 20.0)[:n_neg] for d in dist])
+    nv = np.ones((b, n_neg), np.float32)
+    nv[order == 1, -1] = 0.0
+    if reverse:
+        negs, nv = negs[:, ::-1], nv[:, ::-1]
+    neg = negs.reshape(-1)
+    nv = np.ascontiguousarray(nv)
+    qv = np.ones(b, np.float32)
+    if not s2s:
+        return {"step": (ds.q_inputs[order], None, ds.db_inputs[pos], None,
+                         ds.db_inputs[neg], None, nv, qv)}
+    yaw = draw_aug_yaw(torch.Generator().manual_seed(1), b)[order.copy()]
+    q, qm = ds.q_inputs[order], ds.q_masks[order]
+    rotated = rotate_clouds_z(torch.from_numpy(q), yaw).numpy()
+    return {"step": (q, qm, ds.db_inputs[pos], ds.db_masks[pos],
+                     ds.db_inputs[neg], ds.db_masks[neg], nv, qv, yaw),
+            "cat": np.concatenate([rotated, ds.db_inputs[pos],
+                                   ds.db_inputs[neg]]),
+            "catm": np.concatenate([qm, ds.db_masks[pos], ds.db_masks[neg]]),
+            "nv": nv, "qv": qv}
+
+
+def dp_initial_state(torch, key, cfg, ds):
+    """The case's initial weights on the CPU: the [train] phase's model
+    (seeded, NetVLAD from the db scans) or the [i2i-train] zoo's."""
+    if key == "i2i":
+        with tempfile.TemporaryDirectory() as workdir:
+            tr, _ = i2i_trainer(torch, cfg, ds, workdir, "cuda")
+        model = tr.model
+    else:
+        model = training_model(torch, cfg, ds, "cuda")
+    return {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+
+
+def dp_trainer(torch, key, cfg, ds, state, workdir, device, mesh=None):
+    from gloc3d_tpu_torch.models.descriptor import build_model
+    from gloc3d_tpu_torch.models.encoders import train_mask
+    from gloc3d_tpu_torch.train import Trainer
+
+    model = build_model(cfg.model, cfg.voxel)
+    model.load_state_dict(state)
+    kw = ({"trainable_mask": train_mask(model, cfg.model.encoder)}
+          if key == "i2i" else {})
+    return Trainer(cfg, model, ds, workdir, device=device, mesh=mesh, **kw)
+
+
+def dp_step(torch, key, tr, batch):
+    """One step of ``tr`` on the fixed batch (the whole batch, on every
+    rank) → (loss, {parameter: gradient} on the CPU, (K1, K2) launches)."""
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+
+    ss.segment_sum_sorted.launches = bs.pillar_bin_sums.launches = 0
+    if key == "host-stats":
+        loss = tr.train_step_hs(*tr._host_sorted(batch["cat"],
+                                                 batch["catm"]),
+                                batch["nv"], batch["qv"])
+    else:
+        loss = tr.train_step(*batch["step"])
+    loss = float(loss)
+    launches = (ss.segment_sum_sorted.launches, bs.pillar_bin_sums.launches)
+    grads = {k: p.grad.detach().cpu().clone()
+             for k, p in tr.model.named_parameters() if p.grad is not None}
+    return loss, grads, launches
+
+
+def dp_step_ms(torch, tr, ds):
+    """Host-clock ms of _train_batch (mining, gather, the rank's host pass
+    if any, upload, forward, backward, gradient all-reduce, SGD) on queries
+    0-1 from one feature cache: median of DP_TIMED after a warm-up."""
+    cache_db = tr.compute_cache(ds.db_inputs, ds.db_masks)
+    cache_q = tr.compute_cache(ds.q_inputs, ds.q_masks)
+    b = tr.cfg.train.batch_size
+    times = []
+    for i in range(DP_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(tr._train_batch(np.arange(b), cache_db, cache_q) is not None,
+              "[dp] the timed batch took no step")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def dp_localizers(torch, cfg, state, device):
+    """The fp32 folded serving model (state) in a host-stats and an
+    all-device localizer."""
+    from gloc3d_tpu_torch.models.descriptor import build_model
+    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
+
+    out = {}
+    for key, host_stats in (("host-stats", True), ("all-device", False)):
+        model = build_model(cfg.model.replace(fold_bn=True,
+                                              compute_dtype="float32"),
+                            cfg.voxel)
+        model.load_state_dict(state)
+        out[key] = GlobalLocalizer(cfg, model, device=device,
+                                   host_stats=host_stats)
+    return out
+
+
+def dp_extract(torch, loc, kf):
+    """extract of the keyframe batch → (descriptors, BEV images) on the
+    CPU, host-clock ms (median of 3 after a warm-up), (K1, K2) launches of
+    one call."""
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+
+    pts = np.stack([k[0] for k in kf])
+    mask = np.stack([k[1] for k in kf])
+    ss.segment_sum_sorted.launches = bs.pillar_bin_sums.launches = 0
+    desc, bev, _ = loc.extract(pts, mask)
+    launches = (ss.segment_sum_sorted.launches, bs.pillar_bin_sums.launches)
+    img = bev.image.cpu().numpy() if hasattr(bev.image, "cpu") else bev.image
+    ms = host_ms(torch, lambda: loc.extract(pts, mask), 3)
+    return desc.float().cpu().numpy(), np.asarray(img), ms, launches
+
+
+def dp_rank(rank: int, n: int, device, tmp: str) -> None:
+    """One of [dp]'s two gloo ranks on the one card (parallel/launch.py):
+    the three DP steps and the two DP extractions of phase_dp on the same
+    inputs, rebuilt from the world's seed, and the weights the parent
+    wrote; rank 0 writes the results."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from gloc3d_tpu_torch import PipelineConfig
+    from gloc3d_tpu_torch.parallel.sharding import same_on_every_rank
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = PipelineConfig.s2s()
+    cases = dp_cases(cfg)
+    world = make_world()
+    datasets = dp_datasets(torch, cases, world)
+    rec = {}
+    mesh = dist.group.WORLD
+    for key, c in cases.items():
+        ds = datasets[key]
+        state = torch.load(os.path.join(tmp, f"{key}.pt"))
+        with tempfile.TemporaryDirectory() as workdir:
+            tr = dp_trainer(torch, key, c, ds, state, workdir, device, mesh)
+            loss, grads, launches = dp_step(
+                torch, key, tr, dp_batch(torch, ds, c, key != "i2i"))
+            flat = torch.cat([p.detach().reshape(-1)
+                              for p in tr.model.parameters()])
+            rec[f"{key}_same"] = same_on_every_rank(mesh, flat)
+            rec[f"{key}_loss"], rec[f"{key}_launches"] = loss, launches
+            for k, g in grads.items():
+                rec[f"{key}_grad/{k}"] = g.numpy()
+            rec[f"{key}_ms"] = dp_step_ms(torch, tr, ds)
+            del tr
+        torch.cuda.empty_cache()
+    state = torch.load(os.path.join(tmp, "serve.pt"))
+    kf = located_world_scans(world, cfg.voxel.max_points)[0][1]
+    for key, loc in dp_localizers(torch, cfg, state, device).items():
+        loc.shard_extraction(mesh)
+        (rec[f"x_{key}_desc"], rec[f"x_{key}_image"], rec[f"x_{key}_ms"],
+         rec[f"x_{key}_launches"]) = dp_extract(torch, loc, kf)
+    if rank == 0:
+        np.savez(os.path.join(tmp, "rank0.npz"), **rec)
+    dist.barrier()
+
+
+def grad_diff(torch, got, want):
+    """The difference of two steps' gradients, all trainable tensors
+    together, relative to ``want``'s norm; and the worst tensor's relative
+    to its own norm, with its name."""
+    diff = torch.cat([(got[k] - want[k]).reshape(-1) for k in want])
+    ref = torch.cat([want[k].reshape(-1) for k in want])
+    worst, name = max((float((got[k] - want[k]).norm() / want[k].norm()), k)
+                      for k in want)
+    return float(diff.norm() / ref.norm()), worst, name
+
+
+def dp_grad_err(torch, tag, got, want):
+    """The DP step's gradients against the unsharded step's, all together,
+    within DP_GRAD_TOL of their norm. The worst tensor's error is returned
+    beside it (a BatchNorm bias whose gradient the next BatchNorm cancels
+    is rounding noise)."""
+    check(set(got) == set(want), f"{tag}: gradients of other parameters")
+    err = grad_diff(torch, got, want)
+    check(err[0] <= DP_GRAD_TOL, f"{tag}: gradients {err[0]:.2e} of their "
+          f"norm from the unsharded step's (bound {DP_GRAD_TOL})")
+    return err
+
+
+def phase_dp(torch, card, cfg, world, centroids):
+    """[dp]: data-parallel training and extraction on the card, at the
+    shapes of the train phases (24 scans of 122 480 points or 24 ResNet18
+    images at 768² a step) and of the located map (16 keyframes), in fp32
+    with TF32 off. World size 1 over NCCL in this process: one step of
+    Trainer(mesh=group) on each case against the unsharded trainer's step
+    from the same weights on the same batch (loss rtol 1e-4, the gradients
+    within DP_GRAD_TOL of their norm, beside the unsharded step's own
+    change on its batch reversed), and shard_extraction against
+    the unsharded extract (descriptors 1e-5, BEV bit-equal), host stats
+    and all-device. World size 2 over gloo, two spawned ranks on the one
+    card: the same steps and extractions, the parameters bit-equal on both
+    ranks. K1 / K2 launches of each, and host-clock ms of the step
+    (_train_batch) and of the extraction beside the unsharded ones."""
+    import torch.distributed as dist
+
+    from gloc3d_tpu_torch.parallel.data import require_group
+    from gloc3d_tpu_torch.parallel.launch import spawn
+
+    t_phase = time.perf_counter()
+    cases = dp_cases(cfg)
+    datasets = dp_datasets(torch, cases, world)
+    kf = located_world_scans(world, cfg.voxel.max_points)[0][1]
+    serve = build_serving_model(torch, cfg, "float32", centroids).state_dict()
+    rec = {"steps": {}, "extract": {}}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        want = {}
+        for key, c in cases.items():
+            ds = datasets[key]
+            state = dp_initial_state(torch, key, c, ds)
+            torch.save(state, os.path.join(tmp, f"{key}.pt"))
+            batch = dp_batch(torch, ds, c, key != "i2i")
+            with tempfile.TemporaryDirectory() as workdir:
+                tr = dp_trainer(torch, key, c, ds, state, workdir, "cuda")
+                want[key] = dp_step(torch, key, tr, batch)[:2]
+                rec["steps"][key] = {"unsharded_ms": dp_step_ms(torch, tr,
+                                                                ds)}
+                tr = dp_trainer(torch, key, c, ds, state, workdir, "cuda")
+                reversed_ = dp_step(torch, key, tr, dp_batch(
+                    torch, ds, c, key != "i2i", reverse=True))[1]
+                rec["steps"][key]["floor"] = grad_diff(
+                    torch, reversed_, want[key][1])[0]
+                del tr
+            torch.cuda.empty_cache()
+        torch.save({k: v.cpu() for k, v in serve.items()},
+                   os.path.join(tmp, "serve.pt"))
+        plain = {key: dp_extract(torch, loc, kf) for key, loc in
+                 dp_localizers(torch, cfg, serve, "cuda").items()}
+
+        # world size 1: NCCL in this process
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                                f"{free_port()}", world_size=1, rank=0)
+        try:
+            mesh = require_group(None, "[dp]")
+            for key, c in cases.items():
+                ds = datasets[key]
+                state = torch.load(os.path.join(tmp, f"{key}.pt"))
+                with tempfile.TemporaryDirectory() as workdir:
+                    tr = dp_trainer(torch, key, c, ds, state, workdir,
+                                    "cuda", mesh)
+                    loss, grads, n_k = dp_step(
+                        torch, key, tr, dp_batch(torch, ds, c, key != "i2i"))
+                    check(abs(loss - want[key][0]) <= 1e-4 * abs(
+                        want[key][0]), f"[dp] world 1 {key}: loss {loss} "
+                          f"against the unsharded {want[key][0]}")
+                    step = rec["steps"][key]
+                    step["world1_grad_err"] = dp_grad_err(
+                        torch, f"[dp] world 1 {key}", grads, want[key][1])
+                    step["world1_loss"], step["unsharded_loss"] = (
+                        loss, want[key][0])
+                    step["world1_ms"] = dp_step_ms(torch, tr, ds)
+                    launches[f"dp step world 1, {key}"] = n_k
+                    del tr
+                torch.cuda.empty_cache()
+            for key, loc in dp_localizers(torch, cfg, serve, "cuda").items():
+                loc.shard_extraction(mesh)
+                desc, img, ms, n_k = dp_extract(torch, loc, kf)
+                err = float(np.abs(desc - plain[key][0]).max())
+                check(err <= 1e-5 and np.array_equal(img, plain[key][1]),
+                      f"[dp] world 1 {key} extraction: descriptors {err:.1e}"
+                      f" from the unsharded call's, BEV equal "
+                      f"{np.array_equal(img, plain[key][1])}")
+                rec["extract"][key] = {"unsharded_ms": plain[key][2],
+                                       "world1_ms": ms, "world1_err": err}
+                launches[f"dp extraction world 1, {key}"] = n_k
+        finally:
+            dist.destroy_process_group()
+
+        # world size 2: two gloo ranks spawned on the one card
+        t0 = time.perf_counter()
+        spawn(dp_rank, 2, "cuda", args=(tmp,))
+        spawn_s = time.perf_counter() - t0
+        two = dict(np.load(os.path.join(tmp, "rank0.npz")))
+    for key in cases:
+        check(bool(two[f"{key}_same"]),
+              f"[dp] world 2 {key}: parameters differ across the ranks")
+        loss = float(two[f"{key}_loss"])
+        check(abs(loss - want[key][0]) <= 1e-4 * abs(want[key][0]),
+              f"[dp] world 2 {key}: loss {loss} against {want[key][0]}")
+        grads = {k[len(key) + 6:]: torch.from_numpy(v) for k, v in
+                 two.items() if k.startswith(f"{key}_grad/")}
+        step = rec["steps"][key]
+        step["world2_grad_err"] = dp_grad_err(torch, f"[dp] world 2 {key}",
+                                              grads, want[key][1])
+        step["world2_loss"] = loss
+        step["world2_ms"] = float(two[f"{key}_ms"])
+        launches[f"dp step world 2 (rank 0), {key}"] = tuple(
+            int(x) for x in two[f"{key}_launches"])
+    for key in ("host-stats", "all-device"):
+        err = float(np.abs(two[f"x_{key}_desc"] - plain[key][0]).max())
+        same = np.array_equal(two[f"x_{key}_image"], plain[key][1])
+        check(err <= 1e-5 and same, f"[dp] world 2 {key} extraction: "
+              f"descriptors {err:.1e} from the unsharded call's, BEV equal "
+              f"{same}")
+        rec["extract"][key].update(world2_ms=float(two[f"x_{key}_ms"]),
+                                   world2_err=err)
+        launches[f"dp extraction world 2 (rank 0), {key}"] = tuple(
+            int(x) for x in two[f"x_{key}_launches"])
+    for tag, (k1, k2) in launches.items():
+        host = "host-stats" in tag
+        check((k1 > 0) == host and (k2 > 0) == ("all-device" in tag),
+              f"[dp] {tag}: launches K1 {k1}, K2 {k2}")
+    rec["launches"] = {k: list(v) for k, v in launches.items()}
+    rec["spawn_s"] = spawn_s
+    for key, s in rec["steps"].items():
+        print(f"[dp] step {key} on {card}: unsharded {s['unsharded_ms']:.2f}"
+              f", world 1 (NCCL) {s['world1_ms']:.2f}, world 2 (gloo, one "
+              f"card) {s['world2_ms']:.2f} ms (host clock, _train_batch, "
+              f"median of {DP_TIMED}); loss {s['unsharded_loss']:.6f} → "
+              f"{s['world1_loss']:.6f} / {s['world2_loss']:.6f}; gradients "
+              f"{s['world1_grad_err'][0]:.2e} / {s['world2_grad_err'][0]:.2e}"
+              f" of their norm (bound {DP_GRAD_TOL}; the unsharded step's own "
+              f"change on its batch reversed {s['floor']:.2e}; worst tensor "
+              f"{s['world1_grad_err'][1]:.2e} / {s['world2_grad_err'][1]:.2e}"
+              f", {s['world2_grad_err'][2]}); world 2 parameters bit-equal "
+              f"on both ranks")
+    for key, s in rec["extract"].items():
+        print(f"[dp] extraction {key}, {len(kf)} scans, on {card}: unsharded"
+              f" {s['unsharded_ms']:.2f}, world 1 {s['world1_ms']:.2f}, "
+              f"world 2 {s['world2_ms']:.2f} ms (host clock, median of 3); "
+              f"descriptors within {max(s['world1_err'], s['world2_err']):.1e}"
+              f", BEV bit-equal")
+    print(f"[dp] launches (K1, K2): " + ", ".join(
+        f"{k} {v}" for k, v in rec["launches"].items()))
+    print(f"[dp] phase {time.perf_counter() - t_phase:.1f} s (world 2: "
+          f"spawn to join {spawn_s:.1f} s)")
+    return rec
+
+
 DEVICE_CLASSES = (  # kernel-name fragment → class, first match wins
     ("segment_sum_sorted_kernel", "K1"), ("pillar_bin_sums", "K2"),
     ("xmma", "conv/matmul"), ("conv", "conv/matmul"), ("gemm", "conv/matmul"),
@@ -3244,7 +3658,8 @@ def phase_cli(torch, cfg, world, card):
         cli_dataset(world, root, n_pad)
         p = {k: os.path.join(tmp, k) for k in (
             "split.npz", "cfg.json", "cfg32.json", "cfg_train.json",
-            "ckpt.pt", "idx_hs", "idx_al", "blob_card.pt2", "blob_cpu.pt2",
+            "ckpt.pt", "idx_hs", "idx_al", "idx_dp1", "idx_dp2",
+            "blob_card.pt2", "blob_cpu.pt2",
             "imgs", "cents.npz", "train", "eval", "trace", "inputs.npz",
             "reloaded.npz")}
         cfg32 = cfg.replace(model=cfg.model.replace(compute_dtype="float32"))
@@ -3310,6 +3725,36 @@ def phase_cli(torch, cfg, world, card):
                 k1 += n
             else:
                 k2 += n
+
+        # 2b. build-index --dp-devices 2: two gloo ranks spawned on the one
+        # card (fp32, host stats) = the same build at --dp-devices 1
+        dp_common = ["build-index", "--split", p["split.npz"], "--batch",
+                     CLI_BATCH, "--config", p["cfg32.json"], "--checkpoint",
+                     p["ckpt.pt"], "--host-stats"]
+        for key, n_dp in (("idx_dp1", 1), ("idx_dp2", 2)):
+            _, times[f"build-index {key}"] = cli_call(
+                dp_common + ["--out", p[key], "--dp-devices", n_dp])
+        one, two = ({f: dict(np.load(os.path.join(p[key], f))) for f in (
+            "bank.npz", "keyframes.npz")} for key in ("idx_dp1", "idx_dp2"))
+        n_kf = len(split.db_files)
+        err = float(np.abs(two["bank.npz"]["bank"][:n_kf]
+                           - one["bank.npz"]["bank"][:n_kf]).max())
+        same = all(np.array_equal(two["keyframes.npz"][k],
+                                  one["keyframes.npz"][k])
+                   for k in ("images", "origins"))
+        check(len(two["keyframes.npz"]["images"]) == n_kf and same
+              and err <= 1e-5, f"[cli] build-index --dp-devices 2: "
+              f"{len(two['keyframes.npz']['images'])} keyframes, images "
+              f"equal {same}, descriptors {err:.1e} from --dp-devices 1's")
+        print(f"[cli] 2b. build-index --dp-devices 2 (two gloo ranks on the "
+              f"card, fp32, host stats): {n_kf} keyframes in "
+              f"{times['build-index idx_dp2']:.2f} s (spawn included) "
+              f"against {times['build-index idx_dp1']:.2f} s at "
+              f"--dp-devices 1; keyframe images and origins equal, "
+              f"descriptors within {err:.1e}")
+        rec["build_index_dp2"] = {"seconds": times["build-index idx_dp2"],
+                                  "dp1_seconds": times["build-index idx_dp1"],
+                                  "max_desc_err": err}
 
         # 3. query on each index = locate in this process on the loaded map
         q0 = split.q_files[0]
@@ -5220,6 +5665,13 @@ def main(argv) -> int:
         print(json.dumps({"card": card, "shard": phase_shard(
             torch, card, cfg, loc, qs, seed)}))
         return 0
+    if "--dp" in argv:
+        phase_build()
+        lq_set = located_world_scans(world, cfg.voxel.max_points)
+        centroids = vlad_centroids(torch, cfg, lq_set[0][1][:4])
+        print(json.dumps({"card": card, "dp": phase_dp(
+            torch, card, cfg, world, centroids)}))
+        return 0
     kf_set, q_set = aligned_world_scans(world, cfg.voxel.max_points)
     phase_build()
     centroids = vlad_centroids(torch, cfg, kf_set[2][:4])
@@ -5254,6 +5706,9 @@ def main(argv) -> int:
     shard = phase_shard(torch, card, cfg, loc, qs, seed)
     print(json.dumps({"card": card, "map_scale": map_scale, "city": city,
                       "shard": shard}))
+    dp = phase_dp(torch, card, cfg, world, centroids)
+    print(json.dumps({"card": card, "dp": dp}))
+    dp_k = dp["launches"]
 
     phase_timing(torch, cfg, loc, kf, qs, card)
     phase_aligned_timing(torch, cfg, a_loc, q_set[2], card)
@@ -5285,7 +5740,10 @@ def main(argv) -> int:
                 "refine, host-stats": k1_refine,
                 "eval, host-stats": k1_eval,
                 "cli, host-stats": k1_cli,
-                "sorted": packed["PointPillarSorted"]["K1"]}
+                "sorted": packed["PointPillarSorted"]["K1"],
+                "dp step + extraction, host-stats, world 1":
+                    dp_k["dp step world 1, host-stats"][0]
+                    + dp_k["dp extraction world 1, host-stats"][0]}
     k2_paths = {"aligned query": k2_launches,
                 "fused query, aligned all-device": k2_fused,
                 "training, all-device": train_counts["all-device"][1],
@@ -5294,7 +5752,10 @@ def main(argv) -> int:
                 "cli, aligned": k2_cli,
                 "exported program": k2_export,
                 "pose training, all-device": pose_train["k2_launches"],
-                "packed": packed["PointPillarPacked"]["K2"]}
+                "packed": packed["PointPillarPacked"]["K2"],
+                "dp step + extraction, all-device, world 1":
+                    dp_k["dp step world 1, all-device"][1]
+                    + dp_k["dp extraction world 1, all-device"][1]}
     print(json.dumps({"kernels": [
         {"name": "segment_sum_sorted", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": sum(k1_paths.values()),

@@ -24,7 +24,7 @@ submodule such as ``gloc3d_tpu_torch.kernels.ops`` does not import the
 models or the pipeline.
 """
 
-import importlib
+from gloc3d_tpu_torch._lazy import lazy_exports
 
 _EXPORTS = {
     "BEVConfig": "config", "GroundConfig": "config", "IndexConfig": "config",
@@ -36,16 +36,4 @@ _EXPORTS = {
 }
 
 __all__ = sorted(_EXPORTS)
-
-
-def __getattr__(name):
-    if name not in _EXPORTS:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    value = getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"),
-                    name)
-    globals()[name] = value
-    return value
-
-
-def __dir__():
-    return sorted(set(globals()) | set(_EXPORTS))
+__getattr__, __dir__ = lazy_exports(__name__, _EXPORTS)

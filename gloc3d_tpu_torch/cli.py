@@ -24,8 +24,10 @@ unless given --device cpu). --checkpoint reads a JAX path-encoded or
 VGGVLAD .npz, a reference .pth.tar or the port trainer's ckpt_*.pt; the
 port reads no orbax directory. Weights not read from a checkpoint come
 from the port's seeded init (``init_params``), not from JAX's
-PRNGKey(0). Data-parallel extraction (--dp-devices > 1) is ROADMAP item
-16 and raises.
+PRNGKey(0). ``build-index --dp-devices N`` spawns N ranks of one process
+group (``parallel/launch.py``: NCCL with a card each, gloo where ranks
+share a card or with --device cpu) that extract data-parallel; rank 0
+writes the index.
 """
 
 from __future__ import annotations
@@ -97,13 +99,6 @@ def _device(args):
                               f"gloc {args.cmd}")
     except RuntimeError as e:
         raise SystemExit(f"error: {e}")
-
-
-def _no_mesh(args):
-    if getattr(args, "dp_devices", 1) > 1:
-        raise NotImplementedError(
-            "--dp-devices: data-parallel extraction over several cards is "
-            "not ported yet (ROADMAP Queue 1, item 16b)")
 
 
 def cmd_preprocess(args):
@@ -238,24 +233,70 @@ def _build_localizer(cfg, args, align_ground=False):
 
 
 def cmd_build_index(args):
+    n = args.dp_devices
+    if n == 1:
+        _build_index(args)
+    else:
+        from gloc3d_tpu_torch.parallel.launch import check_ranks, spawn
+
+        try:
+            check_ranks(n)
+        except ValueError as e:
+            raise SystemExit(f"error: --dp-devices {n}: {e}")
+        spawn(_build_index_rank, n, _device(args), args=(args,))
+    print(f"index written to {args.out}")
+    return 0
+
+
+def _build_index_rank(rank, n, device, args):
+    """One rank of ``build-index --dp-devices n`` (``parallel.launch``)."""
+    import copy
+
+    import torch.distributed as dist
+
+    args = copy.copy(args)
+    args.device = str(device)
+    _build_index(args, dist.group.WORLD)
+
+
+def _build_index(args, mesh=None):
+    """Extract the split's db scans into a map and save it. Over a process
+    group (``mesh``), as JAX's ``--dp-devices``: the extraction runs
+    data-parallel, the batch is rounded up to a multiple of the ranks and
+    the last chunk padded with empty scans, whose keyframes and bank rows
+    are dropped; rank 0 prints and writes."""
+    import torch.distributed as dist
+
     from gloc3d_tpu_torch.data.kitti import SplitIndex
     from gloc3d_tpu_torch.data.native import load_scan_batch, masks_from_counts
 
-    _no_mesh(args)
     cfg = _load_cfg(args)
     split = SplitIndex.load(args.split)
     loc = _build_localizer(cfg, args, align_ground=args.align_ground)
     b = args.batch
+    say = print
+    if mesh is not None:
+        loc.shard_extraction(mesh)
+        world = dist.get_world_size(mesh)
+        b = -(-b // world) * world
+        if dist.get_rank(mesh) != 0:
+            say = lambda *a, **k: None  # noqa: E731
     files = split.db_files
     for i in range(0, len(files), b):
         chunk = files[i : i + b]
         pts, counts = load_scan_batch(chunk, args.fmt, cfg.voxel.max_points)
         masks = masks_from_counts(counts, cfg.voxel.max_points)
+        if len(chunk) < b and mesh is not None:
+            pad = b - len(chunk)
+            pts = np.concatenate([pts, np.zeros((pad,) + pts.shape[1:],
+                                                pts.dtype)])
+            masks = np.concatenate([masks, np.zeros((pad,) + masks.shape[1:],
+                                                    masks.dtype)])
         loc.add_keyframes(pts, masks)
-        print(f"[{i+len(chunk)}/{len(files)}] indexed", flush=True)
+        loc.keyframes = loc.keyframes[: i + len(chunk)]  # drop padded tail
+        say(f"[{i+len(chunk)}/{len(files)}] indexed", flush=True)
+    loc.bank.truncate(len(files))
     loc.save(args.out)
-    print(f"index written to {args.out}")
-    return 0
 
 
 def _result_json(res) -> dict:
@@ -688,8 +729,10 @@ def main(argv=None):
     sp.add_argument("--out", required=True)
     sp.add_argument("--align-ground", action="store_true")
     sp.add_argument("--dp-devices", type=int, default=1,
-                    help="data-parallel extraction over this many devices "
-                         "(not ported yet: ROADMAP item 16b; only 1)")
+                    help="data-parallel extraction over this many ranks, "
+                         "spawned by the command (NCCL with a card each, "
+                         "gloo where they share a card or on --device cpu; "
+                         "at most one per CPU core)")
     common(sp)
     sp.set_defaults(fn=cmd_build_index)
 

@@ -160,6 +160,12 @@ def get_yaw(q: Tensor) -> Tensor:
     return torch.atan2(d[..., 1], d[..., 0])
 
 
+def get_angle(q: Tensor) -> Tensor:
+    """Non-negative rotation angle of a quaternion."""
+    return 2.0 * torch.atan2(torch.linalg.vector_norm(q[..., 1:], dim=-1),
+                             torch.abs(q[..., 0]))
+
+
 def remove_yaw(q: Tensor) -> Tensor:
     """Rz(-yaw(q)) · q: the same rotation with its ZYX yaw zeroed."""
     yaw = get_yaw(q)
@@ -242,6 +248,11 @@ class Rigid2(NamedTuple):
         x, y = points[..., 0], points[..., 1]
         return torch.stack([c * x - s * y, s * x + c * y],
                            dim=-1) + self.translation
+
+
+def project_2d(t: Rigid3) -> Rigid2:
+    """SE(3) → SE(2) on the XY plane: the yaw and the xy translation."""
+    return Rigid2(get_yaw(t.rotation), t.translation[..., :2])
 
 
 def embed_3d(t: Rigid2) -> Rigid3:

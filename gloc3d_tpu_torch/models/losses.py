@@ -18,7 +18,7 @@ Distances are ``_l2`` with the eps inside the sqrt (torch
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,13 +41,19 @@ def triplet_margin_loss(anchor: torch.Tensor, positive: torch.Tensor,
 
 def training_triplet_loss(q: torch.Tensor, pos: torch.Tensor,
                           negs: torch.Tensor, neg_mask: torch.Tensor,
-                          margin: float) -> torch.Tensor:
+                          margin: float,
+                          count: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """q, pos (B, D); negs (B, Nneg, D); neg_mask (B, Nneg) 1.0 for real
-    negatives → Σ per-pair triplet loss / max(#real negatives, 1)."""
+    negatives → Σ per-pair triplet loss / max(#real negatives, 1).
+    ``count`` replaces the number of real negatives: a data-parallel rank
+    passes the whole batch's, so the ranks' losses sum to the batch's."""
     d_pos = _l2(q, pos)[:, None]
     d_neg = _l2(q[:, None, :], negs)
     per_pair = torch.clamp_min(d_pos - d_neg + margin, 0.0) * neg_mask
-    return per_pair.sum() / torch.clamp_min(neg_mask.sum(), 1.0)
+    if count is None:
+        count = neg_mask.sum()
+    return per_pair.sum() / torch.clamp_min(count, 1.0)
 
 
 def best_pos_distance(query: torch.Tensor, pos_vecs: torch.Tensor

@@ -17,6 +17,9 @@ stack in NHWC; the (B, 512, S/16, S/16) output is permuted back for NetVLAD.
 Convs run in ``compute_dtype`` (bf16 by default, as in JAX: each conv's
 output, bias included, is rounded to bf16), the result is float32.
 
+``load_torchvision_npz`` loads the ImageNet backbone's ``.npz`` (the JAX
+package's layout, ``tools/convert_torch_checkpoint.py``) into an encoder.
+
 The JAX package's ``vgg_pack_width`` (``PackedPairConv``: the first block on
 a width-pair-packed layout) is a TPU lane trick with the canonical parameter
 tree; in fp32 it equals the plain convs up to summation order. The port
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -65,6 +69,23 @@ def trainable_mask(model: nn.Module, train_from_conv: int = 10
     prefixes = tuple(f"encoder.{i}." for i in VGG16_CONV_IDX[train_from_conv:])
     return {name: name.startswith(prefixes)
             for name, _ in model.named_parameters()}
+
+
+def load_torchvision_npz(encoder: "VGG16Encoder", npz_path: str
+                         ) -> "VGG16Encoder":
+    """Load converted torchvision VGG16 weights into ``encoder`` in place:
+    the ``.npz`` of ``tools/convert_torch_checkpoint.py`` holds
+    ``conv{i}_kernel`` (H, W, I, O) and ``conv{i}_bias`` (O,) for the 13
+    convs, in the JAX package's layout; here they become the convs at the
+    reference's ``{0, 2, …, 28}`` (O, I, H, W). Returns ``encoder``."""
+    with np.load(npz_path) as data:
+        state = {}
+        for i, li in enumerate(VGG16_CONV_IDX):
+            state[f"{li}.weight"] = torch.from_numpy(
+                data[f"conv{i}_kernel"]).permute(3, 2, 0, 1).contiguous()
+            state[f"{li}.bias"] = torch.from_numpy(data[f"conv{i}_bias"])
+    encoder.load_state_dict(state)
+    return encoder
 
 
 class VGG16Encoder(nn.Sequential):

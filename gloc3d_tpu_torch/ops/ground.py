@@ -35,7 +35,7 @@ Differences from the JAX function, each kept to its semantics:
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -112,15 +112,17 @@ def _generator_device(generator: Optional[torch.Generator]) -> torch.device:
     return torch.device("cpu") if generator is None else generator.device
 
 
-def _uniform_triplet_sampler(generator: Optional[torch.Generator] = None
+def _uniform_triplet_sampler(generator: Optional[torch.Generator] = None,
+                             uniforms: Optional[Tensor] = None
                              ) -> TripletSampler:
     """(3, H) rows drawn uniformly over ``ground_ok``, by inverse CDF of
-    uniforms from ``generator``. With no ground candidate (the estimate is
-    then invalid and discarded) it draws over all rows instead of failing."""
+    (3, H) ``uniforms``, by default drawn from ``generator``. With no ground
+    candidate (the estimate is then invalid and discarded) it draws over all
+    rows instead of failing."""
 
     def sample(ground_ok: Tensor, h: int) -> Tensor:
-        u = torch.rand((3, h), generator=generator,
-                       device=_generator_device(generator))
+        u = uniforms if uniforms is not None else torch.rand(
+            (3, h), generator=generator, device=_generator_device(generator))
         w = ground_ok | ~ground_ok.any()
         cdf = torch.cumsum(w.long(), 0)
         target = torch.floor(u.to(cdf.device).double() * cdf[-1]).long()
@@ -128,6 +130,24 @@ def _uniform_triplet_sampler(generator: Optional[torch.Generator] = None
         return torch.clamp_max(idx, ground_ok.shape[0] - 1)
 
     return sample
+
+
+def ground_draws(n: int, cfg, generator: Optional[torch.Generator] = None
+                 ) -> Tuple[Tensor, Tensor]:
+    """The draws one ``estimate_ground`` call on an n-row scan takes from
+    ``generator`` by default, in its order: the (n,) priority and the
+    (3, ``cfg.ransac_iters``) triplet uniforms. Drawn ahead for a batch, and
+    passed back through ``priority`` and ``triplets_from(uniforms)``, they
+    give each scan the numbers of the sequential calls."""
+    dev = _generator_device(generator)
+    return (torch.rand(n, generator=generator, device=dev),
+            torch.rand((3, cfg.ransac_iters), generator=generator,
+                       device=dev))
+
+
+def triplets_from(uniforms: Tensor) -> TripletSampler:
+    """The default triplet sampler on pre-drawn (3, H) ``uniforms``."""
+    return _uniform_triplet_sampler(uniforms=uniforms)
 
 
 def estimate_ground(points: Tensor, mask: Tensor, cfg,

@@ -13,6 +13,8 @@ Port of ``gloc3d_tpu/ops/voxelize.py``:
   pillar-sorted points whose statistics are sorted segment sums on kernel
   K1 (``kernels/segment_sum.py``).
 
+``pad_or_trim`` pads or trims host rows to a fixed count.
+
 Reference quirks kept: coordinates truncate toward zero (torch ``.int()``),
 ``voxel_centers`` come from the unclamped coordinates, padding and
 out-of-grid rows alias to pillar 0 (so its centroid averages them in and
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from gloc3d_tpu_torch.kernels.bin_sums import (
@@ -31,6 +34,18 @@ from gloc3d_tpu_torch.kernels.bin_sums import (
 from gloc3d_tpu_torch.kernels.segment_sum import segment_sum_sorted_grad
 
 Bound = Sequence[float]
+
+
+def pad_or_trim(x: np.ndarray, num: int, dims: Optional[int] = None,
+                pad_val: float = 0.0) -> np.ndarray:
+    """Host rows padded with ``pad_val`` or trimmed to exactly ``num``, and
+    their columns to ``dims`` (default: all)."""
+    x = np.asarray(x)
+    d = x.shape[1] if dims is None else dims
+    out = np.full((num, d), pad_val, dtype=x.dtype)
+    n, c = min(x.shape[0], num), min(x.shape[1], d)
+    out[:n, :c] = x[:n, :c]
+    return out
 
 
 def grid_shape(xbound: Bound, ybound: Bound, zbound: Bound

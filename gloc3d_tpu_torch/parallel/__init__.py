@@ -1,7 +1,11 @@
 """The port's multi-rank paths over ``torch.distributed`` (a JAX mesh is a
-process group here): the sharded search. ``make_mesh``, ``shard_batch``,
+process group here): the sharded search (``sharding.py``), data
+parallelism's helpers (``data.py``: ``Trainer(mesh=...)`` and
+``GlobalLocalizer.shard_extraction`` use them), one command's ranks
+(``launch.py::spawn``) and the multi-rank dry run
+(``dryrun.py::dryrun_multichip``). ``make_mesh``, ``shard_batch``,
 ``replicate`` and ``spatial_sharded_apply`` are not ported (ROADMAP Queue
-1, items 16b-16c)."""
+1, item 16c)."""
 
 from gloc3d_tpu_torch.parallel.sharding import (  # noqa: F401
     ShardedBank,

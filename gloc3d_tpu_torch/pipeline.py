@@ -58,11 +58,20 @@ process group (a JAX mesh, ``parallel/sharding.py``): the flat bank's rows
 (``ShardedBank``) or the IVF index's cells (``index/ivf.py::ShardedIVF``).
 Every rank then runs the localizer on the same calls (SPMD); ``locate``,
 ``locate_batch``, ``detect``, ``add_keyframes`` and ``save`` work on a
-sharded bank, ``locate_fused`` refuses one. Sharded extraction, keyframe
-store and spatial partition raise ``NotImplementedError`` naming their
-ROADMAP items (16b, 16c). ``device_sort`` is a TPU-only strategy that the
-port leaves out, and so are the JAX package's ``row_gather`` and the bucket
-padding of ``locate_batch``, which only bound XLA shapes.
+sharded bank, ``locate_fused`` refuses one. ``shard_extraction`` splits
+each extraction whose batch the group's size divides over the ranks (data
+parallelism, ``parallel/data.py``): rank r extracts rows [r·B/P,
+(r+1)·B/P) with no collective in the forward, and the descriptors, BEV
+images and ground estimates are gathered in rank order, so every rank
+returns the whole batch, as JAX returns a global array; other batches run
+unsharded on every rank. An aligned extraction draws every scan's ground
+samples ahead, in the sequential order (``ops/ground.py::ground_draws``),
+so each scan gets the unsharded call's draws and the generator ends in its
+state. The sharded keyframe store and the spatial partition raise
+``NotImplementedError`` naming their ROADMAP item (16c). ``device_sort`` is
+a TPU-only strategy that the port leaves out, and so are the JAX package's
+``row_gather`` and the bucket padding of ``locate_batch``, which only bound
+XLA shapes.
 """
 
 from __future__ import annotations
@@ -85,8 +94,13 @@ from gloc3d_tpu_torch.index.ivf import IVFBank, ShardedIVF
 from gloc3d_tpu_torch.models.encoders import is_image_encoder
 from gloc3d_tpu_torch.ops.bev import BEVImage, batch_scan_to_bev
 from gloc3d_tpu_torch.ops.bev_match import MatchResult, match_bev_topk
-from gloc3d_tpu_torch.ops.ground import GroundEstimate, estimate_ground
+from gloc3d_tpu_torch.ops.ground import (
+    GroundEstimate, estimate_ground, ground_draws, triplets_from,
+)
 from gloc3d_tpu_torch.ops.refine import icp_point_to_point
+from gloc3d_tpu_torch.parallel.data import (
+    gather_host, gather_rows, require_group, shard_rows,
+)
 from gloc3d_tpu_torch.parallel.sharding import (
     ShardedBank, broadcast_rank0, group_shape,
 )
@@ -395,18 +409,24 @@ class GlobalLocalizer:
         self._kf_origins: Optional[torch.Tensor] = None  # (cap, 2) fp32
         self._kf_cap = 0
         self._gen = torch.Generator().manual_seed(seed)
+        self._dp = None  # the process group of shard_extraction
 
     # ------------------------------------------------------------ extraction
-    def _align(self, points: torch.Tensor, mask: torch.Tensor):
+    def _align(self, points: torch.Tensor, mask: torch.Tensor, draws=None):
         """Per scan: estimate the ground plane and rotate the cloud into the
         gravity-aligned frame, keeping the intensity column. The rotation
         runs in float64 and rounds to fp32, so the card and the CPU give
-        the same aligned floats from the same transform. Returns (aligned
-        points, GroundEstimate with a leading batch axis)."""
+        the same aligned floats from the same transform. ``draws``: each
+        scan's (priority, triplet uniforms), else drawn from the localizer's
+        generator. Returns (aligned points, GroundEstimate with a leading
+        batch axis)."""
         rows, ests = [], []
         for i in range(points.shape[0]):
+            kw = {} if draws is None else dict(
+                priority=draws[i][0], sample_triplets=triplets_from(
+                    draws[i][1]))
             est = estimate_ground(points[i, :, :3], mask[i], self.cfg.ground,
-                                  self._gen)
+                                  self._gen, **kw)
             t64 = Rigid3(est.transform.rotation.double(),
                          est.transform.translation.double())
             xyz = transform_points(t64, points[i, :, :3].double()).float()
@@ -450,7 +470,47 @@ class GlobalLocalizer:
         probability images (B, S, S, 3) with ``origins`` (B, 2), each
         image's pixel-(0, 0) metric coordinate (scan-centred by default).
         The BEV batch is numpy with host stats and on the device
-        without."""
+        without. After ``shard_extraction`` a batch the group's size
+        divides is extracted data-parallel, with the same result."""
+        if self._dp is not None and len(inputs) % dist.get_world_size(
+                self._dp) == 0:
+            return self._extract_sharded(inputs, mask, origins)
+        return self._extract(inputs, mask, origins)
+
+    def _extract_sharded(self, inputs, mask, origins):
+        """``extract`` over the ranks of ``shard_extraction``'s group: this
+        rank's rows, then every output gathered in rank order."""
+        mesh, b = self._dp, len(inputs)
+        rows = shard_rows(b, mesh)
+        draws = None
+        if np.ndim(inputs) == 4:
+            if origins is None:
+                origins = self._default_origins(b)
+        elif self.align_ground:  # every scan's draws, in the unsharded order
+            n = np.shape(inputs)[1]
+            draws = [ground_draws(n, self.cfg.ground, self._gen)
+                     for _ in range(b)][rows]
+        desc, bev, ground = self._extract(
+            inputs[rows], None if mask is None else mask[rows],
+            None if origins is None else np.asarray(origins)[rows], draws)
+
+        def gather(x):
+            if isinstance(x, torch.Tensor):
+                return gather_rows(mesh, x)
+            return gather_host(mesh, x, self.device)
+
+        bev = BEVImage(gather(bev.image), gather(bev.origin_xy),
+                       bev.resolution, gather(bev.num_occupied))
+        if ground is not None:
+            ground = GroundEstimate(
+                Rigid3(gather(ground.transform.rotation),
+                       gather(ground.transform.translation)),
+                gather(ground.plane), gather(ground.valid),
+                gather(ground.inlier_fraction))
+        return gather(desc), bev, ground
+
+    def _extract(self, inputs, mask=None, origins=None, draws=None):
+        """``extract`` on this process alone; ``draws`` as in ``_align``."""
         if np.ndim(inputs) == 4:
             if not self.i2i:
                 raise ValueError("BEV image inputs need an image encoder; "
@@ -462,8 +522,10 @@ class GlobalLocalizer:
             pts_d = torch.from_numpy(pts).to(self.device)
             mask_d = torch.from_numpy(
                 np.asarray(mask, np.float32)).to(self.device)
-        if self.align_ground:
-            pts_d, ground = self._align(pts_d, mask_d)
+        if self.align_ground:  # _align(points, mask) is the seam that
+            # tests/test_torch_i2i.py replays JAX's draws through
+            pts_d, ground = (self._align(pts_d, mask_d) if draws is None
+                             else self._align(pts_d, mask_d, draws))
         if not self.host_stats:
             bev = batch_scan_to_bev(pts_d[..., :3], mask_d, self.cfg.bev)
             if self.i2i:  # the BEV, repeated to 3 channels, is the input
@@ -660,7 +722,15 @@ class GlobalLocalizer:
         self.bank = _ShardedBankAdapter(sharded, self.cfg.index)
 
     def shard_extraction(self, mesh=None, axis: str = "data") -> None:
-        raise _not_ported("data-parallel extraction", "item 16b")
+        """Extract data-parallel over the ranks of the process group
+        ``mesh`` (None: the default group): every later ``extract``,
+        ``add_keyframes``, ``detect`` or ``locate_batch`` whose batch the
+        group's size divides splits it over the ranks, each running the
+        whole forward on its rows, and gathers the results, so every rank
+        gets the unsharded call's. Every rank makes the same calls (SPMD).
+        Composes with ``shard_bank``, which spreads the query side.
+        (``axis`` names JAX's mesh axis; a process group has one.)"""
+        self._dp = require_group(mesh, "shard_extraction")
 
     def shard_keyframes(self, mesh=None, axis: str = "data") -> None:
         raise _not_ported("sharding the keyframe store", "item 16c")
@@ -832,16 +902,19 @@ class GlobalLocalizer:
         ground frame, and ``clouds`` when every keyframe has an ICP cloud)
         and ``config.json``. With ``host_mirror=False`` the images are
         rebuilt from the device store, 256 rows at a time. With a sharded
-        bank every rank calls it; the bank is gathered, rank 0 writes the
-        files, and every rank returns after a barrier."""
+        bank, or after ``shard_extraction``, every rank calls it; rank 0
+        writes the files (a sharded bank gathered first), and every rank
+        returns after a barrier."""
         os.makedirs(out_dir, exist_ok=True)
-        self.bank.save(os.path.join(out_dir, "bank.npz"))
-        if getattr(self.bank, "sharded", False):
-            if group_shape(self.bank.mesh)[1] == 0:
-                self._save_map(out_dir)
-            dist.barrier(group=self.bank.mesh)
-        else:
+        sharded = getattr(self.bank, "sharded", False)
+        mesh = self.bank.mesh if sharded else self._dp
+        rank0 = mesh is None or group_shape(mesh)[1] == 0
+        if sharded or rank0:  # a sharded bank gathers on every rank
+            self.bank.save(os.path.join(out_dir, "bank.npz"))
+        if rank0:
             self._save_map(out_dir)
+        if mesh is not None:
+            dist.barrier(group=mesh)
 
     def _save_map(self, out_dir: str) -> None:
         """``keyframes.npz`` and ``config.json`` of ``save``."""

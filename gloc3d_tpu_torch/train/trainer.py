@@ -39,6 +39,29 @@ Random draws (epoch order, negative samples, yaw) come from one CPU
 numbers on every device; torch cannot replay JAX's streams, so parity tests
 inject the batch, triplets and yaw. Checkpoints are ``torch.save`` files
 with the ``config.json`` / ``history.json`` of the JAX trainer.
+
+Data parallelism (``mesh``, a process group: JAX's mesh, whose step XLA
+keeps global). Every rank runs the same calls (SPMD) and holds the same
+state; what JAX's replicated step computes over the whole batch is
+computed over the group:
+
+- at construction, rank 0's parameters and buffers are broadcast, and
+  every BatchNorm normalises over the group's rows
+  (``models/batchnorm.py::set_batchnorm_group``);
+- a step takes the whole mined batch on every rank; each rank runs its
+  slice by query (its queries, their positives and negatives), the host
+  pass too, and divides its summed per-pair loss by the all-reduced count
+  of real negatives, so the ranks' losses sum to the batch's;
+- the gradients are then summed over the ranks by explicit all-reduces of
+  one flat buffer (not DDP: the step keeps the one-process code path, the
+  model keeps its state-dict names, and gloo on CPU tensors runs the same
+  code as NCCL), so every rank steps with the batch's gradient and the
+  parameters stay bit-equal;
+- mining runs on every rank (its draws come from the generator, which
+  advances alike everywhere) and rank 0's triplets are broadcast;
+- the feature cache is computed in contiguous shares of whole batches and
+  all-gathered in rank order;
+- checkpoints and ``history.json`` are written by rank 0 behind a barrier.
 """
 
 from __future__ import annotations
@@ -54,10 +77,14 @@ import torch
 from gloc3d_tpu_torch.core.device import resolve_device
 from gloc3d_tpu_torch.data import native
 from gloc3d_tpu_torch.eval import recall
+from gloc3d_tpu_torch.models.batchnorm import set_batchnorm_group
 from gloc3d_tpu_torch.models.losses import training_triplet_loss
 from gloc3d_tpu_torch.ops.topk import l2_topk
-from gloc3d_tpu_torch.pipeline import _not_ported
-from gloc3d_tpu_torch.train.mining import mine_triplets
+from gloc3d_tpu_torch.parallel.data import (
+    all_reduce_grads, broadcast_module, gather_rows, require_group,
+)
+from gloc3d_tpu_torch.parallel.sharding import broadcast_rank0, group_shape
+from gloc3d_tpu_torch.train.mining import MinedTriplets, mine_triplets
 
 
 def draw_aug_yaw(generator: Optional[torch.Generator], b: int
@@ -89,7 +116,9 @@ class Trainer:
         (N, S, S, 3) images and no masks.
       workdir: checkpoints, ``config.json`` and ``history.json``.
       seed: seed of the trainer's generator (default ``cfg.train.seed``).
-      mesh: data-parallel training is not ported yet (ROADMAP item 16b).
+      mesh: None (one process), or a torch.distributed process group to
+        train data-parallel over (``dist.group.WORLD`` for all ranks);
+        ``cfg.train.batch_size`` must be a multiple of its size.
       trainable_mask: optional ``{parameter name: bool}``; False freezes the
         parameter (``requires_grad=False``, left out of the optimizer).
       device: where the model, caches and steps run (default ``cuda``;
@@ -101,8 +130,13 @@ class Trainer:
                  trainable_mask: Optional[Mapping[str, bool]] = None, *,
                  device=None):
         if mesh is not None:
-            raise _not_ported("Trainer(mesh=...) data-parallel training",
-                              "item 16b")
+            mesh = require_group(mesh, "Trainer(mesh=...)")
+            world = group_shape(mesh)[0]
+            if cfg.train.batch_size % world:
+                raise ValueError(
+                    f"batch_size {cfg.train.batch_size} must be divisible "
+                    f"by the mesh size {world}")
+        self.mesh = mesh
         if cfg.model.fold_bn:
             raise ValueError("training needs live BatchNorm: build the "
                              "model with fold_bn=False")
@@ -114,6 +148,9 @@ class Trainer:
         self.device = resolve_device(device, "Trainer")
         os.makedirs(workdir, exist_ok=True)
         self.model = model.to(self.device)
+        if mesh is not None:
+            broadcast_module(mesh, self.model)
+            set_batchnorm_group(self.model, mesh)
         self.is_s2s = cfg.model.encoder == "pointpillar"
         self.host_stats = bool(t.host_stats) and self.is_s2s
         self.generator = torch.Generator().manual_seed(
@@ -189,10 +226,17 @@ class Trainer:
         """Eval-mode descriptors (N, D) of a whole set (``masks`` None for
         images), ``batch`` inputs at a time, on the device. (JAX pads the
         tail batch to one jit shape; in eval mode the rows are independent,
-        so the port does not.)"""
+        so the port does not.) Data-parallel, each rank runs a contiguous
+        share of the batches, and the shares are gathered in rank order:
+        every rank holds the same bits, those of the one-process cache."""
         self.model.eval()
+        starts = list(range(0, len(inputs), batch))
+        if self.mesh is not None:
+            world, rank = group_shape(self.mesh)
+            per = -(-len(starts) // world)
+            starts = starts[rank * per:(rank + 1) * per]
         outs = []
-        for i in range(0, len(inputs), batch):
+        for i in starts:
             x = inputs[i:i + batch]
             mk = None if masks is None else masks[i:i + batch]
             if self.host_stats:
@@ -200,16 +244,55 @@ class Trainer:
                 outs.append(self.model(p, vl, voxel_stats=vs))
             else:
                 outs.append(self.model(self._tensor(x), self._tensor(mk)))
-        return torch.cat(outs)
+        if self.mesh is None:
+            return torch.cat(outs)
+        # a rank with no batch (fewer batches than ranks) still gathers:
+        # the descriptor width comes from the group
+        dim = torch.tensor([outs[0].shape[1] if outs else 0],
+                           device=self.device)
+        torch.distributed.all_reduce(dim, torch.distributed.ReduceOp.MAX,
+                                     group=self.mesh)
+        local = torch.zeros((per * batch, int(dim.item())),
+                            device=self.device)
+        if outs:
+            mine = torch.cat(outs)
+            local[:len(mine)] = mine
+        return gather_rows(self.mesh, local)[:len(inputs)]
 
     # ------------------------------------------------------------ train step
+    def _rank_rows(self, b: int):
+        """This rank's queries of a batch of ``b`` (a slice) and the rows
+        of their negatives in the (b·n_neg) negative stack."""
+        world, rank = group_shape(self.mesh)
+        lo, hi = rank * b // world, (rank + 1) * b // world
+        n_neg = self.cfg.train.n_neg
+        return slice(lo, hi), slice(lo * n_neg, hi * n_neg)
+
+    def _local(self, b: int, q_in, q_mk, p_in, p_mk, n_in, n_mk, neg_valid,
+               q_valid, yaw=None):
+        """This rank's part of a mined batch of ``b`` queries: its queries,
+        their positives and negatives, ``neg_valid`` and ``q_valid`` rows
+        and yaws (numpy or tensors, None kept). Without a mesh, the
+        batch."""
+        if self.mesh is None:
+            return q_in, q_mk, p_in, p_mk, n_in, n_mk, neg_valid, q_valid, yaw
+        q_rows, n_rows = self._rank_rows(b)
+        return tuple(None if a is None else a[rows] for a, rows in (
+            (q_in, q_rows), (q_mk, q_rows), (p_in, q_rows), (p_mk, q_rows),
+            (n_in, n_rows), (n_mk, n_rows), (neg_valid, q_rows),
+            (q_valid, q_rows), (yaw, q_rows)))
+
     def train_step(self, q_in, q_mk, p_in, p_mk, n_in, n_mk, neg_valid,
                    q_valid, yaw=None) -> torch.Tensor:
         """All-device step on one mined batch: (B, N, 4) queries and
         positives, (B·n_neg, N, 4) negatives, their masks, (B, n_neg)
         ``neg_valid`` and (B,) ``q_valid``; or images with masks None.
         ``yaw`` (B,) rotates the query clouds first (ignored for images).
-        Returns the loss (a device scalar)."""
+        Data-parallel, every rank passes the whole batch and runs its
+        part. Returns the batch's loss (a device scalar)."""
+        (q_in, q_mk, p_in, p_mk, n_in, n_mk, neg_valid, q_valid,
+         yaw) = self._local(len(q_in), q_in, q_mk, p_in, p_mk, n_in, n_mk,
+                            neg_valid, q_valid, yaw)
         q = self._tensor(q_in)
         if yaw is not None and self.is_s2s:
             q = rotate_clouds_z(q, torch.as_tensor(np.array(yaw, np.float32)))
@@ -223,10 +306,23 @@ class Trainer:
         """Host-stats step: ``inputs`` is the concatenated (q | pos | negs)
         batch, pillar-sorted on the host, with its ``valid`` rows and
         voxel stats (``_host_sorted``). Any yaw augmentation happened on the
-        host before the stats pass."""
+        host before the stats pass. Data-parallel, every rank passes the
+        whole batch and runs its part."""
+        if self.mesh is not None:
+            b = inputs.shape[0] // (2 + self.cfg.train.n_neg)
+            q, n = self._rank_rows(b)
+            rows = torch.arange(inputs.shape[0], device=inputs.device)
+            idx = torch.cat([rows[q], rows[b + q.start:b + q.stop],
+                             rows[2 * b + n.start:2 * b + n.stop]])
+            inputs, valid = inputs[idx], valid[idx]
+            vs = tuple(a[idx] for a in vs)
+            neg_valid, q_valid = neg_valid[q], q_valid[q]
         return self._step(inputs, valid, vs, neg_valid, q_valid)
 
     def _step(self, inputs, masks, vs, neg_valid, q_valid) -> torch.Tensor:
+        """One optimizer step on this rank's (q | pos | negs) batch. With a
+        mesh the loss is divided by the group's count of real negatives
+        and the gradients (and losses) are summed over the ranks."""
         t = self.cfg.train
         b = inputs.shape[0] // (2 + t.n_neg)
         self.model.train()
@@ -234,15 +330,21 @@ class Trainer:
         desc = self.model(inputs, masks, voxel_stats=vs)
         nv = (torch.as_tensor(neg_valid, device=self.device).float()
               * torch.as_tensor(q_valid, device=self.device).float()[:, None])
+        count = nv.sum()
+        if self.mesh is not None:
+            torch.distributed.all_reduce(count, group=self.mesh)
         loss = training_triplet_loss(
             desc[:b], desc[b:2 * b], desc[2 * b:].reshape(b, t.n_neg, -1),
-            nv, margin=math.sqrt(t.margin))
+            nv, margin=math.sqrt(t.margin), count=count)
         loss.backward()
+        loss = loss.detach().clone()
+        if self.mesh is not None:
+            all_reduce_grads(self.mesh, self.model.parameters(), loss)
         for group in self.optimizer.param_groups:
             group["lr"] = self.learning_rate()
         self.optimizer.step()
         self.step += 1
-        return loss.detach()
+        return loss
 
     # ------------------------------------------------------------ train epoch
     def _train_batch(self, batch_idx: np.ndarray, cache_db: torch.Tensor,
@@ -255,6 +357,8 @@ class Trainer:
                               self.neg_mask, self.neg_cache, t.margin,
                               t.n_neg, t.n_neg_sample,
                               generator=self.generator)
+        if self.mesh is not None:
+            mined = self._broadcast_mined(mined)
         if not bool(mined.valid.any()):
             return None
         self.neg_cache[idx] = mined.neg_idx
@@ -271,13 +375,34 @@ class Trainer:
         if not self.host_stats:
             return self.train_step(q_in, q_mk, p_in, p_mk, n_in, n_mk,
                                    mined.neg_valid, q_valid, yaw)
+        # data-parallel: each rank's host pass bins its own part
+        q_in, q_mk, p_in, p_mk, n_in, n_mk, neg_valid, q_valid, yaw = (
+            self._local(len(batch_idx), q_in, q_mk, p_in, p_mk, n_in, n_mk,
+                        mined.neg_valid, q_valid, yaw))
         if yaw is not None:  # the pillar assignment must see the rotation
             q_in = rotate_clouds_z(
                 torch.from_numpy(np.asarray(q_in, np.float32)), yaw).numpy()
         p_sorted, vl, vs = self._host_sorted(
             np.concatenate([q_in, p_in, n_in]),
             np.concatenate([q_mk, p_mk, n_mk]))
-        return self.train_step_hs(p_sorted, vl, vs, mined.neg_valid, q_valid)
+        if self.mesh is not None:
+            return self._step(p_sorted, vl, vs, neg_valid, q_valid)
+        return self.train_step_hs(p_sorted, vl, vs, neg_valid, q_valid)
+
+    def _broadcast_mined(self, mined: MinedTriplets) -> MinedTriplets:
+        """Rank 0's triplets on every rank (one float64 broadcast: the
+        indices convert both ways exactly), so that no rank branches or
+        steps on other triplets."""
+        n_neg = mined.neg_idx.shape[1]
+        packed = torch.cat([mined.pos_idx[:, None].double(),
+                            mined.neg_idx.double(), mined.neg_valid.double(),
+                            mined.valid[:, None].double(),
+                            mined.d_pos[:, None].double()], 1)
+        broadcast_rank0(self.mesh, packed)
+        pos, neg, nv, valid, d_pos = packed.split([1, n_neg, n_neg, 1, 1], 1)
+        return MinedTriplets(pos[:, 0].long(), neg.long(),
+                             nv.to(mined.neg_valid.dtype), valid[:, 0] > 0.5,
+                             d_pos[:, 0].to(mined.d_pos.dtype))
 
     def train_epoch(self, epoch: int) -> float:
         """One pass over the queries in a random order; returns the mean
@@ -319,6 +444,7 @@ class Trainer:
         evaluation, checkpoints and early stop; returns the model."""
         t = self.cfg.train
         epochs = epochs or t.epochs
+        say = log if self._writes() else (lambda _: None)
         for epoch in range(1, epochs + 1):
             avg_loss = self.train_epoch(epoch)
             entry = {"epoch": epoch, "loss": avg_loss}
@@ -333,13 +459,13 @@ class Trainer:
                     self.save_checkpoint("best")
                 else:
                     self.epochs_since_best += 1
-                log(f"epoch {epoch}: loss {avg_loss:.4f} recall {rec}")
+                say(f"epoch {epoch}: loss {avg_loss:.4f} recall {rec}")
                 if t.patience and self.epochs_since_best >= t.patience:
-                    log(f"early stop at epoch {epoch} "
+                    say(f"early stop at epoch {epoch} "
                         f"(no recall@5 gain for {t.patience} evals)")
                     break
             else:
-                log(f"epoch {epoch}: loss {avg_loss:.4f}")
+                say(f"epoch {epoch}: loss {avg_loss:.4f}")
             self.history.append(entry)
         return self.model
 
@@ -347,15 +473,26 @@ class Trainer:
     def _ckpt_path(self, tag: str) -> str:
         return os.path.join(self.workdir, f"ckpt_{tag}.pt")
 
+    def _writes(self) -> bool:
+        """Whether this process writes files and logs: rank 0 of the mesh,
+        or the one process."""
+        return self.mesh is None or group_shape(self.mesh)[1] == 0
+
     def save_checkpoint(self, tag: str) -> None:
-        torch.save({"model": self.model.state_dict(),
-                    "optimizer": self.optimizer.state_dict(),
-                    "step": self.step}, self._ckpt_path(tag))
-        with open(os.path.join(self.workdir, "config.json"), "w") as f:
-            f.write(self.cfg.to_json())
-        with open(os.path.join(self.workdir, "history.json"), "w") as f:
-            json.dump({"history": self.history,
-                       "best_recall5": self.best_recall5}, f)
+        """The model, optimizer and step as ``ckpt_<tag>.pt``, with
+        ``config.json`` and ``history.json``; data-parallel, rank 0 writes
+        (every rank holds the same state) and the ranks meet after."""
+        if self._writes():
+            torch.save({"model": self.model.state_dict(),
+                        "optimizer": self.optimizer.state_dict(),
+                        "step": self.step}, self._ckpt_path(tag))
+            with open(os.path.join(self.workdir, "config.json"), "w") as f:
+                f.write(self.cfg.to_json())
+            with open(os.path.join(self.workdir, "history.json"), "w") as f:
+                json.dump({"history": self.history,
+                           "best_recall5": self.best_recall5}, f)
+        if self.mesh is not None:
+            torch.distributed.barrier(group=self.mesh)
 
     def load_checkpoint(self, tag: str) -> None:
         ckpt = torch.load(self._ckpt_path(tag), map_location=self.device)

@@ -673,10 +673,18 @@ def test_serve_i2i_image_stream(maps, i2i, monkeypatch):
 
 
 def test_dp_devices_raises_naming_item_16(maps, small_config, tmp_path):  # noqa: F811
-    with pytest.raises(NotImplementedError, match="item 16"):
-        port("build-index", "--config", small_config, "--split",
-             maps["port"]["split"], "--out", str(tmp_path / "dp"),
-             "--batch", "8", "--dp-devices", "2", "--device", "cpu")
+    """--dp-devices beyond one rank per CPU core (or below 1) exits with a
+    message naming the limit, before any rank starts; two ranks run in
+    tests/test_torch_dp.py."""
+    from gloc3d_tpu_torch.parallel.launch import max_ranks
+
+    for n in (max_ranks() + 1, 0):
+        with pytest.raises(SystemExit, match=f"--dp-devices {n}: .*between "
+                           f"1 and {max_ranks()}"):
+            port("build-index", "--config", small_config, "--split",
+                 maps["port"]["split"], "--out", str(tmp_path / "dp"),
+                 "--batch", "8", "--dp-devices", str(n), "--device", "cpu")
+    assert not (tmp_path / "dp").exists()
 
 
 def test_no_card_and_no_device_exits_nonzero(maps, small_config, monkeypatch,  # noqa: F811

@@ -299,7 +299,9 @@ def test_trainable_mask_freezes_parameters(tmp_path):
 
 
 def test_mesh_and_folded_model_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 16"):
+    """A mesh must be a torch.distributed process group (data-parallel
+    training over one runs in tests/test_torch_dp.py)."""
+    with pytest.raises(TypeError, match="ProcessGroup"):
         port_trainer(CFG, str(tmp_path), mesh=object())
     cfg = CFG.replace(model=CFG.model.replace(fold_bn=True))
     with pytest.raises(ValueError, match="fold_bn=False"):
