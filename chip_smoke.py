@@ -256,13 +256,19 @@ Phases, each printing its own lines:
      over NCCL in this process and world size 2 over gloo (two ranks
      spawned by gloc3d_tpu_torch/parallel/launch.py, sharing the card),
      each held to the unsharded step (loss rtol 1e-4, the gradients within
-     DP_GRAD_TOL of their norm, beside the unsharded step's own change on
-     its batch reversed), the world-2 parameters bit-equal on both
-     ranks; shard_extraction of the located map's 16 keyframes, host stats
-     and all-device, = the unsharded extract (descriptors 1e-5, BEV
-     bit-equal); K1 / K2 launches of each path; host-clock ms of the step
-     and of the extraction at world sizes 1 and 2 beside the unsharded
-     ones.
+     DP_GRAD_TOL of their norm and DP_TENSOR_TOL per tensor, beside the
+     unsharded step's own change on its batch reversed), the world-2
+     parameters bit-equal on both ranks; the step is train_step, which
+     _train_batch takes after mining (the host-stats path bins each rank's
+     rows on the host); shard_extraction of the located map's 16
+     keyframes, host stats and all-device, of the aligned map's 16
+     (align_ground=True) and of 16 of the i2i case's images = the
+     unsharded extract (descriptors 1e-5, a world-2 rank's images against
+     the unsharded call on the same 8, cuDNN choosing its algorithms by
+     batch size; BEV images, ground transforms and the localizer's
+     generator state bit-equal); K1 / K2 launches of
+     each path; host-clock ms of the step (_train_batch) and of the
+     extraction at world sizes 1 and 2 beside the unsharded ones.
 The kernel-only times of phase 17 come from complete traces only (every
 kernel of every traced call: K1 launches two a call, K2 four); a timing
 with none in six traces prints that it was not measured.
@@ -1886,15 +1892,20 @@ def phase_shard(torch, card, cfg, loc, qs, seed: int = 0):
 
 
 DP_ENCODER = "resnet18"  # [dp]'s i2i case: a zoo encoder with BatchNorm
-# The DP step's gradients against the unsharded step's, all together,
-# relative to their norm. A step's gradients are chaotic in fp32: on a CPU
-# rehearsal (4096-point pad, ResNet18 at 128²) summing the batch in another
-# order moved them by 0.2-0.9e-2, and BatchNorm's statistics taken in
-# float64, as the DP path takes them, by 2.8e-2 (s2s) and 5.4e-2 (i2i);
-# a per-rank BatchNorm or loss normaliser moves the updates by 0.7-1.6 of
-# their norm (tests/test_torch_dp.py).
-DP_GRAD_TOL = 0.2
+# The DP step's gradients against the unsharded step's, relative to their
+# norm: all trainable tensors together (DP_GRAD_TOL) and each tensor alone
+# (DP_TENSOR_TOL). On an H100 (fp32, TF32 off) sound DP steps read
+# 1.4-3.4e-3 together and 2.1-6.7e-3 in the worst tensor, and the unsharded
+# step's own change on its batch reversed 1.2-2.5e-3 together; a per-rank
+# BatchNorm or loss normaliser moves the updates by 0.7-1.6 of their norm
+# (tests/test_torch_dp.py).
+DP_GRAD_TOL = 2e-2
+DP_TENSOR_TOL = 5e-2
 DP_TIMED = 3             # timed _train_batch calls after one warm-up
+# the launches each [dp] case must show: (K1 > 0, K2 > 0)
+DP_KERNELS = {"host-stats": (True, False), "all-device": (False, True),
+              "aligned": (False, True), "i2i": (False, False),
+              "i2i images": (False, False)}
 
 
 def dp_cases(cfg):
@@ -1927,14 +1938,13 @@ def dp_datasets(torch, cases, world):
 
 
 def dp_batch(torch, ds, cfg, s2s: bool, reverse: bool = False):
-    """The fixed mined batch of [dp]'s steps: queries 0-1, each one's
-    nearest db scan as its positive and its first n_neg db scans beyond
-    20 m as its negatives, the last negative slot of query 1 padding, and a
-    fixed yaw (s2s); with ``reverse``, the queries and each query's
-    negatives in reverse order (the same step, summed in another order).
-    → step arguments, and for the host-stats path the concatenated batch
-    with the queries rotated, as _train_batch bins it."""
-    from gloc3d_tpu_torch.train.trainer import draw_aug_yaw, rotate_clouds_z
+    """The fixed mined batch of [dp]'s steps, as train_step's arguments:
+    queries 0-1, each one's nearest db scan as its positive and its first
+    n_neg db scans beyond 20 m as its negatives, the last negative slot of
+    query 1 padding, and a fixed yaw (s2s); with ``reverse``, the queries
+    and each query's negatives in reverse order (the same step, summed in
+    another order)."""
+    from gloc3d_tpu_torch.train.trainer import draw_aug_yaw
 
     b, n_neg = cfg.train.batch_size, cfg.train.n_neg
     order = np.arange(b)[::-1] if reverse else np.arange(b)
@@ -1949,17 +1959,12 @@ def dp_batch(torch, ds, cfg, s2s: bool, reverse: bool = False):
     nv = np.ascontiguousarray(nv)
     qv = np.ones(b, np.float32)
     if not s2s:
-        return {"step": (ds.q_inputs[order], None, ds.db_inputs[pos], None,
-                         ds.db_inputs[neg], None, nv, qv)}
+        return (ds.q_inputs[order], None, ds.db_inputs[pos], None,
+                ds.db_inputs[neg], None, nv, qv)
     yaw = draw_aug_yaw(torch.Generator().manual_seed(1), b)[order.copy()]
-    q, qm = ds.q_inputs[order], ds.q_masks[order]
-    rotated = rotate_clouds_z(torch.from_numpy(q), yaw).numpy()
-    return {"step": (q, qm, ds.db_inputs[pos], ds.db_masks[pos],
-                     ds.db_inputs[neg], ds.db_masks[neg], nv, qv, yaw),
-            "cat": np.concatenate([rotated, ds.db_inputs[pos],
-                                   ds.db_inputs[neg]]),
-            "catm": np.concatenate([qm, ds.db_masks[pos], ds.db_masks[neg]]),
-            "nv": nv, "qv": qv}
+    return (ds.q_inputs[order], ds.q_masks[order], ds.db_inputs[pos],
+            ds.db_masks[pos], ds.db_inputs[neg], ds.db_masks[neg], nv, qv,
+            yaw)
 
 
 def dp_initial_state(torch, key, cfg, ds):
@@ -1987,20 +1992,16 @@ def dp_trainer(torch, key, cfg, ds, state, workdir, device, mesh=None):
     return Trainer(cfg, model, ds, workdir, device=device, mesh=mesh, **kw)
 
 
-def dp_step(torch, key, tr, batch):
-    """One step of ``tr`` on the fixed batch (the whole batch, on every
-    rank) → (loss, {parameter: gradient} on the CPU, (K1, K2) launches)."""
+def dp_step(torch, tr, batch):
+    """One train_step of ``tr`` on the fixed batch (the whole batch, on
+    every rank), the step _train_batch takes after mining: on the
+    host-stats path each rank rotates and bins its own rows on the host →
+    (loss, {parameter: gradient} on the CPU, (K1, K2) launches)."""
     from gloc3d_tpu_torch.kernels import bin_sums as bs
     from gloc3d_tpu_torch.kernels import segment_sum as ss
 
     ss.segment_sum_sorted.launches = bs.pillar_bin_sums.launches = 0
-    if key == "host-stats":
-        loss = tr.train_step_hs(*tr._host_sorted(batch["cat"],
-                                                 batch["catm"]),
-                                batch["nv"], batch["qv"])
-    else:
-        loss = tr.train_step(*batch["step"])
-    loss = float(loss)
+    loss = float(tr.train_step(*batch))
     launches = (ss.segment_sum_sorted.launches, bs.pillar_bin_sums.launches)
     grads = {k: p.grad.detach().cpu().clone()
              for k, p in tr.model.named_parameters() if p.grad is not None}
@@ -2008,9 +2009,10 @@ def dp_step(torch, key, tr, batch):
 
 
 def dp_step_ms(torch, tr, ds):
-    """Host-clock ms of _train_batch (mining, gather, the rank's host pass
-    if any, upload, forward, backward, gradient all-reduce, SGD) on queries
-    0-1 from one feature cache: median of DP_TIMED after a warm-up."""
+    """Host-clock ms of _train_batch (mining, gather, train_step: the
+    rank's host pass if any, upload, forward, backward, gradient
+    all-reduce, SGD) on queries 0-1 from one feature cache: median of
+    DP_TIMED after a warm-up."""
     cache_db = tr.compute_cache(ds.db_inputs, ds.db_masks)
     cache_q = tr.compute_cache(ds.q_inputs, ds.q_masks)
     b = tr.cfg.train.batch_size
@@ -2025,51 +2027,90 @@ def dp_step_ms(torch, tr, ds):
     return float(np.median(times[1:]))
 
 
-def dp_localizers(torch, cfg, state, device):
-    """The fp32 folded serving model (state) in a host-stats and an
-    all-device localizer."""
+def dp_localizers(torch, cfg, world, cases, datasets, serve, i2i, device):
+    """[dp]'s extractions → {case: (localizer, extract's arguments)}: the
+    fp32 folded serving model (state ``serve``) on the located map's 16
+    keyframes, host stats and all-device, and on the aligned map's 16
+    (align_ground=True, all-device, seed 0); the i2i case's ResNet18 (state
+    ``i2i``) on 16 of its 768² db images."""
     from gloc3d_tpu_torch.models.descriptor import build_model
     from gloc3d_tpu_torch.pipeline import GlobalLocalizer
 
+    def stack(scans):
+        return (np.stack([k[0] for k in scans]),
+                np.stack([k[1] for k in scans]))
+
+    n = cfg.voxel.max_points
+    scans = stack(located_world_scans(world, n)[0][1])
+    tilted = stack(aligned_world_scans(world, n)[0][2])
+    s2s_model = cfg.model.replace(fold_bn=True, compute_dtype="float32")
+    images = datasets["i2i"].db_inputs[:N_KEYFRAMES]
     out = {}
-    for key, host_stats in (("host-stats", True), ("all-device", False)):
-        model = build_model(cfg.model.replace(fold_bn=True,
-                                              compute_dtype="float32"),
-                            cfg.voxel)
+    for key, c, model_cfg, state, args, kw in (
+            ("host-stats", cfg, s2s_model, serve, scans,
+             dict(host_stats=True)),
+            ("all-device", cfg, s2s_model, serve, scans, {}),
+            ("aligned", cfg, s2s_model, serve, tilted,
+             dict(align_ground=True, seed=0)),
+            ("i2i images", cases["i2i"], cases["i2i"].model, i2i,
+             (images, None, np.zeros((len(images), 2), np.float32)), {})):
+        model = build_model(model_cfg, c.voxel)
         model.load_state_dict(state)
-        out[key] = GlobalLocalizer(cfg, model, device=device,
-                                   host_stats=host_stats)
+        out[key] = (GlobalLocalizer(c, model, device=device, **kw), args)
     return out
 
 
-def dp_extract(torch, loc, kf):
-    """extract of the keyframe batch → (descriptors, BEV images) on the
-    CPU, host-clock ms (median of 3 after a warm-up), (K1, K2) launches of
-    one call."""
+def dp_extract(torch, loc, args) -> dict:
+    """loc.extract(*args) → its descriptors, BEV images and ground
+    transforms (aligned) on the CPU, the localizer's generator state after
+    the call, the (K1, K2) launches of the call, and the host-clock ms of
+    further calls (median of 3 after a warm-up)."""
     from gloc3d_tpu_torch.kernels import bin_sums as bs
     from gloc3d_tpu_torch.kernels import segment_sum as ss
 
-    pts = np.stack([k[0] for k in kf])
-    mask = np.stack([k[1] for k in kf])
+    def cpu(x):
+        return x.float().cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
     ss.segment_sum_sorted.launches = bs.pillar_bin_sums.launches = 0
-    desc, bev, _ = loc.extract(pts, mask)
-    launches = (ss.segment_sum_sorted.launches, bs.pillar_bin_sums.launches)
-    img = bev.image.cpu().numpy() if hasattr(bev.image, "cpu") else bev.image
-    ms = host_ms(torch, lambda: loc.extract(pts, mask), 3)
-    return desc.float().cpu().numpy(), np.asarray(img), ms, launches
+    desc, bev, ground = loc.extract(*args)
+    out = {"launches": (ss.segment_sum_sorted.launches,
+                        bs.pillar_bin_sums.launches),
+           "desc": cpu(desc), "image": cpu(bev.image),
+           "gen": loc._gen.get_state().numpy()}
+    if ground is not None:
+        out.update(ground_q=cpu(ground.transform.rotation),
+                   ground_t=cpu(ground.transform.translation),
+                   ground_valid=cpu(ground.valid))
+    out["ms"] = host_ms(torch, lambda: loc.extract(*args), 3)
+    return out
+
+
+def dp_same_extraction(tag, got, want, ref: str = "desc") -> float:
+    """The DP extraction against the unsharded call's: descriptors within
+    1e-5 of ``want[ref]``, BEV images, ground transforms and the generator
+    state after the call bit-equal. → the descriptors' largest difference
+    from ``want[ref]``."""
+    err = float(np.abs(got["desc"] - want[ref]).max())
+    fields = set(want) - {"desc_ranks"}
+    differ = [k for k in fields - {"desc", "ms", "launches"}
+              if not np.array_equal(got[k], want[k])]
+    check(err <= 1e-5 and not differ and set(got) == fields,
+          f"{tag}: descriptors {err:.1e} from the unsharded call's; not "
+          f"bit-equal: {differ}")
+    return err
 
 
 def dp_rank(rank: int, n: int, device, tmp: str) -> None:
     """One of [dp]'s two gloo ranks on the one card (parallel/launch.py):
-    the three DP steps and the two DP extractions of phase_dp on the same
-    inputs, rebuilt from the world's seed, and the weights the parent
+    the three DP steps and the four DP extractions of phase_dp on the
+    same inputs, rebuilt from the world's seed, and the weights the parent
     wrote; rank 0 writes the results."""
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, REPO)
     from gloc3d_tpu_torch import PipelineConfig
-    from gloc3d_tpu_torch.parallel.sharding import same_on_every_rank
+    from gloc3d_tpu_torch.parallel.collectives import same_on_every_rank
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2085,7 +2126,7 @@ def dp_rank(rank: int, n: int, device, tmp: str) -> None:
         with tempfile.TemporaryDirectory() as workdir:
             tr = dp_trainer(torch, key, c, ds, state, workdir, device, mesh)
             loss, grads, launches = dp_step(
-                torch, key, tr, dp_batch(torch, ds, c, key != "i2i"))
+                torch, tr, dp_batch(torch, ds, c, key != "i2i"))
             flat = torch.cat([p.detach().reshape(-1)
                               for p in tr.model.parameters()])
             rec[f"{key}_same"] = same_on_every_rank(mesh, flat)
@@ -2095,12 +2136,13 @@ def dp_rank(rank: int, n: int, device, tmp: str) -> None:
             rec[f"{key}_ms"] = dp_step_ms(torch, tr, ds)
             del tr
         torch.cuda.empty_cache()
-    state = torch.load(os.path.join(tmp, "serve.pt"))
-    kf = located_world_scans(world, cfg.voxel.max_points)[0][1]
-    for key, loc in dp_localizers(torch, cfg, state, device).items():
+    states = [torch.load(os.path.join(tmp, f"{k}.pt")) for k in ("serve",
+                                                                  "i2i")]
+    for key, (loc, args) in dp_localizers(torch, cfg, world, cases, datasets,
+                                          *states, device).items():
         loc.shard_extraction(mesh)
-        (rec[f"x_{key}_desc"], rec[f"x_{key}_image"], rec[f"x_{key}_ms"],
-         rec[f"x_{key}_launches"]) = dp_extract(torch, loc, kf)
+        for k, v in dp_extract(torch, loc, args).items():
+            rec[f"x_{key}/{k}"] = v
     if rank == 0:
         np.savez(os.path.join(tmp, "rank0.npz"), **rec)
     dist.barrier()
@@ -2118,30 +2160,34 @@ def grad_diff(torch, got, want):
 
 
 def dp_grad_err(torch, tag, got, want):
-    """The DP step's gradients against the unsharded step's, all together,
-    within DP_GRAD_TOL of their norm. The worst tensor's error is returned
-    beside it (a BatchNorm bias whose gradient the next BatchNorm cancels
-    is rounding noise)."""
+    """The DP step's gradients against the unsharded step's: all together
+    within DP_GRAD_TOL of their norm, and each tensor within DP_TENSOR_TOL
+    of its own. → grad_diff's (together, worst tensor, its name)."""
     check(set(got) == set(want), f"{tag}: gradients of other parameters")
     err = grad_diff(torch, got, want)
-    check(err[0] <= DP_GRAD_TOL, f"{tag}: gradients {err[0]:.2e} of their "
-          f"norm from the unsharded step's (bound {DP_GRAD_TOL})")
+    check(err[0] <= DP_GRAD_TOL and err[1] <= DP_TENSOR_TOL,
+          f"{tag}: gradients {err[0]:.2e} of their norm from the unsharded "
+          f"step's (bound {DP_GRAD_TOL}), worst tensor {err[2]} {err[1]:.2e}"
+          f" of its own (bound {DP_TENSOR_TOL})")
     return err
 
 
 def phase_dp(torch, card, cfg, world, centroids):
     """[dp]: data-parallel training and extraction on the card, at the
     shapes of the train phases (24 scans of 122 480 points or 24 ResNet18
-    images at 768² a step) and of the located map (16 keyframes), in fp32
-    with TF32 off. World size 1 over NCCL in this process: one step of
-    Trainer(mesh=group) on each case against the unsharded trainer's step
-    from the same weights on the same batch (loss rtol 1e-4, the gradients
-    within DP_GRAD_TOL of their norm, beside the unsharded step's own
-    change on its batch reversed), and shard_extraction against
-    the unsharded extract (descriptors 1e-5, BEV bit-equal), host stats
-    and all-device. World size 2 over gloo, two spawned ranks on the one
-    card: the same steps and extractions, the parameters bit-equal on both
-    ranks. K1 / K2 launches of each, and host-clock ms of the step
+    images at 768² a step) and of the located and aligned maps (16
+    keyframes), in fp32 with TF32 off. World size 1 over NCCL in this
+    process: one train_step (the step of _train_batch) of
+    Trainer(mesh=group) on each case against the unsharded trainer's from
+    the same weights on the same batch (loss rtol 1e-4, the gradients
+    within DP_GRAD_TOL of their norm and DP_TENSOR_TOL per tensor, beside
+    the unsharded step's own change on its batch reversed), and
+    shard_extraction against the unsharded extract (descriptors 1e-5; BEV
+    images, aligned ground transforms and the localizer's generator state
+    bit-equal) on the host-stats, all-device, aligned and i2i-image
+    paths. World size 2 over gloo, two spawned ranks on the one card: the
+    same steps and extractions, the parameters bit-equal on both ranks.
+    K1 / K2 launches of each, and host-clock ms of the step
     (_train_batch) and of the extraction beside the unsharded ones."""
     import torch.distributed as dist
 
@@ -2151,8 +2197,8 @@ def phase_dp(torch, card, cfg, world, centroids):
     t_phase = time.perf_counter()
     cases = dp_cases(cfg)
     datasets = dp_datasets(torch, cases, world)
-    kf = located_world_scans(world, cfg.voxel.max_points)[0][1]
     serve = build_serving_model(torch, cfg, "float32", centroids).state_dict()
+    serve = {k: v.cpu() for k, v in serve.items()}
     rec = {"steps": {}, "extract": {}}
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2161,23 +2207,35 @@ def phase_dp(torch, card, cfg, world, centroids):
             ds = datasets[key]
             state = dp_initial_state(torch, key, c, ds)
             torch.save(state, os.path.join(tmp, f"{key}.pt"))
-            batch = dp_batch(torch, ds, c, key != "i2i")
             with tempfile.TemporaryDirectory() as workdir:
                 tr = dp_trainer(torch, key, c, ds, state, workdir, "cuda")
-                want[key] = dp_step(torch, key, tr, batch)[:2]
+                want[key] = dp_step(torch, tr, dp_batch(torch, ds, c,
+                                                        key != "i2i"))[:2]
                 rec["steps"][key] = {"unsharded_ms": dp_step_ms(torch, tr,
                                                                 ds)}
                 tr = dp_trainer(torch, key, c, ds, state, workdir, "cuda")
-                reversed_ = dp_step(torch, key, tr, dp_batch(
+                reversed_ = dp_step(torch, tr, dp_batch(
                     torch, ds, c, key != "i2i", reverse=True))[1]
                 rec["steps"][key]["floor"] = grad_diff(
-                    torch, reversed_, want[key][1])[0]
+                    torch, reversed_, want[key][1])
                 del tr
             torch.cuda.empty_cache()
-        torch.save({k: v.cpu() for k, v in serve.items()},
-                   os.path.join(tmp, "serve.pt"))
-        plain = {key: dp_extract(torch, loc, kf) for key, loc in
-                 dp_localizers(torch, cfg, serve, "cuda").items()}
+        torch.save(serve, os.path.join(tmp, "serve.pt"))
+        i2i = torch.load(os.path.join(tmp, "i2i.pt"))
+        locs = dp_localizers(torch, cfg, world, cases, datasets, serve, i2i,
+                             "cuda")
+        plain = {key: dp_extract(torch, loc, args)
+                 for key, (loc, args) in locs.items()}
+        # cuDNN picks its convolution algorithms by batch size: ResNet18's
+        # fp32 descriptors of 8 images differ from those of the same images
+        # in a batch of 16 by ~1e-4, so a world-2 rank is held to the
+        # unsharded call on its own 8 images
+        loc, (images, _, origins) = locs["i2i images"]
+        half = len(images) // 2
+        plain["i2i images"]["desc_ranks"] = np.concatenate([
+            loc.extract(images[i:i + half], None, origins[i:i + half])[0]
+            .float().cpu().numpy() for i in (0, half)])
+        del locs, loc
 
         # world size 1: NCCL in this process
         torch.cuda.set_device(0)
@@ -2192,7 +2250,7 @@ def phase_dp(torch, card, cfg, world, centroids):
                     tr = dp_trainer(torch, key, c, ds, state, workdir,
                                     "cuda", mesh)
                     loss, grads, n_k = dp_step(
-                        torch, key, tr, dp_batch(torch, ds, c, key != "i2i"))
+                        torch, tr, dp_batch(torch, ds, c, key != "i2i"))
                     check(abs(loss - want[key][0]) <= 1e-4 * abs(
                         want[key][0]), f"[dp] world 1 {key}: loss {loss} "
                           f"against the unsharded {want[key][0]}")
@@ -2202,20 +2260,20 @@ def phase_dp(torch, card, cfg, world, centroids):
                     step["world1_loss"], step["unsharded_loss"] = (
                         loss, want[key][0])
                     step["world1_ms"] = dp_step_ms(torch, tr, ds)
-                    launches[f"dp step world 1, {key}"] = n_k
+                    launches[("step", 1, key)] = n_k
                     del tr
                 torch.cuda.empty_cache()
-            for key, loc in dp_localizers(torch, cfg, serve, "cuda").items():
+            for key, (loc, args) in dp_localizers(
+                    torch, cfg, world, cases, datasets, serve, i2i,
+                    "cuda").items():
                 loc.shard_extraction(mesh)
-                desc, img, ms, n_k = dp_extract(torch, loc, kf)
-                err = float(np.abs(desc - plain[key][0]).max())
-                check(err <= 1e-5 and np.array_equal(img, plain[key][1]),
-                      f"[dp] world 1 {key} extraction: descriptors {err:.1e}"
-                      f" from the unsharded call's, BEV equal "
-                      f"{np.array_equal(img, plain[key][1])}")
-                rec["extract"][key] = {"unsharded_ms": plain[key][2],
-                                       "world1_ms": ms, "world1_err": err}
-                launches[f"dp extraction world 1, {key}"] = n_k
+                got = dp_extract(torch, loc, args)
+                err = dp_same_extraction(f"[dp] world 1 {key} extraction",
+                                         got, plain[key])
+                rec["extract"][key] = {"unsharded_ms": plain[key]["ms"],
+                                       "world1_ms": got["ms"],
+                                       "world1_err": err}
+                launches[("extraction", 1, key)] = got["launches"]
         finally:
             dist.destroy_process_group()
 
@@ -2237,42 +2295,55 @@ def phase_dp(torch, card, cfg, world, centroids):
                                               grads, want[key][1])
         step["world2_loss"] = loss
         step["world2_ms"] = float(two[f"{key}_ms"])
-        launches[f"dp step world 2 (rank 0), {key}"] = tuple(
+        launches[("step", 2, key)] = tuple(
             int(x) for x in two[f"{key}_launches"])
-    for key in ("host-stats", "all-device"):
-        err = float(np.abs(two[f"x_{key}_desc"] - plain[key][0]).max())
-        same = np.array_equal(two[f"x_{key}_image"], plain[key][1])
-        check(err <= 1e-5 and same, f"[dp] world 2 {key} extraction: "
-              f"descriptors {err:.1e} from the unsharded call's, BEV equal "
-              f"{same}")
-        rec["extract"][key].update(world2_ms=float(two[f"x_{key}_ms"]),
+    for key in plain:
+        got = {k.split("/", 1)[1]: v for k, v in two.items()
+               if k.startswith(f"x_{key}/")}
+        ranks = "desc_ranks" in plain[key]
+        err = dp_same_extraction(f"[dp] world 2 {key} extraction", got,
+                                 plain[key],
+                                 "desc_ranks" if ranks else "desc")
+        rec["extract"][key].update(world2_ms=float(got["ms"]),
                                    world2_err=err)
-        launches[f"dp extraction world 2 (rank 0), {key}"] = tuple(
-            int(x) for x in two[f"x_{key}_launches"])
-    for tag, (k1, k2) in launches.items():
-        host = "host-stats" in tag
-        check((k1 > 0) == host and (k2 > 0) == ("all-device" in tag),
-              f"[dp] {tag}: launches K1 {k1}, K2 {k2}")
-    rec["launches"] = {k: list(v) for k, v in launches.items()}
+        if ranks:
+            rec["extract"][key]["world2_err_whole_batch"] = float(
+                np.abs(got["desc"] - plain[key]["desc"]).max())
+        launches[("extraction", 2, key)] = tuple(
+            int(x) for x in got["launches"])
+    for (what, n, key), (k1, k2) in launches.items():
+        check(((k1 > 0), (k2 > 0)) == DP_KERNELS[key],
+              f"[dp] {what} world {n}, {key}: launches K1 {k1}, K2 {k2}")
+    rec["launches"] = {f"dp {what} world {n}{' (rank 0)' if n > 1 else ''}"
+                       f", {key}": list(v)
+                       for (what, n, key), v in launches.items()}
     rec["spawn_s"] = spawn_s
     for key, s in rec["steps"].items():
+        w1, w2, fl = s["world1_grad_err"], s["world2_grad_err"], s["floor"]
         print(f"[dp] step {key} on {card}: unsharded {s['unsharded_ms']:.2f}"
               f", world 1 (NCCL) {s['world1_ms']:.2f}, world 2 (gloo, one "
               f"card) {s['world2_ms']:.2f} ms (host clock, _train_batch, "
               f"median of {DP_TIMED}); loss {s['unsharded_loss']:.6f} → "
               f"{s['world1_loss']:.6f} / {s['world2_loss']:.6f}; gradients "
-              f"{s['world1_grad_err'][0]:.2e} / {s['world2_grad_err'][0]:.2e}"
-              f" of their norm (bound {DP_GRAD_TOL}; the unsharded step's own "
-              f"change on its batch reversed {s['floor']:.2e}; worst tensor "
-              f"{s['world1_grad_err'][1]:.2e} / {s['world2_grad_err'][1]:.2e}"
-              f", {s['world2_grad_err'][2]}); world 2 parameters bit-equal "
-              f"on both ranks")
+              f"{w1[0]:.2e} / {w2[0]:.2e} of their norm (bound "
+              f"{DP_GRAD_TOL}), worst tensor {w1[1]:.2e} / {w2[1]:.2e}, "
+              f"{w2[2]} (bound {DP_TENSOR_TOL}); the unsharded step's own "
+              f"change on its batch reversed {fl[0]:.2e}, worst tensor "
+              f"{fl[1]:.2e} ({fl[2]}); world 2 parameters bit-equal on both "
+              f"ranks")
     for key, s in rec["extract"].items():
-        print(f"[dp] extraction {key}, {len(kf)} scans, on {card}: unsharded"
-              f" {s['unsharded_ms']:.2f}, world 1 {s['world1_ms']:.2f}, "
-              f"world 2 {s['world2_ms']:.2f} ms (host clock, median of 3); "
-              f"descriptors within {max(s['world1_err'], s['world2_err']):.1e}"
-              f", BEV bit-equal")
+        extra = (", ground transforms and generator state bit-equal"
+                 if key == "aligned" else "")
+        if "world2_err_whole_batch" in s:
+            extra += (f" (world 2 against the unsharded call on each rank's "
+                      f"{N_KEYFRAMES // 2} images; against the batch of "
+                      f"{N_KEYFRAMES}: {s['world2_err_whole_batch']:.1e})")
+        print(f"[dp] extraction {key}, {N_KEYFRAMES} inputs, on {card}: "
+              f"unsharded {s['unsharded_ms']:.2f}, world 1 "
+              f"{s['world1_ms']:.2f}, world 2 {s['world2_ms']:.2f} ms (host "
+              f"clock, median of 3); descriptors within "
+              f"{max(s['world1_err'], s['world2_err']):.1e}, BEV bit-equal"
+              f"{extra}")
     print(f"[dp] launches (K1, K2): " + ", ".join(
         f"{k} {v}" for k, v in rec["launches"].items()))
     print(f"[dp] phase {time.perf_counter() - t_phase:.1f} s (world 2: "
@@ -4873,12 +4944,13 @@ def phase_training(torch, cfg, ds, card):
             cache_ms = sum(s[0] for s in caches) / sum(s[1] for s in caches)
             # the split, in a separate pass (its wrappers add syncs)
             inner, host = [], []
+            inner_fn = "train_step_hs" if host_stats else "train_step"
             tr._host_sorted = timed(torch, tr._host_sorted, host)
-            tr.train_step = timed(torch, tr.train_step, inner)
-            tr.train_step_hs = timed(torch, tr.train_step_hs, inner)
+            setattr(tr, inner_fn, timed(torch, getattr(tr, inner_fn), inner))
             for _ in range(3):
                 one_step()
-            del tr._host_sorted, tr.train_step, tr.train_step_hs
+            del tr._host_sorted
+            delattr(tr, inner_fn)
             dev_ms = float(np.median([s[0] for s in inner]))
             host_ms = float(np.median([s[0] for s in host])) if host else 0.0
             print(f"[train] {path} on {card}: {step_ms:.2f} ms per train "
@@ -4888,7 +4960,7 @@ def phase_training(torch, cfg, ds, card):
                   f"median of {len(steps)} warm steps of epochs 2-3); split "
                   f"in a separate pass of 3 steps with syncs between the "
                   f"parts: {dev_ms:.2f} ms in "
-                  f"{'train_step_hs' if host_stats else 'train_step'}, "
+                  f"{inner_fn}, "
                   f"{host_ms:.2f} ms in the host pass of the step's "
                   f"{b * (2 + n_neg)} scans; cache refresh {cache_ms:.3f} ms "
                   f"per scan ({sum(s[1] for s in caches)} scans in batches "

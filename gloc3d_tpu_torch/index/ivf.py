@@ -49,9 +49,10 @@ from gloc3d_tpu_torch.index.kmeans import kmeans
 from gloc3d_tpu_torch.ops.topk import (
     int8_dots, l2_topk, quantize_rows, select_topk,
 )
-from gloc3d_tpu_torch.parallel.sharding import (
-    gather_merge, group_shape, same_on_every_rank,
+from gloc3d_tpu_torch.parallel.collectives import (
+    group_shape, same_on_every_rank,
 )
+from gloc3d_tpu_torch.parallel.sharding import gather_merge
 
 NO_LIMIT = 2**31 - 1
 _ROUTE_CHUNK = 131072

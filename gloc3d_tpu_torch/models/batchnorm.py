@@ -40,7 +40,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from gloc3d_tpu_torch.parallel.sharding import all_gather
+from gloc3d_tpu_torch.parallel.collectives import all_gather
 
 
 def _channel_view(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

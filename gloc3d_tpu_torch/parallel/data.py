@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from gloc3d_tpu_torch.parallel.sharding import (
+from gloc3d_tpu_torch.parallel.collectives import (
     all_gather, broadcast_rank0, group_shape,
 )
 

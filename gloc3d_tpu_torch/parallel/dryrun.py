@@ -114,9 +114,10 @@ def _same_results(tag, a, b, atol):
 def _dryrun_rank(rank: int, n: int, device: torch.device, out_dir: str):
     from gloc3d_tpu_torch.data.dataset import TripletDataset
     from gloc3d_tpu_torch.models.descriptor import build_model, init_params
-    from gloc3d_tpu_torch.parallel.sharding import (
-        all_gather, same_on_every_rank, sharded_topk,
+    from gloc3d_tpu_torch.parallel.collectives import (
+        all_gather, same_on_every_rank,
     )
+    from gloc3d_tpu_torch.parallel.sharding import sharded_topk
     from gloc3d_tpu_torch.pipeline import GlobalLocalizer
     from gloc3d_tpu_torch.train import Trainer
 

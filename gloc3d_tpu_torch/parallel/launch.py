@@ -15,7 +15,9 @@ one fails. The backend and each rank's device follow ``device``:
 A rank imports torch, numpy and the port only, and takes the launching
 process's TF32 settings (``torch.backends.cuda.matmul.allow_tf32``,
 ``torch.backends.cudnn.allow_tf32``): a fresh process would otherwise
-run cuDNN's fp32 convolutions in TF32 where its parent does not.
+run cuDNN's fp32 convolutions in TF32 where its parent does not. CPU ranks
+share the launching process's intra-op threads (``torch.get_num_threads()``
+over n, at least one each) rather than each spin on every core.
 """
 
 from __future__ import annotations
@@ -65,14 +67,14 @@ def check_ranks(n: int) -> None:
 
 def _rank_main(rank: int, n: int, port: int, backend: str,
                devices: Sequence[str], tf32: Tuple[bool, bool],
-               fn: Callable, args: tuple) -> None:
+               threads: int, fn: Callable, args: tuple) -> None:
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
     dev = torch.device(devices[rank])
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    else:  # CPU ranks share the cores rather than each spin on all
-        torch.set_num_threads(max(1, max_ranks() // n))
+    else:
+        torch.set_num_threads(threads)
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
                             world_size=n, rank=rank,
                             timeout=datetime.timedelta(seconds=600))
@@ -89,6 +91,8 @@ def spawn(fn: Callable, n: int, device, args: tuple = ()) -> None:
     backend, devices = placement(device, n)
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
+    threads = max(1, torch.get_num_threads() // n)
     torch.multiprocessing.start_processes(
-        _rank_main, args=(n, free_port(), backend, devices, tf32, fn, args),
+        _rank_main, args=(n, free_port(), backend, devices, tf32, threads,
+                          fn, args),
         nprocs=n, join=True, start_method="spawn")

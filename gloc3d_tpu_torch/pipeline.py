@@ -101,9 +101,10 @@ from gloc3d_tpu_torch.ops.refine import icp_point_to_point
 from gloc3d_tpu_torch.parallel.data import (
     gather_host, gather_rows, require_group, shard_rows,
 )
-from gloc3d_tpu_torch.parallel.sharding import (
-    ShardedBank, broadcast_rank0, group_shape,
+from gloc3d_tpu_torch.parallel.collectives import (
+    broadcast_rank0, group_shape,
 )
+from gloc3d_tpu_torch.parallel.sharding import ShardedBank
 
 
 class Keyframe(NamedTuple):

@@ -49,9 +49,10 @@ computed over the group:
   every BatchNorm normalises over the group's rows
   (``models/batchnorm.py::set_batchnorm_group``);
 - a step takes the whole mined batch on every rank; each rank runs its
-  slice by query (its queries, their positives and negatives), the host
-  pass too, and divides its summed per-pair loss by the all-reduced count
-  of real negatives, so the ranks' losses sum to the batch's;
+  slice by query (its queries, their positives and negatives), its host
+  pass binning only those rows, and divides its summed per-pair loss by
+  the all-reduced count of real negatives, so the ranks' losses sum to
+  the batch's;
 - the gradients are then summed over the ranks by explicit all-reduces of
   one flat buffer (not DDP: the step keeps the one-process code path, the
   model keeps its state-dict names, and gloo on CPU tensors runs the same
@@ -83,7 +84,7 @@ from gloc3d_tpu_torch.ops.topk import l2_topk
 from gloc3d_tpu_torch.parallel.data import (
     all_reduce_grads, broadcast_module, gather_rows, require_group,
 )
-from gloc3d_tpu_torch.parallel.sharding import broadcast_rank0, group_shape
+from gloc3d_tpu_torch.parallel.collectives import broadcast_rank0, group_shape
 from gloc3d_tpu_torch.train.mining import MinedTriplets, mine_triplets
 
 
@@ -260,42 +261,50 @@ class Trainer:
         return gather_rows(self.mesh, local)[:len(inputs)]
 
     # ------------------------------------------------------------ train step
-    def _rank_rows(self, b: int):
-        """This rank's queries of a batch of ``b`` (a slice) and the rows
-        of their negatives in the (b·n_neg) negative stack."""
-        world, rank = group_shape(self.mesh)
-        lo, hi = rank * b // world, (rank + 1) * b // world
-        n_neg = self.cfg.train.n_neg
-        return slice(lo, hi), slice(lo * n_neg, hi * n_neg)
-
-    def _local(self, b: int, q_in, q_mk, p_in, p_mk, n_in, n_mk, neg_valid,
+    def _local(self, q_in, q_mk, p_in, p_mk, n_in, n_mk, neg_valid,
                q_valid, yaw=None):
-        """This rank's part of a mined batch of ``b`` queries: its queries,
+        """This rank's part of a mined batch: its slice of the queries,
         their positives and negatives, ``neg_valid`` and ``q_valid`` rows
         and yaws (numpy or tensors, None kept). Without a mesh, the
         batch."""
         if self.mesh is None:
             return q_in, q_mk, p_in, p_mk, n_in, n_mk, neg_valid, q_valid, yaw
-        q_rows, n_rows = self._rank_rows(b)
+        world, rank = group_shape(self.mesh)
+        b, n_neg = len(q_in), self.cfg.train.n_neg
+        q = slice(rank * b // world, (rank + 1) * b // world)
+        n = slice(q.start * n_neg, q.stop * n_neg)
         return tuple(None if a is None else a[rows] for a, rows in (
-            (q_in, q_rows), (q_mk, q_rows), (p_in, q_rows), (p_mk, q_rows),
-            (n_in, n_rows), (n_mk, n_rows), (neg_valid, q_rows),
-            (q_valid, q_rows), (yaw, q_rows)))
+            (q_in, q), (q_mk, q), (p_in, q), (p_mk, q), (n_in, n),
+            (n_mk, n), (neg_valid, q), (q_valid, q), (yaw, q)))
 
     def train_step(self, q_in, q_mk, p_in, p_mk, n_in, n_mk, neg_valid,
                    q_valid, yaw=None) -> torch.Tensor:
-        """All-device step on one mined batch: (B, N, 4) queries and
-        positives, (B·n_neg, N, 4) negatives, their masks, (B, n_neg)
-        ``neg_valid`` and (B,) ``q_valid``; or images with masks None.
-        ``yaw`` (B,) rotates the query clouds first (ignored for images).
-        Data-parallel, every rank passes the whole batch and runs its
-        part. Returns the batch's loss (a device scalar)."""
+        """One step on a mined batch: (B, N, 4) queries and positives,
+        (B·n_neg, N, 4) negatives, their masks, (B, n_neg) ``neg_valid``
+        and (B,) ``q_valid``; or images with masks None. ``yaw`` (B,)
+        rotates the query clouds first (ignored for images). On the
+        host-stats path the clouds (numpy) are rotated on the host, binned
+        by the host pass (``_host_sorted``) and stepped by
+        ``train_step_hs``. Data-parallel, every rank passes the whole batch
+        and runs its part, its host pass binning only its own rows. Returns
+        the batch's loss (a device scalar)."""
         (q_in, q_mk, p_in, p_mk, n_in, n_mk, neg_valid, q_valid,
-         yaw) = self._local(len(q_in), q_in, q_mk, p_in, p_mk, n_in, n_mk,
-                            neg_valid, q_valid, yaw)
+         yaw) = self._local(q_in, q_mk, p_in, p_mk, n_in, n_mk, neg_valid,
+                            q_valid, yaw)
+        yaw = (torch.as_tensor(np.array(yaw, np.float32))
+               if yaw is not None and self.is_s2s else None)
+        if self.host_stats:
+            if yaw is not None:  # the pillar assignment must see the rotation
+                q_in = rotate_clouds_z(
+                    torch.from_numpy(np.asarray(q_in, np.float32)),
+                    yaw).numpy()
+            return self.train_step_hs(
+                *self._host_sorted(np.concatenate([q_in, p_in, n_in]),
+                                   np.concatenate([q_mk, p_mk, n_mk])),
+                neg_valid, q_valid)
         q = self._tensor(q_in)
-        if yaw is not None and self.is_s2s:
-            q = rotate_clouds_z(q, torch.as_tensor(np.array(yaw, np.float32)))
+        if yaw is not None:
+            q = rotate_clouds_z(q, yaw)
         inputs = torch.cat([q, self._tensor(p_in), self._tensor(n_in)])
         masks = (torch.cat([self._tensor(m) for m in (q_mk, p_mk, n_mk)])
                  if self.is_s2s else None)
@@ -303,20 +312,12 @@ class Trainer:
 
     def train_step_hs(self, inputs, valid, vs, neg_valid, q_valid
                       ) -> torch.Tensor:
-        """Host-stats step: ``inputs`` is the concatenated (q | pos | negs)
-        batch, pillar-sorted on the host, with its ``valid`` rows and
-        voxel stats (``_host_sorted``). Any yaw augmentation happened on the
-        host before the stats pass. Data-parallel, every rank passes the
-        whole batch and runs its part."""
-        if self.mesh is not None:
-            b = inputs.shape[0] // (2 + self.cfg.train.n_neg)
-            q, n = self._rank_rows(b)
-            rows = torch.arange(inputs.shape[0], device=inputs.device)
-            idx = torch.cat([rows[q], rows[b + q.start:b + q.stop],
-                             rows[2 * b + n.start:2 * b + n.stop]])
-            inputs, valid = inputs[idx], valid[idx]
-            vs = tuple(a[idx] for a in vs)
-            neg_valid, q_valid = neg_valid[q], q_valid[q]
+        """Host-stats step on a binned batch: ``inputs`` is the
+        concatenated (q | pos | negs) batch, pillar-sorted on the host,
+        with its ``valid`` rows and voxel stats (``_host_sorted``); any yaw
+        augmentation happened before the host pass. Data-parallel, the
+        arguments are this rank's part, binned by its own host pass, as
+        ``train_step`` makes them."""
         return self._step(inputs, valid, vs, neg_valid, q_valid)
 
     def _step(self, inputs, masks, vs, neg_valid, q_valid) -> torch.Tensor:
@@ -371,23 +372,8 @@ class Trainer:
                             else (None, None, None))
         yaw = (draw_aug_yaw(self.generator, len(batch_idx))
                if t.augment_yaw and self.is_s2s else None)
-        q_valid = mined.valid.float()
-        if not self.host_stats:
-            return self.train_step(q_in, q_mk, p_in, p_mk, n_in, n_mk,
-                                   mined.neg_valid, q_valid, yaw)
-        # data-parallel: each rank's host pass bins its own part
-        q_in, q_mk, p_in, p_mk, n_in, n_mk, neg_valid, q_valid, yaw = (
-            self._local(len(batch_idx), q_in, q_mk, p_in, p_mk, n_in, n_mk,
-                        mined.neg_valid, q_valid, yaw))
-        if yaw is not None:  # the pillar assignment must see the rotation
-            q_in = rotate_clouds_z(
-                torch.from_numpy(np.asarray(q_in, np.float32)), yaw).numpy()
-        p_sorted, vl, vs = self._host_sorted(
-            np.concatenate([q_in, p_in, n_in]),
-            np.concatenate([q_mk, p_mk, n_mk]))
-        if self.mesh is not None:
-            return self._step(p_sorted, vl, vs, neg_valid, q_valid)
-        return self.train_step_hs(p_sorted, vl, vs, neg_valid, q_valid)
+        return self.train_step(q_in, q_mk, p_in, p_mk, n_in, n_mk,
+                               mined.neg_valid, mined.valid.float(), yaw)
 
     def _broadcast_mined(self, mined: MinedTriplets) -> MinedTriplets:
         """Rank 0's triplets on every rank (one float64 broadcast: the

@@ -2,8 +2,9 @@
 gloo group over ``tcp://127.0.0.1:<port>`` runs the port's data-parallel
 training and extraction on the inputs the test wrote, and each rank writes
 what it got to ``<dir>/rank<r>.npz`` for the test to hold against JAX and
-against the port's one-process calls, which the ranks also make (rank 0
-the steps, rank 1 the epoch).
+against the port's one-process calls, which the ranks also make, half on
+each rank. The ranks start while the test still computes the inputs, and
+wait for ``<dir>/inputs.npz``.
 
     python tests/_torch_dp_worker.py RANK WORLD PORT DIR
 
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -32,6 +34,7 @@ from gloc3d_tpu_torch.train import Trainer  # noqa: E402
 from gloc3d_tpu_torch.train import trainer as trainer_module  # noqa: E402
 
 STEPS = ("device", "hoststats", "trap", "i2i")
+EPOCHS = ("epoch", "epoch_hs")  # all-device, host stats
 
 
 def _cfg(inp, key):
@@ -68,34 +71,36 @@ def _state(out, key, model):
         out[f"{key}/{k}"] = v.numpy().copy()  # not a view of the model
 
 
-def case_steps(inp, out, out_dir, mesh, prefix=""):
-    """One data-parallel step per path from the whole batch, and the
-    weights each rank held before it (rank 0's, broadcast); with mesh None
-    the one-process step, its keys under ``prefix``."""
-    for key in STEPS:
+def case_steps(inp, out, out_dir, mesh, keys=STEPS, prefix=""):
+    """One data-parallel step per path of ``keys`` from the whole batch,
+    and the weights each rank held before it (rank 0's, broadcast); with
+    mesh None the one-process step, its keys under ``prefix``."""
+    for key in keys:
         tr = trainer(inp, out_dir, key, "i2i" if key == "i2i" else "s2s",
                      os.path.join(out_dir, f"wd_{prefix}{key}"), mesh,
                      seed=int(inp["seed"]))
         if mesh is not None:
             _state(out, f"{key}_old", tr.model)
+        if key == "i2i" and mesh is not None:
+            for name, trained in (("frozen", False), ("trained", True)):
+                out[f"i2i_{name}"] = np.array([
+                    k for k, p in tr.model.named_parameters()
+                    if p.requires_grad == trained])
         b = {k: inp[f"{key}_{k}"] for k in (
-            "q", "qm", "p", "pm", "n", "nm", "nv", "qv", "yaw", "cat",
-            "catm") if f"{key}_{k}" in inp}
-        if key == "hoststats":
-            loss = tr.train_step_hs(*tr._host_sorted(b["cat"], b["catm"]),
-                                    b["nv"], b["qv"])
-        else:
-            loss = tr.train_step(b["q"], b.get("qm"), b["p"], b.get("pm"),
-                                 b["n"], b.get("nm"), b["nv"], b["qv"],
-                                 yaw=b.get("yaw"))
+            "q", "qm", "p", "pm", "n", "nm", "nv", "qv", "yaw")
+             if f"{key}_{k}" in inp}
+        loss = tr.train_step(b["q"], b.get("qm"), b["p"], b.get("pm"),
+                             b["n"], b.get("nm"), b["nv"], b["qv"],
+                             yaw=b.get("yaw"))
         out[f"{prefix}{key}_loss"] = float(loss)
         _state(out, f"{prefix}{key}", tr.model)
 
 
-def case_epoch(inp, out, out_dir, mesh, prefix=""):
-    """One train_epoch over the ranks (its mined triplets recorded), then a
-    checkpoint, counting this rank's writes; with mesh None the
-    one-process epoch, its keys under ``prefix``."""
+def case_epoch(inp, out, out_dir, mesh, key, prefix=""):
+    """One train_epoch of the config ``key`` (all-device or host stats)
+    over the ranks (its mined triplets recorded), then a checkpoint,
+    counting this rank's writes; with mesh None the one-process epoch, its
+    keys under ``prefix``."""
     mined, saved = [], []
     mine, save = trainer_module.mine_triplets, torch.save
 
@@ -109,8 +114,8 @@ def case_epoch(inp, out, out_dir, mesh, prefix=""):
         saved.append(str(path))
         return save(obj, path, *a, **k)
 
-    workdir = os.path.join(out_dir, f"{prefix}epoch")
-    tr = trainer(inp, out_dir, "epoch", "s2s", workdir, mesh)
+    workdir = os.path.join(out_dir, f"{prefix}{key}")
+    tr = trainer(inp, out_dir, key, "s2s", workdir, mesh)
     losses, step = [], tr._train_batch
 
     def recording_step(*a, **k):
@@ -123,16 +128,16 @@ def case_epoch(inp, out, out_dir, mesh, prefix=""):
     trainer_module.mine_triplets = recording_mine
     torch.save = counting_save
     try:
-        out[f"{prefix}epoch_loss"] = tr.train_epoch(1)
-        out[f"{prefix}epoch_losses"] = np.array(losses)
+        out[f"{prefix}{key}_loss"] = tr.train_epoch(1)
+        out[f"{prefix}{key}_losses"] = np.array(losses)
         tr.save_checkpoint("latest")
     finally:
         trainer_module.mine_triplets, torch.save = mine, save
-    out[f"{prefix}epoch_mined"] = np.stack(mined)
-    out[f"{prefix}epoch_neg_cache"] = tr.neg_cache.numpy()
-    out[f"{prefix}epoch_steps"] = tr.step
-    out[f"{prefix}epoch_writes"] = len(saved)
-    _state(out, f"{prefix}epoch", tr.model)
+    out[f"{prefix}{key}_mined"] = np.stack(mined)
+    out[f"{prefix}{key}_neg_cache"] = tr.neg_cache.numpy()
+    out[f"{prefix}{key}_steps"] = tr.step
+    out[f"{prefix}{key}_writes"] = len(saved)
+    _state(out, f"{prefix}{key}", tr.model)
 
 
 def _bev(out, key, desc, bev, ground=None):
@@ -183,18 +188,24 @@ def main(rank: int, world: int, port: int, out_dir: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank)
     try:
-        inp = dict(np.load(os.path.join(out_dir, "inputs.npz")))
+        # the test writes the inputs while the ranks start
+        path = os.path.join(out_dir, "inputs.npz")
+        for _ in range(6000):
+            if os.path.exists(path):
+                break
+            time.sleep(0.1)
+        inp = dict(np.load(path))
         out = {}
         mesh = dist.group.WORLD
         case_steps(inp, out, out_dir, mesh)
-        case_epoch(inp, out, out_dir, mesh)
+        for key in EPOCHS:
+            case_epoch(inp, out, out_dir, mesh, key)
         case_extract(inp, out, out_dir, mesh)
-        # the port's one-process calls on the same weights and batches, one
+        # the port's one-process calls on the same weights and batches,
         # half on each rank
-        if rank == 0:
-            case_steps(inp, out, out_dir, None, prefix="one_")
-        else:
-            case_epoch(inp, out, out_dir, None, prefix="one_")
+        case_steps(inp, out, out_dir, None, STEPS[2 * rank:2 * rank + 2],
+                   prefix="one_")
+        case_epoch(inp, out, out_dir, None, EPOCHS[rank], prefix="one_")
         out["jax_loaded"] = any(m == "jax" or m.startswith(("jax.", "flax",
                                                             "gloc3d_tpu."))
                                 for m in sys.modules)

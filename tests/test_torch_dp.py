@@ -8,7 +8,7 @@ One group (two fresh processes running ``tests/_torch_dp_worker.py``,
 which import neither JAX nor this conftest) runs the training and
 extraction cases once for the whole file, while this process computes
 JAX's side; each rank writes what it got, and the port's one-process calls
-on the same weights and batches (rank 0 the steps, rank 1 the epoch).
+on the same weights and batches, half on each rank.
 
 Bounds. An s2s train step is held as tests/test_torch_train.py holds the
 one-process step: the loss within rtol 1e-4, the BatchNorm running
@@ -44,8 +44,6 @@ from gloc3d_tpu.train import Trainer as JaxTrainer
 from gloc3d_tpu_torch.config import GroundConfig, PipelineConfig
 from gloc3d_tpu_torch.convert import flax_to_state_dict
 from gloc3d_tpu_torch.models.batchnorm import BatchNorm
-from gloc3d_tpu_torch.models.descriptor import build_model
-from gloc3d_tpu_torch.models.encoders import train_mask
 from gloc3d_tpu_torch.parallel.dryrun import dryrun_multichip
 from test_pipeline_ground import tilted_scan
 from test_torch_cli import ckpt, port, run as run_cli  # noqa: F401
@@ -55,13 +53,15 @@ from test_torch_train import _jax_step as _jax_train_step
 from test_torch_train import (
     _step_cfg, dataset, jax_variables, step_batch,
 )
-from test_cli import kitti_root, small_config  # noqa: F401
+from test_cli import N_PTS as CLI_PTS
+from test_cli import kitti_root  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "_torch_dp_worker.py")
 WORLD = 2
 SEED = 3
 STEPS = ("device", "hoststats", "trap", "i2i")
+EPOCHS = ("epoch", "epoch_hs")  # all-device, host stats
 ENCODER = "resnet18"   # the i2i case: an encoder of the zoo with BatchNorm
 LIFT_M = 5.0           # the trap: rank 1's clouds lifted in z
 
@@ -77,15 +77,17 @@ def step_cfg(key):
     return cfg.replace(train=cfg.train.replace(seed=SEED))
 
 
-def epoch_cfg():
-    """The epoch's: test_torch_train's at a rate of 1e-5. A step's update is
-    chaotic in fp32 at ~1e-2 of its largest element (test_torch_train.py;
-    JAX's own computations of one step differ by 5 %), so at its rate of
-    1e-3 the later steps' losses of two equal epochs already differ by
-    ~1e-4; at 1e-5 by ~1e-6, and a wrong normaliser or BatchNorm still
-    moves the first step's loss by 1e-2 or more (the trap case)."""
-    return TRAIN_CFG.replace(train=TRAIN_CFG.train.replace(seed=SEED,
-                                                           lr=1e-5))
+def epoch_cfg(key):
+    """The epoch's: test_torch_train's at a rate of 1e-5, on the
+    all-device path or (``epoch_hs``) the host-stats one. A step's update
+    is chaotic in fp32 at ~1e-2 of its largest element
+    (test_torch_train.py; JAX's own computations of one step differ by
+    5 %), so at its rate of 1e-3 the later steps' losses of two equal
+    epochs already differ by ~1e-4; at 1e-5 by ~1e-6, and a wrong
+    normaliser or BatchNorm still moves the first step's loss by 1e-2 or
+    more (the trap case)."""
+    return TRAIN_CFG.replace(train=TRAIN_CFG.train.replace(
+        seed=SEED, lr=1e-5, host_stats=key == "epoch_hs"))
 
 
 def trap_batch(a):
@@ -104,14 +106,21 @@ def trap_batch(a):
 
 
 def step_inputs():
-    """Each step case's batch: all-device, host stats (the rotated query
-    binned on the host), the trap, and the i2i images."""
+    """Each step case's batch: all-device, host stats (the queries rotated
+    by JAX's yaw ahead, so that both frameworks bin the same floats, and
+    no yaw: the port's train_step bins each rank's rows on the host, JAX
+    bins the whole batch), the trap, and the i2i images."""
     out = {}
     a = step_batch(step_cfg("device"))
     names = ("q", "qm", "p", "pm", "n", "nm")
     out.update({f"device_{k}": v for k, v in zip(names, a["device"])})
     out.update(device_nv=a["neg_valid"], device_qv=a["q_valid"],
                device_yaw=a["yaw"])
+    b = len(a["neg_valid"])
+    for k, x in (("q", "cat_in"), ("qm", "cat_mk")):
+        out[f"hoststats_{k}"] = a[x][:b]
+    for k, x in zip(names[2:], a["device"][2:]):
+        out[f"hoststats_{k}"] = x
     out.update(hoststats_cat=a["cat_in"], hoststats_catm=a["cat_mk"],
                hoststats_nv=a["neg_valid"], hoststats_qv=a["q_valid"])
     arrays, nv = trap_batch(a)
@@ -155,7 +164,8 @@ def _inputs():
         inp[f"{k}_cfg"] = np.array(
             ti.port_cfg(ENCODER).to_json() if k == "i2i"
             else step_cfg(k).to_json())
-    inp["epoch_cfg"] = np.array(epoch_cfg().to_json())
+    for k in EPOCHS:
+        inp[f"{k}_cfg"] = np.array(epoch_cfg(k).to_json())
     ds, ids = dataset(), ti.dataset()
     for prefix, d in (("s2s", ds), ("i2i", ids)):
         for name in ("db_inputs", "q_inputs", "utm_db", "utm_q", "db_masks",
@@ -249,11 +259,6 @@ def run(tmp_path_factory, devices):
     """Start the two ranks, compute JAX's side meanwhile, and return (both
     ranks' results, JAX's, the inputs, the run's directory)."""
     out = tmp_path_factory.mktemp("dp")
-    inp, aug_key = _inputs()
-    s2s, i2i = weights()
-    for name, state in (("s2s", s2s), ("i2i", i2i), ("x", s2s)):
-        torch.save(state, out / f"{name}.pt")
-    np.savez(out / "inputs.npz", **inp)
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     port_no = _free_port()
     procs = [subprocess.Popen(
@@ -261,6 +266,13 @@ def run(tmp_path_factory, devices):
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(WORLD)]
     try:
+        # the ranks import torch and join their group meanwhile
+        inp, aug_key = _inputs()
+        s2s, i2i = weights()
+        for name, state in (("s2s", s2s), ("i2i", i2i), ("x", s2s)):
+            torch.save(state, out / f"{name}.pt")
+        np.savez(out / "inputs.tmp.npz", **inp)
+        os.replace(out / "inputs.tmp.npz", out / "inputs.npz")
         mesh = Mesh(np.array(devices[:WORLD]), ("data",))
         want = {key: _jax_step(key, inp, mesh, aug_key) for key in STEPS}
         want["s2s_floor"] = s2s_floor(want)
@@ -294,6 +306,11 @@ def _state(run, prefix, rank=None):
             for k in names}
 
 
+def _one_process_rank(run, key):
+    """The rank that ran the port's one-process call of ``key``."""
+    return next(r for r, g in enumerate(run[0]) if f"one_{key}_loss" in g)
+
+
 def _rel(a, b):
     """‖a‖ / ‖b‖ and max|a| / max|b|."""
     return float(a.norm() / b.norm()), float(a.abs().max() / b.abs().max())
@@ -318,27 +335,23 @@ def s2s_floor(want):
 
 def i2i_floors(want):
     """JAX's own floors of the i2i checks, per tensor, in the form of
-    tests/test_torch_train_i2i.py's: over JAX's reruns of the step against
-    its step on the mesh, the largest difference of the updates relative
-    to ‖Δ‖ and to max|Δ|, and of each running statistic relative to its
-    largest element. The reruns (unsharded, two-pass variance, one jit):
-    the step itself, three draws of one float32 step on every weight and
-    input pixel, and the batch in reverse order."""
+    tests/test_torch_train_i2i.py's: JAX's rerun of the step, unsharded,
+    with the two-pass variance and the batch in reverse order, against its
+    step on the mesh: the difference of the updates relative to ‖Δ‖ and
+    to max|Δ|, and of each running statistic relative to its largest
+    element. Of test_torch_train_i2i.py's reruns this one sets every
+    tensor's floor here: with the step itself and three draws of one
+    float32 step on every weight and input pixel added, no floor that the
+    port's step needs moved (checked on one CPU)."""
     meshed = want["i2i"][1]
+    _, old, rerun = ti.jax_step(ENCODER, two_pass=True, reversed_=True)
     upd, stat = {}, {}
-    for kw in ({}, {"perturb_seed": 1}, {"perturb_seed": 2},
-               {"perturb_seed": 3}, {"reversed_": True}):
-        _, old, rerun = ti.jax_step(ENCODER, two_pass=True, **kw)
-        if not kw:
-            start = old
-        for k, v in meshed.items():
-            if "running" in k:
-                stat[k] = max(stat.get(k, 0.0), _rel(rerun[k] - v, v)[1])
-            elif "num_b" not in k and not torch.equal(v, start[k]):
-                d = v - start[k]
-                n, e = _rel(rerun[k] - old[k] - d, d)
-                upd[k] = tuple(max(a, b) for a, b in zip(
-                    upd.get(k, (0.0, 0.0)), (n, e)))
+    for k, v in meshed.items():
+        if "running" in k:
+            stat[k] = _rel(rerun[k] - v, v)[1]
+        elif "num_b" not in k and not torch.equal(v, old[k]):
+            d = v - old[k]
+            upd[k] = _rel(rerun[k] - old[k] - d, d)
     return upd, stat
 
 
@@ -392,19 +405,20 @@ def test_dp_step_matches_jax_mesh_and_one_process(run, key):
     got_loss = float(_ranks(run, f"{key}_loss"))
     new, old = _state(run, key), _state(run, f"{key}_old")
     want_loss, want = run[1][key]
-    one_loss = float(run[0][0][f"one_{key}_loss"])
-    one = _state(run, f"one_{key}", rank=0)
+    rank = _one_process_rank(run, key)
+    one_loss = float(run[0][rank][f"one_{key}_loss"])
+    one = _state(run, f"one_{key}", rank=rank)
     s2s, i2i = weights()
     start = i2i if key == "i2i" else s2s
     assert all(torch.equal(old[k], start[k]) for k in start)
     assert set(new) == set(want) == set(one)
     if key == "i2i":
-        model = build_model(ti.port_cfg(ENCODER).model, None)
-        mask = train_mask(model, ENCODER)
-        frozen = [k for k, t in mask.items() if not t]
+        # the parameters the ranks' Trainer froze (train_mask) and trained
+        frozen, trained = (list(_ranks(run, f"i2i_{k}"))
+                           for k in ("frozen", "trained"))
         assert frozen and all(torch.equal(new[k], old[k]) for k in frozen)
         floors, stat_floors = run[1]["i2i_floors"]
-        assert set(floors) == {k for k, t in mask.items() if t}
+        assert set(floors) == set(trained)
     else:
         f = run[1]["s2s_floor"]
         floors = {k: (0.0, f) for k in new if "running" not in k
@@ -418,32 +432,37 @@ def test_dp_step_matches_jax_mesh_and_one_process(run, key):
         hold_stats(new, ref, stat_floors, what)
 
 
-def test_dp_epoch_matches_one_process_and_writes_once(run):
+@pytest.mark.parametrize("key", EPOCHS)
+def test_dp_epoch_matches_one_process_and_writes_once(run, key):
     """One train_epoch over the two ranks against the port's one-process
-    epoch with the same seed: the same mined triplets (the positives and
-    negatives of every batch are the ranks' own and equal, and the
-    negative cache equals the one-process run's), each step's loss and the
-    mean within rtol 1e-4, the same number of steps; rank 0 alone wrote
-    the checkpoint, which holds the state both ranks end with."""
-    one = run[0][1]  # rank 1 ran the one-process epoch
-    loss, losses = float(one["one_epoch_loss"]), one["one_epoch_losses"]
-    neg_cache, steps = one["one_epoch_neg_cache"], int(one["one_epoch_steps"])
-    state = _state(run, "one_epoch", rank=1)
+    epoch with the same seed, on the all-device path and on the host-stats
+    path (each rank's _train_batch bins its own rows on the host): the
+    same mined triplets (the positives and negatives of every batch are
+    the ranks' own and equal, and the negative cache equals the
+    one-process run's), each step's loss and the mean within rtol 1e-4,
+    the same number of steps; rank 0 alone wrote the checkpoint, which
+    holds the state both ranks end with."""
+    rank = _one_process_rank(run, key)
+    one = run[0][rank]
+    loss, losses = float(one[f"one_{key}_loss"]), one[f"one_{key}_losses"]
+    neg_cache = one[f"one_{key}_neg_cache"]
+    steps = int(one[f"one_{key}_steps"])
+    state = _state(run, f"one_{key}", rank=rank)
     got = run[0]
-    mined = _ranks(run, "epoch_mined")
-    assert mined.shape[0] == steps == int(_ranks(run, "epoch_steps"))
-    np.testing.assert_array_equal(_ranks(run, "epoch_neg_cache"),
+    mined = _ranks(run, f"{key}_mined")
+    assert mined.shape[0] == steps == int(_ranks(run, f"{key}_steps"))
+    np.testing.assert_array_equal(_ranks(run, f"{key}_neg_cache"),
                                   neg_cache)
-    np.testing.assert_array_equal(mined, one["one_epoch_mined"])
-    np.testing.assert_allclose(float(_ranks(run, "epoch_loss")), loss,
+    np.testing.assert_array_equal(mined, one[f"one_{key}_mined"])
+    np.testing.assert_allclose(float(_ranks(run, f"{key}_loss")), loss,
                                rtol=1e-4)
-    np.testing.assert_allclose(_ranks(run, "epoch_losses"), losses,
+    np.testing.assert_allclose(_ranks(run, f"{key}_losses"), losses,
                                rtol=1e-4)
-    assert [int(g["epoch_writes"]) for g in got] == [1, 0]
-    ckpt_file = run[3] / "epoch" / "ckpt_latest.pt"
+    assert [int(g[f"{key}_writes"]) for g in got] == [1, 0]
+    ckpt_file = run[3] / key / "ckpt_latest.pt"
     saved = torch.load(ckpt_file, weights_only=True)
     assert saved["step"] == steps
-    ranks = _state(run, "epoch")
+    ranks = _state(run, key)
     assert set(saved["model"]) == set(ranks) == set(state)
     for k, v in saved["model"].items():
         assert torch.equal(v, ranks[k]), k
@@ -492,6 +511,32 @@ def test_ranks_load_no_jax(run):
 
 
 # ------------------------------------------------------ build-index, dry run
+
+@pytest.fixture(scope="module")
+def small_config(tmp_path_factory):
+    """test_cli.py's config on under a quarter of its pillar grid (64 × 40
+    of 140 × 80), for the three index builds here and the checkpoint
+    (test_torch_cli.py's ``ckpt``) they restore: the default grid's
+    convolutions set their time, and the padding, trimming and rank-0
+    write need no more."""
+    from gloc3d_tpu.config import (
+        BEVConfig, IndexConfig, MatchConfig, ModelConfig, VoxelConfig,
+    )
+    from gloc3d_tpu.config import PipelineConfig as JaxConfig
+
+    cfg = JaxConfig(
+        bev=BEVConfig(image_size=128, max_points=CLI_PTS),
+        voxel=VoxelConfig(max_points=CLI_PTS, xbound=(-16.0, 16.0, 0.5),
+                          ybound=(-10.0, 10.0, 0.5)),
+        model=ModelConfig(encoder="pointpillar", encoder_dim=128,
+                          compute_dtype="float32"),
+        index=IndexConfig(dim=128, top_k=3, capacity=16),
+        match=MatchConfig(image_size=128, min_score=0.1,
+                          min_overlap_pixels=16))
+    path = tmp_path_factory.mktemp("cfg") / "config.json"
+    path.write_text(cfg.to_json())
+    return str(path)
+
 
 @pytest.fixture(scope="module")
 def dp_indexes(kitti_root, small_config, ckpt, tmp_path_factory):  # noqa: F811
