@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's s2s and i2i located queries, the refinement
 stage, the SLAM submap, s2s, i2i and pose training, the packed and
-pillar-sorted PointPillar and the evaluator over a dataset read from disk
+pillar-sorted PointPillar, the evaluator over a dataset read from disk, the
+command line, and the multi-rank paths (the sharded search and keyframe
+store, the sharded matcher, data parallelism, the i2i spatial partition)
 once on one NVIDIA card.
 
     python3 chip_smoke.py
@@ -246,7 +248,19 @@ Phases, each printing its own lines:
      = its unsharded locate, ranked. World size 2 over gloo: two ranks
      spawned with torch.multiprocessing on the one card, 500 000 rows each,
      ids equal to the unsharded call's wherever neighbouring distances lie
-     1e-5 apart. The sharded times beside the unsharded ones.
+     1e-5 apart. The sharded keyframe store (GlobalLocalizer.
+     shard_keyframes) on phase 5's map with the device store (768²
+     bitmaps, no host mirror) at world 1 and in both world-2 ranks:
+     locate, locate_batch and locate_fused before and after sharding
+     bit-equal, each rank's store bytes beside the unsharded store's, the
+     saved map = the unsharded save, a keyframe added after sharding, the
+     map loaded into a sharded localizer (world 1), K1 launches;
+     match_scan_fast_sharded at the Olson count rounded up to a multiple
+     of 2 (1 572) on a 512² grid cut from keyframe 0's BEV with
+     bench_submap.py's offset query: world 1 = match_scan_fast bit for bit,
+     world 2 the same certified optimum (checked against the exhaustive
+     match_scan), the score within 1e-4. The sharded times beside the
+     unsharded ones.
  26. [dp], after [shard]: data parallelism (Trainer(mesh=...),
      GlobalLocalizer.shard_extraction) in fp32 with TF32 off. One step on
      the fixed batch of 24 scans (122 480 points) or 24 768² images on
@@ -269,6 +283,19 @@ Phases, each printing its own lines:
      generator state bit-equal); K1 / K2 launches of
      each path; host-clock ms of the step (_train_batch) and of the
      extraction at world sizes 1 and 2 beside the unsharded ones.
+ 27. [spatial], after [dp]: the i2i spatial partition
+     (gloc3d_tpu_torch/parallel/spatial.py, GlobalLocalizer.shard_spatial)
+     at PipelineConfig.i2i()'s full width (VGG16 + NetVLAD-FC, 768², the
+     512-d descriptor) and the zoo encoders ResNet18, MobileNetV2 and
+     AlexNet with the same head, fp32 with TF32 off, seeded weights with
+     NetVLAD's centroids from each model's own local features, on the
+     located world's BEVs rendered as images (16 keyframes, 8 queries):
+     world size 1 over NCCL in this process and 2 over gloo (two ranks
+     spawned on the one card), every spatial forward at B=1 and B=8 within
+     SPATIAL_TOL of the unsharded forward (max |diff| over max |value|);
+     shard_spatial + locate (B=1) and locate_batch (B=8) = the unsharded
+     localizer; the B=1 VGG16 forward's ms at worlds 1 and 2 beside the
+     unsharded one's (no speed-up can show with both ranks on one card).
 The kernel-only times of phase 17 come from complete traces only (every
 kernel of every traced call: K1 launches two a call, K2 four); a timing
 with none in six traces prints that it was not measured.
@@ -278,6 +305,7 @@ with none in six traces prints that it was not measured.
 `python3 chip_smoke.py --cli` phases 1, 2 and 24 only;
 `python3 chip_smoke.py --shard` phases 1, 2, 5 and 25 only;
 `python3 chip_smoke.py --dp` phases 1, 2 and 26 only;
+`python3 chip_smoke.py --spatial` phases 1, 2 and 27 only;
 `--i2i-train`, `--pose-train` and `--packed` run phases 1, 2 and the
 phase (or phases) named, alone;
 `--seed N` seeds the map-scale rows (default 0).
@@ -1707,11 +1735,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def shard_rank(rank: int, port: int, n: int, seed: int, out: str) -> None:
+def shard_rank(rank: int, port: int, n: int, seed: int, out: str,
+               store_args: tuple) -> None:
     """One of [shard]'s two gloo ranks (torch.multiprocessing spawn), both
     on the one card: each makes [map-scale]'s n rows from ``seed``, keeps
     its half in a ShardedBank (fp32, then int8) and answers the 8 queries;
-    rank 0 writes the results and the host-clock ms per query to ``out``."""
+    then the sharded keyframe store and the sharded matcher
+    (shard_store_world, ``store_args``); rank 0 writes the results and the
+    host-clock ms per query to ``out``."""
     import datetime
 
     import torch
@@ -1739,6 +1770,9 @@ def shard_rank(rank: int, port: int, n: int, seed: int, out: str) -> None:
             rec[f"{quant}_d2"], rec[f"{quant}_id"] = d2, idx
             rec[f"{quant}_rows"] = bank._bank.shape[0]
             del bank
+        del rows, queries
+        torch.cuda.empty_cache()
+        rec.update(shard_store_world(torch, rank, *store_args))
         if rank == 0:
             np.savez(out, **rec)
     finally:
@@ -1759,7 +1793,186 @@ def same_ids_where_gapped(tag, got, want_d2, want_id, tol):
     return int(firm.sum()), err
 
 
-def phase_shard(torch, card, cfg, loc, qs, seed: int = 0):
+SHARD_ROTATIONS = 1572  # the Olson count at 0.2 m over 50 m (1 571), even
+
+
+def store_map(torch, cfg, model, kf, device="cuda"):
+    """Phase 5's host-stats map with the device keyframe store and no host
+    mirror."""
+    return build_map(torch, cfg, model, kf, device, host_stats=True,
+                     device_keyframes=True, host_mirror=False)
+
+
+def store_queries(loc, qs) -> dict:
+    """locate, locate_batch and locate_fused on every query."""
+    return {"locate": [loc.locate(*q) for q in qs],
+            "locate_batch": loc.locate_batch(np.stack([q[0] for q in qs]),
+                                             np.stack([q[1] for q in qs])),
+            "locate_fused": [loc.locate_fused(*q) for q in qs]}
+
+
+def bit_equal_results(tag, got: dict, want: dict) -> int:
+    """Every result of ``got`` equal to ``want``'s bit for bit: success,
+    keyframe, ranked candidates and their distances, score, (dx, dy, yaw).
+    Returns the number of results compared."""
+    n = 0
+    for mode, rows in want.items():
+        for i, (a, b) in enumerate(zip(got[mode], rows)):
+            xy_a, xy_b = a.match_xy_yaw, b.match_xy_yaw
+            same = (a.success == b.success and a.db_index == b.db_index
+                    and np.array_equal(a.candidates, b.candidates)
+                    and np.array_equal(a.candidate_dists, b.candidate_dists)
+                    and a.match_score == b.match_score
+                    and (xy_a is None) == (xy_b is None)
+                    and (xy_a is None or np.array_equal(xy_a, xy_b)))
+            check(same, f"{tag} {mode} query {i}: db {a.db_index} / "
+                  f"{b.db_index}, candidates {a.candidates} / "
+                  f"{b.candidates}, score {a.match_score} / {b.match_score}")
+            n += 1
+    return n
+
+
+def store_add_check(torch, tag, loc, q) -> int:
+    """An add after sharding: the query scan q as a new keyframe lands in
+    its row, bit for bit the packed BEV of its extraction, and q then
+    localizes to it. Returns the new row's index."""
+    from gloc3d_tpu_torch.pipeline import _pack_bits
+
+    row = len(loc.keyframes)
+    _, bev, _ = loc.extract(q[0][None], q[1][None])
+    loc.add_keyframes(q[0][None], q[1][None])
+    packed = loc._store_rows(np.array([row]))[0]
+    check(torch.equal(packed, _pack_bits(torch.as_tensor(
+        _host(bev.image), device=packed.device))),
+          f"{tag}: the row added after sharding differs from its BEV")
+    res = loc.locate(*q)
+    check(res.success and res.db_index == row,
+          f"{tag}: the added keyframe's own scan located db {res.db_index}")
+    return row
+
+
+def matcher_case(torch, loc, kf):
+    """The sharded matcher's input: the 512² centre crop (SUBMAP_CROP) of
+    keyframe 0's BEV on the located map as the grid, and bench_submap.py's
+    offset query (SUBMAP_GT, σ 0.10 m) of a SUBMAP_POINTS-point virtual
+    scan of that BEV, as numpy: (crop, its origin, the query)."""
+    _, bev, _ = loc.extract(kf[0][0][None], kf[0][1][None])
+    img, org = _host(bev.image)[0], _host(bev.origin_xy)[0]
+    res = loc.cfg.bev.resolution
+    a, b = SUBMAP_CROP
+    occ = np.argwhere(img < 0.5)
+    sel = np.random.RandomState(0).choice(len(occ), SUBMAP_POINTS,
+                                          replace=len(occ) < SUBMAP_POINTS)
+    vscan = (occ[sel][:, ::-1] * res + org[None, :]).astype(np.float32)
+    return (np.ascontiguousarray(img[a:b, a:b]),
+            (org + a * res).astype(np.float32),
+            offset_query(vscan, SUBMAP_GT[:2], SUBMAP_GT[2], 0.10, 100))
+
+
+def matcher_inputs(torch, case, res: float, device="cuda"):
+    from gloc3d_tpu_torch.ops.occupancy import ProbabilityGrid2D
+
+    crop, origin, q = case
+    grid = ProbabilityGrid2D.from_bev_image(
+        torch.from_numpy(crop).to(device), origin, res)
+    return (grid, torch.from_numpy(q).to(device),
+            torch.ones(len(q), device=device))
+
+
+def sharded_match(torch, grid, q, mask):
+    from gloc3d_tpu_torch.ops.scan_match import match_scan_fast_sharded
+
+    return match_scan_fast_sharded(None, grid, q, mask, SHARD_ROTATIONS,
+                                   num_candidates=SHARD_ROTATIONS)
+
+
+def shard_store_world(torch, rank, cfg, state, kf, qs, case, tmp) -> dict:
+    """The sharded keyframe store and matcher in one rank of a group of
+    two: the store map built from ``state``, its results before and after
+    shard_keyframes bit-equal, the rank's store bytes, a save (rank 0
+    writes), an add after sharding; match_scan_fast_sharded on ``case``.
+    Returns what rank 0 reports."""
+    from gloc3d_tpu_torch.models.descriptor import build_model
+
+    model = build_model(cfg.model, cfg.voxel)
+    model.load_state_dict(state)
+    loc = store_map(torch, cfg, model.eval(), kf)
+    want = store_queries(loc, qs)
+    rec = {"store_flat_ms": host_ms(torch, lambda: loc.locate(*qs[0]), 5),
+           "store_db": [r.db_index for r in want["locate"]]}
+    loc.shard_keyframes(None)
+    rec["store_compared"] = bit_equal_results(
+        f"[shard] world 2 rank {rank} sharded store", store_queries(loc, qs),
+        want)
+    rec["store_ms"] = host_ms(torch, lambda: loc.locate(*qs[0]), 5)
+    rec["store_local_rows"] = loc._kf_store.shape[0]
+    rec["store_bytes"] = nbytes(loc._kf_store, loc._kf_origins)
+    loc.save(os.path.join(tmp, "map_world2"))
+    rec["store_added_row"] = store_add_check(
+        torch, f"[shard] world 2 rank {rank}", loc, qs[0])
+    grid, q, mask = matcher_inputs(torch, case, cfg.bev.resolution)
+    res, cert = sharded_match(torch, grid, q, mask)
+    rec.update(match_pose=res.pose.cpu().numpy(),
+               match_score=float(res.score), match_cert=bool(cert),
+               match_ms=host_ms(torch, lambda: sharded_match(
+                   torch, grid, q, mask), 3))
+    return rec
+
+
+def phase_shard_store(torch, card, cfg, loc, kf, qs, tmp) -> dict:
+    """[shard]'s keyframe store at world size 1 (NCCL, in this process):
+    phase 5's map with the device store, its locate / locate_batch /
+    locate_fused before and after shard_keyframes bit-equal; the save with
+    host_mirror=False = the unsharded save; an add after sharding; the
+    saved map loaded into a sharded localizer = the unsharded results.
+    K1 launches of the map's host-stats extraction counted."""
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+
+    ss.segment_sum_sorted.launches = 0
+    sloc = store_map(torch, cfg, loc.model, kf)
+    want = store_queries(sloc, qs)
+    launches = ss.segment_sum_sorted.launches
+    check(launches >= N_KEYFRAMES // 4 + 2 * N_QUERIES + 1,
+          f"[shard] store: K1 launched {launches} times")
+    rec = {"k1_launches": launches, "unsharded_bytes": nbytes(
+        sloc._kf_store, sloc._kf_origins)}
+    sloc.save(os.path.join(tmp, "map_flat"))
+    t_flat = host_ms(torch, lambda: sloc.locate(*qs[0]), 5)
+    sloc.shard_keyframes(None)
+    rec["compared"] = bit_equal_results("[shard] world 1 sharded store",
+                                        store_queries(sloc, qs), want)
+    rec["locate_ms"] = [t_flat, host_ms(torch, lambda: sloc.locate(*qs[0]),
+                                        5)]
+    rec["world1_bytes"] = nbytes(sloc._kf_store, sloc._kf_origins)
+    sloc.save(os.path.join(tmp, "map_world1"))
+    same_map(os.path.join(tmp, "map_flat"), os.path.join(tmp, "map_world1"),
+             "[shard] world 1")
+    rec["added_row"] = store_add_check(torch, "[shard] world 1", sloc, qs[0])
+    back = store_map(torch, cfg, loc.model, kf[:1])
+    back.shard_keyframes(None)
+    back.load(os.path.join(tmp, "map_world1"))
+    bit_equal_results("[shard] world 1 sharded store loaded",
+                      {"locate": [back.locate(*q) for q in qs]},
+                      {"locate": want["locate"]})
+    return rec
+
+
+def same_map(a: str, b: str, tag: str) -> None:
+    """Two saved maps' keyframes.npz: images and origins bit-equal."""
+    x = np.load(os.path.join(a, "keyframes.npz"))
+    y = np.load(os.path.join(b, "keyframes.npz"))
+    check(np.array_equal(x["images"], y["images"])
+          and np.array_equal(x["origins"], y["origins"]),
+          f"{tag}: the sharded store's saved map differs from the "
+          f"unsharded one's")
+
+
+def phase_shard(torch, card, cfg, loc, kf, qs, seed: int = 0):
+    with tempfile.TemporaryDirectory() as tmp:
+        return shard_phase(torch, card, cfg, loc, kf, qs, seed, tmp)
+
+
+def shard_phase(torch, card, cfg, loc, kf, qs, seed, tmp):
     """[shard]: the sharded search on the card. World size 1 over NCCL in
     this process: sharded_topk, sharded_topk_int8 and ShardedBank at
     [map-scale]'s shapes (MAP_N rows, D = 512, Q = 8, k = 20) and a
@@ -1769,11 +1982,19 @@ def phase_shard(torch, card, cfg, loc, qs, seed: int = 0):
     unsharded locate (ranked); then world size 2 over gloo, two spawned
     ranks on the one card with MAP_N / 2 rows each, ids equal to the
     unsharded call's wherever neighbouring distances lie SHARD_TOL apart.
-    Prints the sharded times beside the unsharded ones (the all-gather's
-    cost): CUDA events for the device-side calls, host clock for the
-    calls that return numpy."""
+    Then the sharded keyframe store on phase 5's map with the device store
+    (768² bitmaps; phase_shard_store, and the same in both world-2 ranks:
+    results before and after shard_keyframes bit-equal, the saved map =
+    the unsharded save, an add after sharding) and match_scan_fast_sharded
+    at SHARD_ROTATIONS on a 512² grid (matcher_case): world 1 = the
+    unsharded match_scan_fast bit for bit; world 2 the same certified
+    optimum, the score within 1e-4. Prints the sharded times beside the
+    unsharded ones (the all-gather's cost): CUDA events for the
+    device-side calls, host clock for the calls that return numpy."""
     import torch.distributed as dist
     import torch.multiprocessing as mp
+
+    from gloc3d_tpu_torch.ops import scan_match as sm
 
     from gloc3d_tpu_torch.config import IndexConfig
     from gloc3d_tpu_torch.index.bank import DescriptorBank
@@ -1847,16 +2068,90 @@ def phase_shard(torch, card, cfg, loc, qs, seed: int = 0):
         dxy = same_results("[shard] shard_bank locate vs locate", got,
                               want)
         rec["locate, host-stats map"] = [t_flat, t_shard]
+
+        store = phase_shard_store(torch, card, cfg, loc, kf, qs, tmp)
+        rec["store locate, host-stats map"] = store.pop("locate_ms")
+        case = matcher_case(torch, loc, kf)
+        grid, q, mask = matcher_inputs(torch, case, cfg.bev.resolution)
+
+        def single():
+            return sm.match_scan_fast(grid, q, mask, SHARD_ROTATIONS,
+                                      num_candidates=SHARD_ROTATIONS)
+
+        (m1, c1), (ms, cs) = single(), sharded_match(torch, grid, q, mask)
+        check(torch.equal(m1.pose, ms.pose) and torch.equal(m1.score,
+                                                            ms.score)
+              and bool(c1) == bool(cs), "[shard] world 1 "
+              "match_scan_fast_sharded differs from match_scan_fast")
+        exact = sm.match_scan(grid, q, mask, SHARD_ROTATIONS)
+        check(not bool(c1) or same_optimum(torch, sm.score_at, grid, q,
+                                           mask, m1, exact, 1e-4),
+              "[shard] a certified match_scan_fast is not the optimum")
+        rec[f"match_scan_fast R={SHARD_ROTATIONS}"] = [
+            cuda_ms(torch, single, 3),
+            cuda_ms(torch, lambda: sharded_match(torch, grid, q, mask), 3)]
     finally:
         dist.destroy_process_group()
 
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "rank0.npz")
-        t0 = time.perf_counter()
-        mp.spawn(shard_rank, args=(free_port(), MAP_N, seed, out), nprocs=2,
-                 join=True)
-        spawn_s = time.perf_counter() - t0
-        two = dict(np.load(out))
+    state = {k: v.cpu() for k, v in loc.model.state_dict().items()}
+    store_args = (cfg, state, kf, qs, case, tmp)
+    out = os.path.join(tmp, "rank0.npz")
+    t0 = time.perf_counter()
+    mp.spawn(shard_rank, args=(free_port(), MAP_N, seed, out, store_args),
+             nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t0
+    two = dict(np.load(out))
+    same_map(os.path.join(tmp, "map_flat"), os.path.join(tmp, "map_world2"),
+             "[shard] world 2")
+    check(int(two["store_local_rows"]) == 512 and int(two["store_bytes"])
+          * 2 == store["unsharded_bytes"], f"[shard] world 2: rank 0 "
+          f"holds {int(two['store_local_rows'])} store rows")
+    w2_pose = torch.from_numpy(two["match_pose"])
+    w2 = sm.ScanMatchResult(w2_pose.to(grid.log_odds.device),
+                            torch.tensor(float(two["match_score"])))
+    check(not bool(c1) or bool(two["match_cert"]),
+          "[shard] world 2: the sharded matcher lost the certificate")
+    check(not bool(two["match_cert"]) or same_optimum(
+        torch, sm.score_at, grid, q, mask, w2, exact, 1e-4),
+          "[shard] world 2: a certified sharded optimum is not the optimum")
+    check(float(two["match_score"]) >= float(m1.score) - 1e-4,
+          "[shard] world 2: the sharded matcher scored below the unsharded")
+    check(not (bool(c1) and bool(two["match_cert"])) or abs(
+        float(two["match_score"]) - float(m1.score)) <= 1e-4,
+          "[shard] world 2: the certified scores differ by more than 1e-4")
+    w1_ms = rec[f"match_scan_fast R={SHARD_ROTATIONS}"]
+    print(f"[shard] sharded keyframe store on phase 5's map ({N_KEYFRAMES} "
+          f"keyframes, 768² bitmaps, host stats, no host mirror): "
+          f"locate / locate_batch / locate_fused before and after "
+          f"shard_keyframes bit-equal ({store['compared']} results at world "
+          f"1, NCCL; {int(two['store_compared'])} on each world-2 rank, "
+          f"gloo); the saved maps = the unsharded save; a keyframe added "
+          f"after sharding (row {store['added_row']}) localizes its scan; "
+          f"the map loaded into a sharded localizer = unsharded; store "
+          f"bytes unsharded {store['unsharded_bytes']}, world 1 "
+          f"{store['world1_bytes']}, world 2 rank 0 "
+          f"{int(two['store_bytes'])} ({int(two['store_local_rows'])} "
+          f"rows); locate ms (host clock) unsharded → world 1: "
+          f"{rec['store locate, host-stats map'][0]:.3f} → "
+          f"{rec['store locate, host-stats map'][1]:.3f}, world 2 rank 0 "
+          f"{float(two['store_flat_ms']):.3f} → "
+          f"{float(two['store_ms']):.3f}; K1 launches {store['k1_launches']}")
+    print(f"[shard] match_scan_fast_sharded R={SHARD_ROTATIONS} on the 512² "
+          f"grid ({SUBMAP_POINTS}-point offset query): world 1 = "
+          f"match_scan_fast bit for bit (certified {bool(c1)}, score "
+          f"{float(m1.score):.6f}; exhaustive {float(exact.score):.6f}); "
+          f"world 2 certified {bool(two['match_cert'])}, score "
+          f"{float(two['match_score']):.6f}; ms unsharded {w1_ms[0]:.3f} → "
+          f"world 1 {w1_ms[1]:.3f} (CUDA events) → world 2 "
+          f"{float(two['match_ms']):.3f} (host clock, rank 0)")
+    rec["store"] = store
+    rec["store world 2"] = {k: float(two[k]) for k in (
+        "store_flat_ms", "store_ms", "store_bytes", "store_local_rows")}
+    rec["matcher"] = {"certified": bool(c1), "score": float(m1.score),
+                      "exhaustive_score": float(exact.score),
+                      "world2_certified": bool(two["match_cert"]),
+                      "world2_score": float(two["match_score"]),
+                      "world2_ms": float(two["match_ms"])}
     rows, queries, _ = map_rows(torch, MAP_N, SHARD_D, seed)
     codes, scales, bsq = quantize_rows(rows)
     world2 = {"seconds": spawn_s}
@@ -1889,6 +2184,229 @@ def phase_shard(torch, card, cfg, loc, qs, seed: int = 0):
           f"{world2['none']['query_ms']:.3f} / {world2['int8']['query_ms']:.3f}"
           f" ms (host clock, rank 0); spawn to join {spawn_s:.1f} s")
     return rec
+
+
+SPATIAL_ZOO = (("resnet18", 512), ("mobilenet", 320), ("alexnet", 256))
+# [spatial]: the spatial forward against the unsharded one, fp32 with TF32
+# off, max |difference| over max |unsharded descriptor|. On an H100 80GB
+# HBM3 at 700 W it read 0 at world 1 and 7.1e-7 to 6.4e-5 at world 2
+# (VGG16 at B=8 the largest): 2e-4 is three times that, beside the
+# unsharded forward's own spread between a batch of 8 and the same images
+# one by one (1.2e-4 for VGG16: cuDNN picks its algorithms by shape), which
+# the phase prints
+SPATIAL_TOL = 2e-4
+
+
+def spatial_models(torch, cfg, images, device="cuda") -> dict:
+    """[spatial]'s fp32 models: PipelineConfig.i2i()'s VGG16 + NetVLAD-FC
+    and the zoo encoders with the same head, from the port's seeded init,
+    each NetVLAD's centroids drawn from its own normalised local features
+    of ``images`` (alpha 30, as i2i_centroids)."""
+    from gloc3d_tpu_torch.models.descriptor import build_model, init_params
+
+    models = {}
+    for enc, dim in (("vgg16", cfg.model.encoder_dim),) + SPATIAL_ZOO:
+        c = cfg.replace(model=cfg.model.replace(
+            encoder=enc, encoder_dim=dim, compute_dtype="float32"))
+        model = init_params(build_model(c.model, c.voxel), seed=0).to(
+            device).eval()
+        with torch.no_grad():
+            f = torch.nn.functional.normalize(model.encode(
+                torch.from_numpy(images).to(device)).reshape(-1, dim),
+                dim=-1)
+            pick = torch.randperm(f.shape[0], generator=torch.Generator(
+            ).manual_seed(0))[: c.model.num_clusters].to(device)
+            model.pool.centroids.copy_(f[pick])
+            model.pool.conv.weight.copy_(30.0 * f[pick][:, :, None, None])
+        models[enc] = (c, model)
+    return models
+
+
+def spatial_run(torch, models, data, timed: bool) -> dict:
+    """spatial_sharded_apply of every model at B=1 and B=8 on the query
+    images, and shard_spatial on the VGG16 localizer: the keyframe images
+    added, locate of query 0, locate_batch of all 8. With ``timed``, the
+    B=1 VGG16 spatial forward's ms (host clock: gloo ranks wait on the
+    host)."""
+    from gloc3d_tpu_torch.parallel import spatial_sharded_apply
+    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
+
+    kf_img, kf_org, q_img, q_org = data
+    rec = {}
+    for enc, (c, model) in models.items():
+        fn = spatial_sharded_apply(None, model)
+        rec[f"{enc} B=1"] = fn(q_img[:1]).cpu().numpy()
+        rec[f"{enc} B=8"] = fn(q_img).cpu().numpy()
+        if timed and enc == "vgg16":
+            rec["vgg16 B=1 ms"] = host_ms(torch, lambda: fn(q_img[:1]), 5)
+    c, model = models["vgg16"]
+    loc = GlobalLocalizer(c, model, device=torch.device("cuda"))
+    loc.shard_spatial(None)
+    for i in range(0, len(kf_img), 4):
+        loc.add_keyframes(kf_img[i:i + 4], origins=kf_org[i:i + 4])
+    rec["locate"] = [loc.locate(q_img[0], origin=q_org[0])]
+    rec["locate_batch"] = loc.locate_batch(q_img, origins=q_org)
+    return rec
+
+
+def spatial_rank(rank: int, n: int, device, tmp: str, cfg) -> None:
+    """One of [spatial]'s two gloo ranks on the one card
+    (parallel/launch.py): spatial_run on the models and images the parent
+    wrote; rank 0 writes the descriptors, times and results."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from gloc3d_tpu_torch.models.descriptor import build_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with np.load(os.path.join(tmp, "images.npz")) as f:
+        data = tuple(f[k] for k in ("kf_img", "kf_org", "q_img", "q_org"))
+    models = {}
+    for enc, dim in (("vgg16", cfg.model.encoder_dim),) + SPATIAL_ZOO:
+        c = cfg.replace(model=cfg.model.replace(
+            encoder=enc, encoder_dim=dim, compute_dtype="float32"))
+        model = build_model(c.model, c.voxel)
+        model.load_state_dict(torch.load(os.path.join(tmp, f"{enc}.pt")))
+        models[enc] = (c, model.to(device).eval())
+    rec = spatial_run(torch, models, data, timed=True)
+    if rank == 0:
+        for key in ("locate", "locate_batch"):
+            for i, r in enumerate(rec.pop(key)):
+                rec[f"{key} {i} db"] = r.db_index
+                rec[f"{key} {i} ok"] = r.success
+                rec[f"{key} {i} cand"] = r.candidates
+                rec[f"{key} {i} xy"] = (np.full(3, np.nan) if r.match_xy_yaw
+                                        is None else r.match_xy_yaw)
+        np.savez(os.path.join(tmp, "rank0.npz"), **rec)
+    dist.barrier()
+
+
+def spatial_errors(tag, got: dict, want: dict) -> dict:
+    """max |got − want| over max |want| of every descriptor batch, each
+    within SPATIAL_TOL."""
+    errs = {}
+    for key, ref in want.items():
+        err = float(np.abs(got[key] - ref).max() / np.abs(ref).max())
+        check(err <= SPATIAL_TOL, f"{tag} {key}: the spatial forward is "
+              f"{err:.3e} (relative) from the unsharded one")
+        errs[key] = err
+    return errs
+
+
+def phase_spatial(torch, card, lq_set):
+    """[spatial] (27): the i2i spatial partition (parallel/spatial.py,
+    GlobalLocalizer.shard_spatial) at PipelineConfig.i2i()'s full width
+    (VGG16 + NetVLAD-FC, 768² images, the 512-d descriptor) and the zoo
+    encoders (ResNet18, MobileNetV2, AlexNet) in fp32 with TF32 off, on
+    the located world's BEVs rendered as images (16 keyframes, 8
+    queries). World size 1 over NCCL in this process and 2 over gloo (two
+    ranks spawned on the one card): every spatial forward at B=1 and B=8
+    within SPATIAL_TOL of the unsharded forward; shard_spatial + locate
+    (B=1) and locate_batch (B=8) = the unsharded localizer's (success,
+    keyframe, ranked candidates, (dx, dy, yaw) within 1e-4). The B=1
+    VGG16 forward's ms at each world size beside the unsharded one's. Two
+    gloo ranks on one card share its SMs and pass every halo through the
+    host: no speed-up can show there."""
+    import torch.distributed as dist
+
+    from gloc3d_tpu_torch import PipelineConfig
+    from gloc3d_tpu_torch.parallel import spatial_sharded_apply
+    from gloc3d_tpu_torch.parallel.launch import spawn
+    from gloc3d_tpu_torch.pipeline import GlobalLocalizer
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    cfg = PipelineConfig.i2i()
+    (_, kf), (_, qs) = lq_set
+    kf_img, kf_org = render_bevs(torch, cfg, kf)
+    q_img, q_org = render_bevs(torch, cfg, qs)
+    data = (kf_img, kf_org, q_img, q_org)
+    models = spatial_models(torch, cfg, kf_img[:4])
+    want, ms, floor = {}, {}, {}
+    with torch.no_grad():
+        for enc, (_, model) in models.items():
+            for b in (1, 8):
+                want[f"{enc} B={b}"] = model(torch.from_numpy(
+                    q_img[:b]).cuda()).cpu().numpy()
+            ones = np.concatenate([model(torch.from_numpy(
+                q_img[i:i + 1]).cuda()).cpu().numpy() for i in range(8)])
+            ref = want[f"{enc} B=8"]
+            floor[enc] = float(np.abs(ones - ref).max() / np.abs(ref).max())
+        vgg = models["vgg16"][1]
+        one = torch.from_numpy(q_img[:1]).cuda()
+        ms["unsharded"] = cuda_ms(torch, lambda: vgg(one), 5)
+    c, model = models["vgg16"]
+    base = GlobalLocalizer(c, model, device=torch.device("cuda"))
+    for i in range(0, len(kf_img), 4):
+        base.add_keyframes(kf_img[i:i + 4], origins=kf_org[i:i + 4])
+    plain = {"locate": [base.locate(q_img[0], origin=q_org[0])],
+             "locate_batch": base.locate_batch(q_img, origins=q_org)}
+    del base
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        one_rank = spatial_run(torch, models, data, timed=False)
+        vfn = spatial_sharded_apply(None, models["vgg16"][1])
+        ms["world 1"] = cuda_ms(torch, lambda: vfn(q_img[:1]), 5)
+    finally:
+        dist.destroy_process_group()
+    err1 = spatial_errors("[spatial] world 1", one_rank, want)
+    d1 = max(same_results(f"[spatial] world 1 {k}", one_rank[k], plain[k])
+             for k in plain)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "images.npz"), kf_img=kf_img,
+                 kf_org=kf_org, q_img=q_img, q_org=q_org)
+        for enc, (_, model) in models.items():
+            torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                       os.path.join(tmp, f"{enc}.pt"))
+        t0 = time.perf_counter()
+        spawn(spatial_rank, 2, "cuda", args=(tmp, cfg))
+        spawn_s = time.perf_counter() - t0
+        two = dict(np.load(os.path.join(tmp, "rank0.npz")))
+    err2 = spatial_errors("[spatial] world 2", two, want)
+    d2 = 0.0
+    for key, rows in plain.items():
+        for i, r in enumerate(rows):
+            same = (bool(two[f"{key} {i} ok"]) == r.success
+                    and int(two[f"{key} {i} db"]) == r.db_index
+                    and np.array_equal(two[f"{key} {i} cand"],
+                                       r.candidates))
+            check(same, f"[spatial] world 2 {key} query {i}: db "
+                  f"{int(two[f'{key} {i} db'])} / {r.db_index}")
+            if r.success:
+                d = float(np.abs(two[f"{key} {i} xy"]
+                                 - r.match_xy_yaw).max())
+                check(d <= 1e-4, f"[spatial] world 2 {key} query {i}: "
+                      f"xy_yaw differs by {d:.3e}")
+                d2 = max(d2, d)
+    ms["world 2"] = float(two["vgg16 B=1 ms"])
+    worst = {k: max(err1[k], err2[k]) for k in want}
+    print(f"[spatial] {card}, fp32, TF32 off: spatial_sharded_apply against "
+          f"the unsharded forward, max |diff| / max |descriptor| at world 1 "
+          f"(NCCL) / world 2 (gloo): " + "; ".join(
+              f"{k} {err1[k]:.2e} / {err2[k]:.2e}" for k in want)
+          + f" (bound {SPATIAL_TOL}); the unsharded forward's own spread, "
+          f"B=8 against the same images one by one: " + "; ".join(
+              f"{k} {v:.2e}" for k, v in floor.items()))
+    print(f"[spatial] shard_spatial + locate (B=1) and locate_batch (B=8) "
+          f"on the VGG16 map ({len(kf_img)} keyframe images) = the unsharded "
+          f"localizer (success, keyframe, ranked candidates; xy_yaw max "
+          f"|diff| {d1:.1e} world 1, {d2:.1e} world 2, bound 1e-4)")
+    print(f"[spatial] VGG16 + NetVLAD-FC B=1 {cfg.bev.image_size}² "
+          f"forward: unsharded "
+          f"{ms['unsharded']:.3f} ms, world 1 {ms['world 1']:.3f} ms (CUDA "
+          f"events), world 2 {ms['world 2']:.3f} ms (host clock, rank 0; two "
+          f"gloo ranks share the one card: no speed-up can show); spawn to "
+          f"join {spawn_s:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    return {"relative_err": worst, "unsharded_spread": floor,
+            "forward_ms": ms, "spawn_s": spawn_s,
+            "xy_yaw_diff": max(d1, d2)}
 
 
 DP_ENCODER = "resnet18"  # [dp]'s i2i case: a zoo encoder with BatchNorm
@@ -5733,9 +6251,15 @@ def main(argv) -> int:
         phase_build()
         lq_set = located_world_scans(world, cfg.voxel.max_points)
         centroids = vlad_centroids(torch, cfg, lq_set[0][1][:4])
-        loc, _, qs, _ = phase_located_query(torch, cfg, lq_set, centroids)
+        loc, kf, qs, _ = phase_located_query(torch, cfg, lq_set, centroids)
         print(json.dumps({"card": card, "shard": phase_shard(
-            torch, card, cfg, loc, qs, seed)}))
+            torch, card, cfg, loc, kf, qs, seed)}))
+        return 0
+    if "--spatial" in argv:
+        phase_build()
+        lq_set = located_world_scans(world, cfg.voxel.max_points)
+        print(json.dumps({"card": card, "spatial": phase_spatial(
+            torch, card, lq_set)}))
         return 0
     if "--dp" in argv:
         phase_build()
@@ -5775,11 +6299,13 @@ def main(argv) -> int:
     phase_fused_reference(torch, cfg, lq_set, centroids)
     map_scale = phase_map_scale(torch, card, seed)
     city = phase_city(torch, cfg, centroids, card, flat_ms)
-    shard = phase_shard(torch, card, cfg, loc, qs, seed)
+    shard = phase_shard(torch, card, cfg, loc, kf, qs, seed)
     print(json.dumps({"card": card, "map_scale": map_scale, "city": city,
                       "shard": shard}))
     dp = phase_dp(torch, card, cfg, world, centroids)
     print(json.dumps({"card": card, "dp": dp}))
+    print(json.dumps({"card": card, "spatial": phase_spatial(
+        torch, card, lq_set)}))
     dp_k = dp["launches"]
 
     phase_timing(torch, cfg, loc, kf, qs, card)
@@ -5815,7 +6341,8 @@ def main(argv) -> int:
                 "sorted": packed["PointPillarSorted"]["K1"],
                 "dp step + extraction, host-stats, world 1":
                     dp_k["dp step world 1, host-stats"][0]
-                    + dp_k["dp extraction world 1, host-stats"][0]}
+                    + dp_k["dp extraction world 1, host-stats"][0],
+                "sharded store, host-stats": shard["store"]["k1_launches"]}
     k2_paths = {"aligned query": k2_launches,
                 "fused query, aligned all-device": k2_fused,
                 "training, all-device": train_counts["all-device"][1],

@@ -8,11 +8,14 @@ evaluates a localizer over a split read from disk (``data/kitti.py``,
 ``nclt.py``, ``nuscenes.py``). ``cli.py`` is the command line
 (``python -m gloc3d_tpu_torch.cli``), ``export.py`` the serialized-model
 hand-off and ``profiling.py`` the stage timers, traces and metrics log.
-The JAX package ``gloc3d_tpu`` is the reference; this package imports no
-JAX and loads no file of the JAX package: it keeps its own copies of the
-config, the dataset container, recall, the data readers and the native
-host pass and file loaders. Entry points run on the card unless the caller
-passes ``device="cpu"``. Both TPU kernels of the JAX package are
+``parallel/`` runs the JAX package's mesh paths over the ranks of a
+``torch.distributed`` process group: the sharded search, the sharded
+keyframe store and matcher, data parallelism and the i2i spatial
+partition. The JAX package ``gloc3d_tpu`` is the reference; this package
+imports no JAX and loads no file of the JAX package: it keeps its own
+copies of the config, the dataset container, recall, the data readers and
+the native host pass and file loaders. Entry points run on the card unless
+the caller passes ``device="cpu"``. Both TPU kernels of the JAX package are
 hand-written CUDA kernels here, reached only through the custom ops of
 ``kernels/ops.py``: ``_cumsum_rows_128`` as ``csrc/segment_sum.cu``
 (``kernels/segment_sum.py``, the sorted feature mean of the host-stats

@@ -22,7 +22,8 @@ flags.json round-trip, main.py:431-450). Subcommands that touch a device
 take --device (default: the card; without one they exit with an error
 unless given --device cpu). --checkpoint reads a JAX path-encoded or
 VGGVLAD .npz, a reference .pth.tar or the port trainer's ckpt_*.pt; the
-port reads no orbax directory. Weights not read from a checkpoint come
+port reads no orbax directory (``tools/orbax_to_npz.py`` converts the JAX
+trainer's into a path-encoded .npz). Weights not read from a checkpoint come
 from the port's seeded init (``init_params``), not from JAX's
 PRNGKey(0). ``build-index --dp-devices N`` spawns N ranks of one process
 group (``parallel/launch.py``: NCCL with a card each, gloo where ranks
@@ -199,6 +200,12 @@ def _seeded_model(cfg, seed=0):
 def _restore_params(model, cfg, path):
     from gloc3d_tpu_torch.convert import restore_params
 
+    if os.path.isdir(path):
+        raise SystemExit(
+            f"--checkpoint {path}: a directory (a JAX orbax checkpoint?); "
+            f"the port reads no orbax directory. Convert it with `python "
+            f"tools/orbax_to_npz.py {path} OUT.npz` (where JAX and orbax "
+            f"run) and pass OUT.npz")
     return restore_params(model, path, cfg.model.encoder)
 
 
@@ -659,7 +666,8 @@ def main(argv=None):
         sp.add_argument("--checkpoint", default=None,
                         help="weights: a JAX path-encoded or VGGVLAD .npz, "
                              "a reference .pth.tar or the port trainer's "
-                             "ckpt_*.pt (no orbax directory)")
+                             "ckpt_*.pt (no orbax directory: "
+                             "tools/orbax_to_npz.py converts one)")
         sp.add_argument("--batch", type=int, default=8)
         sp.add_argument("--quantize", default=None, choices=("none", "int8"),
                         help="descriptor-bank storage: int8 stores per-row "

@@ -21,16 +21,19 @@ from gloc3d_tpu_torch.models.netvlad import GatingContext, NetVLAD
 from gloc3d_tpu_torch.models.pointpillar import PointPillar
 
 
+def unit_rows(v: torch.Tensor) -> torch.Tensor:
+    """Each row of ``v`` scaled to unit L2 norm (the max / avg heads')."""
+    return v * torch.rsqrt((v * v).sum(-1, keepdim=True) + 1e-12)
+
+
 class _MaxPoolHead(nn.Module):
     def forward(self, x):
-        v = x.float().amax(dim=(1, 2))
-        return v * torch.rsqrt((v * v).sum(-1, keepdim=True) + 1e-12)
+        return unit_rows(x.float().amax(dim=(1, 2)))
 
 
 class _AvgPoolHead(nn.Module):
     def forward(self, x):
-        v = x.float().mean(dim=(1, 2))
-        return v * torch.rsqrt((v * v).sum(-1, keepdim=True) + 1e-12)
+        return unit_rows(x.float().mean(dim=(1, 2)))
 
 
 class DescriptorModel(nn.Module):

@@ -59,6 +59,12 @@ class NetVLAD(nn.Module):
                                else None)
 
     def forward(self, x):
+        return self.finish(*self.sums(x))
+
+    def sums(self, x):
+        """The VLAD's two sums over the locations of a ``(B, H, W, D)``
+        map: Σ_i a_ik·x_i (B, K, D) and Σ_i a_ik (B, K). A map split over
+        ranks (``parallel/spatial.py``) adds its parts' sums."""
         b, c = x.shape[0], x.shape[-1]
         if c != self.dim:
             raise ValueError(f"feature dim {c} != configured dim {self.dim}")
@@ -72,7 +78,12 @@ class NetVLAD(nn.Module):
             logits = logits + self.conv.bias
         a = F.softmax(logits, dim=-1)
         weighted = (a.to(cd).transpose(1, 2) @ x.to(cd)).float()  # (B, K, D)
-        vlad = weighted - a.sum(1)[..., None] * self.centroids[None]
+        return weighted, a.sum(1)
+
+    def finish(self, weighted, a_sum):
+        """The descriptor from the two sums of ``sums``."""
+        b, cd = weighted.shape[0], self.compute_dtype
+        vlad = weighted - a_sum[..., None] * self.centroids[None]
         vlad = _l2n(vlad)                   # intra-normalisation
         vlad = _l2n(vlad.reshape(b, -1))    # K-major flatten, global L2
         if self.hidden1_weights is not None:

@@ -1,8 +1,9 @@
 """Correlative scan-to-grid matching (FastCorrelativeScanMatcher2D).
 
-Port of ``gloc3d_tpu/ops/scan_match.py`` except ``match_scan_fast_sharded``
-(multi-GPU, a later slice). The reference runs Olson's real-time
-correlative matcher as a branch-and-bound over a sliding-window-max pyramid
+Port of ``gloc3d_tpu/ops/scan_match.py``, ``match_scan_fast_sharded``
+included (the rotations split over the ranks of a process group). The
+reference runs Olson's real-time correlative matcher as a branch-and-bound
+over a sliding-window-max pyramid
 (fast_correlative_scan_matcher_2d.cpp); MatchFullSubmap searches 360° over
 the whole grid (:248-268). Here, as in JAX, the search is exhaustive and
 batched: the θ-rotated scan is scattered into a count image O_θ, and
@@ -284,6 +285,51 @@ def match_scan_fast(
         grid, points_xy, mask, thetas, coarse_factor, num_candidates)
     certificate = raw >= unexpanded_bound - certificate_slack
     return ScanMatchResult(pose, raw / n_valid), certificate
+
+
+def match_scan_fast_sharded(
+    mesh,
+    grid: ProbabilityGrid2D,
+    points_xy: Tensor,
+    mask: Tensor,
+    num_rotations: int = 256,
+    angular_center: float = 0.0,
+    angular_halfwidth: float = math.pi,
+    coarse_factor: int = 4,
+    num_candidates: int = 128,
+    certificate_slack: float = 0.05,
+    axis: Optional[str] = None,
+) -> Tuple[ScanMatchResult, Tensor]:
+    """``match_scan_fast`` with the rotations split over the ranks of the
+    process group ``mesh`` (None: the default group; ``axis`` names JAX's
+    mesh axis, a process group has one). Every rank calls it with the same
+    arguments (SPMD). Rank r takes the r-th contiguous slice of the θ grid,
+    runs the coarse FFT and the top-K expansion on its rotations alone, and
+    one all-gather of every rank's (pose, best raw score, best unexpanded
+    bound) merges them: the winner is the first maximum in rank order, as
+    JAX's ``argmax`` picks it, and the certificate holds when its score is
+    within ``certificate_slack`` of the largest bound. Every coarse cell
+    lies in one slice, so the certificate stays exact; each rank expands
+    its own top K, so it certifies at least as often as the unsharded
+    call. Every rank returns the same ``(result, certificate)``."""
+    from gloc3d_tpu_torch.parallel.collectives import all_gather, group_shape
+
+    world, rank = group_shape(mesh)
+    if num_rotations % world:
+        raise ValueError(
+            f"num_rotations ({num_rotations}) must divide the mesh axis "
+            f"({world}); round up to a multiple")
+    thetas = rotation_grid(num_rotations, angular_center, angular_halfwidth,
+                           grid.log_odds.device)
+    per = num_rotations // world
+    pose, raw, bound, n_valid = _match_fast_core(
+        grid, points_xy, mask, thetas[rank * per:(rank + 1) * per],
+        coarse_factor, num_candidates)
+    parts = all_gather(mesh, torch.cat([pose, raw[None], bound[None]]))
+    best = torch.argmax(parts[:, 3])
+    best_raw = parts[best, 3]
+    certificate = best_raw >= parts[:, 4].max() - certificate_slack
+    return ScanMatchResult(parts[best, :3], best_raw / n_valid), certificate
 
 
 def _top_k(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:

@@ -17,7 +17,7 @@ puts the ranks' lists in rank order through the port's stable selection,
 so ties go to the earliest global index, as ``lax.top_k`` breaks them in
 JAX. ``shard_batch`` and ``replicate`` place JAX arrays on a mesh; a
 process group places nothing (each rank holds its own tensors), so they
-have no counterpart, and ``make_mesh`` waits for ROADMAP item 16c.
+have no counterpart; ``parallel/mesh.py::make_mesh`` makes the group.
 """
 
 from __future__ import annotations

@@ -67,9 +67,17 @@ returns the whole batch, as JAX returns a global array; other batches run
 unsharded on every rank. An aligned extraction draws every scan's ground
 samples ahead, in the sequential order (``ops/ground.py::ground_draws``),
 so each scan gets the unsharded call's draws and the generator ends in its
-state. The sharded keyframe store and the spatial partition raise
-``NotImplementedError`` naming their ROADMAP item (16c). ``device_sort`` is
-a TPU-only strategy that the port leaves out, and so are the JAX package's
+state. ``shard_keyframes`` spreads the device keyframe store over a
+group's ranks: global row i lives on rank i mod P at local row i // P, so
+the rows stay where they are when the capacity doubles, and each rank
+holds ⌈capacity/P⌉ rows. A candidate gather is one all-reduce of the K
+requested rows, each written by the one rank that owns it into zeros, so
+registration reads the same bytes as from the unsharded store.
+``shard_spatial`` runs every image extraction as the spatial partition
+(``parallel/spatial.py``): each rank computes the encoder on its band of
+image rows, and every rank gets the whole batch's descriptors; for images
+it wins over ``shard_extraction``, as in JAX. ``device_sort`` is a
+TPU-only strategy that the port leaves out, and so are the JAX package's
 ``row_gather`` and the bucket padding of ``locate_batch``, which only bound
 XLA shapes.
 """
@@ -105,6 +113,9 @@ from gloc3d_tpu_torch.parallel.collectives import (
     broadcast_rank0, group_shape,
 )
 from gloc3d_tpu_torch.parallel.sharding import ShardedBank
+from gloc3d_tpu_torch.parallel.spatial import (
+    check_divisible, spatial_sharded_apply,
+)
 
 
 class Keyframe(NamedTuple):
@@ -127,11 +138,6 @@ class LocalizationResult(NamedTuple):
     candidate_dists: np.ndarray   # (k,) descriptor distances²
     match_score: float
     match_xy_yaw: Optional[np.ndarray]
-
-
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported yet (ROADMAP Queue 1, {item})")
 
 
 def _numpy(x) -> np.ndarray:
@@ -408,9 +414,12 @@ class GlobalLocalizer:
         self.keyframes: List[Keyframe] = []
         self._kf_store: Optional[torch.Tensor] = None    # (cap, S, S//8) u8
         self._kf_origins: Optional[torch.Tensor] = None  # (cap, 2) fp32
-        self._kf_cap = 0
+        self._kf_cap = 0          # the store's rows over every rank
+        self._kf_mesh = None      # the process group of shard_keyframes
         self._gen = torch.Generator().manual_seed(seed)
         self._dp = None  # the process group of shard_extraction
+        self._spatial = None  # the forward of shard_spatial
+        self._spatial_mesh = None  # and its process group
 
     # ------------------------------------------------------------ extraction
     def _align(self, points: torch.Tensor, mask: torch.Tensor, draws=None):
@@ -460,7 +469,8 @@ class GlobalLocalizer:
                                       device=self.device),
             resolution=np.float32(self.cfg.bev.resolution),
             num_occupied=(img2d < 0.5).sum(dim=(1, 2)).int())
-        return self.model(images), bev, None
+        forward = self.model if self._spatial is None else self._spatial
+        return forward(images), bev, None
 
     @torch.no_grad()
     def extract(self, inputs: np.ndarray, mask: Optional[np.ndarray] = None,
@@ -472,9 +482,11 @@ class GlobalLocalizer:
         image's pixel-(0, 0) metric coordinate (scan-centred by default).
         The BEV batch is numpy with host stats and on the device
         without. After ``shard_extraction`` a batch the group's size
-        divides is extracted data-parallel, with the same result."""
-        if self._dp is not None and len(inputs) % dist.get_world_size(
-                self._dp) == 0:
+        divides is extracted data-parallel, with the same result; after
+        ``shard_spatial`` images take the spatial partition instead."""
+        spatial = self._spatial is not None and np.ndim(inputs) == 4
+        if (self._dp is not None and not spatial
+                and len(inputs) % dist.get_world_size(self._dp) == 0):
             return self._extract_sharded(inputs, mask, origins)
         return self._extract(inputs, mask, origins)
 
@@ -585,36 +597,83 @@ class GlobalLocalizer:
                 None if clouds is None else np.concatenate(
                     [clouds[0][i], clouds[1][i][:, None]], 1)))
 
+    def _kf_shape(self) -> Tuple[int, int]:
+        """(ranks, this rank) of the device store: (1, 0) unsharded."""
+        if self._kf_mesh is None:
+            return 1, 0
+        return group_shape(self._kf_mesh)
+
+    def _local_rows(self, cap: int) -> int:
+        """This rank's rows of a ``cap``-row store: rows i ≡ rank mod P."""
+        return -(-cap // self._kf_shape()[0])
+
     def _ensure_kf_capacity(self, n_needed: int, s: int) -> None:
         """Room for ``n_needed`` rows in the device store: 1024 rows at
-        first, doubling."""
+        first, doubling (each rank of a sharded store grows its own part;
+        no row moves)."""
         if self._kf_store is None:
             cap = 1024
             while cap < n_needed:
                 cap *= 2
-            self._kf_store = torch.zeros((cap, s, s // 8), dtype=torch.uint8,
+            self._kf_store = torch.zeros((self._local_rows(cap), s, s // 8),
+                                         dtype=torch.uint8,
                                          device=self.device)
-            self._kf_origins = torch.zeros((cap, 2), dtype=torch.float32,
+            self._kf_origins = torch.zeros((self._local_rows(cap), 2),
+                                           dtype=torch.float32,
                                            device=self.device)
             self._kf_cap = cap
         while self._kf_cap < n_needed:
             self._kf_cap *= 2
             for name in ("_kf_store", "_kf_origins"):
                 old = getattr(self, name)
-                grown = old.new_zeros((self._kf_cap,) + old.shape[1:])
+                grown = old.new_zeros((self._local_rows(self._kf_cap),)
+                                      + old.shape[1:])
                 grown[: old.shape[0]] = old
                 setattr(self, name, grown)
 
     def _store_keyframes(self, images, origins, offset: int) -> None:
         """Write a batch of BEV images (B, S, S), bit-packed, and their
-        origins into the device store at row ``offset``."""
+        origins into the device store at row ``offset``: on a sharded
+        store, each rank the rows it owns."""
         images = torch.as_tensor(images, dtype=torch.float32,
                                  device=self.device)
         n = images.shape[0]
         self._ensure_kf_capacity(offset + n, images.shape[-1])
-        self._kf_store[offset : offset + n] = _pack_bits(images)
-        self._kf_origins[offset : offset + n] = torch.as_tensor(
-            origins, dtype=torch.float32, device=self.device)
+        world, rank = self._kf_shape()
+        first = (rank - offset) % world  # the batch's first row owned here
+        lo = (offset + first) // world
+        mine = slice(first, n, world)
+        m = len(range(first, n, world))
+        self._kf_store[lo : lo + m] = _pack_bits(images[mine])
+        self._kf_origins[lo : lo + m] = torch.as_tensor(
+            origins, dtype=torch.float32, device=self.device)[mine]
+
+    def _gather_store(self, rows: torch.Tensor):
+        """Packed rows and origins of the global rows ``rows`` (a device
+        tensor, the same on every rank) from a sharded store: each rank
+        writes the rows it owns into zeros, and one SUM all-reduce of the
+        bytes gives every rank the rows bit for bit."""
+        world, rank = self._kf_shape()
+        k, s = rows.shape[0], self._kf_store.shape[1]
+        local = torch.where(rows % world == rank, rows // world, -1)
+        nb = s * (s // 8)
+        found = torch.cat([
+            self._kf_store.index_select(0, local.clamp(min=0)).view(k, nb),
+            self._kf_origins.index_select(0, local.clamp(min=0)).view(
+                torch.uint8)], 1)
+        both = torch.where((local >= 0)[:, None], found, 0)
+        dist.all_reduce(both, group=self._kf_mesh)
+        return (both[:, :nb].view(k, s, s // 8),
+                both[:, nb:].contiguous().view(torch.float32))
+
+    def _store_rows(self, rows):
+        """Packed rows (K, S, S/8) and origins (K, 2) of the device store
+        at the global indices ``rows`` (numpy or a device tensor)."""
+        rows = torch.as_tensor(rows, dtype=torch.long, device=self.device)
+        if self._kf_mesh is not None:
+            return self._gather_store(rows)
+        return (self._kf_store.index_select(0, rows),
+                self._kf_origins.index_select(0, rows))
 
     # ------------------------------------------------------------ ICP polish
     def _downsample_cloud(self, points: np.ndarray, mask: np.ndarray
@@ -734,10 +793,50 @@ class GlobalLocalizer:
         self._dp = require_group(mesh, "shard_extraction")
 
     def shard_keyframes(self, mesh=None, axis: str = "data") -> None:
-        raise _not_ported("sharding the keyframe store", "item 16c")
+        """Spread the device keyframe store over the ranks of the process
+        group ``mesh`` (None: the default group): rank r keeps the rows
+        i ≡ r mod P, ⌈capacity/P⌉ of them (module docstring). Needs
+        ``device_keyframes=True`` and a built store. Every rank calls it,
+        and then every query, add, save and load, with the same arguments
+        (SPMD); results equal the unsharded store's bit for bit. Composes
+        with ``shard_bank`` and ``shard_extraction``. (``axis`` names
+        JAX's mesh axis; a process group has one.)"""
+        if not self.device_keyframes or self._kf_store is None:
+            raise RuntimeError(
+                "shard_keyframes requires device_keyframes=True and a "
+                "built store")
+        if self._kf_mesh is not None:
+            raise RuntimeError("the keyframe store is already sharded")
+        group = require_group(mesh, "shard_keyframes")
+        world, rank = group_shape(group)
+        local = -(-self._kf_cap // world)
+        for name in ("_kf_store", "_kf_origins"):
+            whole = getattr(self, name)
+            part = whole.new_zeros((local,) + whole.shape[1:])
+            mine = whole[rank::world]
+            part[: mine.shape[0]] = mine
+            setattr(self, name, part)
+        self._kf_mesh = group
 
     def shard_spatial(self, mesh=None, axis: str = "data") -> None:
-        raise _not_ported("spatial sharding", "item 16c")
+        """Run every image extraction (``extract``, ``add_keyframes``,
+        ``detect`` and the located queries on (B, S, S, 3) images) as the
+        spatial partition over the ranks of the process group ``mesh``
+        (None: the default group): each rank computes the encoder on its
+        band of image rows, the heads' sums are added over the group, and
+        every rank gets the whole batch's descriptors
+        (``parallel/spatial.py``). For images it takes the place of
+        ``shard_extraction``. Image encoders only, and the image size must
+        split evenly over the ranks at every pooling level
+        (``check_divisible``). Every rank makes the same calls (SPMD)."""
+        if self.cfg.model.encoder == "pointpillar":
+            raise ValueError(
+                "shard_spatial applies to image (i2i) encoders; the s2s "
+                "pillar path shards on the batch axis (shard_extraction)")
+        group = require_group(mesh, "shard_spatial")
+        check_divisible(self.cfg.bev.image_size, group_shape(group)[0])
+        self._spatial = spatial_sharded_apply(group, self.model, axis)
+        self._spatial_mesh = group
 
     def _candidates(self, rows):
         """Keyframes ``rows`` (numpy or a device tensor of indices) as a
@@ -745,10 +844,8 @@ class GlobalLocalizer:
         gather of packed rows from the device store, or the host mirror's
         images uploaded."""
         if self._kf_store is not None:
-            rows = torch.as_tensor(rows, dtype=torch.long,
-                                   device=self.device)
-            return (_unpack_bits(self._kf_store.index_select(0, rows)),
-                    self._kf_origins.index_select(0, rows))
+            packed, origins = self._store_rows(rows)
+            return _unpack_bits(packed), origins
         stack = torch.from_numpy(np.stack(
             [self.keyframes[i].image for i in rows])).to(self.device)
         origins = torch.from_numpy(np.stack(
@@ -903,33 +1000,45 @@ class GlobalLocalizer:
         ground frame, and ``clouds`` when every keyframe has an ICP cloud)
         and ``config.json``. With ``host_mirror=False`` the images are
         rebuilt from the device store, 256 rows at a time. With a sharded
-        bank, or after ``shard_extraction``, every rank calls it; rank 0
-        writes the files (a sharded bank gathered first), and every rank
-        returns after a barrier."""
+        bank or store, or after ``shard_extraction`` or ``shard_spatial``,
+        every rank calls it; rank 0 writes the files (a sharded bank or
+        store gathered first, on every rank), and every rank returns after
+        a barrier."""
         os.makedirs(out_dir, exist_ok=True)
         sharded = getattr(self.bank, "sharded", False)
-        mesh = self.bank.mesh if sharded else self._dp
+        mesh = next((g for g in (self.bank.mesh if sharded else None,
+                                 self._kf_mesh, self._dp, self._spatial_mesh)
+                     if g is not None), None)
         rank0 = mesh is None or group_shape(mesh)[1] == 0
         if sharded or rank0:  # a sharded bank gathers on every rank
             self.bank.save(os.path.join(out_dir, "bank.npz"))
+        if rank0 or self._kf_mesh is not None:  # so does a sharded store
+            images, origins = self._map_images()
         if rank0:
-            self._save_map(out_dir)
+            self._save_map(out_dir, images, origins)
         if mesh is not None:
             dist.barrier(group=mesh)
 
-    def _save_map(self, out_dir: str) -> None:
-        """``keyframes.npz`` and ``config.json`` of ``save``."""
+    def _map_images(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Every keyframe's uint8 image (0/255) and origin: the host
+        mirror's, or rebuilt from the device store."""
         n = len(self.keyframes)
         if self.host_mirror:
-            images = np.stack([k.image for k in self.keyframes])
-            origins = np.stack([k.origin_xy for k in self.keyframes])
-        else:
-            s = self._kf_store.shape[1]
-            images = np.empty((n, s, s), np.uint8)
-            for i in range(0, n, 256):
-                chunk = _unpack_bits(self._kf_store[i : min(i + 256, n)])
-                images[i : i + 256] = _numpy((chunk * 255.0).to(torch.uint8))
-            origins = _numpy(self._kf_origins[:n])
+            return (np.stack([k.image for k in self.keyframes]),
+                    np.stack([k.origin_xy for k in self.keyframes]))
+        s = self._kf_store.shape[1]
+        images = np.empty((n, s, s), np.uint8)
+        origins = np.empty((n, 2), np.float32)
+        for i in range(0, n, 256):
+            packed, org = self._store_rows(np.arange(i, min(i + 256, n)))
+            images[i : i + 256] = _numpy(
+                (_unpack_bits(packed) * 255.0).to(torch.uint8))
+            origins[i : i + 256] = _numpy(org)
+        return images, origins
+
+    def _save_map(self, out_dir: str, images: np.ndarray,
+                  origins: np.ndarray) -> None:
+        """``keyframes.npz`` and ``config.json`` of ``save``."""
         kw = dict(images=images, origins=origins)
         if any(k.ground is not None for k in self.keyframes):
             kw["ground_q"] = np.stack([k.ground.rotation

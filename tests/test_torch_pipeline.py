@@ -124,17 +124,19 @@ def test_compose_6dof_matches_jax():
                                    np.asarray(want.translation), atol=1e-6)
 
 
-@pytest.mark.parametrize("kwargs,cfg_change,item", [
-    (dict(device_sort=True), None, "TPU workarounds"),
-    ({}, dict(index=IndexConfig(dim=128, backend="ivf")), "item 16"),
+@pytest.mark.parametrize("kwargs,cfg_change,error,item", [
+    (dict(device_sort=True), None, NotImplementedError, "TPU workarounds"),
+    ({}, dict(index=IndexConfig(dim=128, backend="ivf")), RuntimeError,
+     "device_keyframes=True and a built store"),
 ])
-def test_unported_options_raise(kwargs, cfg_change, item):
+def test_unported_options_raise(kwargs, cfg_change, error, item):
+    """device_sort is left out; shard_keyframes without a built store
+    raises JAX's RuntimeError (the IVF bank builds first)."""
     model = build_model(CFG.model, CFG.voxel)
     cfg = CFG.replace(**cfg_change) if cfg_change else CFG
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         loc = GlobalLocalizer(cfg, model, device="cpu", **kwargs)
-        loc.shard_keyframes(None)  # the IVF bank builds; the store's
-        # sharding waits (item 16c)
+        loc.shard_keyframes(None)
 
 
 def test_host_stats_default_matches_jax():

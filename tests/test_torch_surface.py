@@ -31,14 +31,10 @@ SUBPACKAGES = ("core", "ops", "models", "index", "data", "train", "parallel",
 LEFT_OUT = {
     ("train", "TrainState"): "JAX's optimizer-state NamedTuple; the port's "
     "Trainer holds a torch.optim optimizer and its step count",
-    ("parallel", "make_mesh"): "ROADMAP item 16c; a process group is made "
-    "by torch.distributed (parallel/launch.py spawns one)",
     ("parallel", "shard_batch"): "places a JAX array on a mesh; each rank "
     "of a process group holds its own tensors",
     ("parallel", "replicate"): "places a JAX array on a mesh; each rank of "
     "a process group holds its own tensors",
-    ("parallel", "spatial_sharded_apply"): "ROADMAP item 16c (the i2i "
-    "spatial partition)",
 }
 
 
