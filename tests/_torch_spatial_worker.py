@@ -1,8 +1,9 @@
 """One rank of the CPU process group that tests/test_torch_spatial.py
 spawns: a gloo group over ``tcp://127.0.0.1:<port>`` runs the i2i spatial
 partition (``parallel/spatial.py::spatial_sharded_apply`` and
-``GlobalLocalizer.shard_spatial``) on the inputs the test wrote, and each
-rank writes what it got to ``<dir>/rank<r>.npz``.
+``GlobalLocalizer.shard_spatial``) on the inputs the test writes while the
+ranks start (``<dir>/inputs.npz``, awaited), and each rank writes what it
+got to ``<dir>/rank<r>.npz``.
 
     python tests/_torch_spatial_worker.py RANK WORLD PORT DIR
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -97,7 +99,13 @@ def main(rank: int, world: int, port: int, out_dir: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank)
     try:
-        inp = dict(np.load(os.path.join(out_dir, "inputs.npz")))
+        # the test writes the inputs while the ranks start
+        path = os.path.join(out_dir, "inputs.npz")
+        for _ in range(6000):
+            if os.path.exists(path):
+                break
+            time.sleep(0.1)
+        inp = dict(np.load(path))
         out = {}
         case_vgg(inp, out, out_dir)
         case_zoo(inp, out)

@@ -110,11 +110,6 @@ def run(tmp_path_factory, devices):
     """Start the two ranks, compute JAX's side meanwhile, and return (both
     ranks' results, JAX's, the run's directory, JAX's grid)."""
     out = tmp_path_factory.mktemp("shard_store")
-    cfg = _cfg()
-    loc, model, params = _build_pair(cfg, device_keyframes=True)
-    inp, grid = _inputs(cfg)
-    torch.save(flax_to_state_dict(params), out / "params.pt")
-    np.savez(out / "inputs.npz", **inp)
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     port = free_port()
     procs = [subprocess.Popen(
@@ -122,6 +117,13 @@ def run(tmp_path_factory, devices):
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(WORLD)]
     try:
+        # the ranks import torch and join their group meanwhile
+        cfg = _cfg()
+        loc, model, params = _build_pair(cfg, device_keyframes=True)
+        inp, grid = _inputs(cfg)
+        torch.save(flax_to_state_dict(params), out / "params.pt")
+        np.savez(out / "inputs.tmp.npz", **inp)
+        os.replace(out / "inputs.tmp.npz", out / "inputs.npz")
         mesh = Mesh(np.array(devices[:WORLD]), ("data",))
         want = _jax_side(inp, cfg, loc, model, params, grid, mesh, out)
         logs = [p.communicate(timeout=240)[0] for p in procs]

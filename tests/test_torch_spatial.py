@@ -101,15 +101,6 @@ def run(tmp_path_factory, devices):
     """Start the two ranks, compute JAX's side meanwhile, and return (both
     ranks' results, JAX's)."""
     out = tmp_path_factory.mktemp("spatial")
-    model = jax_build_model(CFG.model, CFG.voxel)
-    db = np.stack([_wall_img(s) for s in range(8)])
-    db3 = np.repeat(db[..., None], 3, axis=-1)
-    v = _variables(model, db3)
-    inp = {"imgs": (np.random.RandomState(1).rand(2, S, S, 3) > 0.02).astype(
-        np.float32), "db3": db3, "q3": db3[:2].copy(),
-        "cfg_json": np.array(CFG.to_json())}
-    torch.save(flax_to_state_dict(v, "vgg16"), out / "params.pt")
-    np.savez(out / "inputs.npz", **inp)
     env = {k: w for k, w in os.environ.items() if k != "XLA_FLAGS"}
     port = free_port()
     procs = [subprocess.Popen(
@@ -117,6 +108,17 @@ def run(tmp_path_factory, devices):
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(WORLD)]
     try:
+        # the ranks import torch and join their group meanwhile
+        model = jax_build_model(CFG.model, CFG.voxel)
+        db = np.stack([_wall_img(s) for s in range(8)])
+        db3 = np.repeat(db[..., None], 3, axis=-1)
+        v = _variables(model, db3)
+        inp = {"imgs": (np.random.RandomState(1).rand(2, S, S, 3)
+                        > 0.02).astype(np.float32), "db3": db3,
+               "q3": db3[:2].copy(), "cfg_json": np.array(CFG.to_json())}
+        torch.save(flax_to_state_dict(v, "vgg16"), out / "params.pt")
+        np.savez(out / "inputs.tmp.npz", **inp)
+        os.replace(out / "inputs.tmp.npz", out / "inputs.npz")
         mesh = Mesh(np.array(devices[:WORLD]), ("data",))
         want = {"sp": np.asarray(jax_spatial_apply(mesh, model)(
             v, jnp.asarray(inp["imgs"])))}
