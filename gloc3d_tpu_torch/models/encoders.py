@@ -23,6 +23,8 @@ BatchNorm runs in float32 with Flax's momentum 0.9 (torch 0.1) and eps 1e-5
 and Flax's biased running variance (``models/batchnorm.py``). Padding is
 explicit in JAX and the same here: AlexNet's 3×3/2 pools are VALID,
 ResNet's max-pool pads with −inf as ``F.max_pool2d(padding=1)`` does.
+Every conv and max-pool goes through the forward's ``ops``
+(``models/layer_ops.py``), which the spatial partition replaces.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 
 from gloc3d_tpu_torch.config import ENCODER_DIMS
 from gloc3d_tpu_torch.models.batchnorm import BatchNorm
+from gloc3d_tpu_torch.models.layer_ops import PLAIN, LayerOps
 from gloc3d_tpu_torch.models.vgg import VGG16_CONV_IDX, VGG16Encoder
 
 # MobileNetV2 inverted-residual plan, torchvision features[1..17]:
@@ -54,13 +57,6 @@ _ALEXNET_CONV_IDX = (0, 3, 6, 8, 10)
 
 def is_image_encoder(name: str) -> bool:
     return name in ENCODER_DIMS
-
-
-def _conv(m: nn.Conv2d, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
-    """``m`` applied in ``cd`` (input, weight and bias rounded to it)."""
-    bias = None if m.bias is None else m.bias.to(cd)
-    return F.conv2d(x.to(cd), m.weight.to(cd), bias, m.stride, m.padding,
-                    groups=m.groups)
 
 
 def _nchw(x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
@@ -86,11 +82,16 @@ class AlexNetEncoder(nn.Sequential):
             nn.Conv2d(256, 256, 3, padding=1))
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ops: LayerOps = PLAIN) -> torch.Tensor:
         cd = self.compute_dtype
         x = _nchw(x, cd)
         for m in self:
-            x = _conv(m, x, cd) if isinstance(m, nn.Conv2d) else m(x)
+            if isinstance(m, nn.Conv2d):
+                x = ops.conv(m, x, cd)
+            elif isinstance(m, nn.MaxPool2d):
+                x = ops.max_pool(m, x)
+            else:
+                x = m(x)
         return _nhwc(x)
 
 
@@ -104,8 +105,9 @@ class _ConvBNReLU6(nn.Sequential):
                       bias=False),
             BatchNorm(cout), nn.ReLU6(inplace=True))
 
-    def run(self, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
-        return F.relu6(self[1](_conv(self[0], x, cd).float())).to(cd)
+    def run(self, x: torch.Tensor, cd: torch.dtype, ops: LayerOps
+            ) -> torch.Tensor:
+        return F.relu6(self[1](ops.conv(self[0], x, cd).float())).to(cd)
 
 
 class _InvertedResidual(nn.Module):
@@ -121,11 +123,12 @@ class _InvertedResidual(nn.Module):
         self.conv = nn.Sequential(*layers)
         self.use_res = stride == 1 and cin == cout
 
-    def run(self, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+    def run(self, x: torch.Tensor, cd: torch.dtype, ops: LayerOps
+            ) -> torch.Tensor:
         y = x
         for m in self.conv[:-2]:
-            y = m.run(y, cd)
-        y = self.conv[-1](_conv(self.conv[-2], y, cd).float()).to(cd)
+            y = m.run(y, cd, ops)
+        y = self.conv[-1](ops.conv(self.conv[-2], y, cd).float()).to(cd)
         return y + x if self.use_res else y
 
 
@@ -141,11 +144,11 @@ class MobileNetV2Encoder(nn.Sequential):
         super().__init__(*layers)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ops: LayerOps = PLAIN) -> torch.Tensor:
         cd = self.compute_dtype
         x = _nchw(x, cd)
         for m in self:
-            x = m.run(x, cd)
+            x = m.run(x, cd, ops)
         return _nhwc(x)
 
 
@@ -163,11 +166,12 @@ class _BasicBlock(nn.Module):
             nn.Conv2d(cin, cout, 1, stride, bias=False), BatchNorm(cout))
             if stride != 1 or cin != cout else None)
 
-    def run(self, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
-        y = F.relu(self.bn1(_conv(self.conv1, x, cd).float())).to(cd)
-        y = self.bn2(_conv(self.conv2, y, cd).float())
+    def run(self, x: torch.Tensor, cd: torch.dtype, ops: LayerOps
+            ) -> torch.Tensor:
+        y = F.relu(self.bn1(ops.conv(self.conv1, x, cd).float())).to(cd)
+        y = self.bn2(ops.conv(self.conv2, y, cd).float())
         identity = x if self.downsample is None else self.downsample[1](
-            _conv(self.downsample[0], x, cd).float())
+            ops.conv(self.downsample[0], x, cd).float())
         return F.relu(y + identity.float()).to(cd)
 
 
@@ -187,13 +191,14 @@ class ResNet18Encoder(nn.Sequential):
         super().__init__(*layers)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ops: LayerOps = PLAIN) -> torch.Tensor:
         cd = self.compute_dtype
-        x = F.relu(self[1](_conv(self[0], _nchw(x, cd), cd).float())).to(cd)
-        x = self[3](x)
+        x = ops.conv(self[0], _nchw(x, cd), cd)
+        x = F.relu(self[1](x.float())).to(cd)
+        x = ops.max_pool(self[3], x)
         for layer in list(self)[4:]:
             for block in layer:
-                x = block.run(x, cd)
+                x = block.run(x, cd, ops)
         return _nhwc(x)
 
 

@@ -15,7 +15,9 @@ Layout: NHWC in, NHWC out, as in JAX. The (B, S, S, 3) input is permuted
 once to an NCHW view, which is channels-last in memory, so cuDNN runs the
 stack in NHWC; the (B, 512, S/16, S/16) output is permuted back for NetVLAD.
 Convs run in ``compute_dtype`` (bf16 by default, as in JAX: each conv's
-output, bias included, is rounded to bf16), the result is float32.
+output, bias included, is rounded to bf16), the result is float32. Every
+conv and max-pool goes through the forward's ``ops``
+(``models/layer_ops.py``), which the spatial partition replaces.
 
 ``load_torchvision_npz`` loads the ImageNet backbone's ``.npz`` (the JAX
 package's layout, ``tools/convert_torch_checkpoint.py``) into an encoder.
@@ -33,7 +35,8 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
+
+from gloc3d_tpu_torch.models.layer_ops import PLAIN, LayerOps
 
 # (channels, pool_before) for the 13 convs of VGG16-D
 VGG16_CFG = (
@@ -103,12 +106,14 @@ class VGG16Encoder(nn.Sequential):
         super().__init__(*layers)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ops: LayerOps = PLAIN) -> torch.Tensor:
         cd = self.compute_dtype
         x = x.to(cd).permute(0, 3, 1, 2)  # NHWC → NCHW view, channels last
         for m in self:
             if isinstance(m, nn.Conv2d):
-                x = F.conv2d(x, m.weight.to(cd), m.bias.to(cd), padding=1)
+                x = ops.conv(m, x, cd)
+            elif isinstance(m, nn.MaxPool2d):
+                x = ops.max_pool(m, x)
             else:
                 x = m(x)
         return x.float().permute(0, 2, 3, 1)

@@ -10,7 +10,9 @@ uneven where P does not divide h), runs each conv and pool on its band, and
 the pooling head's spatial sums are added over the group. JAX writes none
 of this: the program is ``model.apply`` with the input sharded on H, and
 GSPMD inserts the halo exchanges and the psum. In torch the partition is
-written by hand:
+written by hand, as the conv and max-pool that every encoder's own forward
+takes as its ``ops`` (``models/layer_ops.py``). The images are square, so
+a band's rows over every rank are its width at every layer:
 
 - **Halo rows.** Before a conv or pool of kernel k, stride s and padding p
   along H, the rank's output rows [o0, o1) read the input rows
@@ -47,7 +49,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, NamedTuple, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.distributed as dist
@@ -147,17 +149,6 @@ def _plan(h: int, k: int, stride: int, pad: int, world: int, rank: int
                  (a - ib[rank], b - ib[rank]))
 
 
-class _Slab(NamedTuple):
-    """This rank's band (B, C, h_r, W) of an activation with ``rows`` rows
-    over every rank."""
-    x: Tensor
-    rows: int
-
-    def map(self, fn: Callable[[Tensor], Tensor]) -> "_Slab":
-        """An op that keeps the rows (activation, eval BatchNorm)."""
-        return _Slab(fn(self.x), self.rows)
-
-
 def _like(t: Tensor, x: Tensor) -> Tensor:
     """``t`` in ``x``'s memory format (channels-last activations stay so
     through a concatenation)."""
@@ -166,8 +157,20 @@ def _like(t: Tensor, x: Tensor) -> Tensor:
     return t
 
 
+def _even(v) -> int:
+    """An op's kernel, stride or padding, alike along H and W."""
+    h, w = (v, v) if isinstance(v, int) else v
+    if h != w:
+        raise ValueError(f"the spatial partition takes ops alike along H "
+                         f"and W, not {v}")
+    return h
+
+
 class _Rows:
-    """The halo exchange and the row-split ops over a process group."""
+    """The halo exchange and the row-split conv and max-pool over a process
+    group: the ``LayerOps`` that the encoders' forwards take. An activation
+    is this rank's band (B, C, h_r, W) of a square one, so its rows over
+    every rank are its width W at every layer."""
 
     def __init__(self, group):
         self.group = group
@@ -201,81 +204,34 @@ class _Rows:
         return torch.cat([*map(part, plan.before), x[:, :, a:b_],
                           *map(part, plan.after)], 2)
 
-    def _plan(self, s: _Slab, k: int, stride: int, pad: int) -> _Plan:
-        return _plan(s.rows, k, stride, pad, self.world, self.rank)
+    def _plan(self, x: Tensor, m: nn.Module) -> _Plan:
+        """The plan of the conv or pool ``m`` on the band ``x``."""
+        return _plan(x.shape[3], *(_even(v) for v in (
+            m.kernel_size, m.stride, m.padding)), self.world, self.rank)
 
-    def conv(self, s: _Slab, m: nn.Conv2d, cd: torch.dtype) -> _Slab:
-        """``models/encoders.py::_conv`` on the band: ``m`` in ``cd``."""
-        plan = self._plan(s, m.kernel_size[0], m.stride[0], m.padding[0])
-        x = self.window(s.x.to(cd), plan, 0.0)
+    def conv(self, m: nn.Conv2d, x: Tensor, cd: torch.dtype) -> Tensor:
+        """``models/layer_ops.py::conv`` on the band: ``m`` in ``cd``."""
+        plan = self._plan(x, m)
+        x = self.window(x.to(cd), plan, 0.0)
         bias = None if m.bias is None else m.bias.to(cd)
         y = F.conv2d(x, m.weight.to(cd), bias, m.stride,
                      (plan.pad, m.padding[1]), groups=m.groups)
-        return _Slab(y[:, :, :plan.n_out], plan.out_rows)
+        return y[:, :, :plan.n_out]
 
-    def max_pool(self, s: _Slab, m: nn.MaxPool2d) -> _Slab:
-        k, stride, pad = (m.kernel_size, m.stride, m.padding)
-        plan = self._plan(s, k, stride, pad)
-        x = self.window(s.x, plan, -math.inf)
-        y = F.max_pool2d(x, k, stride, (plan.pad, pad))
-        return _Slab(y[:, :, :plan.n_out], plan.out_rows)
-
-
-# ---------------------------------------------------------------------------
-# each encoder's forward (models/encoders.py, models/vgg.py) on a band
-
-def _sequential(g: _Rows, enc: nn.Sequential, s: _Slab) -> _Slab:
-    """VGG16 and AlexNet: convs, ReLUs and max-pools in order."""
-    for m in enc:
-        if isinstance(m, nn.Conv2d):
-            s = g.conv(s, m, enc.compute_dtype)
-        elif isinstance(m, nn.MaxPool2d):
-            s = g.max_pool(s, m)
-        else:
-            s = s.map(m)
-    return s
+    def max_pool(self, m: nn.MaxPool2d, x: Tensor) -> Tensor:
+        plan = self._plan(x, m)
+        y = F.max_pool2d(self.window(x, plan, -math.inf), m.kernel_size,
+                         m.stride, (plan.pad, _even(m.padding)))
+        return y[:, :, :plan.n_out]
 
 
-def _conv_bn(g, conv, bn, s, cd, act=None, out=torch.float32) -> _Slab:
-    """conv in ``cd``, BatchNorm in fp32, ``act``, the result in ``out``."""
-    def after(t):
-        t = bn(t.float())
-        return (t if act is None else act(t)).to(out)
-    return g.conv(s, conv, cd).map(after)
+_IMAGE_ENCODERS = (VGG16Encoder, AlexNetEncoder, MobileNetV2Encoder,
+                   ResNet18Encoder)
 
 
-def _mobilenet(g: _Rows, enc: MobileNetV2Encoder, s: _Slab) -> _Slab:
-    cd = enc.compute_dtype
-    s = _conv_bn(g, enc[0][0], enc[0][1], s, cd, F.relu6, cd)
-    for blk in list(enc)[1:]:
-        y = s
-        for m in blk.conv[:-2]:
-            y = _conv_bn(g, m[0], m[1], y, cd, F.relu6, cd)
-        y = _conv_bn(g, blk.conv[-2], blk.conv[-1], y, cd, out=cd)
-        s = _Slab(y.x + s.x, y.rows) if blk.use_res else y
-    return s
-
-
-def _resnet18(g: _Rows, enc: ResNet18Encoder, s: _Slab) -> _Slab:
-    cd = enc.compute_dtype
-    s = g.max_pool(_conv_bn(g, enc[0], enc[1], s, cd, F.relu, cd), enc[3])
-    for layer in list(enc)[4:]:
-        for blk in layer:
-            y = _conv_bn(g, blk.conv1, blk.bn1, s, cd, F.relu, cd)
-            y = _conv_bn(g, blk.conv2, blk.bn2, y, cd)
-            identity = s.x if blk.downsample is None else _conv_bn(
-                g, blk.downsample[0], blk.downsample[1], s, cd).x
-            s = _Slab(F.relu(y.x + identity.float()).to(cd), y.rows)
-    return s
-
-
-_ENCODERS = {VGG16Encoder: _sequential, AlexNetEncoder: _sequential,
-             MobileNetV2Encoder: _mobilenet, ResNet18Encoder: _resnet18}
-
-
-def _head(group, pool: nn.Module, feat: Tensor, rows: int) -> Tensor:
-    """The pooling head on this rank's (B, h_r, W, D) features, its spatial
-    reductions taken over the group."""
+def _head(group, pool: nn.Module, feat: Tensor) -> Tensor:
+    """The pooling head on this rank's (B, h_r, W, D) features of a square
+    (W, W) map, its spatial reductions taken over the group."""
     b = feat.shape[0]
     if isinstance(pool, NetVLAD):
         weighted, a_sum = pool.sums(feat)
@@ -291,7 +247,7 @@ def _head(group, pool: nn.Module, feat: Tensor, rows: int) -> Tensor:
     if isinstance(pool, _AvgPoolHead):
         v = feat.float().sum(dim=(1, 2))
         dist.all_reduce(v, group=group)
-        return unit_rows(v / (rows * feat.shape[2]))
+        return unit_rows(v / feat.shape[2] ** 2)
     raise TypeError(f"no spatial partition for the head "
                     f"{type(pool).__name__}")
 
@@ -301,28 +257,28 @@ def spatial_sharded_apply(mesh, model, axis: str = "data"):
     ``DescriptorModel`` with an image encoder) with each image's rows split
     over the ranks of the process group ``mesh`` (None: the default group;
     ``axis`` names JAX's mesh axis, a process group has one). Every rank
-    calls ``fn`` with the whole batch (SPMD), computes the encoder on its
-    band of rows, and returns the same descriptors as every other rank;
-    they equal ``model(images)`` up to the order of the heads' sums."""
+    calls ``fn`` with the whole batch (SPMD), runs the encoder's own
+    forward on its band of rows with the row-split conv and max-pool, and
+    returns the same descriptors as every other rank; they equal
+    ``model(images)`` up to the order of the heads' sums. The images are
+    square, as BEV images are."""
     group = require_group(mesh, "spatial_sharded_apply")
-    encode = _ENCODERS.get(type(getattr(model, "encoder", None)))
-    if encode is None:
+    if not isinstance(getattr(model, "encoder", None), _IMAGE_ENCODERS):
         raise TypeError("spatial_sharded_apply takes a DescriptorModel with "
                         "an image encoder (vgg16, resnet18, mobilenet, "
                         "alexnet)")
-    rows_of = _Rows(group)
+    ops = _Rows(group)
 
     @torch.no_grad()
     def fn(images) -> Tensor:
-        enc = model.encoder
         device = next(model.parameters()).device
         images = torch.as_tensor(images, dtype=torch.float32, device=device)
         s = images.shape[1]
-        lo, hi = _bounds(s, rows_of.world)[rows_of.rank:rows_of.rank + 2]
-        band = images[:, lo:hi].to(enc.compute_dtype).permute(0, 3, 1, 2)
-        out = encode(rows_of, enc, _Slab(band, s))
-        return _head(group, model.pool, out.x.float().permute(0, 2, 3, 1),
-                     out.rows)
+        if images.shape[2] != s:
+            raise ValueError(f"spatial_sharded_apply takes square images, "
+                             f"not {tuple(images.shape[1:3])}")
+        lo, hi = _bounds(s, ops.world)[ops.rank:ops.rank + 2]
+        return _head(group, model.pool, model.encoder(images[:, lo:hi], ops))
 
     return fn
 

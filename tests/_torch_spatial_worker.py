@@ -60,6 +60,11 @@ def case_vgg(inp, out, out_dir):
     with torch.no_grad():
         out["vgg_ref"] = model(imgs).numpy()
     out["vgg_sp"] = spatial_sharded_apply(None, model)(imgs).numpy()
+    try:  # a band's rows over every rank are its width: square images only
+        spatial_sharded_apply(None, model)(imgs[:, :, :-16])
+        out["non_square"] = "returned"
+    except ValueError as e:
+        out["non_square"] = str(e)
 
     db3, q3 = inp["db3"], inp["q3"]
     for name in ("base", "sp"):

@@ -151,6 +151,12 @@ def test_spatial_forward_matches_unsharded_and_jax(run):
     np.testing.assert_allclose(sp, run[1]["sp"], atol=2e-4, rtol=2e-3)
 
 
+def test_spatial_forward_refuses_non_square_images(run):
+    """Every rank raises ValueError for (B, S, S − 16, 3) images."""
+    for got in run[0]:
+        assert "square" in str(got["non_square"]), got["non_square"]
+
+
 @pytest.mark.parametrize("mode,n", [("batch", 2), ("one", 1), ("fused", 1)])
 def test_shard_spatial_locates_as_unsharded(run, mode, n):
     """shard_spatial (with shard_extraction too: images keep the spatial
