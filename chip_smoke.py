@@ -27,10 +27,14 @@ Phases, each printing its own lines:
      ((1, 122480, 4) pillar statistics with counts, (1, 122480, 64) PointNet
      features), pillar 0 holding > 80k rows, every row in pillar 0, empty
      pillars, C in {1, 3, 4, 65, 256} on the scan's ids and features at a
-     4-byte offset; error relative to per-pillar L1 mass (bound 1e-5),
-     counts exactly equal, empty pillars exactly 0; CUDA-event times of
-     both; every pillar and the counts bit-equal over four launches on each
-     main-path input;
+     4-byte offset, 50 000 rows in one pillar other than 0, every row in
+     pillar 7, ids in descending order, the main-path scan with its rows
+     permuted; error relative to per-pillar L1 mass (bound 1e-5), counts
+     exactly equal, empty pillars exactly 0, the kernel's status clean, and
+     every pillar and the counts bit-equal over four launches, in every
+     case; item 3 of a batch of 24 bit-equal to the same item binned alone;
+     three planted out-of-range ids raise ValueError naming the kernel's
+     reading and the host's; CUDA-event times of both;
   5. the located query on the host-stats path at full PipelineConfig.s2s()
      width (122 480-point scans, 768² BEV, top-20, 120 coarse / 11 fine
      rotations) with the folded bf16 serving model from the port's seeded
@@ -122,8 +126,9 @@ Phases, each printing its own lines:
      (mkldnn convolutions off against on);
  17. each kernel alone at the main path's and the train step's shapes: its
      device time from torch.profiler (L2-warm and L2-flushed), its bound,
-     the wrapper's time (K2's with and without its id-range check, and the
-     check alone), the plain version's, and the time of the one PyTorch
+     the wrapper's time (K2's with and without its read of the kernel's
+     status, and the read alone), the plain version's, and the time of the
+     one PyTorch
      call computing the same function (K1: torch.segment_reduce; K2:
      index_add_ + bincount).
  18. [refine], after the i2i phases: (a) the ICP polish
@@ -299,8 +304,11 @@ Phases, each printing its own lines:
      localizer; the B=1 VGG16 forward's ms at worlds 1 and 2 beside the
      unsharded one's (no speed-up can show with both ranks on one card).
 The kernel-only times of phase 17 come from complete traces only (every
-kernel of every traced call: K1 launches two a call, K2 four); a timing
-with none in six traces prints that it was not measured.
+device operation of every traced call, memsets included: K1 launches two
+kernels and a memset a call, K2 four kernels); a timing with none in six
+traces prints that it was not measured. `--k2-compare FILE.cu` also times
+K2 v3's source (same C entry; built here, called through ctypes) beside the
+current one, in the order earlier, current, current, earlier.
 `python3 chip_smoke.py --kernels` runs phases 1-4 and 17 only;
 `python3 chip_smoke.py --submap` phases 1 and 19 only;
 `python3 chip_smoke.py --eval` phases 1, 2 and 23 only;
@@ -336,6 +344,9 @@ K1_SOURCE = "gloc3d_tpu_torch/csrc/segment_sum.cu"
 K1_REPLACES = "gloc3d_tpu/ops/pallas_scatter.py:106"
 K2_SOURCE = "gloc3d_tpu_torch/csrc/pillar_bin_sums.cu"
 K2_REPLACES = "gloc3d_tpu/ops/pallas_scatter.py:45"
+# device operations a call of K2 v3 makes (a memset and four kernels), for
+# timing it beside the current version with --k2-compare
+K2_V3_OPS = 5
 N_KEYFRAMES, N_QUERIES = 16, 8
 N_TRAIN_Q = 8  # training queries; 24 db scans (training_dataset)
 POS_TOL_M, ROT_TOL_DEG = 1.0, 5.0
@@ -650,13 +661,24 @@ def check_k1(torch, label, x, starts):
 
 
 def check_k2(torch, label, x, ids, nv):
-    """Launch K2 on (x, ids, V) and hold it to its plain version: finite,
-    counts exactly equal, empty pillars exactly 0. Returns (max error
-    relative to per-pillar L1 mass, max |kernel - plain|, plain counts)."""
+    """Launch K2 on (x, ids, V) through its wrapper and three more times
+    alone, and hold it to its plain version: finite, counts exactly equal,
+    empty pillars exactly 0, the kernel's status clean (no id outside
+    [0, V), every row placed), every launch bit-equal to the first. Returns
+    (max error relative to per-pillar L1 mass, max |kernel - plain|, plain
+    counts)."""
     from gloc3d_tpu_torch.kernels import bin_sums as bs
 
     got, cnt = bs.pillar_bin_sums(x, ids, nv)
+    status, same = None, True
+    for _ in range(3):
+        again, c_again, status = bs._launch(x, ids, nv)
+        same = same and torch.equal(got, again) and torch.equal(cnt, c_again)
     torch.cuda.synchronize()
+    st = status.cpu()
+    check(int(st[:, 0].sum()) == 0 and bool((st[:, 3] == ids.shape[-1]).all()),
+          f"K2 {label}: the kernel's status {st.tolist()} is not clean")
+    check(same, f"K2 {label}: sums or counts differ between launches")
     plain, p_cnt = bs.pillar_bin_sums_plain(x, ids, nv)
     l1, _ = bs.pillar_bin_sums_plain(x.abs(), ids, nv)
     diff = (got - plain).double().abs()
@@ -666,6 +688,61 @@ def check_k2(torch, label, x, ids, nv):
           f"K2 {label}: empty pillars not zero")
     return (float((diff / l1.double().clamp_min(1e-30)).max()),
             float(diff.max()), p_cnt)
+
+
+def check_k2_batch(torch, feats, ids, v):
+    """Item 3 of a batch of 24 (the main path's features and ids, each item
+    permuted anew) against the same item binned alone: bit-equal sums and
+    counts, and the batch held to its plain version."""
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+
+    gen = torch.Generator(device=feats.device).manual_seed(24)
+    perms = torch.stack([torch.randperm(ids.shape[-1], generator=gen,
+                                        device=feats.device)
+                         for _ in range(24)])
+    big = feats[0][perms].contiguous()
+    big_ids = ids[0][perms].contiguous()
+    sums, cnt = bs.pillar_bin_sums(big, big_ids, v)
+    alone, c_alone = bs.pillar_bin_sums(big[3:4].contiguous(),
+                                        big_ids[3:4].contiguous(), v)
+    torch.cuda.synchronize()
+    same = torch.equal(sums[3:4], alone) and torch.equal(cnt[3:4], c_alone)
+    plain, p_cnt = bs.pillar_bin_sums_plain(big, big_ids, v)
+    l1, _ = bs.pillar_bin_sums_plain(big.abs(), big_ids, v)
+    rel = float(((sums - plain).double().abs()
+                 / l1.double().clamp_min(1e-30)).max())
+    print(f"[k2] batch of 24 {tuple(big.shape)}: item 3 bit-equal to it "
+          f"binned alone {same}; counts equal {torch.equal(cnt, p_cnt)}, "
+          f"relative to per-pillar L1 mass {rel:.3e} (bound 1e-5)")
+    check(same, "K2: item 3 of a batch of 24 differs from it binned alone")
+    check(torch.equal(cnt, p_cnt) and rel < 1e-5,
+          f"K2 batch of 24 disagrees with its plain version: {rel:.3e}")
+    return rel
+
+
+def check_k2_bad_ids(torch, feats, ids, v):
+    """Three planted out-of-range ids: the wrapper raises ValueError from
+    the kernel's own status, naming the count, the first bad flat row and
+    its id beside the host's reading of the same ids."""
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+
+    n = ids.shape[-1]
+    bad = ids.clone()
+    rows = (4100, 9000, 60000)
+    for r, val in zip(rows, (v, -1, 99999)):
+        bad[0, r] = val
+    try:
+        bs.pillar_bin_sums(feats, bad, v)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise SmokeFailure("K2: planted out-of-range ids did not raise")
+    want = (f"the kernel read 3 of {n} ids outside [0, {v}) (first at flat "
+            f"row {rows[0]}, id {v}); read back to the host they span [-1, "
+            f"99999], 3 of {n} out of range (first at flat rows "
+            f"{list(rows)}")
+    print(f"[k2] planted out-of-range ids raise: {msg}")
+    check(msg.startswith(want), f"K2's out-of-range message: {msg!r}")
 
 
 def record_launches(fn):
@@ -739,6 +816,24 @@ def phase_k2(torch, cfg, world, card, centroids):
     odd = torch.empty(feats.numel() + 1, device=dev)[1:].view(feats.shape)
     odd.copy_(feats)
     inputs["features at a 4-byte offset (1, 122480, 64)"] = (odd, ids, v)
+    crowded = ids.clone()
+    crowded[0, torch.randperm(n, generator=gen, device=dev)[:50000]] = 4321
+    inputs["50 000 rows in pillar 4321 (1, 122480, 64)"] = (
+        torch.randn(feats.shape, generator=gen, device=dev), crowded, v)
+    inputs["every row in pillar 7 (1, 122480, 64)"] = (
+        torch.randn(feats.shape, generator=gen, device=dev),
+        torch.full_like(ids, 7), v)
+    inputs["ids in descending order (1, 122480, 64)"] = (
+        torch.randn(feats.shape, generator=gen, device=dev),
+        torch.sort(ids, dim=-1, descending=True)[0].contiguous(), v)
+    wide_v = torch.randint(1, 30000, ids.shape, generator=gen, device=dev,
+                           dtype=torch.int32)
+    wide_v[ids == 0] = 0
+    inputs["V = 30 000, three windows of the tiles' counts (1, 122480, 64)"] = (
+        torch.randn(feats.shape, generator=gen, device=dev), wide_v, 30000)
+    perm = torch.randperm(n, generator=gen, device=dev)
+    inputs["the main-path scan, rows permuted (1, 122480, 64)"] = (
+        feats[:, perm].contiguous(), ids[:, perm].contiguous(), v)
 
     worst, main_err = 0.0, None
     for label, (x, i, nv) in inputs.items():
@@ -751,9 +846,16 @@ def phase_k2(torch, cfg, world, card, centroids):
         if label.startswith("pillar 0"):
             check(int(p_cnt[0, 0]) > 80000, "the crowded case has <= 80k "
                   "rows in pillar 0")
+        if label.startswith("50 000"):
+            check(int(p_cnt[0, 4321]) >= 50000, "the crowded case has < 50k "
+                  "rows in pillar 4321")
         if x is main_path["features"][0]:
             main_err = err
     check(worst < 1e-5, f"K2 disagrees with its plain version: {worst:.3e}")
+    print(f"[k2] every case above: the kernel's status clean, every pillar "
+          f"and the counts bit-equal over four launches")
+    check_k2_batch(torch, feats, ids, v)
+    check_k2_bad_ids(torch, feats, ids, v)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     times = {}
@@ -773,7 +875,7 @@ def phase_k2(torch, cfg, world, card, centroids):
         print(f"[k2] time, {label} {tuple(x.shape)} of the aligned scan, on "
               f"{card}: kernel {k[0]:.4f} ms L2-warm / {k[1]:.4f} ms "
               f"L2-flushed; plain {p[0]:.4f} / {p[1]:.4f} ms (order plain, "
-              f"kernel, kernel, plain); wrapper with its id-range check "
+              f"kernel, kernel, plain); wrapper with its status read "
               f"{wrapper:.4f} ms L2-warm")
     return main_err, times["features"][0], times["features"][1], main_path
 
@@ -795,9 +897,8 @@ def check_k1_pillar0_determinism(torch, x, starts):
 
 def check_k2_determinism(torch, main_path):
     """Four launches on the same input give bit-equal sums in every pillar
-    and bit-equal counts (K2 v3 adds exact int64 sums, and pillar 0 from
-    per-block partials in a fixed order). Run on both of the main path's
-    binnings. Returns whether they did."""
+    and bit-equal counts (K2 adds every pillar's rows in a fixed order).
+    Run on both of the main path's binnings. Returns whether they did."""
     from gloc3d_tpu_torch.kernels import bin_sums as bs
 
     for label, (x, ids, v) in main_path.items():
@@ -1248,8 +1349,8 @@ def phase_fused_query(torch, cfg, lq_set, kf_set, q_set, centroids):
     d1 = same_results("locate vs locate_batch", r_loc, r_batch)
     d2 = same_results("locate vs locate_fused", r_loc, r_fused)
     # the aligned map: locate and locate_fused each extract the query with
-    # the same ground draws and must agree ranks and all (K2 v3 sums every
-    # pillar in exact integers); a third extraction with those draws must
+    # the same ground draws and must agree ranks and all (K2 sums every
+    # pillar in a fixed order); a third extraction with those draws must
     # swap no candidate rank
     d3, swaps = 0.0, 0
     for i, q in enumerate(q_set[2]):
@@ -5141,11 +5242,13 @@ def k2_work(x, ids, v):
 def kernel_device_ms(torch, fn, frag: str, iters: int, flush=None,
                      per_call: int = 2, attempts: int = 6):
     """Device time per call of fn() spent in kernels whose name holds
-    ``frag``, from a complete torch.profiler trace of ``iters`` calls
-    (after three untraced ones): the wrapper's host work, its fills and its
-    checks are out of it. With ``flush`` the L2 cache is overwritten before
-    each call. A trace is complete when it holds ``per_call`` kernel names
-    (K1 launches two kernels a call, K2 four), each ``iters`` times.
+    ``frag`` and in memsets (the C entries' own), from a complete
+    torch.profiler trace of ``iters`` calls (after three untraced ones):
+    the wrapper's host work and its checks are out of it. With ``flush``
+    the L2 cache is overwritten (by an add, a kernel of another name)
+    before each call. A trace is complete when it holds ``per_call``
+    operation names (K1: two kernels and a memset a call, K2: four
+    kernels), each ``iters`` times.
     A trace's first events now and then go missing (late in a full smoke
     more often), so each trace records a second run of the calls after a
     profiler warm-up run (``schedule(warmup=1, active=1)``), and up to
@@ -5167,13 +5270,14 @@ def kernel_device_ms(torch, fn, frag: str, iters: int, flush=None,
             for _ in range(2):
                 for _ in range(iters):
                     if flush is not None:
-                        flush.zero_()
+                        flush.add_(1)
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
         seen = {}
         for e in trace_events(prof):
-            if e.get("cat") == "kernel" and frag in e.get("name", ""):
+            if (e.get("cat") == "kernel" and frag in e.get("name", "")
+                    or e.get("cat") == "gpu_memset"):
                 total, count = seen.get(e["name"], (0.0, 0))
                 seen[e["name"]] = (total + e.get("dur", 0), count + 1)
         kept = max(kept, sum(c for _, c in seen.values()) / iters)
@@ -5183,8 +5287,8 @@ def kernel_device_ms(torch, fn, frag: str, iters: int, flush=None,
                        for name, (total, _) in seen.items()}
             return sum(by_name.values()), by_name
         print(f"[kernel-times] an incomplete trace of *{frag}*: "
-              f"{len(seen)} kernel names, {kept:g} of {per_call} kernels "
-              f"a call kept")
+              f"{len(seen)} operation names, {kept:g} of {per_call} "
+              f"operations a call kept")
     return None, kept
 
 
@@ -5222,15 +5326,65 @@ def index_add_call(torch, x, ids, v):
     return call
 
 
-def phase_kernel_times(torch, card, k1_cases, k2_cases):
+def fmt_ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def k2_earlier_launch(torch, source: str):
+    """An earlier K2 source with the same C entry, for its times only:
+    built with the port's nvcc flags into the build directory, loaded
+    through ctypes; returns launch(features (B, N, C), ids, V)."""
+    import ctypes
+    import hashlib
+    import subprocess
+
+    from gloc3d_tpu_torch.kernels import build
+
+    src = os.path.abspath(source)
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    so = os.path.join(build.BUILD_DIR, f"libk2_earlier_{digest}.so")
+    if not os.path.exists(so):
+        os.makedirs(build.BUILD_DIR, exist_ok=True)
+        out = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", so, src],
+                             capture_output=True, text=True, timeout=600)
+        check(out.returncode == 0, f"nvcc failed on {source}: "
+              f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+    lib = ctypes.CDLL(so)
+    fn = lib.gloc3d_pillar_bin_sums
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 4 + [
+        ctypes.c_void_p]
+    size = lib.gloc3d_pillar_bin_sums_scratch_bytes
+    size.restype = ctypes.c_int64
+    size.argtypes = [ctypes.c_int64] * 4
+
+    def launch(x, ids, v):
+        b, n, c = x.shape
+        sums = torch.empty((b, v, c), device=x.device)
+        cnt = torch.empty((b, v), device=x.device)
+        scratch = torch.empty(size(b, n, v, c), dtype=torch.uint8,
+                              device=x.device)
+        rc = fn(x.data_ptr(), ids.data_ptr(), sums.data_ptr(),
+                cnt.data_ptr(), scratch.data_ptr(), b, n, v, c,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"{source}: CUDA error {rc}")
+        return sums, cnt
+    return launch
+
+
+def phase_kernel_times(torch, card, k1_cases, k2_cases, k2_earlier=None):
     """Each kernel alone at the main path's and the train step's shapes:
     its device time from a complete torch.profiler trace (L2-warm and
     L2-flushed, mean of 20 calls each), beside its bound, the wrapper's and
     the plain version's time (CUDA events, L2-warm; K2's wrapper with and
-    without its id-range check, and the check alone), and the time of the
-    PyTorch call that computes the same function (K1:
+    without its read of the kernel's status, and the read alone), and the
+    time of the PyTorch call that computes the same function (K1:
     ``torch.segment_reduce``; K2: fp32 ``index_add_`` + ``bincount``), held
-    once to the plain version first."""
+    once to the plain version first. ``k2_earlier`` = (source, launch,
+    operations a call) times an earlier K2 in turns with the current one
+    (earlier, current, current, earlier), after holding it once to the
+    plain version."""
     from gloc3d_tpu_torch.kernels import bin_sums as bs
     from gloc3d_tpu_torch.kernels import segment_sum as ss
 
@@ -5261,7 +5415,25 @@ def phase_kernel_times(torch, card, k1_cases, k2_cases):
             # version accumulates in fp64): a sanity bound, not a tolerance
             check(lib_err < 1e-3, f"{key} library call {label} disagrees "
                   f"with the plain version: {lib_err:.3e} of L1 mass")
-            per_call = 2 if key == "K1" else 4
+            per_call = 3 if key == "K1" else 4
+            earlier = k2_earlier if key == "K2" else None
+            if earlier is not None:
+                src, old_launch, old_ops = earlier
+                old_sums, old_cnt = old_launch(*args)
+                old_err = float(((old_sums - want).double().abs()
+                                 / l1.double().clamp_min(1e-30)).max())
+                check(old_err < 1e-5 and torch.equal(
+                    old_cnt, bs.pillar_bin_sums_plain(*args)[1]),
+                    f"{src} {label} disagrees with the plain version")
+                turns = []
+                for which in ("earlier", "current", "current", "earlier"):
+                    fn_t = ((lambda: old_launch(*args)) if which == "earlier"
+                            else (lambda: launch(*args)))
+                    ops = old_ops if which == "earlier" else per_call
+                    turns.append((which, kernel_device_ms(
+                        torch, fn_t, frag, 20, flush, per_call=ops)[0],
+                        kernel_device_ms(torch, fn_t, frag, 20,
+                                         per_call=ops)[0]))
             warm = kernel_device_ms(torch, lambda: launch(*args), frag, 20,
                                     per_call=per_call)
             cold = kernel_device_ms(torch, lambda: launch(*args), frag, 20,
@@ -5277,24 +5449,40 @@ def phase_kernel_times(torch, card, k1_cases, k2_cases):
             if key == "K2":
                 r["wrapper_no_check_ms"] = cuda_ms(
                     torch, lambda: launch(*args), 50)
-                r["check_ms"] = cuda_ms(torch, lambda: bs._check(*args), 50)
-                extra = (f"; wrapper without the id-range check "
-                         f"{r['wrapper_no_check_ms']:.4f} ms, the check "
-                         f"alone {r['check_ms']:.4f} ms")
-            # each kernel's second launch adds per-block partials: K2's of
-            # pillar 0, K1's of blocks wholly inside one segment
-            second = "pillar0" if key == "K2" else "partials"
+                status = launch(*args)[2]
+                r["check_ms"] = cuda_ms(
+                    torch, lambda: bs._check_status(status, *args[1:]), 50)
+                extra = (f"; wrapper without its status read "
+                         f"{r['wrapper_no_check_ms']:.4f} ms, the status "
+                         f"read alone {r['check_ms']:.4f} ms")
+            if earlier is not None:
+                r["turns"] = turns
+                olds = [t for t in turns if t[0] == "earlier"]
+                news = [t for t in turns if t[0] == "current"]
+
+                def mean(ts, i):
+                    got = [t[i] for t in ts if t[i] is not None]
+                    return sum(got) / len(got) if got else None
+                r["earlier_kernel_only_ms"] = mean(olds, 1)
+                r["earlier_kernel_only_warm_ms"] = mean(olds, 2)
+                r["turns_kernel_only_ms"] = mean(news, 1)
+                extra += (f"; in turns with {src} (earlier, current, "
+                          f"current, earlier; L2-flushed / warm): " + ", ".join(
+                              f"{w} {fmt_ms(c)} / {fmt_ms(h)}"
+                              for w, c, h in turns))
+            # K1's second launch adds the partials of blocks wholly inside
+            # one segment; K2's last one gathers and adds the sorted rows
+            second = "reduce" if key == "K2" else "partials"
 
             def timed(t, cache):
                 return (f"{t[0]:.4f} ms {cache}" if t[0] is not None else
                         f"not measured {cache} (no complete trace in six: "
                         f"the fullest kept {t[1]:g} of {per_call} "
-                        f"kernels a call)")
+                        f"operations a call)")
 
             kernel = (f"kernel only {timed(cold, 'L2-flushed')} / "
                       f"{timed(warm, 'L2-warm')} (torch.profiler, all "
-                      f"{per_call} kernels of every traced call, not the "
-                      f"fills)")
+                      f"{per_call} device operations of every traced call)")
             if cold[0] is not None:
                 r[f"{second}_ms"] = sum(ms for name, ms in cold[1].items()
                                         if second in name)
@@ -6040,9 +6228,9 @@ def phase_pose_train_reference(torch, cfg, batch, gt, n_pts: int = 16384):
     """One fp32 pose step, card against CPU, from the same weights at a
     16 384-point pad: loss within rtol 1e-4, gradients within twice the
     CPU's own floor. The card sums in other orders than the CPU in every
-    convolution and reduction (K2's exact integer sums round once, as the
-    plain version's float64 sums do, but the features it bins differ in
-    their last bits), so the floor is the largest of four CPU reruns that
+    convolution and reduction (K2 adds in a fixed order and rounds once,
+    but the features it bins differ in their last bits), so the floor is
+    the largest of four CPU reruns that
     change only orders of summation: mkldnn convolutions off;
     every cloud's rows (and mask) permuted, which reorders the pillar sums
     and the PointNet BatchNorm's statistics; and the rows permuted on one
@@ -6136,8 +6324,9 @@ def phase_packed(torch, world, card):
     """[packed]: one full-pad scan through the port's PointPillar (K2),
     PointPillarPacked (pack_points + K2) and PointPillarSorted (the host
     pass + K1), one fp32 state dict: the pillar means within 1e-5 of the
-    largest of PointPillar's (K2 v3's sums depend on no row order, so the
-    packed path came out bit-equal on an H100; the sorted path's
+    largest of PointPillar's (K2 v3's sums depended on no row order, so
+    the packed path came out bit-equal on an H100; v4 adds a pillar's rows
+    in their row order; the sorted path's
     centre-relative statistics change per-point features in their last
     bits), the outputs
     within 1e-4 of their largest element; forward times; K1 / K2
@@ -6309,10 +6498,14 @@ def main(argv) -> int:
     k2_err, k2_ms, k2_plain_ms, k2_main = phase_k2(torch, cfg, world, card,
                                                    centroids)
     k2_bit_equal = check_k2_determinism(torch, k2_main)
+    k2_earlier = None
+    if "--k2-compare" in argv:
+        src = argv[argv.index("--k2-compare") + 1]
+        k2_earlier = (src, k2_earlier_launch(torch, src), K2_V3_OPS)
     if kernels_only:
         ds = training_dataset(world, cfg.voxel.max_points)
         times = phase_kernel_times(torch, card, *kernel_time_cases(
-            torch, cfg, ds, k1_main, k2_main))
+            torch, cfg, ds, k1_main, k2_main), k2_earlier=k2_earlier)
         print(json.dumps({"card": card, "kernel_times": times}))
         return 0
     lq_set = located_world_scans(world, cfg.voxel.max_points)
@@ -6364,7 +6557,7 @@ def main(argv) -> int:
     print(json.dumps({"card": card, "i2i_train": i2i_train,
                       "pose_train": pose_train, "packed": packed}))
     times = phase_kernel_times(torch, card, *kernel_time_cases(
-        torch, cfg, ds, k1_main, k2_main))
+        torch, cfg, ds, k1_main, k2_main), k2_earlier=k2_earlier)
     k1_paths = {"located query": k1_launches,
                 "fused query, host-stats": k1_fused,
                 "training, host-stats": train_counts["host-stats"][0],

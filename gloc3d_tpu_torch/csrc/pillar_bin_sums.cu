@@ -1,5 +1,5 @@
-// Unsorted pillar binning (segment sums by id) for Hopper (sm_90a), v3: the
-// same bits on every launch.
+// Unsorted pillar binning (segment sums by id) for Hopper (sm_90a), v4: a
+// fixed order of adds, so every launch gives the same bits.
 //
 // Replaces the TPU kernel gloc3d_tpu/ops/pallas_scatter.py::pillar_bin_sums
 // (with its batched wrapper pillar_bin_mean). That kernel builds a bf16
@@ -7,241 +7,537 @@
 // one_hot^T @ [features | 1] in a VMEM accumulator over a sequential grid.
 // Hopper blocks run in no order and carry nothing between them, and the
 // semantics to hold are the fp32 sums of the XLA scatter the JAX serving path
-// runs, so this kernel scatters directly:
+// runs:
 //   sums[b, ids[b, i], :] += features[b, i, :];  counts[b, ids[b, i]] += 1
 // Counts include every row: padding and out-of-grid rows carry id 0. Empty
-// pillars are exactly 0. Rows whose id lies outside [0, V) are skipped (the
-// wrapper rejects them first). A non-finite value gives its pillar's sum what
-// a sum in any order gives: NaN if any row is NaN or both infinities occur,
-// else the infinity that occurs (the XLA scatter's result; the one-hot
-// product of the TPU kernel would spread 0 · inf = NaN to every pillar).
+// pillars are exactly 0. Rows whose id lies outside [0, V) are left out of
+// the sums and counts; the kernel counts them, and notes the first one and
+// its id, in a status block the wrapper reads. A non-finite value gives its
+// pillar's sum what a sum in any order gives: NaN if any row is NaN or both
+// infinities occur, else the infinity that occurs (the XLA scatter's result;
+// the one-hot product of the TPU kernel would spread 0 * inf = NaN to every
+// pillar).
 //
 // Bound on the card: memory. At the main-path shape (N = 122 480, V =
 // 11 200) one scan's feature binning (C = 64) reads 31.4 MB of features and
-// 0.5 MB of ids and writes 2.9 MB: ~10 µs at 3.35 TB/s; its statistics
-// binning (C = 4) moves 2.7 MB: ~0.8 µs, so it is bound by launch and a few
-// round trips to memory.
+// 0.5 MB of ids and writes 2.9 MB: ~10 us at 3.35 TB/s; its statistics
+// binning (C = 4) moves 2.7 MB: ~0.8 us, so it is bound by the latency of
+// its dependent phases. A train step's feature binning (B = 24) moves
+// 0.83 GB: ~0.25 ms.
 //
-// Determinism. v2 added every pillar but pillar 0 with float atomics, whose
-// order changes between launches, so two extractions of one scan differed in
-// their last bits and near-tied keyframes swapped ranks. Two routes give the
-// same bits every time: a stable counting sort by pillar followed by sums in
-// row order (a per-chunk count table over all V pillars and its scan, then a
-// scatter of the rows: three passes and a table of chunks x V counts), or
-// exact integer sums, whose order does not matter. v3 takes the integer
-// route: it keeps v2's row walk and adds one more read of the features.
-//  1. Keys: for each (item, pillar p >= 1, channel) one uint32 key, the
-//     largest biased exponent e of a finite |x| over the pillar's rows by
-//     atomicMax, with flags for NaN, +inf and -inf above it by atomicOr (a
-//     max after a flag leaves the flag, a flag after a max keeps both); the
-//     row count by an int atomicAdd. A key is read before its atomics,
-//     which are skipped where they would not change it (most rows of a
-//     pillar share their exponents). Pillar 0's per-block fp32 partials are
-//     stored here, as in v2.
-//  2. Sums: every row of pillar p >= 1 adds llrint(x * 2^s) into an int64
-//     accumulator, where |x| < 2^t, t = max(e, 1) - 126, and s = 62 - lg - t
-//     with N <= 2^lg: each term is below 2^(62 - lg), so N of them cannot
-//     overflow. A pillar-channel holding a flag adds nothing.
-//  3. Finish: each sum is acc * 2^-s rounded once to fp32 (or the flags'
-//     NaN / inf), each count the int count; pillar 0 is added from the
-//     partials in a fixed order by pillar_bin_sums_pillar0, as in v2.
-// The scale is per pillar and channel, not per channel of the whole call: the
-// quantum 2^-s is 2^(lg - 61) of the pillar-channel's largest |x| (2^-44 at
-// N = 122 480), so the error relative to that pillar's L1 mass is at most
-// count * 2^(lg - 61), whatever the values of the other pillars. A scale
-// per channel would put the quantum at 2^-44 of the channel's largest value
-// over the whole scan, and a pillar whose values all lie below ~1e-8 of that
-// would miss the 1e-5 the kernel is held to. The price is a key atomic per
-// run of equal ids and a key read per run.
+// Why v3 was slow. v3 summed exact int64 integers at a per-pillar power-of-
+// two scale, so the order of its atomics did not matter. That took two reads
+// of the features (one for the scales, one for the sums), 12 bytes of
+// memset scratch per output sum hit by scattered 64-bit atomics, a memset
+// and four kernels, and a grid whose blocks depended on the batch size.
 //
-// Row walk, as v2 (pass 1 and pass 2 alike):
-//  - Narrow (C <= 8, the statistics launch): about two blocks per SM, each
-//    over a long chunk. Lanes over rows, each row one 16-byte load where
-//    C = 4 (scalar loads otherwise), UNROLL rows per thread in flight, one
-//    atomic per row and channel.
-//  - Wide (C > 8, the 64-channel feature launch): a block per 256 rows; each
-//    warp walks 32 contiguous rows, the whole warp on one row at a time with
-//    lanes over channels in vectors of VW floats (2 at C = 64: one 8-byte
-//    load per lane), U rows loaded before they are added. A warp merges the
-//    rows of a run of equal ids in registers (exponent max and flags, or
-//    the integer sum) and flushes each run with one atomic per channel.
-//  - Pillar 0 (every padding and out-of-grid row, ~82 000 of 122 480 on a
-//    70 m scan, spread through the scan) never takes an atomic: in pass 1
-//    each block sums its pillar-0 rows in registers in a fixed order, adds
-//    its warps in a fixed order and stores the partial (C sums and a count)
-//    in the scratch; pillar_bin_sums_pillar0 adds every item's partials in a
-//    fixed order (a warp per column) and writes pillar 0.
+// v4 sorts each item's row indices by pillar, stably (a counting sort of the
+// ids alone, 0.5 MB a scan), then gathers every pillar's rows in that order
+// and adds them, reading the features once. The order of adds is fixed by
+// the sorted positions of the item alone (chunks of WP positions, blocks of
+// BP), so an item's bits do not depend on the batch it is binned in, and
+// the tile split of the sort (which depends on the batch only through its
+// warps per tile) moves no row. Four kernels, no memset:
+//  1. tiles: a block per (item, tile of TILE rows). Each warp walks its
+//     rows 32 at a time in row order with a 16-bit histogram per pillar in
+//     shared memory; a row's rank among the tile's rows of its pillar comes
+//     from __match_any_sync and the counts so far. The tile writes its dense
+//     row of per-pillar counts (the table), every row's rank, and its count
+//     of ids outside [0, V) with the first of them. It zeroes the arrival
+//     counters of kernels 2 and 4.
+//  2. starts: a warp per 32 pillars walks the table's column in tile order
+//     and leaves, per tile, the pillar's start within its group of 32 plus
+//     the counts of the tiles before; it writes the counts and zeroes the
+//     sums of empty pillars. The last block of an item (an arrival counter)
+//     scans the groups' totals and writes the item's status.
+//  3. place: each row goes to position group start + table entry + rank;
+//     a pillar's rows lie in row order.
+//  4. reduce: a warp walks WP sorted positions and gathers their rows.
+//     Wide rows (C > 8): the warp on one row at a time, lanes over channels
+//     in 8- or 16-byte vectors, UR rows in flight. Narrow rows (C <= 8): a
+//     lane per position, one vector load a row, a segmented scan over the
+//     lanes (a fixed tree). A run that is a whole pillar is stored; runs at
+//     the warp's edges go to shared memory, where warp 0 adds them in
+//     position order (fp64). A pillar that crosses a block's edge leaves one
+//     fp64 piece per block; the last block to deliver its piece (an arrival
+//     counter) adds the pieces in block order, over its warps by a fixed
+//     split, and rounds once. Pillar 0's ~82 000 rows are ~80 pieces.
+// Accuracy: a warp adds at most WP rows in fp32, everything above that in
+// fp64, and each sum is rounded once to fp32: within (WP + 1) * 2^-24 of the
+// pillar's L1 mass, and in practice ~4e-7 of it on a real scan.
 //
-// C interface, loaded with ctypes: zeroes the scratch's accumulators with
-// one cudaMemsetAsync, launches the four kernels on the given stream,
-// returns cudaGetLastError(). It does not synchronise and allocates nothing;
-// the caller passes gloc3d_pillar_bin_sums_scratch_bytes(b, n, v, c) bytes
-// of scratch on the current device (12 per output sum: the int64
-// accumulators and the keys; 4 per pillar; the pillar-0 partials).
+// C interface, loaded with ctypes: launches the four kernels on the given
+// stream (for N = 0, three memsets instead) and returns cudaGetLastError().
+// It does not synchronise and allocates nothing: the caller passes
+// gloc3d_pillar_bin_sums_scratch_bytes(b, n, v, c) bytes of scratch on the
+// current device, O(B (N + V ceil(N / TILE))) int32 (the table is one
+// count per pillar and tile) plus two fp64 pieces of C per BP positions.
+// The scratch starts with the status block, (B, 4) int32 per item: ids
+// outside [0, V), the first such row, its id, and the rows placed (N less
+// the bad ones).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include <cub/block/block_scan.cuh>
+
 namespace {
 
-constexpr int NT = 256;  // threads per block
-constexpr int NW = NT / 32;
 constexpr int MAX_C = 256;
-constexpr int NARROW_MAX_C = 8;  // the narrow kernel takes C <= 8
-constexpr int UNROLL = 4;     // narrow: rows per thread in flight
-constexpr int NARROW_BLOCKS_PER_SM = 2;
-constexpr int WIDE_TILE_ROWS = 256;
-constexpr int FIN_LOADS = 8;  // pillar-0 sum: loads in flight per lane
+constexpr int NARROW_MAX_C = 8;
 constexpr unsigned FULL = 0xffffffffu;
-// key flags, above every biased exponent (< 256)
-constexpr unsigned POS_INF = 1u << 29;
-constexpr unsigned NEG_INF = 1u << 30;
-constexpr unsigned NAN_SEEN = 1u << 31;
-constexpr unsigned FLAGS = POS_INF | NEG_INF | NAN_SEEN;
+// tiles: rows per tile; the largest window of pillars a warp counts in
+// shared memory at once
+constexpr int TILE = 4096;
+constexpr int RB = 8;  // rounds of 32 rows whose peers are found together
+constexpr int WIN_MAX = 12288;
+// starts and place: threads; rows per thread in place
+constexpr int NB = 256;
+constexpr int PLACE_ROWS = 4;
+// reduce: warps per block (at least two blocks an SM), sorted positions per
+// warp and per block; wide rows loaded U at a time
+constexpr int NWD = 16;
+constexpr int MIN_BLOCKS = 2;
+constexpr int WP = 64;
+constexpr int BP = NWD * WP;
+constexpr int U = 8;
 
 struct Args {
   const float* feats;
   const int* ids;
   float* sums;
   float* counts;
-  unsigned long long* acc;  // (B, V, C) int64 sums, two's complement
-  unsigned* keys;           // (B, V, C)
-  int* cnt;                 // (B, V)
-  float* part;              // pillar-0 partials, (B, C + 1, chunks)
+  int* status;   // (B, 4): bad ids, first bad row, its id, rows placed
+  int* itemcnt;  // (B) arrivals of the starts blocks; arrive follows it
+  int* arrive;   // (B, nblk) arrivals of block pieces
+  int* tinfo;    // (B, tiles, 3): bad ids, first bad row, its id
+  int* table;    // (B, tiles, V): counts, then start in group + tiles before
+  int* lrank;    // (B, N): rank among the tile's rows of the same pillar
+  int2* psid;    // (B, N): (row, pillar) at each sorted position
+  int* lstart;   // (B, V): exclusive start within the pillar's warp group
+  int* tot;      // (B, V): rows per pillar
+  int* wtot;     // (B, nunit): rows per group of 32 pillars
+  int* cpre;     // (B, nunit): exclusive prefix of wtot
+  double* part;  // (B, nblk, 2, C): pieces of pillars crossing blocks
   int64_t b;
-  int n, v, c, lg, chunks, rows_per_chunk;
+  int n, v, c, tiles, win, nblk, nunit;
+  int64_t ncount;  // counters zeroed by the tiles kernel
 };
 
-// ----------------------------------------------------------- the integers
-// A finite value's biased exponent (|x| < 2^(max(e, 1) - 126)), else 0.
-__device__ __forceinline__ unsigned exponent_of(float x) {
-  const unsigned bits = __float_as_uint(x) & 0x7fffffffu;
-  return bits < 0x7f800000u ? bits >> 23 : 0u;
+__device__ __forceinline__ unsigned lanemask_lt(int lane) {
+  return (1u << lane) - 1u;
 }
 
-// A non-finite value's flag, else 0.
-__device__ __forceinline__ unsigned flag_of(float x) {
-  const unsigned bits = __float_as_uint(x) & 0x7fffffffu;
-  if (bits < 0x7f800000u) return 0u;
-  if (bits > 0x7f800000u) return NAN_SEEN;
-  return x > 0.f ? POS_INF : NEG_INF;
-}
-
-// 2^s as a double (|s| < 1023).
-__device__ __forceinline__ double pow2(int s) {
-  return __longlong_as_double(static_cast<long long>(1023 + s) << 52);
-}
-
-// s of a key without flags: 2^(t + s) = 2^(62 - lg), t = max(e, 1) - 126.
-__device__ __forceinline__ int scale_exp(unsigned key, int lg) {
-  return 62 - lg - (max(static_cast<int>(key), 1) - 126);
-}
-
-// The multiplier of a pillar-channel's values in pass 2; 0 where the
-// pillar-channel holds a non-finite value (the finish writes it from the
-// flags).
-__device__ __forceinline__ double scale_of(unsigned key, int lg) {
-  return (key & FLAGS) ? 0.0 : pow2(scale_exp(key, lg));
-}
-
-// Keys only grow (max, or), so a value read here is at most the key's
-// value: the atomics are skipped only where they would change nothing.
-__device__ __forceinline__ void flush_key(unsigned* k, unsigned e,
-                                          unsigned f) {
-  if (!e && !f) return;
-  const unsigned seen = __ldcg(k);
-  if (f & ~seen) atomicOr(k, f);
-  if (e > seen) atomicMax(k, e);
-}
-
-__device__ __forceinline__ void add_term(unsigned long long* p, float x,
-                                         double scale) {
-  if (scale == 0.0) return;
-  const long long q = __double2ll_rn(static_cast<double>(x) * scale);
-  if (q) atomicAdd(p, static_cast<unsigned long long>(q));
-}
-
-// ------------------------------------------------------------- pillar 0
-// Every block stores its pillar-0 partial (C sums, then the count) into
-// column j of the item's (C+1, chunks) partials, part[(b (C+1) + j) chunks +
-// chunk]; pillar_bin_sums_pillar0 adds them after the binning passes.
-__device__ __forceinline__ void store_partial(const float* s_part,
-                                              float* part, int64_t b,
-                                              int chunk, int chunks, int c) {
-  for (int t = threadIdx.x; t <= c; t += NT)
-    part[(b * (c + 1) + t) * chunks + chunk] = s_part[t];
-}
-
-// The block's pillar-0 sums: s_red[w][0 .. c] holds warp w's (C sums, then
-// the count); add the warps in order into s_part.
-__device__ __forceinline__ void add_warps(const float* s_red, int stride,
-                                          float* s_part, int c) {
-  __syncthreads();
-  for (int t = threadIdx.x; t <= c; t += NT) {
-    float tot = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) tot += s_red[w * stride + t];
-    s_part[t] = tot;
+// ------------------------------------------------------------------ tiles
+// A block per (item, tile of TILE rows), TW warps each on SUB consecutive
+// rows. The tile's ids are staged in shared memory. Each warp walks its rows
+// 32 at a time in row order and counts each pillar of the current window in
+// its own 16-bit histogram: a row's rank in the warp's rows is the pillar's
+// count so far plus its rank among the equal ids of the 32
+// (__match_any_sync, taken for RB rounds before their counts, which alone
+// carry from round to round). The histograms then become, per pillar, the
+// counts of the warps before (warp 0's slot: the tile's count, which goes to
+// the table), and a row's rank in the tile adds its warp's.
+template <int TW>
+__global__ void __launch_bounds__(TW * 32) pillar_bin_sums_tiles(const Args a) {
+  constexpr int NT = TW * 32;
+  constexpr int SUB = TILE / TW;
+  extern __shared__ int4 s_raw[];
+  __shared__ int s_bad, s_first;
+  int* s_ids = reinterpret_cast<int*>(s_raw);              // [TILE]
+  unsigned short* s_rank =
+      reinterpret_cast<unsigned short*>(s_ids + TILE);     // [TILE]
+  unsigned short* s_hist = s_rank + TILE;                  // [TW][win]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x;
+       i < a.ncount; i += static_cast<int64_t>(gridDim.x) * NT)
+    a.itemcnt[i] = 0;
+  const int64_t item = blockIdx.x / a.tiles;
+  const int t = static_cast<int>(blockIdx.x % a.tiles);
+  const int row0 = t * TILE;
+  const int rows = min(TILE, a.n - row0);
+  const int* id = a.ids + item * a.n + row0;
+  if (threadIdx.x == 0) {
+    s_bad = 0;
+    s_first = INT_MAX;
+  }
+  if ((reinterpret_cast<uintptr_t>(id) & 15) == 0 && (rows & 3) == 0) {
+    for (int k = threadIdx.x; k < rows / 4; k += NT)
+      reinterpret_cast<int4*>(s_ids)[k] =
+          __ldg(reinterpret_cast<const int4*>(id) + k);
+  } else {
+    for (int k = threadIdx.x; k < rows; k += NT) s_ids[k] = __ldg(id + k);
   }
   __syncthreads();
+  {
+    int nbad = 0, first = INT_MAX;
+    for (int k = threadIdx.x; k < rows; k += NT) {
+      const int x = s_ids[k];
+      if (x < 0 || x >= a.v) {
+        ++nbad;
+        first = min(first, row0 + k);
+      }
+    }
+    if (nbad) {
+      atomicAdd(&s_bad, nbad);
+      atomicMin(&s_first, first);
+    }
+  }
+  int* lr = a.lrank + item * a.n + row0;
+  int* trow = a.table + (item * a.tiles + t) * static_cast<int64_t>(a.v);
+  const bool vec = (reinterpret_cast<uintptr_t>(trow) & 15) == 0;
+  unsigned short* hist = s_hist + warp * a.win;
+  const int k_lo = warp * SUB, k_hi = min(rows, k_lo + SUB);
+  for (int wlo = 0; wlo < a.v; wlo += a.win) {
+    const int w = min(a.win, a.v - wlo);
+    // a.win is a multiple of 8: 16-byte stores
+    for (int p = lane; p < a.win / 8; p += 32)
+      reinterpret_cast<int4*>(hist)[p] = make_int4(0, 0, 0, 0);
+    __syncwarp();
+    static_assert(SUB % (32 * RB) == 0, "rounds come in batches of RB");
+    for (int b0 = k_lo; b0 < k_lo + SUB; b0 += 32 * RB) {
+      int y[RB];
+      unsigned peers[RB];
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const int k = b0 + 32 * r + lane;
+        y[r] = (k < k_hi ? s_ids[k] : -1) - wlo;
+        const bool in = y[r] >= 0 && y[r] < w;
+        peers[r] = __match_any_sync(FULL, in ? y[r] : -1);
+      }
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const bool in = y[r] >= 0 && y[r] < w;
+        const int leader = __ffs(peers[r]) - 1;
+        int old = 0;
+        if (in && lane == leader) {
+          old = hist[y[r]];
+          hist[y[r]] = static_cast<unsigned short>(old + __popc(peers[r]));
+        }
+        old = __shfl_sync(FULL, old, leader);
+        if (in)
+          s_rank[b0 + 32 * r + lane] = static_cast<unsigned short>(
+              old + __popc(peers[r] & lanemask_lt(lane)));
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    // four pillars at a time (16-bit counts packed in 64 bits; a tile's
+    // counts stay below 2^16, so packed sums do not carry)
+    for (int q = threadIdx.x; q < (w + 3) / 4; q += NT) {
+      unsigned long long run = 0;
+#pragma unroll
+      for (int u = 0; u < TW; ++u) {
+        unsigned long long* h =
+            reinterpret_cast<unsigned long long*>(s_hist + u * a.win) + q;
+        const unsigned long long x = *h;
+        if (u) *h = run;
+        run += x;
+      }
+      reinterpret_cast<unsigned long long*>(s_hist)[q] = run;
+      const int p = 4 * q;
+      if (vec && p + 3 < w && (wlo & 3) == 0) {
+        reinterpret_cast<int4*>(trow + wlo + p)[0] =
+            make_int4(static_cast<int>(run & 0xffff),
+                      static_cast<int>((run >> 16) & 0xffff),
+                      static_cast<int>((run >> 32) & 0xffff),
+                      static_cast<int>(run >> 48));
+      } else {
+        for (int e = 0; e < 4 && p + e < w; ++e)
+          trow[wlo + p + e] = static_cast<int>((run >> (16 * e)) & 0xffff);
+      }
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < rows; k += NT) {
+      const int x = s_ids[k];
+      if (x < wlo || x >= wlo + w) continue;
+      const int u = k / SUB;
+      lr[k] = s_rank[k] + (u ? s_hist[u * a.win + x - wlo] : 0);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    int* ti = a.tinfo + (item * a.tiles + t) * 3;
+    ti[0] = s_bad;
+    ti[1] = s_bad ? s_first : 0;
+    ti[2] = s_bad ? s_ids[s_first - row0] : 0;
+  }
 }
 
-// One warp per (item, column j <= C): its lanes add the item's partials of
-// column j in a fixed order (lane l takes chunks l, l + 32, ..., then a
-// fixed shuffle tree) and lane 0 writes pillar 0's sum j (or its count).
-__global__ void __launch_bounds__(NT) pillar_bin_sums_pillar0(const Args a) {
-  const int lane = threadIdx.x & 31;
-  const int64_t w = static_cast<int64_t>(blockIdx.x) * NW + (threadIdx.x >> 5);
-  if (w >= a.b * (a.c + 1)) return;  // warp-uniform
-  const int64_t item = w / (a.c + 1);
-  const int j = static_cast<int>(w % (a.c + 1));
-  const float* p = a.part + w * a.chunks;
-  float s = 0.f;
-  int k = lane;
-  for (; k + 32 * (FIN_LOADS - 1) < a.chunks; k += 32 * FIN_LOADS) {
-    float q[FIN_LOADS];
+// ----------------------------------------------------------------- starts
+// A warp per 32 pillars (a lane each) turns each tile's count into the
+// pillar's start within the group plus the counts of the tiles before, in
+// place; the item's last block scans the groups' totals and writes the
+// status.
+__global__ void __launch_bounds__(NB) pillar_bin_sums_starts(const Args a) {
+  using Scan = cub::BlockScan<int, NB>;
+  __shared__ typename Scan::TempStorage tmp;
+  __shared__ int s_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per_item = (a.v + NB - 1) / NB;
+  const int64_t item = blockIdx.x / per_item;
+  const int p0 = static_cast<int>(blockIdx.x % per_item) * NB + warp * 32;
+  const int p = p0 + lane;
+  const bool ok = p < a.v;
+  if (p0 < a.v) {  // warp-uniform
+    int* col = a.table + item * a.tiles * static_cast<int64_t>(a.v) + p;
+    const int64_t vs = a.v;
+    // the first 32 tiles stay in registers (all of them up to N = 131 072)
+    int x[32], run = 0;
 #pragma unroll
-    for (int u = 0; u < FIN_LOADS; ++u) q[u] = p[k + 32 * u];
+    for (int u = 0; u < 32; ++u) {
+      x[u] = ok && u < a.tiles ? col[u * vs] : 0;
+      run += x[u];
+    }
+    for (int t = 32; t < a.tiles; ++t) run += ok ? col[t * vs] : 0;
+    const int64_t ip = item * a.v + p;
+    int inc = run;
 #pragma unroll
-    for (int u = 0; u < FIN_LOADS; ++u) s += q[u];
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, inc, off);
+      if (lane >= off) inc += y;
+    }
+    // each tile's entry becomes the pillar's start within the warp group
+    // plus the counts of the tiles before
+    int pre = inc - run;
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      if (ok && u < a.tiles) col[u * vs] = pre;
+      pre += x[u];
+    }
+    for (int t = 32; t < a.tiles; ++t) {
+      if (!ok) break;
+      const int y = col[t * vs];
+      col[t * vs] = pre;
+      pre += y;
+    }
+    if (ok) {
+      a.counts[ip] = static_cast<float>(run);
+      a.tot[ip] = run;
+      a.lstart[ip] = inc - run;
+    }
+    if (lane == 31) a.wtot[item * a.nunit + p0 / 32] = inc;
+    unsigned empty = __ballot_sync(FULL, ok && run == 0);
+    while (empty) {  // warp-uniform
+      const int k = __ffs(empty) - 1;
+      empty &= empty - 1;
+      float* row = a.sums + (item * a.v + p0 + k) * static_cast<int64_t>(a.c);
+      for (int j = lane; j < a.c; j += 32) row[j] = 0.f;
+    }
   }
-  for (; k < a.chunks; k += 32) s += p[k];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(a.itemcnt + item, 1) == per_item - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  // the item's last block: starts of the warp groups, then the status
+  const int* wt = a.wtot + item * a.nunit;
+  int carry = 0;
+  for (int base = 0; base < a.nunit; base += NB * 4) {
+    int x[4], y[4], agg;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
-  if (lane == 0) {
-    if (j < a.c) a.sums[item * a.v * a.c + j] = s;
-    else a.counts[item * a.v] = s;
+    for (int e = 0; e < 4; ++e) {
+      const int k = base + threadIdx.x * 4 + e;
+      x[e] = k < a.nunit ? __ldcg(wt + k) : 0;
+    }
+    Scan(tmp).ExclusiveSum(x, y, agg);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = base + threadIdx.x * 4 + e;
+      if (k < a.nunit) a.cpre[item * a.nunit + k] = carry + y[e];
+    }
+    carry += agg;
+    __syncthreads();
+  }
+  if (warp == 0) {
+    int bad = 0, first = 0, val = 0;
+    for (int t0 = 0; t0 < a.tiles; t0 += 32) {  // tiles in order
+      const int t = t0 + lane;
+      const int* ti = a.tinfo + (item * a.tiles + t) * 3;
+      const int nb = t < a.tiles ? ti[0] : 0;
+      const unsigned has = __ballot_sync(FULL, nb != 0);
+      if (has && !bad) {
+        const int src = __ffs(has) - 1;
+        const int f = t < a.tiles ? ti[1] : 0, vv = t < a.tiles ? ti[2] : 0;
+        first = __shfl_sync(FULL, f, src);
+        val = __shfl_sync(FULL, vv, src);
+      }
+      int sum = nb;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(FULL, sum, off);
+      bad += sum;
+    }
+    if (lane == 0) {
+      int* st = a.status + item * 4;
+      st[0] = bad;
+      st[1] = first;
+      st[2] = val;
+      st[3] = a.n - bad;
+    }
+    // the positions no row reaches end the item's sorted rows
+    int2* ps = a.psid + item * a.n;
+    for (int k = a.n - bad + lane; k < a.n; k += 32) ps[k] = make_int2(0, -1);
   }
 }
 
-// ---------------------------------------------------------------- finish
-// A warp per (item, pillar p >= 1), lanes over channels: the int64 sums
-// rounded once to fp32 (or the flags' value), the count.
-__global__ void __launch_bounds__(NT) pillar_bin_sums_finish(const Args a) {
-  const int lane = threadIdx.x & 31;
-  const int64_t w = static_cast<int64_t>(blockIdx.x) * NW + (threadIdx.x >> 5);
-  if (w >= a.b * a.v || w % a.v == 0) return;  // pillar 0: see above
-  for (int j = lane; j < a.c; j += 32) {
-    const int64_t i = w * a.c + j;
-    const unsigned key = a.keys[i];
-    float s;
-    if ((key & NAN_SEEN) || ((key & POS_INF) && (key & NEG_INF)))
-      s = __int_as_float(0x7fc00000);
-    else if (key & POS_INF)
-      s = __int_as_float(0x7f800000);
-    else if (key & NEG_INF)
-      s = __int_as_float(static_cast<int>(0xff800000u));
-    else
-      s = __double2float_rn(__ll2double_rn(static_cast<long long>(a.acc[i])) *
-                            pow2(-scale_exp(key, a.lg)));
-    a.sums[i] = s;
+// ------------------------------------------------------------------ place
+__global__ void __launch_bounds__(NB) pillar_bin_sums_place(const Args a) {
+  const int rows = NB * PLACE_ROWS;
+  const int per_item = (a.n + rows - 1) / rows;
+  const int64_t item = blockIdx.x / per_item;
+  const int r0 = static_cast<int>(blockIdx.x % per_item) * rows;
+  const int* id = a.ids + item * a.n;
+  int2* ps = a.psid + item * a.n;
+#pragma unroll
+  for (int k = 0; k < PLACE_ROWS; ++k) {
+    const int r = r0 + k * NB + threadIdx.x;
+    if (r >= a.n) break;
+    const int p = __ldg(id + r);
+    if (p < 0 || p >= a.v) continue;
+    const int pos = a.cpre[item * a.nunit + (p >> 5)] +
+                    a.table[(item * a.tiles + r / TILE) * a.v + p] +
+                    a.lrank[item * a.n + r];
+    ps[pos] = make_int2(r, p);
   }
-  if (lane == 0) a.counts[w] = static_cast<float>(a.cnt[w]);
 }
 
-// --------------------------------------------------------------- loads
+// ----------------------------------------------------------------- reduce
+// Shared by both row walks. Each warp has left its chunk's edge runs that
+// continue past the chunk in s_buf[warp][0] (the run at the chunk's start)
+// and s_buf[warp][1] (at its end), fp64, channel j at index j, with
+// sh.meta[warp][s] = (pillar, continues from before, continues after).
+// Warp 0 adds them in position order: a pillar that starts and ends in the
+// block is stored; one that crosses the block's edge leaves a piece, and
+// the block that delivers a pillar's last piece adds all of them in block
+// order (a fixed split over its warps, then the warps in order).
+struct Shared {
+  int meta[NWD][2][3];  // pillar (-1: none), cont_in, cont_out
+  int job[2][3];        // pillar, first block, pieces
+  int njob;
+};
+
+template <int NV>  // channels per lane: NV * 32 >= C
+__device__ __forceinline__ void merge_and_combine(const Args& a,
+                                                  double* s_buf, Shared& sh,
+                                                  int64_t item, int blk,
+                                                  float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = a.c;
+  __syncthreads();
+  if (warp == 0) {
+    double m[NV];
+#pragma unroll
+    for (int e = 0; e < NV; ++e) m[e] = 0.0;
+    int open = -1;
+    bool before = false;  // the open pillar began before this block
+    auto emit = [&](int s) {
+      double* dst = a.part + ((item * a.nblk + blk) * 2 + s) *
+                                 static_cast<int64_t>(c);
+#pragma unroll
+      for (int e = 0; e < NV; ++e) {
+        const int j = lane + 32 * e;
+        if (j < c) dst[j] = m[e];
+      }
+      __threadfence();
+      __syncwarp();
+      if (lane == 0) {
+        const int64_t ip = item * a.v + open;
+        const int gs = a.lstart[ip] + a.cpre[item * a.nunit + (open >> 5)];
+        const int kb0 = gs / BP, kb1 = (gs + a.tot[ip] - 1) / BP;
+        if (atomicAdd(a.arrive + item * a.nblk + kb0, 1) == kb1 - kb0) {
+          __threadfence();
+          const int k = sh.njob++;
+          sh.job[k][0] = open;
+          sh.job[k][1] = kb0;
+          sh.job[k][2] = kb1 - kb0 + 1;
+        }
+      }
+      __syncwarp();
+    };
+    for (int w = 0; w < NWD; ++w) {
+      for (int s = 0; s < 2; ++s) {
+        const int id = sh.meta[w][s][0];
+        if (id < 0) continue;
+        const bool cin = sh.meta[w][s][1], cout = sh.meta[w][s][2];
+        const double* slot = s_buf + (w * 2 + s) * c;
+        const bool cont = cin && open == id;
+#pragma unroll
+        for (int e = 0; e < NV; ++e) {
+          const int j = lane + 32 * e;
+          const double y = j < c ? slot[j] : 0.0;
+          m[e] = cont ? m[e] + y : y;
+        }
+        if (!cont) {  // a new pillar; cin only at the block's first position
+          open = id;
+          before = cin;
+        }
+        if (!cout) {
+          if (before) {
+            emit(0);
+          } else {
+            float* dst = out + static_cast<int64_t>(open) * c;
+#pragma unroll
+            for (int e = 0; e < NV; ++e) {
+              const int j = lane + 32 * e;
+              if (j < c) dst[j] = static_cast<float>(m[e]);
+            }
+          }
+          open = -1;
+        }
+      }
+    }
+    if (open >= 0) emit(before ? 0 : 1);
+  }
+  __syncthreads();
+
+  const int njob = sh.njob;
+  for (int jb = 0; jb < njob; ++jb) {
+    const int id = sh.job[jb][0], kb0 = sh.job[jb][1], np = sh.job[jb][2];
+    const int lo = static_cast<int>(static_cast<int64_t>(np) * warp / NWD);
+    const int hi =
+        static_cast<int>(static_cast<int64_t>(np) * (warp + 1) / NWD);
+    double m[NV];
+#pragma unroll
+    for (int e = 0; e < NV; ++e) m[e] = 0.0;
+#pragma unroll 4
+    for (int k = lo; k < hi; ++k) {
+      // the first block's piece is its tail (slot 1), every later one slot 0
+      const double* src =
+          a.part + ((item * a.nblk + kb0 + k) * 2 + (k == 0 ? 1 : 0)) *
+                       static_cast<int64_t>(c);
+#pragma unroll
+      for (int e = 0; e < NV; ++e) {
+        const int j = lane + 32 * e;
+        if (j < c) m[e] += __ldcg(src + j);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < NV; ++e) {
+      const int j = lane + 32 * e;
+      if (j < c) s_buf[warp * c + j] = m[e];
+    }
+    __syncthreads();
+    if (warp == 0) {
+#pragma unroll
+      for (int e = 0; e < NV; ++e) {
+        const int j = lane + 32 * e;
+        if (j >= c) continue;
+        double s = 0.0;
+        for (int w = 0; w < NWD; ++w) s += s_buf[w * c + j];
+        out[static_cast<int64_t>(id) * c + j] = static_cast<float>(s);
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // VW consecutive floats at p (aligned to VW floats).
 template <int VW>
 __device__ __forceinline__ void load_vec(const float* p, float* v) {
@@ -260,348 +556,335 @@ __device__ __forceinline__ void load_vec(const float* p, float* v) {
   }
 }
 
-// --------------------------------------------------------------- narrow
-// SUMS = false: pass 1 (keys, counts, pillar-0 partials); true: pass 2.
-template <int C, bool SUMS>
-__global__ void __launch_bounds__(NT)
-pillar_bin_sums_narrow(const Args a, int vec16) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int chunk = static_cast<int>(blockIdx.x % a.chunks);
-  const int64_t b = blockIdx.x / a.chunks;
-  const float* x = a.feats + b * static_cast<int64_t>(a.n) * C;
-  const int* id = a.ids + b * static_cast<int64_t>(a.n);
-  const int64_t pb = b * a.v;  // the item's first pillar
-  const int r0 = chunk * a.rows_per_chunk;
-  const int r1 = min(a.n, r0 + a.rows_per_chunk);
-
-  float acc0[C];
-#pragma unroll
-  for (int j = 0; j < C; ++j) acc0[j] = 0.f;
-  float cnt0 = 0.f;
-
-  for (int base = r0; base < r1; base += UNROLL * NT) {
-    float val[UNROLL][C];
-    int key[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int r = base + u * NT + threadIdx.x;
-      const bool ok = r < r1;
-      key[u] = ok ? __ldg(id + r) : -1;
-      if constexpr (C % 4 == 0) {
-        if (vec16) {
-#pragma unroll
-          for (int j = 0; j < C; j += 4) {
-            const float4 q = ok ? __ldg(reinterpret_cast<const float4*>(
-                                      x + static_cast<int64_t>(r) * C + j))
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
-            val[u][j] = q.x;
-            val[u][j + 1] = q.y;
-            val[u][j + 2] = q.z;
-            val[u][j + 3] = q.w;
-          }
-          continue;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < C; ++j)
-        val[u][j] = ok ? __ldg(x + static_cast<int64_t>(r) * C + j) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int k = key[u];
-      if (k == 0) {  // pillar 0: registers, a fixed order
-        if constexpr (!SUMS) {
-#pragma unroll
-          for (int j = 0; j < C; ++j) acc0[j] += val[u][j];
-          cnt0 += 1.f;
-        }
-        continue;
-      }
-      if (k < 0 || k >= a.v) continue;
-      const int64_t o = (pb + k) * C;
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        if constexpr (SUMS)
-          add_term(a.acc + o + j, val[u][j], scale_of(a.keys[o + j], a.lg));
-        else
-          flush_key(a.keys + o + j, exponent_of(val[u][j]),
-                    flag_of(val[u][j]));
-      }
-      if constexpr (!SUMS) atomicAdd(a.cnt + pb + k, 1);
-    }
-  }
-
-  if constexpr (!SUMS) {
-    // pillar 0 across the block: a shuffle tree per warp, warps in order
-    __shared__ float s_red[NW][C + 1];
-    __shared__ float s_part[C + 1];
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc0[j] += __shfl_xor_sync(FULL, acc0[j], off);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      cnt0 += __shfl_xor_sync(FULL, cnt0, off);
-    if (lane == 0) {
-#pragma unroll
-      for (int j = 0; j < C; ++j) s_red[warp][j] = acc0[j];
-      s_red[warp][C] = cnt0;
-    }
-    add_warps(&s_red[0][0], C + 1, s_part, C);
-    store_partial(s_part, a.part, b, chunk, a.chunks, C);
-  }
-}
-
-// ----------------------------------------------------------------- wide
-// Lane l holds the channels [VW (l + 32 k), VW (l + 32 k) + VW) for k < PER;
-// U rows in flight per warp (16 took more registers and was slower at
-// batch 1 on an H100, v2).
-template <int VW, int PER, bool SUMS>
-__global__ void __launch_bounds__(NT) pillar_bin_sums_wide(const Args a) {
+// Wide rows (C > 8): a warp on one row at a time, lane l holding the
+// channels [VW (l + 32 q), VW (l + 32 q) + VW) for q < PER; UR rows loaded
+// before they are added into the run's fp32 sums (a run has at most WP
+// rows; pieces and merges are fp64).
+template <int VW, int PER>
+__global__ void __launch_bounds__(NWD * 32, MIN_BLOCKS)
+pillar_bin_sums_reduce(const Args a) {
   constexpr int NV = VW * PER;
-  constexpr int U = 8;
+  constexpr int UR = NV <= 4 ? U : U / 2;  // rows in flight
+  extern __shared__ double s_buf[];  // [NWD][2][C]
+  __shared__ Shared sh;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = a.c;
-  const int chunk = static_cast<int>(blockIdx.x % a.chunks);
-  const int64_t b = blockIdx.x / a.chunks;
-  const float* x = a.feats + b * static_cast<int64_t>(a.n) * c;
-  const int* id = a.ids + b * static_cast<int64_t>(a.n);
-  const int64_t pb = b * a.v;
-  const int r0 = chunk * a.rows_per_chunk;
-  const int span = max(0, min(a.n, r0 + a.rows_per_chunk) - r0);
-  const int lo = r0 + static_cast<int>(static_cast<int64_t>(span) * warp / NW);
-  const int hi =
-      r0 + static_cast<int>(static_cast<int64_t>(span) * (warp + 1) / NW);
-  const int groups = c / VW;  // vectors per row
+  const int64_t item = blockIdx.x / a.nblk;
+  const int blk = static_cast<int>(blockIdx.x % a.nblk);
+  const int2* ps = a.psid + item * a.n;
+  const float* x = a.feats + item * static_cast<int64_t>(a.n) * c;
+  float* out = a.sums + item * static_cast<int64_t>(a.v) * c;
+  const int groups = c / VW;
+  if (lane < 2) sh.meta[warp][lane][0] = -1;
+  if (threadIdx.x == 0) sh.njob = 0;
+  __syncwarp();
 
-  float acc0[NV];
-  // the current run of equal ids: pass 1 its exponents and flags, pass 2
-  // its integer sums at the pillar-channel's scale
-  unsigned run_e[NV], run_f[NV];
-  long long run_q[NV];
-  double scale[NV];
+  const int c0 = blk * BP + warp * WP, c1 = min(c0 + WP, a.n);
+  if (c0 < c1) {  // warp-uniform
+    const int prev_id = c0 > 0 ? ps[c0 - 1].y : -1;
+    const int next_id = c1 < a.n ? ps[c1].y : -1;
+    float acc[NV];
 #pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    acc0[k] = 0.f;
-    run_e[k] = run_f[k] = 0u;
-    run_q[k] = 0;
-    scale[k] = 0.0;
+    for (int e = 0; e < NV; ++e) acc[e] = 0.f;
+    int cur = -1, rb = c0;
+
+    // the run of pillar cur over positions [rb, re) ends
+    auto finish = [&](int re) {
+      const bool cin = rb == c0 && prev_id == cur;
+      const bool cout = re == c1 && next_id == cur;
+      if (!cin && !cout) {
+        float* dst = out + static_cast<int64_t>(cur) * c;
+#pragma unroll
+        for (int q = 0; q < PER; ++q) {
+          const int g = lane + 32 * q;
+          if (g < groups) {
+            if constexpr (VW == 4) {
+              reinterpret_cast<float4*>(dst)[g] = make_float4(
+                  acc[q * 4], acc[q * 4 + 1], acc[q * 4 + 2], acc[q * 4 + 3]);
+            } else if constexpr (VW == 2) {
+              reinterpret_cast<float2*>(dst)[g] =
+                  make_float2(acc[q * 2], acc[q * 2 + 1]);
+            } else {
+              dst[g] = acc[q];
+            }
+          }
+        }
+        return;
+      }
+      const int s = rb == c0 ? 0 : 1;
+      double* slot = s_buf + (warp * 2 + s) * c;
+#pragma unroll
+      for (int q = 0; q < PER; ++q) {
+        const int g = lane + 32 * q;
+        if (g < groups) {
+#pragma unroll
+          for (int e = 0; e < VW; ++e) slot[g * VW + e] = acc[q * VW + e];
+        }
+      }
+      if (lane == 0) {
+        sh.meta[warp][s][0] = cur;
+        sh.meta[warp][s][1] = cin;
+        sh.meta[warp][s][2] = cout;
+      }
+    };
+
+    for (int base = c0; base < c1; base += 32) {
+      const int cnt = min(32, c1 - base);
+      const int2 my = lane < cnt ? ps[base + lane] : make_int2(0, -1);
+      for (int k0 = 0; k0 < cnt; k0 += UR) {  // warp-uniform; k0 + UR <= 32
+        float val[UR][NV];
+#pragma unroll
+        for (int u = 0; u < UR; ++u) {
+          const int r = __shfl_sync(FULL, my.x, k0 + u);
+          const float* row = x + static_cast<int64_t>(r) * c;
+#pragma unroll
+          for (int q = 0; q < PER; ++q) {
+            const int g = lane + 32 * q;
+            if (k0 + u < cnt && g < groups) {
+              load_vec<VW>(row + g * VW, val[u] + q * VW);
+            } else {
+#pragma unroll
+              for (int e = 0; e < VW; ++e) val[u][q * VW + e] = 0.f;
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < UR; ++u) {
+          const int rid = __shfl_sync(FULL, my.y, k0 + u);
+          if (k0 + u >= cnt || rid < 0) continue;  // warp-uniform
+          if (rid != cur) {
+            if (cur >= 0) finish(base + k0 + u);
+            cur = rid;
+            rb = base + k0 + u;
+#pragma unroll
+            for (int e = 0; e < NV; ++e) acc[e] = 0.f;
+          }
+#pragma unroll
+          for (int e = 0; e < NV; ++e) acc[e] += val[u][e];
+        }
+      }
+    }
+    if (cur >= 0) finish(c1);
   }
-  float cnt0 = 0.f;
-  int run_n = 0, run_id = -1;
+  merge_and_combine<NV>(a, s_buf, sh, item, blk, out);
+}
 
-  auto flush = [&]() {
-    const int64_t o = (pb + run_id) * c;
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int g = lane + 32 * k;
-      if (g >= groups) continue;
-#pragma unroll
-      for (int j = 0; j < VW; ++j) {
-        const int i = k * VW + j;
-        if constexpr (SUMS) {
-          if (run_q[i])
-            atomicAdd(a.acc + o + g * VW + j,
-                      static_cast<unsigned long long>(run_q[i]));
-        } else {
-          flush_key(a.keys + o + g * VW + j, run_e[i], run_f[i]);
-        }
-      }
-    }
-    if constexpr (!SUMS) {
-      if (lane == 0) atomicAdd(a.cnt + pb + run_id, run_n);
-    }
-  };
+// Narrow rows (C <= 8): lane l on position l of each group of 32, one
+// vector load per row; a segmented scan over the lanes (a fixed tree) sums
+// each run of equal pillars within the group, and the run that continues
+// from the group before adds the carry first.
+template <int C>
+__global__ void __launch_bounds__(NWD * 32, MIN_BLOCKS)
+pillar_bin_sums_reduce_narrow(const Args a, int vec16) {
+  constexpr int G = WP / 32;  // groups per warp
+  extern __shared__ double s_buf[];  // [NWD][2][C]
+  __shared__ Shared sh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t item = blockIdx.x / a.nblk;
+  const int blk = static_cast<int>(blockIdx.x % a.nblk);
+  const int2* ps = a.psid + item * a.n;
+  const float* x = a.feats + item * static_cast<int64_t>(a.n) * C;
+  float* out = a.sums + item * static_cast<int64_t>(a.v) * C;
+  if (lane < 2) sh.meta[warp][lane][0] = -1;
+  if (threadIdx.x == 0) sh.njob = 0;
+  __syncwarp();
 
-  auto start = [&](int rid) {
-    run_id = rid;
-    run_n = 0;
-    const int64_t o = (pb + rid) * c;
+  const int c0 = blk * BP + warp * WP, c1 = min(c0 + WP, a.n);
+  if (c0 < c1) {  // warp-uniform
+    int2 pr[G];
 #pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int g = lane + 32 * k;
+    for (int g = 0; g < G; ++g) {
+      const int pos = c0 + g * 32 + lane;
+      pr[g] = pos < c1 ? ps[pos] : make_int2(0, -1);
+    }
+    const int prev_id = c0 > 0 ? ps[c0 - 1].y : -1;
+    const int next_id = c1 < a.n ? ps[c1].y : -1;
+    float val[G][C];
 #pragma unroll
-      for (int j = 0; j < VW; ++j) {
-        const int i = k * VW + j;
-        run_e[i] = run_f[i] = 0u;
-        run_q[i] = 0;
-        if constexpr (SUMS)
-          scale[i] = g < groups ? scale_of(a.keys[o + g * VW + j], a.lg)
-                                : 0.0;
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) val[g][j] = 0.f;
+      if (pr[g].y >= 0) {
+        const float* row = x + static_cast<int64_t>(pr[g].x) * C;
+        if constexpr (C % 4 == 0) {
+          if (vec16) {
+#pragma unroll
+            for (int j = 0; j < C; j += 4) load_vec<4>(row + j, val[g] + j);
+            continue;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < C; ++j) val[g][j] = __ldg(row + j);
       }
     }
-  };
-
-  for (int base = lo; base < hi; base += U) {  // warp-uniform
-    const int rows = min(U, hi - base);
-    const int my_id = lane < rows ? __ldg(id + base + lane) : -1;
-    float val[U][NV];
+    int carry_id = -1, carry_rb = c0;
+    float carry[C];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const float* row = x + static_cast<int64_t>(base + u) * c;
+    for (int j = 0; j < C; ++j) carry[j] = 0.f;
 #pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        const int g = lane + 32 * k;
-        if (u < rows && g < groups) {
-          load_vec<VW>(row + g * VW, val[u] + k * VW);
+    for (int g = 0; g < G; ++g) {
+      const int base = c0 + g * 32;
+      const int id = pr[g].y;
+      const bool ok = id >= 0;
+      float* v = val[g];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int idd = __shfl_up_sync(FULL, id, d);
+        const bool take = lane >= d && idd == id;
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const float y = __shfl_up_sync(FULL, v[j], d);
+          if (take) v[j] += y;
+        }
+      }
+      const int up = __shfl_up_sync(FULL, id, 1);
+      const unsigned heads = __ballot_sync(FULL, ok && (lane == 0 || up != id));
+      const int after = __shfl_sync(FULL, pr[(g + 1) % G].y, 0);
+      int nid = __shfl_down_sync(FULL, id, 1);
+      if (lane == 31) nid = g + 1 < G ? after : -1;
+      const bool cont = ok && id == carry_id;
+      if (cont) {
+#pragma unroll
+        for (int j = 0; j < C; ++j) v[j] = carry[j] + v[j];
+      }
+      const unsigned le = lane == 31 ? FULL : (2u << lane) - 1u;
+      const int rb = cont ? carry_rb : base + 31 - __clz(heads & le);
+      const int pos = base + lane;
+      if (ok && (pos == c1 - 1 || nid != id)) {  // a run ends here
+        const bool cin = rb == c0 && prev_id == id;
+        const bool cout = pos + 1 == c1 && next_id == id;
+        if (!cin && !cout) {
+          float* dst = out + static_cast<int64_t>(id) * C;
+#pragma unroll
+          for (int j = 0; j < C; ++j) dst[j] = v[j];
         } else {
+          const int s = rb == c0 ? 0 : 1;
+          double* slot = s_buf + (warp * 2 + s) * C;
 #pragma unroll
-          for (int j = 0; j < VW; ++j) val[u][k * VW + j] = 0.f;
+          for (int j = 0; j < C; ++j) slot[j] = v[j];
+          sh.meta[warp][s][0] = id;
+          sh.meta[warp][s][1] = cin;
+          sh.meta[warp][s][2] = cout;
         }
       }
-    }
+      carry_id = __shfl_sync(FULL, id, 31);
+      carry_rb = __shfl_sync(FULL, rb, 31);
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      // every lane reaches the shuffle: u and rows are warp-uniform
-      const int rid = __shfl_sync(FULL, my_id, u);
-      if (u >= rows || rid < 0 || rid >= a.v) continue;
-      if (rid == 0) {  // pillar 0: registers, a fixed order
-        if constexpr (!SUMS) {
-#pragma unroll
-          for (int k = 0; k < NV; ++k) acc0[k] += val[u][k];
-          cnt0 += 1.f;
-        }
-        continue;
-      }
-      if (rid != run_id) {
-        if (run_id > 0) flush();
-        start(rid);
-      }
-#pragma unroll
-      for (int k = 0; k < NV; ++k) {
-        if constexpr (SUMS) {
-          if (scale[k] != 0.0)
-            run_q[k] += __double2ll_rn(static_cast<double>(val[u][k]) *
-                                       scale[k]);
-        } else {
-          run_e[k] = max(run_e[k], exponent_of(val[u][k]));
-          run_f[k] |= flag_of(val[u][k]);
-        }
-      }
-      ++run_n;
+      for (int j = 0; j < C; ++j) carry[j] = __shfl_sync(FULL, v[j], 31);
     }
   }
-  if (run_id > 0) flush();
-
-  if constexpr (!SUMS) {
-    // pillar 0 across the block: lanes hold distinct channels, warps in order
-    __shared__ float s_red[NW][MAX_C + 1];
-    __shared__ float s_part[MAX_C + 1];
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int g = lane + 32 * k;
-      if (g < groups) {
-#pragma unroll
-        for (int j = 0; j < VW; ++j) s_red[warp][g * VW + j] = acc0[k * VW + j];
-      }
-    }
-    if (lane == 0) s_red[warp][c] = cnt0;
-    add_warps(&s_red[0][0], MAX_C + 1, s_part, c);
-    store_partial(s_part, a.part, b, chunk, a.chunks, c);
-  }
+  merge_and_combine<1>(a, s_buf, sh, item, blk, out);
 }
 
 // --------------------------------------------------------------- launch
-template <int C, bool SUMS>
+template <typename K>
+cudaError_t launch_with_smem(K kernel, const Args& a, int threads,
+                             int64_t blocks, int smem, cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int VW, int PER>
+cudaError_t launch_reduce(const Args& a, cudaStream_t s) {
+  return launch_with_smem(pillar_bin_sums_reduce<VW, PER>, a, NWD * 32,
+                          a.b * a.nblk, NWD * 2 * a.c * 8, s);
+}
+
+template <int C>
 cudaError_t launch_narrow(const Args& a, cudaStream_t s) {
-  const int vec16 =
-      (C % 4 == 0) && (reinterpret_cast<uintptr_t>(a.feats) % 16 == 0);
-  pillar_bin_sums_narrow<C, SUMS>
-      <<<static_cast<unsigned>(a.b * a.chunks), NT, 0, s>>>(a, vec16);
+  const int vec16 = (C % 4 == 0) &&
+                    (reinterpret_cast<uintptr_t>(a.feats) % 16 == 0);
+  pillar_bin_sums_reduce_narrow<C>
+      <<<static_cast<unsigned>(a.b * a.nblk), NWD * 32, NWD * 2 * C * 8, s>>>(
+          a, vec16);
   return cudaGetLastError();
 }
 
-template <int VW, int PER, bool SUMS>
-cudaError_t launch_wide(const Args& a, cudaStream_t s) {
-  pillar_bin_sums_wide<VW, PER, SUMS>
-      <<<static_cast<unsigned>(a.b * a.chunks), NT, 0, s>>>(a);
-  return cudaGetLastError();
-}
-
-// The widest vector that divides C, fits the rows' alignment and still puts
-// all 32 lanes on a row (VW · 32 <= C); PER vectors per lane.
-template <bool SUMS>
-cudaError_t dispatch(const Args& a, cudaStream_t s) {
+// Narrow for C <= 8; otherwise the widest vector that divides C and fits
+// the rows' alignment: 16 bytes for C >= 128, 8 bytes where that still
+// puts all 32 lanes on a row (C >= 64), else one float; PER vectors a lane.
+cudaError_t dispatch_reduce(const Args& a, cudaStream_t s) {
   static_assert(NARROW_MAX_C == 8, "one narrow case per C <= NARROW_MAX_C");
   switch (a.c) {
-    case 1: return launch_narrow<1, SUMS>(a, s);
-    case 2: return launch_narrow<2, SUMS>(a, s);
-    case 3: return launch_narrow<3, SUMS>(a, s);
-    case 4: return launch_narrow<4, SUMS>(a, s);
-    case 5: return launch_narrow<5, SUMS>(a, s);
-    case 6: return launch_narrow<6, SUMS>(a, s);
-    case 7: return launch_narrow<7, SUMS>(a, s);
-    case 8: return launch_narrow<8, SUMS>(a, s);
+    case 1: return launch_narrow<1>(a, s);
+    case 2: return launch_narrow<2>(a, s);
+    case 3: return launch_narrow<3>(a, s);
+    case 4: return launch_narrow<4>(a, s);
+    case 5: return launch_narrow<5>(a, s);
+    case 6: return launch_narrow<6>(a, s);
+    case 7: return launch_narrow<7>(a, s);
+    case 8: return launch_narrow<8>(a, s);
     default: break;
   }
   const uintptr_t addr = reinterpret_cast<uintptr_t>(a.feats);
   if (a.c % 4 == 0 && addr % 16 == 0 && a.c >= 128)
-    return a.c <= 128 ? launch_wide<4, 1, SUMS>(a, s)
-                      : launch_wide<4, 2, SUMS>(a, s);
+    return a.c <= 128 ? launch_reduce<4, 1>(a, s) : launch_reduce<4, 2>(a, s);
   if (a.c % 2 == 0 && addr % 8 == 0 && a.c >= 64) {
     switch ((a.c + 63) / 64) {
-      case 1: return launch_wide<2, 1, SUMS>(a, s);
-      case 2: return launch_wide<2, 2, SUMS>(a, s);
-      case 3: return launch_wide<2, 3, SUMS>(a, s);
-      default: return launch_wide<2, 4, SUMS>(a, s);
+      case 1: return launch_reduce<2, 1>(a, s);
+      case 2: return launch_reduce<2, 2>(a, s);
+      case 3: return launch_reduce<2, 3>(a, s);
+      default: return launch_reduce<2, 4>(a, s);
     }
   }
   switch ((a.c + 31) / 32) {
-    case 1: return launch_wide<1, 1, SUMS>(a, s);
-    case 2: return launch_wide<1, 2, SUMS>(a, s);
-    case 3: return launch_wide<1, 3, SUMS>(a, s);
-    case 4: return launch_wide<1, 4, SUMS>(a, s);
-    case 5: return launch_wide<1, 5, SUMS>(a, s);
-    case 6: return launch_wide<1, 6, SUMS>(a, s);
-    case 7: return launch_wide<1, 7, SUMS>(a, s);
-    default: return launch_wide<1, 8, SUMS>(a, s);
+    case 1: return launch_reduce<1, 1>(a, s);
+    case 2: return launch_reduce<1, 2>(a, s);
+    case 3: return launch_reduce<1, 3>(a, s);
+    case 4: return launch_reduce<1, 4>(a, s);
+    case 5: return launch_reduce<1, 5>(a, s);
+    case 6: return launch_reduce<1, 6>(a, s);
+    case 7: return launch_reduce<1, 7>(a, s);
+    default: return launch_reduce<1, 8>(a, s);
   }
 }
 
-// Blocks per batch item of n rows. Narrow: NARROW_BLOCKS_PER_SM per SM of
-// the current device over the batch, and at least one. Wide: one per
-// WIDE_TILE_ROWS rows, which the block scheduler balances over the SMs.
-cudaError_t chunks_per_item(int64_t b, int64_t n, int64_t c, int64_t* chunks) {
-  if (c > NARROW_MAX_C) {
-    *chunks = std::max<int64_t>(1, (n + WIDE_TILE_ROWS - 1) / WIDE_TILE_ROWS);
-    return cudaSuccess;
-  }
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  *chunks = std::max<int64_t>(1, NARROW_BLOCKS_PER_SM * sms / b);
-  return e;
-}
+int64_t align16(int64_t x) { return (x + 15) & ~int64_t{15}; }
 
-// Byte offsets into the scratch: the int64 accumulators, the keys, the
-// counts (zeroed, [0, zeroed)), then the pillar-0 partials.
+// Byte offsets into the scratch; the status block comes first.
 struct Layout {
-  int64_t keys, cnt, part, total;
+  int64_t counters, tinfo, table, lrank, psid, lstart, tot, wtot, cpre, part,
+      total, ncount;
+  int tiles, win, nblk, nunit;
 };
 
-Layout layout(int64_t b, int64_t v, int64_t c, int64_t chunks) {
+Layout layout(int64_t b, int64_t n, int64_t v, int64_t c) {
   Layout l;
-  l.keys = 8 * b * v * c;
-  l.cnt = l.keys + 4 * b * v * c;
-  l.part = l.cnt + 4 * b * v;
-  l.total = l.part + 4 * b * (c + 1) * chunks;
+  l.tiles = static_cast<int>((n + TILE - 1) / TILE);
+  l.win = static_cast<int>(std::min<int64_t>(v, WIN_MAX));
+  l.win = (l.win + 7) & ~7;  // 16-byte rows of 16-bit counts
+  l.nblk = static_cast<int>((n + BP - 1) / BP);
+  l.nunit = static_cast<int>((v + 31) / 32);
+  l.ncount = b + b * l.nblk;
+  l.counters = align16(16 * b);
+  l.tinfo = align16(l.counters + 4 * l.ncount);
+  l.table = align16(l.tinfo + 12 * b * l.tiles);
+  l.lrank = align16(l.table + 4 * b * l.tiles * v);
+  l.psid = align16(l.lrank + 4 * b * n);
+  l.lstart = align16(l.psid + 8 * b * n);
+  l.tot = align16(l.lstart + 4 * b * v);
+  l.wtot = align16(l.tot + 4 * b * v);
+  l.cpre = align16(l.wtot + 4 * b * l.nunit);
+  l.part = align16(l.cpre + 4 * b * l.nunit);
+  l.total = l.part + 8 * b * l.nblk * 2 * c;
   return l;
 }
 
 }  // namespace
 
-// Bytes of scratch a call with these sizes needs on the current device, or
-// -1 when the device cannot be read.
+
+// Bytes of scratch a call with these sizes needs.
 extern "C" int64_t gloc3d_pillar_bin_sums_scratch_bytes(int64_t b, int64_t n,
                                                         int64_t v,
                                                         int64_t c) {
-  int64_t chunks = 0;
   if (b <= 0) return 0;
-  if (chunks_per_item(b, n, c, &chunks) != cudaSuccess) return -1;
-  return layout(b, v, c, chunks).total;
+  if (n <= 0) return 16 * b;
+  return layout(b, n, v, c).total;
 }
 
 extern "C" int gloc3d_pillar_bin_sums(const float* feats, const int* ids,
@@ -610,51 +893,71 @@ extern "C" int gloc3d_pillar_bin_sums(const float* feats, const int* ids,
                                       int64_t v, int64_t c, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0) return static_cast<int>(cudaSuccess);
-  int64_t chunks = 0;
-  cudaError_t e = chunks_per_item(b, n, c, &chunks);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (n > 0x7fffffff || v > 0x7fffffff || v < 1 || c < 1 || c > MAX_C ||
-      b * chunks > 0x7fffffff || b * (c + 1) > 0x7fffffffLL * NW ||
-      b * v > 0x7fffffffLL * NW)
+  if (n > INT_MAX / 2 || v > INT_MAX / 2 || v < 1 || c < 1 || c > MAX_C)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) {
-    e = cudaMemsetAsync(sums, 0, sizeof(float) * b * v * c, s);
+    cudaError_t e = cudaMemsetAsync(sums, 0, sizeof(float) * b * v * c, s);
     if (e == cudaSuccess)
       e = cudaMemsetAsync(counts, 0, sizeof(float) * b * v, s);
+    if (e == cudaSuccess) e = cudaMemsetAsync(scratch, 0, 16 * b, s);
     return static_cast<int>(e);
   }
-  const Layout l = layout(b, v, c, chunks);
+  const Layout l = layout(b, n, v, c);
+  const int64_t tile_blocks = b * l.tiles;
+  const int64_t starts_blocks = b * ((v + NB - 1) / NB);
+  const int64_t place_blocks = b * ((n + NB * PLACE_ROWS - 1) /
+                                    (NB * PLACE_ROWS));
+  if (tile_blocks > INT_MAX || starts_blocks > INT_MAX ||
+      place_blocks > INT_MAX || b * l.nblk > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   char* base = static_cast<char*>(scratch);
-  e = cudaMemsetAsync(base, 0, l.part, s);
+  Args a;
+  a.feats = feats;
+  a.ids = ids;
+  a.sums = sums;
+  a.counts = counts;
+  a.status = reinterpret_cast<int*>(base);
+  a.itemcnt = reinterpret_cast<int*>(base + l.counters);
+  a.arrive = a.itemcnt + b;
+  a.tinfo = reinterpret_cast<int*>(base + l.tinfo);
+  a.table = reinterpret_cast<int*>(base + l.table);
+  a.lrank = reinterpret_cast<int*>(base + l.lrank);
+  a.psid = reinterpret_cast<int2*>(base + l.psid);
+  a.lstart = reinterpret_cast<int*>(base + l.lstart);
+  a.tot = reinterpret_cast<int*>(base + l.tot);
+  a.wtot = reinterpret_cast<int*>(base + l.wtot);
+  a.cpre = reinterpret_cast<int*>(base + l.cpre);
+  a.part = reinterpret_cast<double*>(base + l.part);
+  a.b = b;
+  a.n = static_cast<int>(n);
+  a.v = static_cast<int>(v);
+  a.c = static_cast<int>(c);
+  a.tiles = l.tiles;
+  a.win = l.win;
+  a.nblk = l.nblk;
+  a.nunit = l.nunit;
+  a.ncount = l.ncount;
+
+  // 8 warps a tile while the tiles fit on the SMs at once, else 4 (two
+  // blocks an SM); the split moves no bits, since ranks follow row order
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  int lg = 0;
-  while ((int64_t{1} << lg) < n) ++lg;  // n <= 2^lg
-  const int ni = static_cast<int>(n);
-  const int ch = static_cast<int>(chunks);
-  const Args a{feats,
-               ids,
-               sums,
-               counts,
-               reinterpret_cast<unsigned long long*>(base),
-               reinterpret_cast<unsigned*>(base + l.keys),
-               reinterpret_cast<int*>(base + l.cnt),
-               reinterpret_cast<float*>(base + l.part),
-               b,
-               ni,
-               static_cast<int>(v),
-               static_cast<int>(c),
-               lg,
-               ch,
-               (ni + ch - 1) / ch};
-  e = dispatch<false>(a, s);
-  if (e == cudaSuccess) e = dispatch<true>(a, s);
+  e =
+      tile_blocks <= sms
+          ? launch_with_smem(pillar_bin_sums_tiles<8>, a, 8 * 32, tile_blocks,
+                             TILE * 6 + 8 * l.win * 2, s)
+          : launch_with_smem(pillar_bin_sums_tiles<4>, a, 4 * 32, tile_blocks,
+                             TILE * 6 + 4 * l.win * 2, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  pillar_bin_sums_finish<<<static_cast<unsigned>((b * v + NW - 1) / NW), NT,
-                           0, s>>>(a);
+  pillar_bin_sums_starts<<<static_cast<unsigned>(starts_blocks), NB, 0, s>>>(
+      a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  pillar_bin_sums_pillar0<<<static_cast<unsigned>((b * (c + 1) + NW - 1) /
-                                                  NW),
-                            NT, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  pillar_bin_sums_place<<<static_cast<unsigned>(place_blocks), NB, 0, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(dispatch_reduce(a, s));
 }

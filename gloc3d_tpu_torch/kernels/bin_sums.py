@@ -13,15 +13,20 @@ TPU kernel's bf16 one-hot products are not the semantics held.
 The wrapper calls the custom op ``gloc3d::pillar_bin_sums`` (``ops.py``),
 so a traced or exported program carries the op and not the version its
 tracing device ran. On a CUDA tensor the op launches
-``csrc/pillar_bin_sums.cu`` (design and bound in that file's header: exact
-int64 sums at a power-of-two scale per pillar and channel, so every launch
-gives the same bits; a narrow row walk for C <= 8, a wide one for larger C;
-pillar 0 summed in a fixed order from per-block partials) or raises; on a
-CPU tensor it runs the plain version. There is no fallback between the
-two. The wrapper types the C entry once and allocates the outputs and the
-scratch with ``torch.empty``; the C entry sizes the grid and zeroes the
-scratch on the stream. The id-range check still reads the range back to
-the host.
+``csrc/pillar_bin_sums.cu`` (design and bound in that file's header: a
+stable counting sort of the row indices by pillar from the ids alone, then
+each pillar's rows gathered and added in fp64 in that fixed order and
+rounded once, so every launch gives the same bits and an item gives the
+same bits in any batch) or raises; on a CPU tensor it runs the plain
+version. There is no fallback between the two. The wrapper types the C
+entry once and allocates the outputs and the scratch with ``torch.empty``.
+
+The id-range check is the kernel's own reading on a CUDA tensor: the kernel
+counts the ids outside ``[0, V)`` it reads (and leaves those rows out),
+notes the first one, and the wrapper copies that status block to the host
+once per call and raises ``ValueError`` if it is not clean, with the host's
+own reading of the ids beside it (``status_message``). On a CPU tensor
+``_check`` reads the range on the host.
 
 The ctypes launch leaves no autograd history: ``pillar_bin_sums_grad`` wraps
 the binning in an autograd Function for the PointNet feature mean, with the
@@ -90,19 +95,46 @@ def _check(features: torch.Tensor, ids: torch.Tensor, num_voxels: int
         raise ValueError("num_voxels must be at least 1")
     if not (features.is_contiguous() and ids.is_contiguous()):
         raise ValueError("features and ids must be contiguous")
-    if ids.numel():
+    if ids.numel() and ids.device.type == "cpu":
         lo, hi = (int(t) for t in torch.aminmax(ids))
         if lo < 0 or hi >= num_voxels:
-            # A second reading tells bad ids from a bad device reduction.
-            host = ids.cpu()
-            bad = (host < 0) | (host >= num_voxels)
-            first = bad.reshape(-1).nonzero()[:4, 0].tolist()
-            raise ValueError(
-                f"ids span [{lo}, {hi}], outside [0, {num_voxels}); read back "
-                f"to the host they span [{int(host.min())}, "
-                f"{int(host.max())}], {int(bad.sum())} of {host.numel()} "
-                f"out of range (first at flat rows {first}, shape "
-                f"{tuple(ids.shape)})")
+            raise ValueError(f"ids span [{lo}, {hi}], outside [0, "
+                             f"{num_voxels}); "
+                             + _host_reading(ids, num_voxels))
+
+
+def _host_reading(host_ids: torch.Tensor, num_voxels: int) -> str:
+    bad = (host_ids < 0) | (host_ids >= num_voxels)
+    first = bad.reshape(-1).nonzero()[:4, 0].tolist()
+    return (f"read back to the host they span [{int(host_ids.min())}, "
+            f"{int(host_ids.max())}], {int(bad.sum())} of {host_ids.numel()} "
+            f"out of range (first at flat rows {first}, shape "
+            f"{tuple(host_ids.shape)})")
+
+
+def status_message(status, host_ids: torch.Tensor, num_voxels: int) -> str:
+    """The error for a kernel status ``(B, 4)`` (per item: ids outside
+    ``[0, V)``, the first such row, its id, rows placed) that is not clean,
+    with the host's reading of the same ids beside the kernel's, so that a
+    recurrence shows whether the ids in memory were bad or the read was."""
+    st = torch.as_tensor(status).reshape(-1, 4).long()
+    n = host_ids.shape[-1] if host_ids.dim() else 1
+    bad = int(st[:, 0].sum())
+    item = int((st[:, 0] > 0).nonzero()[0, 0]) if bad else 0
+    row, value = int(st[item, 1]), int(st[item, 2])
+    return (f"the kernel read {bad} of {host_ids.numel()} ids outside [0, "
+            f"{num_voxels}) (first at flat row {item * n + row}, id {value}); "
+            + _host_reading(host_ids, num_voxels))
+
+
+def _check_status(status: torch.Tensor, ids: torch.Tensor, num_voxels: int
+                  ) -> None:
+    """Raise ``ValueError`` if the kernel read ids outside ``[0, V)``: one
+    copy of the status block to the host (a synchronisation), and on a
+    fault a second, host copy of the ids."""
+    st = status.cpu()
+    if int(st[:, 0].sum()):
+        raise ValueError(status_message(st, ids.cpu(), num_voxels))
 
 
 def pillar_bin_sums(features: torch.Tensor, ids: torch.Tensor,
@@ -137,12 +169,12 @@ def _kernel_fns():
 
 
 def _launch(features: torch.Tensor, ids: torch.Tensor, num_voxels: int
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Allocate the outputs and the scratch (``torch.empty``: the C entry
-    zeroes the integer accumulators on the stream and sizes the grid) and
-    launch the kernels on CUDA tensors that passed ``_check`` (the check
-    reads the id range back to the host; the launch itself does not
-    synchronise)."""
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Allocate the outputs and the scratch (``torch.empty``: the kernels
+    write every word they read, and zero their own counters) and launch the
+    kernels on CUDA tensors that passed ``_check``. Returns the sums, the
+    counts and the kernel's status block ``(B, 4)`` int32, still on the
+    card: the launch itself does not synchronise."""
     lead = features.shape[:-2]
     n, c = features.shape[-2:]
     b = math.prod(lead)
@@ -152,17 +184,15 @@ def _launch(features: torch.Tensor, ids: torch.Tensor, num_voxels: int
     counts = torch.empty(lead + (num_voxels,), dtype=torch.float32,
                          device=dev)
     if b == 0:
-        return sums, counts
+        return sums, counts, torch.zeros((0, 4), dtype=torch.int32,
+                                         device=dev)
     fn, scratch_bytes = _kernel_fns()
     guard = (torch.cuda.device(dev) if dev.index is not None
              and dev.index != torch.cuda.current_device()
              else contextlib.nullcontext())
     with guard:
-        size = scratch_bytes(b, n, num_voxels, c)
-        if size < 0:
-            raise RuntimeError("pillar_bin_sums: cannot read the device's "
-                               "SM count")
-        scratch = torch.empty(size, dtype=torch.uint8, device=dev)
+        scratch = torch.empty(scratch_bytes(b, n, num_voxels, c),
+                              dtype=torch.uint8, device=dev)
         rc = fn(features.data_ptr(), ids.data_ptr(), sums.data_ptr(),
                 counts.data_ptr(), scratch.data_ptr(), b, n, num_voxels, c,
                 torch.cuda.current_stream(dev).cuda_stream)
@@ -170,7 +200,7 @@ def _launch(features: torch.Tensor, ids: torch.Tensor, num_voxels: int
         raise RuntimeError(f"pillar_bin_sums kernel launch failed: CUDA "
                            f"error {rc}")
     pillar_bin_sums.launches += 1
-    return sums, counts
+    return sums, counts, scratch[:16 * b].view(torch.int32).view(b, 4)
 
 
 pillar_bin_sums.launches = 0

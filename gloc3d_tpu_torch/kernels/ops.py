@@ -5,7 +5,8 @@ and ``gloc3d::pillar_bin_sums(features, ids, num_voxels)`` (K2,
 ``bin_sums.py``) are the only route to either kernel. The dispatcher picks
 the implementation from the tensors' device: on CUDA tensors the
 hand-written kernel (the wrapper's checks, then its ctypes launch, counted
-in ``segment_sum_sorted.launches`` / ``pillar_bin_sums.launches``), on CPU
+in ``segment_sum_sorted.launches`` / ``pillar_bin_sums.launches``, and for
+K2 the kernel's own id-range status read back), on CPU
 tensors the plain version; any other device has no implementation and
 raises. Each op also has a fake implementation, which gives the output
 shapes from the arguments alone (V from ``starts.shape[-1] - 1`` or from
@@ -57,7 +58,9 @@ def pillar_bin_sums(features: torch.Tensor, ids: torch.Tensor,
 @pillar_bin_sums.register_kernel("cuda")
 def _pillar_bin_sums_cuda(features, ids, num_voxels):
     _bs._check(features, ids, num_voxels)
-    return _bs._launch(features, ids, num_voxels)
+    sums, counts, status = _bs._launch(features, ids, num_voxels)
+    _bs._check_status(status, ids, num_voxels)
+    return sums, counts
 
 
 @pillar_bin_sums.register_fake

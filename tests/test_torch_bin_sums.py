@@ -186,9 +186,90 @@ def test_out_of_range_ids_are_reported_from_a_host_copy():
     assert "first at flat rows [13, 17], shape (2, 10)" in msg
 
 
+def _planted_status_case():
+    """Host ids (2, 10) with two out-of-range ids in item 1, at flat rows 13
+    (id 9) and 17 (id -2), and the status the kernel reports for them."""
+    ids = torch.zeros((2, 10), dtype=torch.int32)
+    ids[1, 3], ids[1, 7] = 9, -2
+    status = torch.tensor([[0, 0, 0, 10], [2, 3, 9, 8]], dtype=torch.int32)
+    return status, ids
+
+
+def test_status_message_names_the_kernel_and_the_host_reading():
+    status, ids = _planted_status_case()
+    msg = bs.status_message(status, ids, 5)
+    assert msg.startswith("the kernel read 2 of 20 ids outside [0, 5) "
+                          "(first at flat row 13, id 9); ")
+    assert msg.endswith("read back to the host they span [-2, 9], 2 of 20 "
+                        "out of range (first at flat rows [13, 17], shape "
+                        "(2, 10))")
+
+
+def test_status_message_shows_a_bad_read_of_good_ids():
+    """The kernel's status says one id was bad while the host's copy holds
+    none: the message shows both, so a fault in the read is told from bad
+    ids in memory."""
+    ids = torch.arange(12, dtype=torch.int32).reshape(3, 4) % 5
+    status = torch.tensor([[0, 0, 0, 4], [0, 0, 0, 4], [1, 2, 1140861452, 3]],
+                          dtype=torch.int32)
+    msg = bs.status_message(status, ids, 5)
+    assert "the kernel read 1 of 12 ids outside [0, 5) (first at flat row " \
+        "10, id 1140861452)" in msg
+    assert "read back to the host they span [0, 4], 0 of 12 out of range " \
+        "(first at flat rows [], shape (3, 4))" in msg
+
+
+def test_status_message_flattens_every_leading_axis():
+    ids = torch.zeros((2, 3, 10), dtype=torch.int32)
+    ids[1, 2, 6] = 70
+    status = torch.zeros((6, 4), dtype=torch.int32)
+    status[:, 3] = 10
+    status[5] = torch.tensor([1, 6, 70, 9])
+    msg = bs.status_message(status, ids, 64)
+    assert "read 1 of 60 ids outside [0, 64) (first at flat row 56, id 70)" \
+        in msg
+    assert "1 of 60 out of range (first at flat rows [56], shape (2, 3, 10))" \
+        in msg
+
+
+@pytest.mark.parametrize("clean", [True, False])
+def test_check_status_raises_only_on_a_bad_status(clean):
+    status, ids = _planted_status_case()
+    if clean:
+        bs._check_status(torch.tensor([[0, 0, 0, 10], [0, 0, 0, 10]],
+                                      dtype=torch.int32), ids * 0, 5)
+        return
+    with pytest.raises(ValueError, match=r"the kernel read 2 of 20 ids .* "
+                       r"read back to the host they span \[-2, 9\]"):
+        bs._check_status(status, ids, 5)
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernel, no CPU mode)")
+
+
+def _hard_ids(n=122480, v=11200):
+    """Id patterns (N,) that stress the kernel's order of adds: 50 000 rows
+    in pillar 4321, every row in pillar 7, ids in descending order, a scan's
+    ids permuted."""
+    rng = np.random.RandomState(11)
+    base = rng.randint(1, v, n)
+    base[rng.permutation(n)[:82000]] = 0
+    crowded = base.copy()
+    crowded[rng.permutation(n)[:50000]] = 4321
+    return [crowded, np.full(n, 7), np.sort(base)[::-1].copy(),
+            base[rng.permutation(n)]]
+
+
+def _held_to_plain(feats, ids, v, sums, cnt):
+    p_sums, p_cnt = bs.pillar_bin_sums_plain(feats, ids, v)
+    l1, _ = bs.pillar_bin_sums_plain(feats.abs(), ids, v)
+    err = ((sums - p_sums).double().abs()
+           / l1.double().clamp_min(1e-30)).max()
+    assert float(err) < 1e-5, (tuple(feats.shape), v, float(err))
+    assert torch.equal(cnt, p_cnt)
+    assert bool((sums[p_cnt == 0] == 0).all())
 
 
 @pytest.mark.cuda
@@ -201,45 +282,83 @@ def test_cuda_kernel_matches_plain():
              (24, 20000, 4, 11200, 13000, ()), (1, 5000, 1, 300, 2000, ()),
              (1, 5000, 3, 300, 2000, ()), (1, 5000, 12, 300, 2000, ()),
              (1, 5000, 9, 300, 2000, ()), (3, 3001, 130, 77, 1000, (5,)),
-             (1, 5, 64, 40, 1, ())]
-    for seed, (b, n, c, v, p0, empty) in enumerate(cases):
-        x, ids = _case(seed, b, n, c, v, p0, empty)
+             (1, 5, 64, 40, 1, ()),
+             # V beyond one window of the tiles' histograms
+             (1, 20000, 4, 30000, 5000, (7,)), (2, 9001, 64, 40000, 0, ())]
+    inputs = [_case(seed, *case) + (case[3],)
+              for seed, case in enumerate(cases)]
+    # one pillar far longer than a block's share of sorted positions, every
+    # row in one pillar, sorted and permuted ids
+    rng = np.random.RandomState(3)
+    for hard in _hard_ids():
+        inputs.append((rng.randn(1, hard.size, 64).astype(np.float32),
+                       hard.astype(np.int32)[None], 11200))
+    for x, ids, v in inputs:
         x, ids = torch.from_numpy(x).cuda(), torch.from_numpy(ids).cuda()
         before = bs.pillar_bin_sums.launches
         sums, cnt = bs.pillar_bin_sums(x, ids, v)
         torch.cuda.synchronize()
         assert bs.pillar_bin_sums.launches == before + 1
-        p_sums, p_cnt = bs.pillar_bin_sums_plain(x, ids, v)
-        l1, _ = bs.pillar_bin_sums_plain(x.abs(), ids, v)
-        err = ((sums - p_sums).double().abs()
-               / l1.double().clamp_min(1e-30)).max()
-        assert float(err) < 1e-5, (b, n, c, v, p0, float(err))
-        assert torch.equal(cnt, p_cnt)
-        assert bool((sums[p_cnt == 0] == 0).all())
+        _held_to_plain(x, ids, v, sums, cnt)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [4, 64, 65])
 def test_cuda_kernel_is_deterministic(c):
     """Every pillar's sums and every count are the same bits over four
-    launches (exact int64 sums, pillar 0 from partials in a fixed order),
-    also when every row lies in pillar 0 or the features are misaligned."""
+    launches (sums in a fixed order, rounded once), also when every
+    row lies in pillar 0, the features are misaligned or the ids are one of
+    the hard patterns; and item 3 of a batch of 24 gives the bits it gives
+    binned alone."""
     _cuda_or_skip()
     x, ids = _case(7, 2, 122480, c, 11200, p0=82000)
     x, ids = torch.from_numpy(x).cuda(), torch.from_numpy(ids).cuda()
     zero = torch.zeros_like(ids)
     shifted = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
     shifted.copy_(x)
-    for feats, i in ((x, ids), (x, zero), (shifted, ids)):
+    cases = [(x, ids), (x, zero), (shifted, ids)]
+    for hard in _hard_ids():
+        cases.append((x[:1], torch.from_numpy(hard.astype(np.int32))[None]
+                      .cuda()))
+    for feats, i in cases:
         a, ca = bs.pillar_bin_sums(feats, i, 11200)
         for _ in range(3):
             b_, cb = bs.pillar_bin_sums(feats, i, 11200)
             assert torch.equal(a, b_) and torch.equal(ca, cb)
-        p_sums, p_cnt = bs.pillar_bin_sums_plain(feats, i, 11200)
-        l1, _ = bs.pillar_bin_sums_plain(feats.abs(), i, 11200)
-        err = ((a - p_sums).double().abs()
-               / l1.double().clamp_min(1e-30)).max()
-        assert float(err) < 1e-5 and torch.equal(ca, p_cnt)
+        _held_to_plain(feats, i, 11200, a, ca)
+    gen = torch.Generator().manual_seed(5)
+    big = torch.randn((24, 122480, c), generator=gen).cuda()
+    big_ids = ids[torch.arange(24) % 2][:, torch.randperm(122480,
+                                                          generator=gen)]
+    big_ids = big_ids.contiguous()
+    sums, cnt = bs.pillar_bin_sums(big, big_ids, 11200)
+    alone, c_alone = bs.pillar_bin_sums(big[3:4].contiguous(),
+                                        big_ids[3:4].contiguous(), 11200)
+    assert torch.equal(sums[3:4], alone) and torch.equal(cnt[3:4], c_alone)
+
+
+@pytest.mark.cuda
+def test_cuda_out_of_range_ids_raise_from_the_kernel_status():
+    """Planted bad ids: the kernel's status names the count and the first
+    (flat row 122480 + 4100, id 11200), the host's reading stands beside
+    it, and a clean call reads a zero status."""
+    _cuda_or_skip()
+    x, ids = _case(8, 2, 122480, 4, 11200, p0=80000)
+    x, ids = torch.from_numpy(x).cuda(), torch.from_numpy(ids).cuda()
+    _, _, status = bs._launch(x, ids, 11200)
+    assert status.cpu().tolist() == [[0, 0, 0, 122480]] * 2
+    bad = ids.clone()
+    bad[1, 4100], bad[1, 9000], bad[1, 60000] = 11200, -1, 99999
+    with pytest.raises(ValueError) as err:
+        bs.pillar_bin_sums(x, bad, 11200)
+    msg = str(err.value)
+    assert "the kernel read 3 of 244960 ids outside [0, 11200) (first at " \
+        "flat row 126580, id 11200)" in msg
+    assert "read back to the host they span [-1, 99999], 3 of 244960 out " \
+        "of range (first at flat rows [126580, 131480, 182480]" in msg
+    _, _, status = bs._launch(x, bad, 11200)
+    assert status.cpu().tolist() == [[0, 0, 0, 122480],
+                                     [3, 4100, 11200, 122477]]
 
 
 @pytest.mark.cuda
