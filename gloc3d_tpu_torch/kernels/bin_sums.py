@@ -15,9 +15,10 @@ so a traced or exported program carries the op and not the version its
 tracing device ran. On a CUDA tensor the op launches
 ``csrc/pillar_bin_sums.cu`` (design and bound in that file's header: a
 stable counting sort of the row indices by pillar from the ids alone, then
-each pillar's rows gathered and added in fp64 in that fixed order and
-rounded once, so every launch gives the same bits and an item gives the
-same bits in any batch) or raises; on a CPU tensor it runs the plain
+each pillar's rows gathered and added in that fixed order, in fp32 within
+64 sorted positions and fp64 above, and rounded once, so every launch
+gives the same bits and an item gives the same bits in any batch) or
+raises; on a CPU tensor it runs the plain
 version. There is no fallback between the two. The wrapper types the C
 entry once and allocates the outputs and the scratch with ``torch.empty``.
 
