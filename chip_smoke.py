@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's s2s and i2i located queries, the refinement
+"""Drive the PyTorch port's s2s and i2i located queries (the all-device
+s2s extraction both by K2 and by the device pillar sort), the refinement
 stage, the SLAM submap, s2s, i2i and pose training, the packed and
 pillar-sorted PointPillar, the evaluator over a dataset read from disk, the
 command line, and the multi-rank paths (the sharded search and keyframe
@@ -303,6 +304,24 @@ Phases, each printing its own lines:
      shard_spatial + locate (B=1) and locate_batch (B=8) = the unsharded
      localizer; the B=1 VGG16 forward's ms at worlds 1 and 2 beside the
      unsharded one's (no speed-up can show with both ranks on one card).
+ 28. [device-sort], after phase 8: GlobalLocalizer(device_sort=True),
+     the all-device binning by a device pillar sort
+     (ops/voxelize.py::device_pillar_sort_stats: one packed-key torch.sort,
+     searchsorted starts, the centroids' sums on K1 at C = 4) and the
+     host-stats forward on the sorted rows (K1 on the 64-channel
+     features), no K2. device_pillar_sort_stats on the card against the
+     CPU on one full-pad tilted scan and on a batch of 24: order, ids,
+     starts and counts bit-equal, centroids within DSORT_CENTROID_TOL;
+     phase 6's aligned map (16 keyframes, 8 queries x 3) built and queried
+     with the fp32 model both ways: the same keyframe and success on
+     every call, the device-sort queries within phase 6's gates, keyframe
+     descriptors within DSORT_DESC_TOL of the default's, K1 launched
+     twice per extraction and K2 never on the device-sort run; every K1
+     launch of the path (statistics at one scan and at batch 24, features
+     at B = 1 and 16) against its plain version (1e-5 of L1 mass); the
+     binning stage of one aligned extraction at B = 1 and 16, each way
+     and by part (CUDA events, host syncs per call); locate's median both
+     ways (fp32, and the bf16 serving model held to phase 6's gates).
 The kernel-only times of phase 17 come from complete traces only (every
 device operation of every traced call, memsets included: K1 launches two
 kernels and a memset a call, K2 four kernels); a timing with none in six
@@ -315,6 +334,7 @@ current one, in the order earlier, current, current, earlier.
 `python3 chip_smoke.py --cli` phases 1, 2 and 24 only;
 `python3 chip_smoke.py --shard` phases 1, 2, 5 and 25 only;
 `python3 chip_smoke.py --dp` phases 1, 2 and 26 only;
+`python3 chip_smoke.py --device-sort` phases 1, 2 and 28 only;
 `python3 chip_smoke.py --spatial` phases 1, 2 and 27 only;
 `--i2i-train`, `--pose-train` and `--packed` run phases 1, 2 and the
 phase (or phases) named, alone;
@@ -1249,6 +1269,230 @@ def phase_aligned_reference(torch, cfg, kf_set, q_set, centroids,
           "card descriptors disagree with the CPU reference")
     check(r_g.success == r_c.success and r_g.db_index == r_c.db_index,
           "card aligned locate != CPU aligned locate")
+
+
+DSORT_CENTROID_TOL = 1e-4  # m; K1's per-tile sums against index_add_'s
+DSORT_DESC_TOL = 2e-5      # rtol = atol, JAX's bound between its two paths
+
+
+def dsort_case(torch, cfg, scans, device):
+    """device_pillar_sort_stats of ``scans`` on ``device``, with the
+    arguments of every K1 launch it made there."""
+    from gloc3d_tpu_torch.ops.voxelize import device_pillar_sort_stats
+
+    vc = cfg.voxel
+    pts = torch.from_numpy(np.stack([s[0] for s in scans])).to(device)
+    mask = torch.from_numpy(np.stack([s[1] for s in scans])).to(device)
+    out = []
+    calls = record_launches(lambda: out.extend(device_pillar_sort_stats(
+        pts, mask, vc.xbound, vc.ybound, vc.zbound)))["K1"]
+    return [t.cpu() for t in out], calls
+
+
+def binning_stages(torch, loc_default, loc_sorted, pts, mask):
+    """The binning stage of one aligned extraction of the rows ``pts``,
+    both ways, as the two forwards run it (pillar ids, statistics,
+    per-point rows, the 64-channel feature mean, on the features each
+    forward launches its kernel with): {name: fn}."""
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.ops.voxelize import (
+        device_pillar_sort_stats, points_to_voxels,
+        points_to_voxels_hoststats, scatter_mean_to_grid,
+        segment_sum_sorted,
+    )
+
+    vc = loc_default.cfg.voxel
+    bounds = (vc.xbound, vc.ybound, vc.zbound)
+    k2 = record_launches(lambda: loc_default.model(pts, mask))["K2"]
+    st = device_pillar_sort_stats(pts, mask, *bounds)
+    k1 = record_launches(lambda: loc_sorted.model(
+        st[0], st[1], voxel_stats=(st[2], st[4], st[5], st[3])))["K1"]
+    check(len(k2) == 2 and not record_launches(lambda: loc_sorted.model(
+        st[0], st[1], voxel_stats=(st[2], st[4], st[5], st[3])))["K2"]
+        and len(k1) == 1, "[device-sort] launches of the two forwards")
+    feats_k2, ids, v = k2[1]
+    feats_k1 = k1[0][0]
+    n = pts.shape[1]
+    row_bits = max(1, (n - 1).bit_length())
+    key = (ids << row_bits) | torch.arange(n, dtype=torch.int32,
+                                           device=ids.device)
+
+    def default():
+        vox = points_to_voxels(pts[..., :3], mask, *bounds)
+        return scatter_mean_to_grid(feats_k2, vox["voxel_indices"], v,
+                                    counts=vox["raw_counts"])
+
+    def sorted_():
+        ps, vs, sid, starts, counts, cents = device_pillar_sort_stats(
+            pts, mask, *bounds)
+        points_to_voxels_hoststats(ps[..., :3], vs, sid, counts, cents,
+                                   *bounds)
+        return segment_sum_sorted(feats_k1, starts) / counts.clamp_min(
+            1.0)[..., None]
+
+    return {"default: K2 statistics + K2 features (stage)": default,
+            "device sort: sort + statistics + 2 K1 (stage)": sorted_,
+            "K2 statistics (wrapper, status read)":
+                lambda: bs.pillar_bin_sums(*k2[0]),
+            "K2 features (wrapper, status read)":
+                lambda: bs.pillar_bin_sums(*k2[1]),
+            "packed-key sort alone": lambda: torch.sort(key, dim=-1),
+            "statistics (sort, searchsorted, K1 C=4)":
+                lambda: device_pillar_sort_stats(pts, mask, *bounds),
+            "K1 features (wrapper)":
+                lambda: segment_sum_sorted(feats_k1, st[3])}
+
+
+def phase_device_sort(torch, cfg, kf_set, q_set, centroids, card):
+    """GlobalLocalizer(device_sort=True): the device pillar sort card vs
+    CPU, K1 at the launches it makes, the aligned map built and queried
+    both ways, and the binning stage's time. Returns the K1 launches of the
+    device-sort map's run and the record."""
+    from gloc3d_tpu_torch.eval.registration import registration_errors
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+
+    rec = {"card": card}
+    kf, qs = kf_set[2], q_set[2]
+    # 1. card against CPU: one full-pad scan and a batch of 24
+    k1_cases = {}
+    for label, scans in (("one scan", kf[:1]), ("batch 24", kf + qs)):
+        got, calls = dsort_case(torch, cfg, scans, "cuda")
+        want, _ = dsort_case(torch, cfg, scans, "cpu")
+        same = all(torch.equal(a, b) for a, b in zip(got[:5], want[:5]))
+        cerr = float((got[5] - want[5]).abs().max())
+        p0 = int(got[3][:, 1].max())
+        print(f"[device-sort] {label} {tuple(got[0].shape)} card vs CPU: "
+              f"order, ids, starts and counts bit-equal {same}; centroids "
+              f"max |diff| {cerr:.3e} m (bound {DSORT_CENTROID_TOL}); "
+              f"pillar-0 rows up to {p0}; K1 launches {len(calls)}")
+        check(same, f"[device-sort] {label}: the card's sort differs")
+        check(cerr < DSORT_CENTROID_TOL,
+              f"[device-sort] {label}: centroids {cerr:.3e} m")
+        check(len(calls) == 1 and calls[0][0].shape[-1] == 4,
+              f"[device-sort] {label}: K1 launches {len(calls)}")
+        k1_cases[f"statistics C=4, {label}"] = calls[0][:2]
+        rec[f"centroid_err_{label.replace(' ', '_')}"] = cerr
+
+    # 2. the aligned map both ways, fp32: same answers, K1 only
+    model = build_serving_model(torch, cfg, "float32", centroids)
+    default = build_map(torch, cfg, model, kf, align_ground=True)
+    ss.segment_sum_sorted.launches = 0
+    bs.pillar_bin_sums.launches = 0
+    dsorted = build_map(torch, cfg, model, kf, align_ground=True,
+                        device_sort=True)
+    check(dsorted.device_sort, "[device-sort] the option was dropped")
+    k1_launches = ss.segment_sum_sorted.launches
+    k2_launches = bs.pillar_bin_sums.launches
+    times = {"default": [], "device sort": []}
+    results = {"default": [], "device sort": []}
+    for _ in range(3):
+        for q in qs:
+            for key, loc in (("default", default), ("device sort", dsorted)):
+                ss.segment_sum_sorted.launches = 0
+                bs.pillar_bin_sums.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                results[key].append(loc.locate(*q))
+                times[key].append((time.perf_counter() - t0) * 1e3)
+                if key == "device sort":  # the device-sort run's launches
+                    k1_launches += ss.segment_sum_sorted.launches
+                    k2_launches += bs.pillar_bin_sums.launches
+    extractions = len(kf) // 4 + len(results["device sort"])
+    print(f"[device-sort] aligned map, fp32: {len(kf)} keyframes, "
+          f"{len(qs)} queries x 3; K1 launches {k1_launches} (2 per "
+          f"extraction: {2 * extractions}), K2 launches {k2_launches}")
+    check(k2_launches == 0, f"[device-sort] K2 launched {k2_launches} times")
+    check(k1_launches == 2 * extractions,
+          f"[device-sort] K1 launched {k1_launches} times")
+    d_def = default.bank.data.cpu().numpy()
+    d_srt = dsorted.bank.data.cpu().numpy()
+    derr = float(np.abs(d_srt - d_def).max())
+    desc_ok = bool(np.allclose(d_srt, d_def, rtol=DSORT_DESC_TOL,
+                               atol=DSORT_DESC_TOL))
+    worst_t = worst_r = 0.0
+    for i, (a, b) in enumerate(zip(results["device sort"],
+                                   results["default"])):
+        check(a.success == b.success and a.db_index == b.db_index,
+              f"[device-sort] call {i}: db {a.db_index} vs {b.db_index}")
+        e_t, e_r = (float(e) for e in registration_errors(a.pose, b.pose))
+        worst_t, worst_r = max(worst_t, e_t), max(worst_r, e_r)
+    print(f"[device-sort] keyframe descriptors max |diff| {derr:.3e} "
+          f"(bound rtol = atol = {DSORT_DESC_TOL}); every call the same "
+          f"keyframe and success; poses within {worst_t:.4f} m / "
+          f"{worst_r:.4f} deg of the default's")
+    check(desc_ok, f"[device-sort] descriptors differ by {derr:.3e}")
+    check_aligned(torch, "device-sort", results["device sort"][:len(qs)],
+                  kf_set, q_set)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"[device-sort] locate on {card}, fp32, host clock, median of "
+          f"{len(qs)} x 3 (interleaved): default {med['default']:.3f} ms, "
+          f"device sort {med['device sort']:.3f} ms")
+    rec.update(k1_launches=k1_launches, k2_launches=k2_launches,
+               descriptor_err=derr, locate_ms_fp32=med)
+
+    # 3. K1 against its plain version at the launches of this path
+    for label, b in (("one scan", 1), ("batch 16", 16)):
+        pts = torch.from_numpy(np.stack([s[0] for s in kf[:b]])).cuda()
+        mask = torch.from_numpy(np.stack([s[1] for s in kf[:b]])).cuda()
+        with torch.no_grad():
+            aligned, _ = default._align(pts, mask)
+            st = binning_stages(torch, default, dsorted, aligned, mask)
+            k1_cases[f"features C=64, {label}"] = record_launches(
+                st["K1 features (wrapper)"])["K1"][0][:2]
+            ms = {}
+            for name in list(st) * 2:  # each twice, the stages alternating
+                ms.setdefault(name, []).append(cuda_ms(torch, st[name], 20))
+            syncs = {name: count_syncs(torch, st[name]) for name in st}
+            traced = {name: device_idle_share(torch, st[name])[:3]
+                      for name in list(st)[:2]}
+        for name in st:
+            print(f"[device-sort] {label}, {name}: "
+                  f"{min(ms[name]):.4f}-{max(ms[name]):.4f} ms (CUDA events, "
+                  f"mean of 20, L2-warm, twice), host syncs {syncs[name]}")
+        for name, (busy, wall, n_k) in traced.items():
+            print(f"[device-sort] {label}, {name}, one traced call: device "
+                  f"busy {busy:.4f} ms of {wall:.4f} ms wall, {n_k} "
+                  f"kernels")
+        rec[f"binning_{label.replace(' ', '_')}"] = {
+            name: {"ms": ms[name], "host_syncs": syncs[name],
+                   "traced_busy_wall_kernels": traced.get(name)}
+            for name in st}
+    worst = 0.0
+    for label, (x, starts) in k1_cases.items():
+        rel, err = check_k1(torch, label, x, starts)
+        print(f"[device-sort] K1 {label} {tuple(x.shape)}: max |kernel - "
+              f"plain| {err:.3e}, relative to per-segment L1 mass "
+              f"{rel:.3e} (bound 1e-5)")
+        worst = max(worst, rel)
+    check(worst < 1e-5, f"[device-sort] K1 disagrees: {worst:.3e}")
+    rec["k1_rel_err"] = worst
+
+    # 4. the serving model (bf16): locate both ways, the gates
+    model = build_serving_model(torch, cfg, "bfloat16", centroids)
+    maps = {"default": build_map(torch, cfg, model, kf, align_ground=True),
+            "device sort": build_map(torch, cfg, model, kf,
+                                     align_ground=True, device_sort=True)}
+    times = {k: [] for k in maps}
+    for rep in range(3):
+        for q in qs:
+            for key, loc in maps.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = loc.locate(*q)
+                times[key].append((time.perf_counter() - t0) * 1e3)
+                if rep == 0 and key == "device sort":
+                    results.setdefault("bf16", []).append(res)
+    check_aligned(torch, "device-sort bf16", results["bf16"], kf_set, q_set)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    syncs = {k: count_syncs(torch, lambda: loc.locate(*qs[0]))
+             for k, loc in maps.items()}
+    print(f"[device-sort] locate on {card}, bf16 serving model, host clock, "
+          f"median of {len(qs)} x 3 (interleaved): default "
+          f"{med['default']:.3f} ms, device sort {med['device sort']:.3f} "
+          f"ms; host syncs per locate {syncs}")
+    rec.update(locate_ms_bf16=med, locate_syncs=syncs)
+    return k1_launches, rec
 
 
 def serving_localizer(torch, cfg, model, kf, device="cuda", **kw):
@@ -6483,6 +6727,14 @@ def main(argv) -> int:
         print(json.dumps({"card": card, "spatial": phase_spatial(
             torch, card, lq_set)}))
         return 0
+    if "--device-sort" in argv:
+        phase_build()
+        kf_set, q_set = aligned_world_scans(world, cfg.voxel.max_points)
+        centroids = vlad_centroids(torch, cfg, kf_set[2][:4])
+        _, dsort = phase_device_sort(torch, cfg, kf_set, q_set, centroids,
+                                     card)
+        print(json.dumps({"card": card, "device_sort": dsort}))
+        return 0
     if "--dp" in argv:
         phase_build()
         lq_set = located_world_scans(world, cfg.voxel.max_points)
@@ -6518,6 +6770,9 @@ def main(argv) -> int:
         torch, cfg, model, kf_set, q_set)
     phase_aligned_hoststats(torch, cfg, kf_set, q_set, centroids)
     phase_aligned_reference(torch, cfg, kf_set, q_set, centroids)
+    k1_dsort, dsort = phase_device_sort(torch, cfg, kf_set, q_set,
+                                        centroids, card)
+    print(json.dumps({"card": card, "device_sort": dsort}))
 
     k1_fused, k2_fused = phase_fused_query(torch, cfg, lq_set, kf_set, q_set,
                                            centroids)
@@ -6571,7 +6826,8 @@ def main(argv) -> int:
                 "sharded store, host-stats, world 1":
                     shard["store"]["k1_launches"],
                 "sharded store, host-stats, world 2 rank 0": int(
-                    shard["store world 2"]["store_k1_launches"])}
+                    shard["store world 2"]["store_k1_launches"]),
+                "device sort, aligned all-device": k1_dsort}
     k2_paths = {"aligned query": k2_launches,
                 "fused query, aligned all-device": k2_fused,
                 "training, all-device": train_counts["all-device"][1],

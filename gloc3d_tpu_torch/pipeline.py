@@ -76,10 +76,16 @@ registration reads the same bytes as from the unsharded store.
 ``shard_spatial`` runs every image extraction as the spatial partition
 (``parallel/spatial.py``): each rank computes the encoder on its band of
 image rows, and every rank gets the whole batch's descriptors; for images
-it wins over ``shard_extraction``, as in JAX. ``device_sort`` is a
-TPU-only strategy that the port leaves out, and so are the JAX package's
-``row_gather`` and the bucket padding of ``locate_batch``, which only bound
-XLA shapes.
+it wins over ``shard_extraction``, as in JAX.
+
+``device_sort=True`` (PointPillar, all-device path; off by default, as in
+JAX) bins each extraction by sorting: one packed-key pillar sort and the
+pillar statistics on the device (``ops/voxelize.py::
+device_pillar_sort_stats``, kernel K1), then the host-stats forward on the
+sorted rows (K1 again for the feature mean), in place of K2's two
+binnings; ``host_stats`` wins over it. Every entry point that extracts
+takes it, ``shard_extraction``'s ranks too. The bucket padding of JAX's
+``locate_batch`` only bounds XLA's shapes and stays out.
 """
 
 from __future__ import annotations
@@ -106,6 +112,7 @@ from gloc3d_tpu_torch.ops.ground import (
     GroundEstimate, estimate_ground, ground_draws, triplets_from,
 )
 from gloc3d_tpu_torch.ops.refine import icp_point_to_point
+from gloc3d_tpu_torch.ops.voxelize import device_pillar_sort_stats
 from gloc3d_tpu_torch.parallel.data import (
     gather_host, gather_rows, require_group, shard_rows,
 )
@@ -379,6 +386,8 @@ class GlobalLocalizer:
         bit-packed, and gather registration candidates from there.
       host_mirror: also keep each keyframe's image and origin on the host
         (default); False needs ``device_keyframes``.
+      device_sort: on the all-device path, bin by a device pillar sort and
+        K1 instead of K2 (PointPillar only; ``host_stats`` wins).
     """
 
     def __init__(self, cfg, model, params=None, *, host_stats: bool = False,
@@ -388,16 +397,14 @@ class GlobalLocalizer:
                  device_sort: bool = False):
         if not host_mirror and not device_keyframes:
             raise ValueError("host_mirror=False requires device_keyframes")
-        if device_sort:
-            raise NotImplementedError(
-                "device_sort is a TPU-only binning strategy the port leaves "
-                "out (ROADMAP ground rule: port semantics, not TPU "
-                "workarounds); host_stats=False bins on the device")
         self.cfg = cfg
         self.i2i = is_image_encoder(cfg.model.encoder)
         # an exported model (export.py) runs the plain forward only
         self.host_stats = (host_stats and not self.i2i
                            and getattr(model, "supports_voxel_stats", True))
+        self.device_sort = (device_sort
+                            and cfg.model.encoder == "pointpillar"
+                            and getattr(model, "supports_voxel_stats", True))
         self.align_ground = align_ground
         self.device_keyframes = device_keyframes
         self.host_mirror = host_mirror
@@ -543,6 +550,13 @@ class GlobalLocalizer:
             bev = batch_scan_to_bev(pts_d[..., :3], mask_d, self.cfg.bev)
             if self.i2i:  # the BEV, repeated to 3 channels, is the input
                 desc = self.model(bev.image[..., None].repeat(1, 1, 1, 3))
+            elif self.device_sort:  # the host pass's contract, on the device
+                vc = self.cfg.voxel
+                ps, vs, ids, starts, counts, cents = (
+                    device_pillar_sort_stats(pts_d, mask_d, vc.xbound,
+                                             vc.ybound, vc.zbound))
+                desc = self.model(ps, vs,
+                                  voxel_stats=(ids, counts, cents, starts))
             else:
                 desc = self.model(pts_d, mask_d)
             return desc, bev, ground

@@ -125,13 +125,13 @@ def test_compose_6dof_matches_jax():
 
 
 @pytest.mark.parametrize("kwargs,cfg_change,error,item", [
-    (dict(device_sort=True), None, NotImplementedError, "TPU workarounds"),
     ({}, dict(index=IndexConfig(dim=128, backend="ivf")), RuntimeError,
      "device_keyframes=True and a built store"),
 ])
 def test_unported_options_raise(kwargs, cfg_change, error, item):
-    """device_sort is left out; shard_keyframes without a built store
-    raises JAX's RuntimeError (the IVF bank builds first)."""
+    """shard_keyframes without a built store raises JAX's RuntimeError (the
+    IVF bank builds first). device_sort is ported: its parity is
+    tests/test_torch_device_sort.py's."""
     model = build_model(CFG.model, CFG.voxel)
     cfg = CFG.replace(**cfg_change) if cfg_change else CFG
     with pytest.raises(error, match=item):
