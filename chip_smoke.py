@@ -322,6 +322,16 @@ Phases, each printing its own lines:
      binning stage of one aligned extraction at B = 1 and 16, each way
      and by part (CUDA events, host syncs per call); locate's median both
      ways (fp32, and the bf16 serving model held to phase 6's gates).
+ 29. [surface], after phase 6, with no locate of its own (no kernel
+     launch): phase 6's result poses, numpy as LocalizationResult.pose
+     holds them, applied to their query's points on the card (within 1e-5
+     m of the same fp32 call on the host, and within 8 fp32 ulps at the
+     largest coordinate of to_matrix() applied in float64 on the host),
+     Rigid3.identity(device="cuda") @ pose = pose, from_matrix(to_matrix())
+     on the card within 2e-6; VGG16 with l2_normalize_output=True at 128²
+     (features within 1e-5 card vs CPU, norms within 1e-5 of 1) and
+     GatingContext(512, add_batch_norm=False) within 1e-6 card vs CPU,
+     fp32 with TF32 off.
 The kernel-only times of phase 17 come from complete traces only (every
 device operation of every traced call, memsets included: K1 launches two
 kernels and a memset a call, K2 four kernels); a timing with none in six
@@ -335,6 +345,7 @@ current one, in the order earlier, current, current, earlier.
 `python3 chip_smoke.py --shard` phases 1, 2, 5 and 25 only;
 `python3 chip_smoke.py --dp` phases 1, 2 and 26 only;
 `python3 chip_smoke.py --device-sort` phases 1, 2 and 28 only;
+`python3 chip_smoke.py --surface` phases 1, 2, 6 and 29 only;
 `python3 chip_smoke.py --spatial` phases 1, 2 and 27 only;
 `--i2i-train`, `--pose-train` and `--packed` run phases 1, 2 and the
 phase (or phases) named, alone;
@@ -1200,6 +1211,126 @@ def phase_aligned_query(torch, cfg, model, kf_set, q_set):
 
     check_aligned(torch, "aligned", results, kf_set, q_set)
     return loc, results, launches
+
+
+SURFACE_CARD_TOL_M = 1e-5  # pose @ card points against the same fp32 host call
+SURFACE_ULPS = 8           # fp32 rounding of the rotation at the largest |x|
+SURFACE_ROUND_TRIP = 2e-6  # from_matrix(to_matrix()), quaternion entries
+SURFACE_VGG_TOL = 1e-5     # l2-normalised VGG16 features, card against CPU
+SURFACE_GATING_TOL = 1e-6
+
+
+def phase_surface(torch, results, qs, card, seed: int = 21):
+    """[surface]: the last of the JAX package's surface that the port took
+    up, on the card. The numpy poses that phase 6's aligned ``locate``
+    returned (no new locate, so no kernel launch) applied to the query's
+    points on the card: against the same fp32 call on the host, and against
+    ``to_matrix()`` applied in float64 on the host within fp32's rounding
+    at the largest coordinate (8 ulps: a 70 m point rotated in fp32 lies
+    ~3e-5 m from the fp64 product); ``Rigid3.identity(device="cuda") @
+    pose`` = pose; ``from_matrix(to_matrix())`` on the card. Then VGG16
+    with ``l2_normalize_output=True`` at 128² and ``GatingContext(
+    add_batch_norm=False)`` at D = 512, card against CPU in fp32 with TF32
+    off, from seeded weights."""
+    from gloc3d_tpu_torch.core.transforms import Rigid3
+    from gloc3d_tpu_torch.models.descriptor import init_params
+    from gloc3d_tpu_torch.models.encoders import build_image_encoder
+    from gloc3d_tpu_torch.models.netvlad import GatingContext
+
+    check(not (torch.backends.cudnn.allow_tf32
+               or torch.backends.cuda.matmul.allow_tf32),
+          "[surface] TF32 is on")
+    t0 = time.perf_counter()
+    eps = float(np.finfo(np.float32).eps)
+    ident = Rigid3.identity(device="cuda")
+    worst = {"card_vs_host_m": 0.0, "vs_fp64_matrix_m": 0.0,
+             "vs_fp64_bound_m": 0.0, "round_trip_quat": 0.0,
+             "round_trip_translation": 0.0}
+    for i, (res, (pts, mask)) in enumerate(zip(results, qs)):
+        pose = res.pose
+        check(isinstance(pose.rotation, np.ndarray)
+              and isinstance(pose.translation, np.ndarray),
+              f"[surface] query {i}: the result's pose is not numpy")
+        xyz = np.ascontiguousarray(pts[mask > 0, :3])
+        on_card = pose @ torch.from_numpy(xyz).cuda()
+        check(on_card.is_cuda, f"[surface] query {i}: pose @ card points "
+              f"ran on {on_card.device}")
+        got = on_card.cpu().double().numpy()
+        host = (pose @ xyz).double().numpy()
+        m = pose.to_matrix().double().numpy()
+        want = xyz.astype(np.float64) @ m[:3, :3].T + m[:3, 3]
+        bound = SURFACE_ULPS * eps * max(1.0, float(np.abs(xyz).max()))
+        d_host = float(np.abs(got - host).max())
+        d_f64 = float(np.abs(got - want).max())
+        check(d_host <= SURFACE_CARD_TOL_M, f"[surface] query {i}: pose @ "
+              f"card points {d_host:.2e} m from the host's")
+        check(d_f64 <= bound, f"[surface] query {i}: pose @ card points "
+              f"{d_f64:.2e} m from the fp64 matrix (bound {bound:.2e})")
+        on = ident @ pose
+        check(on.rotation.is_cuda and on.translation.is_cuda
+              and np.array_equal(on.rotation.cpu().numpy(), pose.rotation)
+              and np.array_equal(on.translation.cpu().numpy(),
+                                 pose.translation),
+              f"[surface] query {i}: identity @ pose != pose")
+        back = Rigid3.from_matrix(on.to_matrix())
+        bq = back.rotation.cpu().numpy()
+        dq = min(float(np.abs(bq - pose.rotation).max()),
+                 float(np.abs(bq + pose.rotation).max()))
+        dt = float(np.abs(back.translation.cpu().numpy()
+                          - pose.translation).max())
+        check(dq <= SURFACE_ROUND_TRIP and dt <= SURFACE_ROUND_TRIP,
+              f"[surface] query {i}: from_matrix(to_matrix()) off by "
+              f"{dq:.2e} (quaternion), {dt:.2e} m")
+        for key, v in (("card_vs_host_m", d_host), ("vs_fp64_matrix_m", d_f64),
+                       ("vs_fp64_bound_m", bound), ("round_trip_quat", dq),
+                       ("round_trip_translation", dt)):
+            worst[key] = max(worst[key], v)
+    print(f"[surface] {len(results)} aligned result poses (numpy) @ their "
+          f"query's points on the card: {worst['card_vs_host_m']:.2e} m "
+          f"from the host's fp32 call (bound {SURFACE_CARD_TOL_M:.0e}), "
+          f"{worst['vs_fp64_matrix_m']:.2e} m from to_matrix() in fp64 "
+          f"(bound {SURFACE_ULPS} ulps at the largest |x|, "
+          f"{worst['vs_fp64_bound_m']:.2e} m); identity(cuda) @ pose = "
+          f"pose; from_matrix(to_matrix()) {worst['round_trip_quat']:.2e} "
+          f"quaternion, {worst['round_trip_translation']:.2e} m (bound "
+          f"{SURFACE_ROUND_TRIP:.0e})")
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.rand(2, 128, 128, 3) > 0.2).astype(np.float32))
+    enc = init_params(build_image_encoder(
+        "vgg16", torch.float32, l2_normalize_output=True), seed=seed).eval()
+    with torch.no_grad():
+        f_cpu = enc(x)
+        f_card = enc.cuda()(x.cuda()).cpu()
+    vgg_err = float((f_card - f_cpu).abs().max())
+    norm_err = float((torch.linalg.vector_norm(f_card, dim=-1) - 1.0).abs()
+                     .max())
+    print(f"[surface] VGG16 l2_normalize_output=True, fp32, 128² x 2: "
+          f"{tuple(f_card.shape)}, card vs CPU max |diff| {vgg_err:.2e} "
+          f"(bound {SURFACE_VGG_TOL:.0e}); norms within {norm_err:.2e} of 1 "
+          f"(bound 1e-05)")
+    check(vgg_err <= SURFACE_VGG_TOL, "[surface] VGG16 l2 features: card "
+          "!= CPU")
+    check(norm_err <= 1e-5, "[surface] VGG16 l2 features not unit")
+
+    d = rng.randn(8, 512).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=1, keepdims=True))
+    gate = init_params(GatingContext(512, add_batch_norm=False),
+                       seed=seed).eval()
+    with torch.no_grad():
+        g_cpu = gate(d)
+        g_card = gate.cuda()(d.cuda()).cpu()
+    gate_err = float((g_card - g_cpu).abs().max())
+    print(f"[surface] GatingContext(512, add_batch_norm=False) on 8 unit "
+          f"descriptors: card vs CPU max |diff| {gate_err:.2e} (bound "
+          f"{SURFACE_GATING_TOL:.0e})")
+    check(gate.bn1 is None and gate_err <= SURFACE_GATING_TOL,
+          "[surface] GatingContext(add_batch_norm=False): card != CPU")
+    seconds = time.perf_counter() - t0
+    print(f"[surface] {seconds:.1f} s; {card}")
+    return {**worst, "poses": len(results), "vgg16_l2_card_vs_cpu": vgg_err,
+            "vgg16_l2_norm_err": norm_err, "gating_card_vs_cpu": gate_err,
+            "seconds": seconds}
 
 
 def phase_aligned_hoststats(torch, cfg, kf_set, q_set, centroids):
@@ -6735,6 +6866,16 @@ def main(argv) -> int:
                                      card)
         print(json.dumps({"card": card, "device_sort": dsort}))
         return 0
+    if "--surface" in argv:
+        phase_build()
+        kf_set, q_set = aligned_world_scans(world, cfg.voxel.max_points)
+        centroids = vlad_centroids(torch, cfg, kf_set[2][:4])
+        model = build_serving_model(torch, cfg, "bfloat16", centroids)
+        _, a_results, _ = phase_aligned_query(torch, cfg, model, kf_set,
+                                              q_set)
+        print(json.dumps({"card": card, "surface": phase_surface(
+            torch, a_results, q_set[2], card)}))
+        return 0
     if "--dp" in argv:
         phase_build()
         lq_set = located_world_scans(world, cfg.voxel.max_points)
@@ -6768,6 +6909,8 @@ def main(argv) -> int:
     model = build_serving_model(torch, cfg, "bfloat16", centroids)
     a_loc, a_results, k2_launches = phase_aligned_query(
         torch, cfg, model, kf_set, q_set)
+    print(json.dumps({"card": card, "surface": phase_surface(
+        torch, a_results, q_set[2], card)}))
     phase_aligned_hoststats(torch, cfg, kf_set, q_set, centroids)
     phase_aligned_reference(torch, cfg, kf_set, q_set, centroids)
     k1_dsort, dsort = phase_device_sort(torch, cfg, kf_set, q_set,

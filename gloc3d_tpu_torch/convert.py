@@ -232,7 +232,8 @@ def pose_head_state_dict(params: Mapping, stats: Mapping,
 
 def netvlad_state_dict(pool: Mapping, pool_stats: Optional[Mapping] = None,
                        prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Flax NetVLAD params (+ gating BN stats) → port NetVLAD state_dict
+    """Flax NetVLAD params (+ gating BN stats, or the gating biases of a
+    ``GatingContext(add_batch_norm=False)``) → port NetVLAD state_dict
     (``prefix`` prepended); empty for the max/avg pooling heads."""
     out: Dict[str, torch.Tensor] = {}
     if "conv_weight" not in pool:
@@ -246,9 +247,12 @@ def netvlad_state_dict(pool: Mapping, pool_stats: Optional[Mapping] = None,
         out[f"{prefix}hidden1_weights"] = _t(pool["hidden1_weights"])
     if "context_gating" in pool:
         g = pool["context_gating"]
-        g_s = (pool_stats or {})["context_gating"]["bn1"]
         cg = f"{prefix}context_gating."
         out[f"{cg}gating_weights"] = _t(g["gating_weights"])
+        if "gating_biases" in g:  # GatingContext(add_batch_norm=False)
+            out[f"{cg}gating_biases"] = _t(g["gating_biases"])
+            return out
+        g_s = (pool_stats or {})["context_gating"]["bn1"]
         out[f"{cg}bn1.weight"] = _t(g["bn1"]["scale"])
         out[f"{cg}bn1.bias"] = _t(g["bn1"]["bias"])
         out[f"{cg}bn1.running_mean"] = _t(g_s["mean"])

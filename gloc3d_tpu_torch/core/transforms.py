@@ -4,15 +4,17 @@ Port of ``gloc3d_tpu/core/transforms.py`` for the located query, plain and
 ground-aligned, for the refiners and for the pose loss: quaternion algebra,
 ``matrix_to_quat``, the angle-axis maps, Euler extraction, the ground-alignment
 helpers (``remove_yaw``, ``quat_from_two_vectors``), ``Rigid3`` / ``Rigid2``
-and ``embed_3d``. Quaternions are (w, x, y, z) in the last axis; every
-function broadcasts over leading axes and is branch-free (``torch.where``),
-as the JAX functions are.
+(which also take the numpy poses that results hold) and ``embed_3d``.
+Quaternions are (w, x, y, z) in the last axis; every function broadcasts
+over leading axes and is branch-free (``torch.where``), as the JAX
+functions are.
 """
 
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -201,69 +203,123 @@ def quat_from_two_vectors(a: Tensor, b: Tensor) -> Tensor:
 # Rigid transforms
 # ---------------------------------------------------------------------------
 
+def _tensors(*xs) -> tuple:
+    """``xs`` as tensors. A tensor stays as it is; anything else (a numpy
+    array, a number) goes through ``torch.as_tensor`` with its own dtype,
+    onto the device of the first tensor among ``xs``, or the CPU when there
+    is none. So the numpy poses that results hold compose with tensors on
+    any device. A numpy view that torch cannot share (negative strides,
+    read-only) is copied first."""
+    device = next((x.device for x in xs if isinstance(x, Tensor)), None)
+    return tuple(
+        x if isinstance(x, Tensor) else torch.as_tensor(
+            np.require(x, requirements="CW") if isinstance(x, np.ndarray)
+            else x, device=device)
+        for x in xs)
+
+
 class Rigid3(NamedTuple):
     """SE(3): rotation quaternion (..., 4) wxyz + translation (..., 3).
 
     Results handed to callers (``LocalizationResult.pose``, stored keyframe
-    ground frames) hold numpy arrays; the methods take tensors."""
+    ground frames) hold numpy arrays. The methods take numpy arrays or
+    tensors, in the fields and in the operands, and return tensors."""
 
     rotation: Any
     translation: Any
 
+    @staticmethod
+    def identity(dtype=torch.float32, device=None) -> "Rigid3":
+        return Rigid3(quat_identity(dtype, device),
+                      torch.zeros(3, dtype=dtype, device=device))
+
+    @staticmethod
+    def from_matrix(m) -> "Rigid3":
+        """From a (..., 4, 4) homogeneous matrix."""
+        (m,) = _tensors(m)
+        return Rigid3(matrix_to_quat(m[..., :3, :3]), m[..., :3, 3])
+
+    def to_matrix(self) -> Tensor:
+        """(..., 4, 4) homogeneous matrix in the translation's dtype and on
+        its device, last row (0, 0, 0, 1)."""
+        q, t = _tensors(*self)
+        m = t.new_zeros(t.shape[:-1] + (4, 4))
+        m[..., :3, :3] = quat_to_matrix(q)
+        m[..., :3, 3] = t
+        m[..., 3, 3] = 1.0
+        return m
+
     def compose(self, other: "Rigid3") -> "Rigid3":
         """self ∘ other: apply ``other`` first."""
-        return Rigid3(
-            quat_mul(self.rotation, other.rotation),
-            quat_rotate(self.rotation, other.translation) + self.translation)
+        q, t, oq, ot = _tensors(*self, *other)
+        return Rigid3(quat_mul(q, oq), quat_rotate(q, ot) + t)
 
     def inverse(self) -> "Rigid3":
-        rinv = quat_conj(self.rotation)
-        return Rigid3(rinv, -quat_rotate(rinv, self.translation))
+        q, t = _tensors(*self)
+        rinv = quat_conj(q)
+        return Rigid3(rinv, -quat_rotate(rinv, t))
 
-    def apply(self, points: Tensor) -> Tensor:
+    def apply(self, points) -> Tensor:
         """Transform points (..., 3) under broadcasting."""
-        return quat_rotate(self.rotation, points) + self.translation
+        q, t, points = _tensors(*self, points)
+        return quat_rotate(q, points) + t
+
+    def __matmul__(self, other):
+        """``compose`` for a Rigid3, ``apply`` for points."""
+        if isinstance(other, Rigid3):
+            return self.compose(other)
+        return self.apply(other)
 
 
 class Rigid2(NamedTuple):
-    """SE(2): heading angle (...) + translation (..., 2)."""
+    """SE(2): heading angle (...) + translation (..., 2); numpy or tensor
+    fields and operands, as ``Rigid3``'s."""
 
     angle: Any
     translation: Any
 
+    @staticmethod
+    def identity(dtype=torch.float32, device=None) -> "Rigid2":
+        return Rigid2(torch.zeros((), dtype=dtype, device=device),
+                      torch.zeros(2, dtype=dtype, device=device))
+
     def compose(self, other: "Rigid2") -> "Rigid2":
-        c, s = torch.cos(self.angle), torch.sin(self.angle)
-        ox, oy = other.translation[..., 0], other.translation[..., 1]
-        t = torch.stack([c * ox - s * oy, s * ox + c * oy], dim=-1)
-        return Rigid2(self.angle + other.angle, t + self.translation)
+        a, t, oa, ot = _tensors(*self, *other)
+        c, s = torch.cos(a), torch.sin(a)
+        ox, oy = ot[..., 0], ot[..., 1]
+        rot = torch.stack([c * ox - s * oy, s * ox + c * oy], dim=-1)
+        return Rigid2(a + oa, rot + t)
 
     def inverse(self) -> "Rigid2":
-        c, s = torch.cos(self.angle), torch.sin(self.angle)
-        tx, ty = self.translation[..., 0], self.translation[..., 1]
-        t = torch.stack([-(c * tx + s * ty), -(-s * tx + c * ty)], dim=-1)
-        return Rigid2(-self.angle, t)
+        a, t = _tensors(*self)
+        c, s = torch.cos(a), torch.sin(a)
+        tx, ty = t[..., 0], t[..., 1]
+        inv = torch.stack([-(c * tx + s * ty), -(-s * tx + c * ty)], dim=-1)
+        return Rigid2(-a, inv)
 
-    def apply(self, points: Tensor) -> Tensor:
-        c, s = torch.cos(self.angle), torch.sin(self.angle)
+    def apply(self, points) -> Tensor:
+        a, t, points = _tensors(*self, points)
+        c, s = torch.cos(a), torch.sin(a)
         x, y = points[..., 0], points[..., 1]
-        return torch.stack([c * x - s * y, s * x + c * y],
-                           dim=-1) + self.translation
+        return torch.stack([c * x - s * y, s * x + c * y], dim=-1) + t
 
 
 def project_2d(t: Rigid3) -> Rigid2:
     """SE(3) → SE(2) on the XY plane: the yaw and the xy translation."""
-    return Rigid2(get_yaw(t.rotation), t.translation[..., :2])
+    q, trans = _tensors(*t)
+    return Rigid2(get_yaw(q), trans[..., :2])
 
 
 def embed_3d(t: Rigid2) -> Rigid3:
     """SE(2) → SE(3) rotation about +Z."""
-    zeros = torch.zeros_like(t.angle)
-    q = quat_from_rpy(zeros, zeros, t.angle)
-    trans = torch.cat([t.translation, torch.zeros_like(t.translation[..., :1])],
-                      dim=-1)
-    return Rigid3(q, trans)
+    angle, trans = _tensors(*t)
+    zeros = torch.zeros_like(angle)
+    q = quat_from_rpy(zeros, zeros, angle)
+    return Rigid3(q, torch.cat([trans, torch.zeros_like(trans[..., :1])],
+                               dim=-1))
 
 
-def transform_points(t: Rigid3, points: Tensor) -> Tensor:
+def transform_points(t: Rigid3, points) -> Tensor:
     """Transform a point set (N, 3) by a single Rigid3."""
-    return quat_rotate(t.rotation[None, :], points) + t.translation[None, :]
+    q, trans, points = _tensors(*t, points)
+    return quat_rotate(q[None, :], points) + trans[None, :]

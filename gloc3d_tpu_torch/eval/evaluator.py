@@ -30,7 +30,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from gloc3d_tpu_torch.core.transforms import Rigid3, get_yaw, matrix_to_quat
+from gloc3d_tpu_torch.core.transforms import Rigid3, get_yaw
 from gloc3d_tpu_torch.data.dataset import TripletDataset
 from gloc3d_tpu_torch.data.viz import match_overlay, save_png
 from gloc3d_tpu_torch.eval.recall import recall_at_n
@@ -63,7 +63,7 @@ def _relative_pose(db_pose: np.ndarray, q_pose: np.ndarray,
     on ``device``."""
     rel = torch.as_tensor(np.linalg.inv(db_pose) @ q_pose,
                           dtype=torch.float32, device=device)
-    return Rigid3(matrix_to_quat(rel[:3, :3]), rel[:3, 3])
+    return Rigid3.from_matrix(rel)
 
 
 def _host(x) -> np.ndarray:

@@ -88,9 +88,9 @@ def build_model(model_cfg, voxel_cfg) -> DescriptorModel:
 def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded init with the Flax model's initializer families: convs and
     the VLAD assignment lecun-normal (std 1/sqrt(fan_in)), BatchNorm at
-    identity, centroids uniform [0, 1), FC and gating weights normal with
-    std 1/sqrt(D). Same distributions as ``model.init`` in JAX, not the same
-    numbers (the two generators differ)."""
+    identity, centroids uniform [0, 1), FC and gating weights (and gating
+    biases) normal with std 1/sqrt(D). Same distributions as ``model.init``
+    in JAX, not the same numbers (the two generators differ)."""
     gen = torch.Generator().manual_seed(seed)
 
     def normal_(p, std):
@@ -104,7 +104,10 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_parameters()
         elif isinstance(m, GatingContext):
-            normal_(m.gating_weights, 1.0 / math.sqrt(m.gating_weights.shape[0]))
+            std = 1.0 / math.sqrt(m.gating_weights.shape[0])
+            normal_(m.gating_weights, std)
+            if m.gating_biases is not None:
+                normal_(m.gating_biases, std)
         if isinstance(m, NetVLAD):
             m.centroids.copy_(torch.rand(m.centroids.shape, generator=gen))
             if m.hidden1_weights is not None:

@@ -18,9 +18,11 @@ is the inverse of the JAX package's ``convert_torchvision_encoder``: a Flax
 encoder tree → torchvision's full-model names; ``port_key`` maps those to
 the module's own.
 
-NHWC in, NHWC float32 out, as in JAX. Convs run in ``compute_dtype``;
-BatchNorm runs in float32 with Flax's momentum 0.9 (torch 0.1) and eps 1e-5
-and Flax's biased running variance (``models/batchnorm.py``). Padding is
+NHWC in, NHWC float32 out, as in JAX, L2-normalised over channels with
+``l2_normalize_output`` (``vgg.py::nhwc_output``). Convs run in
+``compute_dtype``; BatchNorm runs in float32 with Flax's momentum 0.9 (torch
+0.1) and eps 1e-5 and Flax's biased running variance
+(``models/batchnorm.py``). Padding is
 explicit in JAX and the same here: AlexNet's 3×3/2 pools are VALID,
 ResNet's max-pool pads with −inf as ``F.max_pool2d(padding=1)`` does.
 Every conv and max-pool goes through the forward's ``ops``
@@ -39,7 +41,9 @@ import torch.nn.functional as F
 from gloc3d_tpu_torch.config import ENCODER_DIMS
 from gloc3d_tpu_torch.models.batchnorm import BatchNorm
 from gloc3d_tpu_torch.models.layer_ops import PLAIN, LayerOps
-from gloc3d_tpu_torch.models.vgg import VGG16_CONV_IDX, VGG16Encoder
+from gloc3d_tpu_torch.models.vgg import (
+    VGG16_CONV_IDX, VGG16Encoder, nhwc_output,
+)
 
 # MobileNetV2 inverted-residual plan, torchvision features[1..17]:
 # (expand_ratio, out_ch, stride) per block
@@ -63,15 +67,12 @@ def _nchw(x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
     return x.to(cd).permute(0, 3, 1, 2)
 
 
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.float().permute(0, 2, 3, 1)
-
-
 class AlexNetEncoder(nn.Sequential):
     """torchvision alexnet ``features[:-2]``: five convs, ReLU after all but
     the last, 3×3/2 max-pools after the first two."""
 
-    def __init__(self, compute_dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, compute_dtype: torch.dtype = torch.bfloat16,
+                 l2_normalize_output: bool = False):
         super().__init__(
             nn.Conv2d(3, 64, 11, stride=4, padding=2), nn.ReLU(inplace=True),
             nn.MaxPool2d(3, 2),
@@ -81,6 +82,7 @@ class AlexNetEncoder(nn.Sequential):
             nn.Conv2d(384, 256, 3, padding=1), nn.ReLU(inplace=True),
             nn.Conv2d(256, 256, 3, padding=1))
         self.compute_dtype = compute_dtype
+        self.l2_normalize_output = l2_normalize_output
 
     def forward(self, x: torch.Tensor, ops: LayerOps = PLAIN) -> torch.Tensor:
         cd = self.compute_dtype
@@ -92,7 +94,7 @@ class AlexNetEncoder(nn.Sequential):
                 x = ops.max_pool(m, x)
             else:
                 x = m(x)
-        return _nhwc(x)
+        return nhwc_output(x, self.l2_normalize_output)
 
 
 class _ConvBNReLU6(nn.Sequential):
@@ -136,20 +138,22 @@ class MobileNetV2Encoder(nn.Sequential):
     """torchvision mobilenet_v2 ``features[:-1]``: stem ConvBNReLU6(32, /2)
     and 17 inverted residual blocks; the final 1×1 1280-ch layer dropped."""
 
-    def __init__(self, compute_dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, compute_dtype: torch.dtype = torch.bfloat16,
+                 l2_normalize_output: bool = False):
         layers, cin = [_ConvBNReLU6(3, 32, 3, 2)], 32
         for t, ch, s in MBV2_BLOCKS:
             layers.append(_InvertedResidual(cin, ch, s, t))
             cin = ch
         super().__init__(*layers)
         self.compute_dtype = compute_dtype
+        self.l2_normalize_output = l2_normalize_output
 
     def forward(self, x: torch.Tensor, ops: LayerOps = PLAIN) -> torch.Tensor:
         cd = self.compute_dtype
         x = _nchw(x, cd)
         for m in self:
             x = m.run(x, cd, ops)
-        return _nhwc(x)
+        return nhwc_output(x, self.l2_normalize_output)
 
 
 class _BasicBlock(nn.Module):
@@ -179,7 +183,8 @@ class ResNet18Encoder(nn.Sequential):
     """torchvision resnet18 ``children()[:-2]``: conv1 (7×7/2), bn1, ReLU,
     max-pool (3/2, pad 1), layer1-layer4 of two BasicBlocks each."""
 
-    def __init__(self, compute_dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, compute_dtype: torch.dtype = torch.bfloat16,
+                 l2_normalize_output: bool = False):
         layers = [nn.Conv2d(3, 64, 7, 2, 3, bias=False), BatchNorm(64),
                   nn.ReLU(inplace=True), nn.MaxPool2d(3, 2, 1)]
         cin = 64
@@ -190,6 +195,7 @@ class ResNet18Encoder(nn.Sequential):
             cin = ch
         super().__init__(*layers)
         self.compute_dtype = compute_dtype
+        self.l2_normalize_output = l2_normalize_output
 
     def forward(self, x: torch.Tensor, ops: LayerOps = PLAIN) -> torch.Tensor:
         cd = self.compute_dtype
@@ -199,19 +205,21 @@ class ResNet18Encoder(nn.Sequential):
         for layer in list(self)[4:]:
             for block in layer:
                 x = block.run(x, cd, ops)
-        return _nhwc(x)
+        return nhwc_output(x, self.l2_normalize_output)
 
 
-def build_image_encoder(name: str, compute_dtype: torch.dtype) -> nn.Module:
+def build_image_encoder(name: str, compute_dtype: torch.dtype,
+                        l2_normalize_output: bool = False) -> nn.Module:
     """The encoder ``name`` with its conv weights channels-last in memory
     (loading and casting keep the layout), as its activations are: cuDNN
     then takes the weights as they are instead of reordering them on every
-    call."""
+    call. ``l2_normalize_output`` L2-normalises its output over channels."""
     cls = {"vgg16": VGG16Encoder, "alexnet": AlexNetEncoder,
            "mobilenet": MobileNetV2Encoder, "resnet18": ResNet18Encoder}
     if name not in cls:
         raise ValueError(f"unknown image encoder {name!r}")
-    return cls[name](compute_dtype).to(memory_format=torch.channels_last)
+    return cls[name](compute_dtype, l2_normalize_output).to(
+        memory_format=torch.channels_last)
 
 
 # ---------------------------------------------------------------------------

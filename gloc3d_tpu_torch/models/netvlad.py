@@ -6,7 +6,9 @@ normalisation, a K-major flatten, global L2, and the optional FC projection
 (``hidden1_weights``) and context gating. Parameter names and shapes are the
 reference torch model's: ``conv.weight (K, D, 1, 1)``, ``centroids (K, D)``,
 ``hidden1_weights (K·D, D)``, ``context_gating.gating_weights (D, D)`` with
-``context_gating.bn1``.
+``context_gating.bn1`` (or ``context_gating.gating_biases (D,)`` in a
+``GatingContext(add_batch_norm=False)``, which NetVLAD does not build, as
+in JAX).
 
 ``init_netvlad_params`` is the data-dependent centroid and assignment init
 that ``train/cluster.py`` runs before training.
@@ -23,20 +25,31 @@ import torch.nn.functional as F
 from gloc3d_tpu_torch.models.batchnorm import BatchNorm
 
 
-def _l2n(x: torch.Tensor) -> torch.Tensor:
+def l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    """``x`` L2-normalised over its last axis, as JAX's
+    ``x · rsqrt(Σx² + 1e-12)``."""
     return x * torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-12)
 
 
 class GatingContext(nn.Module):
-    """Context gating: sigmoid(BN(x·W)) ⊙ x."""
+    """Context gating: sigmoid(BN(x·W)) ⊙ x; with ``add_batch_norm=False``
+    sigmoid(x·W + b) ⊙ x, a learnt ``gating_biases (D,)`` in place of
+    ``bn1``."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, add_batch_norm: bool = True):
         super().__init__()
+        self.add_batch_norm = add_batch_norm
         self.gating_weights = nn.Parameter(torch.empty(dim, dim))
-        self.bn1 = BatchNorm(dim)  # batch = the descriptors: Flax's update
+        # batch = the descriptors: Flax's update
+        self.bn1 = BatchNorm(dim) if add_batch_norm else None
+        self.gating_biases = (None if add_batch_norm
+                              else nn.Parameter(torch.empty(dim)))
 
     def forward(self, x):
-        return x * torch.sigmoid(self.bn1(x @ self.gating_weights))
+        gates = x @ self.gating_weights
+        gates = (self.bn1(gates) if self.add_batch_norm
+                 else gates + self.gating_biases)
+        return x * torch.sigmoid(gates)
 
 
 class NetVLAD(nn.Module):
@@ -71,7 +84,7 @@ class NetVLAD(nn.Module):
         cd = self.compute_dtype
         x = x.reshape(b, -1, c).float()  # (B, HW, D)
         if self.normalize_input:
-            x = _l2n(x)
+            x = l2_normalize(x)
         w = self.conv.weight.reshape(self.num_clusters, c)
         logits = (x.to(cd) @ w.t().to(cd)).float()  # (B, HW, K)
         if self.conv.bias is not None:
@@ -84,8 +97,8 @@ class NetVLAD(nn.Module):
         """The descriptor from the two sums of ``sums``."""
         b, cd = weighted.shape[0], self.compute_dtype
         vlad = weighted - a_sum[..., None] * self.centroids[None]
-        vlad = _l2n(vlad)                   # intra-normalisation
-        vlad = _l2n(vlad.reshape(b, -1))    # K-major flatten, global L2
+        vlad = l2_normalize(vlad)           # intra-normalisation
+        vlad = l2_normalize(vlad.reshape(b, -1))  # K-major flatten, global L2
         if self.hidden1_weights is not None:
             vlad = (vlad.to(cd) @ self.hidden1_weights.to(cd)).float()
             if self.context_gating is not None:

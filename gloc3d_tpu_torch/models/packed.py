@@ -64,7 +64,7 @@ class PointPillarPacked(PointPillar):
     def forward(self, packed: torch.Tensor) -> torch.Tensor:
         feats = packed[..., :-2]
         ids = packed[..., -2].to(torch.int32)
-        x = self.pn(feats, packed[..., -1], self.compute_dtype)
+        x = self.pn(feats, packed[..., -1])
         gx, gy, gz = grid_shape(self.xbound, self.ybound, self.zbound)
         return self.bev_heads(scatter_mean_to_grid(x, ids, gx * gy * gz))
 

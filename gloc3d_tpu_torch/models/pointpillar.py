@@ -89,8 +89,9 @@ class PillarBlock(nn.Module):
     """num_layers × (3×3 conv + BN + ReLU); stride on the first conv only."""
 
     def __init__(self, cin: int, dims: int, num_layers: int, stride: int,
-                 fold_bn: bool):
+                 fold_bn: bool, compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        self.compute_dtype = compute_dtype
         mods = []
         for i in range(num_layers):
             mods += [_conv(cin if i == 0 else dims, dims,
@@ -98,10 +99,10 @@ class PillarBlock(nn.Module):
                      _bn(dims, fold_bn), nn.ReLU()]
         self.layers = nn.Sequential(*mods)
 
-    def forward(self, x, compute_dtype):
+    def forward(self, x):
         for i in range(0, len(self.layers), 3):
             x = conv_bn_act(x, self.layers[i], self.layers[i + 1], True,
-                            compute_dtype)
+                            self.compute_dtype)
         return x
 
 
@@ -109,18 +110,20 @@ class PointNet(nn.Module):
     """Per-point 1×1 conv + BN + ReLU, masked after."""
 
     def __init__(self, idims: int = POINT_FEATURES, odims: int = 64,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False,
+                 compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.pointnet = nn.Sequential(
             nn.Conv1d(idims, odims, 1, bias=fold_bn),
             nn.Identity() if fold_bn else BatchNorm(odims),
             nn.ReLU())
 
-    def forward(self, feats, mask, compute_dtype):
+    def forward(self, feats, mask):
+        cd = self.compute_dtype
         conv, bn = self.pointnet[0], self.pointnet[1]
-        bias = None if conv.bias is None else conv.bias.to(compute_dtype)
-        x = F.linear(feats.to(compute_dtype),
-                     conv.weight[:, :, 0].to(compute_dtype), bias).float()
+        bias = None if conv.bias is None else conv.bias.to(cd)
+        x = F.linear(feats.to(cd), conv.weight[:, :, 0].to(cd), bias).float()
         if not isinstance(bn, nn.Identity):
             b, n, c = x.shape
             x = bn(x.reshape(b * n, c)).reshape(b, n, c)
@@ -166,10 +169,10 @@ class PointPillar(nn.Module):
         self.compute_dtype = compute_dtype
         self.fold_bn = fold_bn
         self.mode = mode
-        self.pn = PointNet(POINT_FEATURES, 64, fold_bn)
-        self.block1 = PillarBlock(64, 64, 2, 1, fold_bn)
-        self.block2 = PillarBlock(64, 128, 3, 2, fold_bn)
-        self.block3 = PillarBlock(128, 256, 3, 2, fold_bn)
+        self.pn = PointNet(POINT_FEATURES, 64, fold_bn, compute_dtype)
+        self.block1 = PillarBlock(64, 64, 2, 1, fold_bn, compute_dtype)
+        self.block2 = PillarBlock(64, 128, 3, 2, fold_bn, compute_dtype)
+        self.block3 = PillarBlock(128, 256, 3, 2, fold_bn, compute_dtype)
         self.up1 = nn.Sequential(_conv(64, 64, 1, fold_bn), _bn(64, fold_bn),
                                  nn.ReLU())
         self.up2 = nn.Sequential(
@@ -218,7 +221,7 @@ class PointPillar(nn.Module):
             vox["point_centroids"],
             xyz - vox["voxel_centers"],
         ], dim=-1)
-        return self.pn(feats, vox["points_mask"], self.compute_dtype)
+        return self.pn(feats, vox["points_mask"])
 
     def bev_heads(self, pillar, mode=None):
         """(B, V, 64) pillar means → the CNN, the FPN and the heads of
@@ -233,9 +236,9 @@ class PointPillar(nn.Module):
         # x-major ravel: H = gx, W = gy (≙ torch view(B, C, gx, gy))
         x = pillar.reshape(pillar.shape[0], gx, gy, 64).permute(0, 3, 1, 2)
 
-        f1 = self.block1(x, cd)
-        f2 = self.block2(f1, cd)
-        f3 = self.block3(f2, cd)
+        f1 = self.block1(x)
+        f2 = self.block2(f1)
+        f3 = self.block3(f2)
         f1 = conv_bn_act(f1, self.up1[0], self.up1[1], True, cd)
         f2 = conv_bn_act(self.up2[0](f2), self.up2[1], self.up2[2], True, cd)
         f3 = conv_bn_act(self.up3[0](f3), self.up3[1], self.up3[2], True, cd)

@@ -17,7 +17,9 @@ stack in NHWC; the (B, 512, S/16, S/16) output is permuted back for NetVLAD.
 Convs run in ``compute_dtype`` (bf16 by default, as in JAX: each conv's
 output, bias included, is rounded to bf16), the result is float32. Every
 conv and max-pool goes through the forward's ``ops``
-(``models/layer_ops.py``), which the spatial partition replaces.
+(``models/layer_ops.py``), which the spatial partition replaces. With
+``l2_normalize_output`` the fp32 output is L2-normalised over channels
+(the reference's cluster mode appends an L2Norm, main.py:568).
 
 ``load_torchvision_npz`` loads the ImageNet backbone's ``.npz`` (the JAX
 package's layout, ``tools/convert_torch_checkpoint.py``) into an encoder.
@@ -37,6 +39,7 @@ import torch
 import torch.nn as nn
 
 from gloc3d_tpu_torch.models.layer_ops import PLAIN, LayerOps
+from gloc3d_tpu_torch.models.netvlad import l2_normalize
 
 # (channels, pool_before) for the 13 convs of VGG16-D
 VGG16_CFG = (
@@ -91,10 +94,19 @@ def load_torchvision_npz(encoder: "VGG16Encoder", npz_path: str
     return encoder
 
 
+def nhwc_output(x: torch.Tensor, l2_normalize_output: bool
+                ) -> torch.Tensor:
+    """An encoder's NCHW map → its NHWC float32 output, L2-normalised over
+    channels when ``l2_normalize_output``."""
+    x = x.float().permute(0, 2, 3, 1)
+    return l2_normalize(x) if l2_normalize_output else x
+
+
 class VGG16Encoder(nn.Sequential):
     """13-conv VGG16 feature extractor ending at conv5_3 (no ReLU / pool)."""
 
-    def __init__(self, compute_dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, compute_dtype: torch.dtype = torch.bfloat16,
+                 l2_normalize_output: bool = False):
         layers, cin = [], 3
         for i, (cout, pool) in enumerate(VGG16_CFG):
             if pool:
@@ -105,6 +117,7 @@ class VGG16Encoder(nn.Sequential):
             cin = cout
         super().__init__(*layers)
         self.compute_dtype = compute_dtype
+        self.l2_normalize_output = l2_normalize_output
 
     def forward(self, x: torch.Tensor, ops: LayerOps = PLAIN) -> torch.Tensor:
         cd = self.compute_dtype
@@ -116,4 +129,4 @@ class VGG16Encoder(nn.Sequential):
                 x = ops.max_pool(m, x)
             else:
                 x = m(x)
-        return x.float().permute(0, 2, 3, 1)
+        return nhwc_output(x, self.l2_normalize_output)

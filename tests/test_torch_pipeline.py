@@ -22,11 +22,13 @@ from gloc3d_tpu.config import (
     BEVConfig, IndexConfig, MatchConfig, ModelConfig, PipelineConfig,
     VoxelConfig,
 )
+from gloc3d_tpu.core.transforms import Rigid3 as JaxRigid3
 from gloc3d_tpu.eval.registration import compose_6dof as jax_compose
 from gloc3d_tpu.models import build_model as jax_build_model
 from gloc3d_tpu.pipeline import GlobalLocalizer as JaxLocalizer
 from gloc3d_tpu_torch import config as port_config
 from gloc3d_tpu_torch.convert import flax_to_state_dict
+from gloc3d_tpu_torch.core.transforms import Rigid3
 from gloc3d_tpu_torch.eval.registration import compose_6dof
 from gloc3d_tpu_torch.models.descriptor import build_model
 from gloc3d_tpu_torch.pipeline import GlobalLocalizer
@@ -112,6 +114,32 @@ def test_locate_matches_jax(localizers, q_pose):
         assert abs(dyaw) < 1e-3
         np.testing.assert_allclose(got.pose.rotation,
                                    np.asarray(want.pose.rotation), atol=1e-3)
+
+
+def test_result_pose_composes_as_in_jax(localizers):
+    """``LocalizationResult.pose`` holds numpy arrays, as JAX's does, and
+    the port's Rigid3 methods take it: ``to_matrix``, ``@ points``, ``@``
+    its inverse and ``from_matrix`` equal JAX's on the same numbers."""
+    _, port = localizers
+    pts, mask = scan_at(*QUERIES[1], n=N_PTS)
+    pose = port.locate(pts, mask).pose
+    assert isinstance(pose.rotation, np.ndarray)
+    assert isinstance(pose.translation, np.ndarray)
+    jpose = JaxRigid3(pose.rotation, pose.translation)
+    np.testing.assert_allclose(pose.to_matrix().numpy(),
+                               np.asarray(jpose.to_matrix()), atol=1e-6)
+    xyz = pts[mask > 0][:256, :3]
+    np.testing.assert_allclose((pose @ xyz).numpy(), np.asarray(jpose @ xyz),
+                               atol=1e-5)
+    ident = pose @ pose.inverse()
+    want = jpose @ jpose.inverse()
+    np.testing.assert_allclose(ident.rotation.numpy(),
+                               np.asarray(want.rotation), atol=1e-6)
+    np.testing.assert_allclose(ident.translation.numpy(),
+                               np.asarray(want.translation), atol=1e-5)
+    back = Rigid3.from_matrix(pose.to_matrix())
+    np.testing.assert_allclose(back.translation.numpy(), pose.translation,
+                               atol=1e-6)
 
 
 def test_compose_6dof_matches_jax():

@@ -18,12 +18,13 @@ from gloc3d_tpu.config import ModelConfig, VoxelConfig
 from gloc3d_tpu.data.native import compute_voxel_stats_host_sorted
 from gloc3d_tpu.models import build_model as jax_build_model
 from gloc3d_tpu.models.fold import fold_batch_norm as jax_fold
+from gloc3d_tpu.models.netvlad import GatingContext as JaxGatingContext
 from gloc3d_tpu.models.netvlad import NetVLAD as JaxNetVLAD
 from gloc3d_tpu_torch.convert import (
     flax_to_state_dict, fold_batch_norm, netvlad_state_dict,
 )
 from gloc3d_tpu_torch.models.descriptor import build_model, init_params
-from gloc3d_tpu_torch.models.netvlad import NetVLAD
+from gloc3d_tpu_torch.models.netvlad import GatingContext, NetVLAD
 from gloc3d_tpu_torch.models.pointpillar import _pad_same, conv_bn_act
 from test_pipeline import scan_at
 from test_torch_threads import _two_threads  # noqa: F401
@@ -193,11 +194,17 @@ def test_stride2_same_padding_trap():
 @pytest.mark.parametrize("vladv2,gating,normalize_input,use_fc", [
     (False, False, True, True), (True, False, True, True),
     (False, True, True, True), (False, False, False, False),
+    (False, "no_bn", True, True),
 ])
 def test_netvlad_variants_match_flax(vladv2, gating, normalize_input, use_fc):
+    """gating="no_bn": a ``GatingContext(add_batch_norm=False)`` (learnt
+    ``gating_biases``, no ``bn1``) on the FC output. JAX's NetVLAD builds
+    only the BN form, so both sides put the module on the gating-free
+    NetVLAD's output, its weights carried by ``netvlad_state_dict``."""
     k, d = 8, 16
     x = np.random.RandomState(1).randn(2, 5, 7, d).astype(np.float32)
-    ref = JaxNetVLAD(num_clusters=k, dim=d, vladv2=vladv2, gating=gating,
+    ref = JaxNetVLAD(num_clusters=k, dim=d, vladv2=vladv2,
+                     gating=gating is True,
                      normalize_input=normalize_input, use_fc=use_fc)
     variables = ref.init(jax.random.PRNGKey(3), jnp.asarray(x))
     if vladv2:  # non-zero assignment bias
@@ -205,14 +212,40 @@ def test_netvlad_variants_match_flax(vladv2, gating, normalize_input, use_fc):
         variables["params"]["conv_bias"] = np.linspace(
             -1, 1, k).astype(np.float32)
     want = np.asarray(ref.apply(variables, jnp.asarray(x)))
-    port = NetVLAD(num_clusters=k, dim=d, vladv2=vladv2, gating=gating,
+    port = NetVLAD(num_clusters=k, dim=d, vladv2=vladv2, gating=bool(gating),
                    normalize_input=normalize_input, use_fc=use_fc).eval()
+    if gating == "no_bn":
+        gate = JaxGatingContext(d, add_batch_norm=False)
+        g_vars = gate.init(jax.random.PRNGKey(4), jnp.asarray(want))
+        want = np.asarray(gate.apply(g_vars, jnp.asarray(want)))
+        variables = {"params": {**variables["params"],
+                                "context_gating": g_vars["params"]}}
+        port.context_gating = GatingContext(d, add_batch_norm=False)
+        assert port.context_gating.bn1 is None
     port.load_state_dict(netvlad_state_dict(
         variables["params"], variables.get("batch_stats")))
     with torch.no_grad():
         got = port(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+
+
+def test_gating_without_batch_norm_init_and_names():
+    """``GatingContext(add_batch_norm=False)`` holds JAX's two parameters
+    under their names, and ``init_params`` draws both as JAX's init does,
+    normal with std 1/sqrt(D)."""
+    d = 256
+    g_vars = JaxGatingContext(d, add_batch_norm=False).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, d)))
+    port = init_params(GatingContext(d, add_batch_norm=False), seed=3)
+    sd = port.state_dict()
+    assert sorted(sd) == sorted(g_vars["params"]) == ["gating_biases",
+                                                       "gating_weights"]
+    for name in sd:
+        assert sd[name].shape == g_vars["params"][name].shape
+        std = float(sd[name].std())
+        assert abs(std * np.sqrt(d) - 1.0) < (0.02 if sd[name].ndim == 2
+                                              else 0.2), (name, std)
 
 
 @pytest.mark.parametrize("pooling", ["max", "avg"])

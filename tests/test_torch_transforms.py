@@ -177,3 +177,129 @@ def test_registration_errors_match_jax():
                       jt.Rigid3(jnp.asarray(gt_q), jnp.asarray(gt_t)))
     _close(got[0], want[0], atol=4e-6)
     _close(got[1], want[1], atol=2e-3)  # degrees through arccos near ±1
+
+
+def _rigid3(n, seed):
+    """(q, t) numpy: n rotations and translations, or one when n is None."""
+    q, t = _quats(n or 1, seed), _rand((n or 1, 3), seed + 1) * 10
+    return (q, t) if n else (q[0], t[0])
+
+
+@pytest.mark.parametrize("n", [8, None], ids=["batched", "single"])
+def test_rigid3_identity_matrices_and_matmul_match_jax(n):
+    """identity, to_matrix, from_matrix and __matmul__ against JAX, batched
+    (8, 4, 4) and single; from_matrix(to_matrix(x)) gives x back."""
+    (qa, ta), (qb, tb) = _rigid3(n, 20), _rigid3(n, 22)
+    pts = _rand((n or 1, 3), 24)[0 if n is None else slice(None)]
+    a_t = tt.Rigid3(torch.from_numpy(qa), torch.from_numpy(ta))
+    b_t = tt.Rigid3(torch.from_numpy(qb), torch.from_numpy(tb))
+    a_j = jt.Rigid3(jnp.asarray(qa), jnp.asarray(ta))
+    b_j = jt.Rigid3(jnp.asarray(qb), jnp.asarray(tb))
+
+    m_t, m_j = a_t.to_matrix(), a_j.to_matrix()
+    assert m_t.shape == m_j.shape == (n,) * bool(n) + (4, 4)
+    assert m_t.dtype == torch.float32
+    _close(m_t, m_j)
+    back_t = tt.Rigid3.from_matrix(m_t)
+    back_j = jt.Rigid3.from_matrix(jnp.asarray(m_t.numpy()))
+    _close(back_t.rotation, back_j.rotation, atol=2e-6)
+    _close(back_t.translation, back_j.translation, atol=4e-6)
+    # the round trip: the same rotation (q or -q) and translation
+    np.testing.assert_allclose(np.abs((back_t.rotation.numpy() * qa).sum(-1)),
+                               1.0, atol=2e-6)
+    _close(back_t.translation, ta, atol=4e-6)
+
+    for got, want in ((a_t @ b_t, a_j @ b_j), (a_t @ a_t.inverse(),
+                                                 a_j @ a_j.inverse())):
+        _close(got.rotation, want.rotation)
+        _close(got.translation, want.translation, atol=4e-6)
+    _close(a_t @ torch.from_numpy(pts), a_j @ jnp.asarray(pts), atol=4e-6)
+
+    for dtype in (torch.float32, torch.float64):
+        i3 = tt.Rigid3.identity(dtype)
+        j3 = jt.Rigid3.identity()
+        assert i3.rotation.dtype == i3.translation.dtype == dtype
+        _close(i3.rotation, j3.rotation)
+        _close(i3.translation, j3.translation)
+        i2, j2 = tt.Rigid2.identity(dtype), jt.Rigid2.identity()
+        assert i2.angle.shape == () and i2.translation.shape == (2,)
+        assert i2.angle.dtype == dtype
+        _close(i2.angle, j2.angle)
+        _close(i2.translation, j2.translation)
+    ident = tt.Rigid3.identity() @ a_t
+    _close(ident.rotation, qa)
+    _close(ident.translation, ta, atol=4e-6)
+
+
+def _numpy_case(name):
+    """(port result, JAX result) of ``name`` called on numpy-held fields and
+    numpy operands, the same numpy on both sides."""
+    qa, ta = _rigid3(8, 30)
+    qb, tb = _rigid3(8, 32)
+    pts = _rand((8, 3), 34)
+    ang, t2, p2 = _rand((8,), 35), _rand((8, 2), 36), _rand((8, 2), 37)
+    a_t, a_j = tt.Rigid3(qa, ta), jt.Rigid3(qa, ta)
+    b_t, b_j = tt.Rigid3(qb, tb), jt.Rigid3(qb, tb)
+    r_t, r_j = tt.Rigid2(ang, t2), jt.Rigid2(ang, t2)
+    s_t, s_j = tt.Rigid2(ang[::-1], t2[::-1]), jt.Rigid2(ang[::-1], t2[::-1])
+    one_t, one_j = tt.Rigid3(qa[0], ta[0]), jt.Rigid3(qa[0], ta[0])
+    return {
+        "compose": lambda: (a_t.compose(b_t), a_j.compose(b_j)),
+        "inverse": lambda: (a_t.inverse(), a_j.inverse()),
+        "apply": lambda: (a_t.apply(pts), a_j.apply(pts)),
+        "to_matrix": lambda: (a_t.to_matrix(), a_j.to_matrix()),
+        "from_matrix": lambda: (
+            tt.Rigid3.from_matrix(np.asarray(a_j.to_matrix())),
+            jt.Rigid3.from_matrix(np.asarray(a_j.to_matrix()))),
+        "matmul_points": lambda: (a_t @ pts, a_j @ pts),
+        "matmul_rigid3": lambda: (a_t @ b_t, a_j @ b_j),
+        "rigid2_compose": lambda: (r_t.compose(s_t), r_j.compose(s_j)),
+        "rigid2_inverse": lambda: (r_t.inverse(), r_j.inverse()),
+        "rigid2_apply": lambda: (r_t.apply(p2), r_j.apply(p2)),
+        "project_2d": lambda: (tt.project_2d(a_t), jt.project_2d(a_j)),
+        "embed_3d": lambda: (tt.embed_3d(r_t), jt.embed_3d(r_j)),
+        "transform_points": lambda: (tt.transform_points(one_t, pts),
+                                     jt.transform_points(one_j, pts)),
+    }[name]()
+
+
+@pytest.mark.parametrize("name", [
+    "compose", "inverse", "apply", "to_matrix", "from_matrix",
+    "matmul_points", "matmul_rigid3", "rigid2_compose", "rigid2_inverse",
+    "rigid2_apply", "project_2d", "embed_3d", "transform_points"])
+def test_methods_take_numpy_fields_as_jax_does(name):
+    """Results hold numpy poses (LocalizationResult.pose): every method and
+    project_2d / embed_3d / transform_points takes numpy fields and
+    operands, as JAX's do, and returns tensors equal to JAX's."""
+    got, want = _numpy_case(name)
+    # quaternions from matrices 2e-6, translations and points 4e-6
+    tol = {"from_matrix": (2e-6, 4e-6)}.get(name, (ATOL, 4e-6))
+    if isinstance(want, tuple):
+        assert type(got).__name__ == type(want).__name__
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert isinstance(g, torch.Tensor)
+            _close(g, w, atol=tol[min(i, 1)])
+    else:
+        assert isinstance(got, torch.Tensor)
+        _close(got, want, atol=tol[0] if name == "to_matrix" else tol[1])
+
+
+def test_numpy_fields_follow_the_tensor_operand():
+    """A numpy field keeps its dtype and takes the tensor operand's device
+    (the CPU here; the card in chip_smoke.py's [surface] phase); a numpy
+    operand goes to the fields' device. Views torch cannot share (reversed,
+    read-only) are copied."""
+    qa, ta = _rigid3(None, 40)
+    q64, t64 = qa.astype(np.float64), ta.astype(np.float64)
+    pts = _rand((5, 3), 41).astype(np.float64)
+    got = tt.Rigid3(q64, t64) @ torch.from_numpy(pts)
+    assert got.dtype == torch.float64 and got.device == torch.device("cpu")
+    _close(got, jt.Rigid3(qa, ta) @ pts.astype(np.float32), atol=4e-6)
+    t = tt.Rigid3(torch.from_numpy(qa), torch.from_numpy(ta))
+    assert (t @ pts.astype(np.float32)).dtype == torch.float32
+    m = tt.Rigid3(q64, t64).to_matrix()
+    assert m.dtype == torch.float64
+    np.testing.assert_array_equal(m[3].numpy(), [0, 0, 0, 1])
+    ro = pts.astype(np.float32)[::-1]
+    ro.flags.writeable = False
+    _close(t @ ro, jt.Rigid3(qa, ta) @ ro, atol=4e-6)
