@@ -332,6 +332,22 @@ Phases, each printing its own lines:
      (features within 1e-5 card vs CPU, norms within 1e-5 of 1) and
      GatingContext(512, add_batch_norm=False) within 1e-6 card vs CPU,
      fp32 with TF32 off.
+ 30. [batched], after phase 8: locate_batch registers each stage in one
+     matcher call over the batch (B queries x K candidates) and _align
+     estimates every scan's ground in one call. On the host-stats map of
+     phase 5 and the aligned map of phase 6 (bf16, default matcher) and
+     their fp32 twins: locate_batch of the 8 queries = 8 locate calls in
+     fp32 (same_results, the aligned ones on the same ground draws; in
+     bf16 a batch of 8 and of 1 may round the descriptors apart and swap
+     near-tied candidates, which is printed, not gated), and in bf16 its
+     registration = the one-query registration on one extraction; ms per
+     query of the batch
+     and of the single calls (host clock, median of 5), kernels per call
+     (torch.profiler), host syncs per call, and K1 / K2 launches of one
+     batch (not counted in the kernels line); the ground of 16 aligned
+     keyframe scans in one call against 16 B = 1 calls on the same draws
+     (same valid, transforms within 1e-6), with times and kernels; the
+     device memory peak of unstaged locate_batch at B = 8, K = 20.
 The kernel-only times of phase 17 come from complete traces only (every
 device operation of every traced call, memsets included: K1 launches two
 kernels and a memset a call, K2 four kernels); a timing with none in six
@@ -347,6 +363,7 @@ current one, in the order earlier, current, current, earlier.
 `python3 chip_smoke.py --device-sort` phases 1, 2 and 28 only;
 `python3 chip_smoke.py --surface` phases 1, 2, 6 and 29 only;
 `python3 chip_smoke.py --spatial` phases 1, 2 and 27 only;
+`python3 chip_smoke.py --batched` phases 1, 2, 5, 6 and 30 only;
 `--i2i-train`, `--pose-train` and `--packed` run phases 1, 2 and the
 phase (or phases) named, alone;
 `--seed N` seeds the map-scale rows (default 0).
@@ -1833,8 +1850,8 @@ def phase_fused_cell(torch, cfg, centroids, card):
         if label != "host stats":
             continue
         flat_ms = (t[0], t[3])
-        q_img = torch.as_tensor(bev.image[0], device=dev)
-        q_org = torch.as_tensor(bev.origin_xy[0], device=dev)
+        q_img = torch.as_tensor(bev.image[:1], device=dev)
+        q_org = torch.as_tensor(bev.origin_xy[:1], device=dev)
         configs = [(name, mcfg, k) for name, mcfg in (
             ("fm preset", fcfg.match), ("default matcher", cfg.match))
             for k in (1, cfg.index.top_k)]
@@ -1842,13 +1859,14 @@ def phase_fused_cell(torch, cfg, centroids, card):
         for order in (configs, configs[::-1]):
             for name, mcfg, k in order:
                 loc.cfg = fcfg.replace(match=mcfg)
-                idx = torch.full((k,), jrow, dtype=torch.long, device=dev)
+                idx = torch.full((1, k), jrow, dtype=torch.long,
+                                 device=dev)
                 times[name, k].append(cuda_ms(
                     torch, lambda: loc._match(q_img, q_org, idx), 20))
         parts = []
         for name, mcfg, k in configs:
             loc.cfg = fcfg.replace(match=mcfg)
-            idx = torch.full((k,), jrow, dtype=torch.long, device=dev)
+            idx = torch.full((1, k), jrow, dtype=torch.long, device=dev)
             busy, _, n_k, _ = device_idle_share(
                 torch, lambda: loc._match(q_img, q_org, idx))
             a, b = times[name, k]
@@ -1893,6 +1911,235 @@ def phase_fused_reference(torch, cfg, lq_set, centroids,
               f"{math.degrees(fine_bin):.2f} deg)")
         check(dxy <= cell + 1e-3 and dyaw <= fine_bin + 1e-4,
               "card pose disagrees with the CPU pose")
+
+
+# ---------------------------------------------------------------- [batched]
+BATCH_GROUND = 16  # aligned scans in one batched ground call
+GROUND_TOL = 1e-6  # batched ground transforms against the B = 1 calls
+
+
+def stacked(scans):
+    """(points (B, N, 4), masks (B, N)) of a list of (points, mask)."""
+    return (np.stack([s[0] for s in scans]), np.stack([s[1] for s in scans]))
+
+
+def registration_results(loc, detected, batched: bool):
+    """locate_batch's registration on one extraction of the batch
+    (``detected``, what ``loc.detect`` returned): one ``_register`` call
+    over the batch, or one ``_staged`` call per query (locate's). The
+    LocalizationResults of each."""
+    from gloc3d_tpu_torch.ops.bev_match import MatchResult
+
+    d2, idx, bev, ground = detected
+    idx = np.clip(idx, 0, len(loc.keyframes) - 1)
+    if batched:
+        res = loc._register(bev.image, bev.origin_xy, idx)
+        lanes = [MatchResult(*(x[q] for x in res)) for q in range(len(idx))]
+    else:
+        lanes = [loc._staged(bev.image[q], bev.origin_xy[q], idx[q])
+                 for q in range(len(idx))]
+    return [loc._result(lane, idx[q], d2[q], ground, q)
+            for q, lane in enumerate(lanes)]
+
+
+def entry_point_results(loc, qs, seed: int):
+    """locate_batch of the queries and one locate per query, each starting
+    the localizer's generator from ``seed`` (an aligned map then draws the
+    same ground samples for each scan in both)."""
+    pts, masks = stacked(qs)
+    loc._gen.manual_seed(seed)
+    batch = loc.locate_batch(pts, masks)
+    loc._gen.manual_seed(seed)
+    return batch, [loc.locate(*q) for q in qs]
+
+
+def batched_ground(torch, loc, scans, card):
+    """The batched ground estimate of ``scans`` against one B = 1 call per
+    scan on the same draws: same ``valid``, transforms within GROUND_TOL;
+    the time per scan and the kernels of each."""
+    pts, masks = stacked(scans)
+    p_d = torch.from_numpy(pts).cuda()
+    m_d = torch.from_numpy(masks).cuda()
+    b = len(scans)
+
+    def batch():
+        loc._gen.manual_seed(1234)
+        return loc._align(p_d, m_d)[1]
+
+    def single():
+        loc._gen.manual_seed(1234)
+        return [loc._align(p_d[i:i + 1], m_d[i:i + 1])[1] for i in range(b)]
+
+    with torch.no_grad():
+        got, want = batch(), single()
+        valid = [bool(w.valid[0]) for w in want]
+        check([bool(v) for v in got.valid.cpu()] == valid,
+              f"[batched] ground valid {got.valid.tolist()} / {valid}")
+        err = max(float((getattr(got.transform, f)[i]
+                         - getattr(w.transform, f)[0]).abs().max())
+                  for i, w in enumerate(want)
+                  for f in ("rotation", "translation"))
+        check(err <= GROUND_TOL, f"[batched] batched ground transforms "
+              f"differ from the B = 1 calls by {err:.3e}")
+        t = [host_ms(torch, f, 5) / b for f in (batch, single, single, batch)]
+        n_batch = device_idle_share(torch, batch)[2]
+        n_single = device_idle_share(torch, single)[2]
+    print(f"[batched] ground: {b} aligned scans in one estimate_ground_batch"
+          f" call = {b} B = 1 calls ({sum(valid)} valid in both; rotation and"
+          f" translation max |diff| {err:.3e}, bound {GROUND_TOL}); on "
+          f"{card}: {t[0]:.3f} / {t[3]:.3f} ms per scan batched, "
+          f"{t[1]:.3f} / {t[2]:.3f} ms per scan one call each (host clock "
+          f"around a CUDA sync, median of 5, in the order batch, single, "
+          f"single, batch; the draws and the rotation included); kernels "
+          f"(torch.profiler) {n_batch} for the batch, {n_single} for the "
+          f"{b} calls")
+    return dict(scans=b, max_diff=err, ms_per_scan_batch=[t[0], t[3]],
+                ms_per_scan_single=[t[1], t[2]], kernels_batch=n_batch,
+                kernels_single=n_single)
+
+
+def extraction_spread(torch, loc, qs, seed: int):
+    """The batch's extraction against one extraction per query on the same
+    draws: the largest descriptor difference and the candidate ranks that
+    differ (bf16 convolutions may round a batch of 8 and a batch of 1
+    apart)."""
+    pts, masks = stacked(qs)
+    with torch.no_grad():
+        loc._gen.manual_seed(seed)
+        desc, _, _ = loc.extract(pts, masks)
+        d_b, i_b = loc.bank.query(desc, k=loc.cfg.index.top_k)
+        loc._gen.manual_seed(seed)
+        ones = [loc.extract(q[0][None], q[1][None])[0] for q in qs]
+    i_s = np.concatenate([loc.bank.query(d, k=loc.cfg.index.top_k)[1]
+                          for d in ones])
+    diff = float((desc.float() - torch.cat(ones).float()).abs().max())
+    return diff, int((np.asarray(i_b) != i_s).sum())
+
+
+def batched_map(torch, cfg, tag, loc, loc32, qs, card):
+    """[batched] on one map: the registration of locate_batch held to
+    locate's on one extraction (bf16), the entry points held to each other
+    (fp32: in bf16 the batch of 8 and the batch of 1 may round the
+    descriptors apart and reorder near-tied candidates, as phases 9 and 23
+    found), and per-query times, kernels and host syncs of both (bf16)."""
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+
+    b = len(qs)
+    pts, masks = stacked(qs)
+    with torch.no_grad():
+        detected = loc.detect(pts, masks)
+        d_reg = same_results(f"[batched] {tag} registration, batch vs one "
+                             "query", registration_results(loc, detected,
+                                                           True),
+                             registration_results(loc, detected, False))
+    batch, single = entry_point_results(loc32, qs, seed=77)
+    d_entry = same_results(f"[batched] {tag} fp32 locate_batch vs locate",
+                           batch, single)
+    d_desc, swaps = extraction_spread(torch, loc, qs, seed=77)
+
+    def run_batch():
+        return loc.locate_batch(pts, masks)
+
+    def run_single():
+        return [loc.locate(*q) for q in qs]
+
+    t = [host_ms(torch, f, 5) / b
+         for f in (run_batch, run_single, run_single, run_batch)]
+    ss.segment_sum_sorted.launches = bs.pillar_bin_sums.launches = 0
+    run_batch()
+    k12 = (ss.segment_sum_sorted.launches, bs.pillar_bin_sums.launches)
+    n_batch = device_idle_share(torch, run_batch)[2]
+    n_single = device_idle_share(torch, run_single)[2]
+    with torch.no_grad():
+        _, idx, bev, _ = loc.detect(pts, masks)
+    idx = np.clip(idx, 0, len(loc.keyframes) - 1)
+    reg_batch = device_idle_share(torch, lambda: loc._register(
+        bev.image, bev.origin_xy, idx))[2]
+    reg_single = device_idle_share(torch, lambda: [loc._staged(
+        bev.image[q], bev.origin_xy[q], idx[q]) for q in range(b)])[2]
+    syncs = (count_syncs(torch, run_batch), count_syncs(torch, run_single))
+    n_ok = sum(r.success for r in batch)
+    print(f"[batched] {tag} map, default matcher, staged first: fp32 "
+          f"locate_batch of {b} = {b} locate calls (success, keyframe and "
+          f"ranked candidates equal, (dx, dy, yaw) max |diff| "
+          f"{d_entry:.2e}); bf16: locate_batch's registration = locate's on "
+          f"one extraction ({n_ok} localized, max |diff| {d_reg:.2e}); bound "
+          f"1e-4. bf16 extraction of the batch against one per query: "
+          f"descriptors max |diff| {d_desc:.2e}, {swaps} of "
+          f"{b * cfg.index.top_k} candidate ranks differ (not gated)")
+    print(f"[batched] {tag} on {card}: locate_batch {t[0]:.3f} / {t[3]:.3f} "
+          f"ms per query, locate {t[1]:.3f} / {t[2]:.3f} ms per query (host "
+          f"clock around a CUDA sync, median of 5, in the order batch, "
+          f"single, single, batch); kernels (torch.profiler) per call: "
+          f"locate_batch of {b} {n_batch}, locate {n_single / b:.1f}; "
+          f"registration alone: one _register over the batch {reg_batch}, "
+          f"{b} _staged calls {reg_single}; host syncs "
+          f"(set_sync_debug_mode): locate_batch {syncs[0]}, {b} locate "
+          f"calls {syncs[1]}; K1 / K2 launches of one locate_batch "
+          f"{k12[0]} / {k12[1]}")
+    return dict(queries=b, localized=n_ok, max_diff_entry=d_entry,
+                max_diff_registration=d_reg, bf16_desc_diff=d_desc,
+                bf16_rank_swaps=swaps, ms_per_query_batch=[t[0], t[3]],
+                ms_per_query_single=[t[1], t[2]], kernels_batch=n_batch,
+                kernels_single=n_single, kernels_register_batch=reg_batch,
+                kernels_staged_single=reg_single, syncs_batch=syncs[0],
+                syncs_single=syncs[1], k1_k2_batch=list(k12))
+
+
+def unstaged_peak(torch, cfg, loc, qs, card):
+    """The device memory peak of unstaged locate_batch over the queries at
+    K = top_k, the default matcher: the worst case of the evaluator's
+    batch, every query registered against all its candidates in one
+    call."""
+    pts, masks = stacked(qs)
+    loc.cfg = cfg.replace(match=cfg.match.replace(staged_first=False))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loc.locate_batch(pts, masks)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        loc.cfg = cfg
+        torch.cuda.empty_cache()
+    print(f"[batched] unstaged locate_batch, B = {len(qs)}, K = "
+          f"{cfg.index.top_k}, default matcher, on {card}: device memory "
+          f"peak {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB "
+          f"above the {base / 2**30:.2f} GiB held before; "
+          f"torch.cuda.max_memory_allocated), one call {ms:.1f} ms")
+    return dict(peak_gib=peak / 2**30, above_gib=(peak - base) / 2**30,
+                ms=ms)
+
+
+def phase_batched(torch, cfg, centroids, lq_set, kf_set, q_set, loc, a_loc,
+                  card):
+    """[batched]: locate_batch registers each stage in one call over the
+    batch and _align estimates every scan's ground in one call. On the
+    host-stats map of phase 5 and the aligned map of phase 6 (bf16, full
+    width) and their fp32 twins: the entry points and the registration held
+    to the one-query calls, the batched ground transforms of BATCH_GROUND
+    aligned scans held to the B = 1 calls, times, kernels and host syncs,
+    and the memory peak of the worst case."""
+    t_phase = time.perf_counter()
+    (_, kf), (_, qs) = lq_set
+    model32 = build_serving_model(torch, cfg, "float32", centroids)
+    loc32 = build_map(torch, cfg, model32, kf, host_stats=True)
+    a_loc32 = build_map(torch, cfg, model32, kf_set[2], align_ground=True)
+    out = {"host-stats": batched_map(torch, cfg, "host-stats", loc, loc32,
+                                     qs, card),
+           "aligned": batched_map(torch, cfg, "aligned", a_loc, a_loc32,
+                                  q_set[2], card),
+           "ground": batched_ground(torch, a_loc,
+                                    kf_set[2][:BATCH_GROUND], card),
+           "unstaged_peak": unstaged_peak(torch, cfg, loc, qs, card)}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[batched] phase wall time {out['seconds']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------- map scale
@@ -3480,8 +3727,8 @@ def phase_aligned_timing(torch, cfg, loc, qs, card):
         topk = cuda_ms(torch, lambda: l2_topk(desc, loc.bank.data,
                                               cfg.index.top_k), 10)
         bev = batch_scan_to_bev(aligned[..., :3], m_d, cfg.bev)
-    reg = cuda_ms(torch, lambda: loc._match(bev.image[0], bev.origin_xy[0],
-                                            np.zeros(1, np.int64)), 5)
+    reg = cuda_ms(torch, lambda: loc._match(bev.image[:1], bev.origin_xy[:1],
+                                            np.zeros((1, 1), np.int64)), 5)
     print(f"[timing-aligned] stages of one scan on {card} (CUDA events "
           f"around each call, host gaps included): ground estimate + "
           f"alignment {ground:.3f} ms; device BEV {bev_ms:.3f} ms; K2 "
@@ -3547,10 +3794,10 @@ def phase_timing(torch, cfg, loc, kf, qs, card):
     locate = host_ms(torch, lambda: [loc.locate(*q) for q in qs], 3) / len(qs)
     _, _, bev, _ = loc.detect(qs[0][0][None], qs[0][1][None])
     rows = np.arange(cfg.index.top_k) % len(loc.keyframes)
-    m1 = cuda_ms(torch, lambda: loc._match(bev.image[0], bev.origin_xy[0],
-                                           rows[:1]), 5)
-    mk = cuda_ms(torch, lambda: loc._match(bev.image[0], bev.origin_xy[0],
-                                           rows), 3)
+    m1 = cuda_ms(torch, lambda: loc._match(bev.image[:1], bev.origin_xy[:1],
+                                           rows[None, :1]), 5)
+    mk = cuda_ms(torch, lambda: loc._match(bev.image[:1], bev.origin_xy[:1],
+                                           rows[None]), 3)
     print(f"[timing] located query (16 keyframes, staged first) on {card}: "
           f"{locate:.3f} ms per query (host clock, {len(qs)} queries x 3); "
           f"registration K=1 {m1:.3f} ms, K={cfg.index.top_k} {mk:.3f} ms "
@@ -3711,8 +3958,8 @@ def phase_i2i_aligned(torch, cfg, model, kf_set, q_set, card):
         desc = loc.model(img)
         topk = cuda_ms(torch, lambda: l2_topk(desc, loc.bank.data,
                                               cfg.index.top_k), 10)
-    reg = cuda_ms(torch, lambda: loc._match(bev.image[0], bev.origin_xy[0],
-                                            np.zeros(1, np.int64)), 5)
+    reg = cuda_ms(torch, lambda: loc._match(bev.image[:1], bev.origin_xy[:1],
+                                            np.zeros((1, 1), np.int64)), 5)
     busy, wall, n_k, by_class = device_idle_share(
         torch, lambda: loc.locate(*qs[1]))
     print(f"[i2i-aligned] aligned i2i locate ({len(kf_set[2])} keyframes, "
@@ -6876,6 +7123,18 @@ def main(argv) -> int:
         print(json.dumps({"card": card, "surface": phase_surface(
             torch, a_results, q_set[2], card)}))
         return 0
+    if "--batched" in argv:
+        kf_set, q_set = aligned_world_scans(world, cfg.voxel.max_points)
+        phase_build()
+        centroids = vlad_centroids(torch, cfg, kf_set[2][:4])
+        lq_set = located_world_scans(world, cfg.voxel.max_points)
+        loc, _, _, _ = phase_located_query(torch, cfg, lq_set, centroids)
+        model = build_serving_model(torch, cfg, "bfloat16", centroids)
+        a_loc, _, _ = phase_aligned_query(torch, cfg, model, kf_set, q_set)
+        print(json.dumps({"card": card, "batched": phase_batched(
+            torch, cfg, centroids, lq_set, kf_set, q_set, loc, a_loc,
+            card)}))
+        return 0
     if "--dp" in argv:
         phase_build()
         lq_set = located_world_scans(world, cfg.voxel.max_points)
@@ -6917,6 +7176,8 @@ def main(argv) -> int:
                                         centroids, card)
     print(json.dumps({"card": card, "device_sort": dsort}))
 
+    print(json.dumps({"card": card, "batched": phase_batched(
+        torch, cfg, centroids, lq_set, kf_set, q_set, loc, a_loc, card)}))
     k1_fused, k2_fused = phase_fused_query(torch, cfg, lq_set, kf_set, q_set,
                                            centroids)
     flat_ms = phase_fused_cell(torch, cfg, centroids, card)

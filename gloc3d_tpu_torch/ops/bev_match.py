@@ -22,9 +22,11 @@ included:
 Output contract: metric (dx, dy, yaw) taking query points to db points, a
 normalised correlation score, and the score / overlap accept gate.
 
-The candidate axis is a batch dimension here. The JAX package's
-``optimization_barrier`` calls and its ``lax.map`` FFT batch chunking are
-XLA workarounds and are not ported.
+The query and candidate axes are batch dimensions here: one call registers
+B queries against K candidates each, as ``jax.vmap(match_bev_topk)`` does
+in the JAX package, and the one-query call is its B = 1 case. The JAX
+package's ``optimization_barrier`` calls and its ``lax.map`` FFT batch
+chunking are XLA workarounds and are not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gloc3d_tpu_torch.core.device import device_constant
 from gloc3d_tpu_torch.ops.bev import BEVImage
 
 
@@ -85,7 +88,8 @@ def _embed(img: torch.Tensor, pad: int) -> torch.Tensor:
 
 def _phase(n: int, k: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     """exp(−2πi/n · k · shift) in complex64, k and shift broadcast."""
-    ang = (torch.tensor(-2.0 * math.pi / n, device=k.device) * k) * shift
+    ang = (device_constant(-2.0 * math.pi / n, torch.float32, k.device)
+           * k) * shift
     return torch.polar(torch.ones_like(ang), ang)
 
 
@@ -105,19 +109,21 @@ def _shear_x_fft(img: torch.Tensor, s: torch.Tensor, center=None
 
 def _rotate_image_shear(img: torch.Tensor, angles: torch.Tensor
                         ) -> torch.Tensor:
-    """Rotate (B, S, S) images about their centres, image b by angles[b]
-    (or one image, B = 1, by every angle) → (R, S, S).
+    """Rotate (..., S, S) images about their centres, each by its own
+    angles (..., R) → (..., R, S, S); the leading axes match.
 
     Exact 90° steps by ``rot90`` plus the residual (|θ| ≤ 45°) as three FFT
     shears on a √2-sized canvas, then cropped and clipped to [0, 1]."""
     s = img.shape[-1]
+    lead = img.shape[:-2]
     pad = _good_fft_size(int(math.ceil(s * math.sqrt(2.0))) + 2)
     while (pad - s) % 2:  # exact centre alignment needs even (pad − s)
         pad = _good_fft_size(pad + 1)
     off = (pad - s) // 2
-    r = angles.shape[0]
-    canvas = img.new_zeros(img.shape[:-2] + (pad, pad))
-    canvas[..., off : off + s, off : off + s] = img
+    img = img.reshape((-1, s, s))
+    angles = angles.reshape((img.shape[0], -1))            # (L, R)
+    canvas = img.new_zeros((img.shape[0], pad, pad))
+    canvas[:, off : off + s, off : off + s] = img
 
     quarter = math.pi / 2.0
     turns = torch.round(angles / quarter)
@@ -128,24 +134,25 @@ def _rotate_image_shear(img: torch.Tensor, angles: torch.Tensor
     rots = torch.stack([canvas,
                         torch.rot90(canvas, -1, dims=(-2, -1)),
                         torch.rot90(canvas, 2, dims=(-2, -1)),
-                        torch.rot90(canvas, 1, dims=(-2, -1))])
-    which = (torch.arange(r, device=img.device) if canvas.shape[0] == r
-             else torch.zeros(r, dtype=torch.long, device=img.device))
-    base = rots[k90, which]                                 # (R, pad, pad)
+                        torch.rot90(canvas, 1, dims=(-2, -1))], 1)
+    which = torch.arange(img.shape[0], device=img.device)[:, None]
+    base = rots[which, k90]                                 # (L, R, pad, pad)
     a = -torch.tan(residual / 2.0)
     b = torch.sin(residual)
     out = _shear_x_fft(_shear_x_fft(base, a).transpose(-1, -2), b
                        ).transpose(-1, -2)
     out = _shear_x_fft(out, a)
-    return out[..., off : off + s, off : off + s].clamp(0.0, 1.0)
+    out = out[..., off : off + s, off : off + s].clamp(0.0, 1.0)
+    return out.reshape(lead + out.shape[1:])
 
 
 def _fan_rfft2(img: torch.Tensor, angles: torch.Tensor, pad: int,
                max_abs: float) -> torch.Tensor:
-    """``conj(rfft2(``small-angle rotation fan of (S, S) ``img`` on a
-    (pad, pad) top-left canvas``))`` → (R, pad, pad//2+1) complex64, with
-    the shear FFTs fused into the correlation FFT (see the JAX docstring
-    for the guard band that keeps the circular wrap out)."""
+    """``conj(rfft2(``small-angle rotation fan of (..., S, S) ``img`` on a
+    (pad, pad) top-left canvas``))`` → (..., R, pad, pad//2+1) complex64,
+    every image by the same R ``angles``, with the shear FFTs fused into
+    the correlation FFT (see the JAX docstring for the guard band that
+    keeps the circular wrap out)."""
     s = img.shape[-1]
     n = pad
     dev = img.device
@@ -157,12 +164,12 @@ def _fan_rfft2(img: torch.Tensor, angles: torch.Tensor, pad: int,
     keep = ((ar < guard)[:, None] & (ar < guard - drift3)[None, :]).float()
     k = torch.arange(n // 2 + 1, device=dev, dtype=torch.float32)
     y = ar.float() - c
-    z0 = torch.fft.rfft(canvas, dim=-1)                     # shared
+    z0 = torch.fft.rfft(canvas, dim=-1)[..., None, :, :]    # shared
     a = -torch.tan(angles / 2.0)
     b = torch.sin(angles)
     ph_a = _phase(n, k[None, None, :], (a[:, None] * y[None, :])[:, :, None])
     ph_b = _phase(n, k[None, :, None], (b[:, None] * y[None, :])[:, None, :])
-    y1 = torch.fft.irfft(ph_a * z0[None], n=n, dim=-1)     # shear 1
+    y1 = torch.fft.irfft(ph_a * z0, n=n, dim=-1)           # shear 1
     z2 = torch.fft.rfft(y1, dim=-2)
     y2 = torch.fft.irfft(ph_b * z2, n=n, dim=-2) * keep    # shear 2 + guard
     z3 = torch.fft.rfft(y2, dim=-1)
@@ -262,57 +269,60 @@ def _peak(corr: torch.Tensor, pad: int):
 def _peak_ratio(corr: torch.Tensor, peak: torch.Tensor, dy: torch.Tensor,
                 dx: torch.Tensor, pad: int, excl: int = 3) -> torch.Tensor:
     """peak / strongest value outside ±excl cells of the peak's shift, over
-    all rotations. corr (K, R, pad, pad); peak, dy, dx (K,)."""
+    all rotations. corr (..., R, pad, pad); peak, dy, dx (...)."""
     ar = torch.arange(pad, device=corr.device)
-    cdy = (ar[None, :] - (dy % pad)[:, None]).abs()          # (K, pad)
-    cdx = (ar[None, :] - (dx % pad)[:, None]).abs()
+    cdy = (ar - (dy % pad)[..., None]).abs()                 # (..., pad)
+    cdx = (ar - (dx % pad)[..., None]).abs()
     near_y = torch.minimum(cdy, pad - cdy) <= excl
     near_x = torch.minimum(cdx, pad - cdx) <= excl
-    near = near_y[:, :, None] & near_x[:, None, :]           # (K, pad, pad)
-    sec = torch.where(near[:, None], -torch.inf, corr).amax(dim=(1, 2, 3))
+    near = near_y[..., :, None] & near_x[..., None, :]       # (..., pad, pad)
+    sec = torch.where(near[..., None, :, :], -torch.inf, corr).amax(
+        dim=(-3, -2, -1))
     return peak / sec.clamp_min(1e-6)
 
 
 def _coarse(occ_q: torch.Tensor, occ_db: torch.Tensor, cfg):
-    """Every candidate's coarse angle θ_c (K,) and its coarse score (K,):
-    the coarse peak over the square root of the candidate's pooled mass,
-    which ranks candidates for ``fine_top_f``."""
-    k_cand = occ_db.shape[0]
+    """Every candidate's coarse angle θ_c (B, K) and its coarse score
+    (B, K): the coarse peak over the square root of the candidate's pooled
+    mass, which ranks candidates for ``fine_top_f``. occ_q (B, S, S),
+    occ_db (B, K, S, S)."""
+    b, k_cand = occ_db.shape[:2]
     f = cfg.coarse_downsample
     fr = max(cfg.coarse_rot_downsample or f, f)
-    cq_r = _maxpool(occ_q, fr)
+    cq_r = _maxpool(occ_q, fr)                               # (B, ., .)
     sc_r = cq_r.shape[-1]
     pad_c = max(1 << (sc_r - 1).bit_length(), sc_r + sc_r // 2)
     cdb = _maxpool(occ_db, fr)
-    ft_db = torch.fft.rfft2(_embed(cdb, pad_c))              # (K, ., .)
+    ft_db = torch.fft.rfft2(_embed(cdb, pad_c))              # (B, K, ., .)
     if cfg.coarse_mode == "fm":
         # |F| is translation-invariant and rotates with the image: one
         # polar signature per image replaces the rotation stack, and the
         # θ-correlation (period π) is 1-D
         t = cfg.fm_theta_bins
         fsig_q = torch.conj(torch.fft.rfft(
-            _angular_signature(_maxpool(occ_q, f), t), dim=0))
-        sig_db = _angular_signature(_maxpool(occ_db, f), t)  # (K, T, R)
-        corr_t = torch.fft.irfft(fsig_q * torch.fft.rfft(sig_db, dim=-2),
-                                 n=t, dim=-2).sum(-1)        # (K, T)
+            _angular_signature(_maxpool(occ_q, f), t), dim=-2))
+        sig_db = _angular_signature(_maxpool(occ_db, f), t)  # (B, K, T, R)
+        corr_t = torch.fft.irfft(fsig_q[:, None]
+                                 * torch.fft.rfft(sig_db, dim=-2),
+                                 n=t, dim=-2).sum(-1)        # (B, K, T)
         delta = corr_t.argmax(-1).float() * (math.pi / t)
         # the 180° ambiguity: two rotations per candidate, checked densely
-        two = _rotate_image_shear(
-            cq_r[None], torch.stack([delta, delta + math.pi], -1).reshape(-1))
+        two = _rotate_image_shear(cq_r, torch.stack(
+            [delta, delta + math.pi], -1).reshape(b, 2 * k_cand))
         f_two = torch.conj(torch.fft.rfft2(_embed(two, pad_c)))
         corr = torch.fft.irfft2(
-            f_two.reshape((k_cand, 2) + f_two.shape[-2:]) * ft_db[:, None],
-            s=(pad_c, pad_c))                                # (K, 2, ., .)
+            f_two.reshape((b, k_cand, 2) + f_two.shape[-2:])
+            * ft_db[:, :, None], s=(pad_c, pad_c))           # (B, K, 2, ., .)
         r2, _, _, peak_c = _peak(corr, pad_c)
         theta_c = delta + r2.float() * math.pi
     else:
         angles_c = (torch.arange(cfg.num_rotations, dtype=torch.float32,
                                  device=occ_q.device)
                     * (2.0 * math.pi / cfg.num_rotations))
-        fr_c = torch.conj(torch.fft.rfft2(_embed(
-            _rotate_image_shear(cq_r[None], angles_c), pad_c)))
-        corr = torch.fft.irfft2(fr_c[None] * ft_db[:, None],
-                                s=(pad_c, pad_c))            # (K, R, ., .)
+        fr_c = torch.conj(torch.fft.rfft2(_embed(_rotate_image_shear(
+            cq_r, angles_c.expand(b, -1)), pad_c)))          # (B, R, ., .)
+        corr = torch.fft.irfft2(fr_c[:, None] * ft_db[:, :, None],
+                                s=(pad_c, pad_c))            # (B, K, R, ., .)
         r_c, _, _, peak_c = _peak(corr, pad_c)
         theta_c = angles_c[r_c]
     return theta_c, peak_c * torch.rsqrt(cdb.sum((-2, -1)).clamp_min(1.0))
@@ -321,14 +331,17 @@ def _coarse(occ_q: torch.Tensor, occ_db: torch.Tensor, cfg):
 def _fine(occ_q: torch.Tensor, o_q0: torch.Tensor, res: torch.Tensor,
           occ_db: torch.Tensor, db_origins: torch.Tensor,
           theta_c: torch.Tensor, cfg) -> MatchResult:
-    """Fine registration of K candidates at their coarse angles."""
+    """Fine registration of B queries (occ_q (B, S, S), o_q0 (B, 2))
+    against K candidates each (occ_db (B, K, S, S), db_origins (B, K, 2))
+    at their coarse angles theta_c (B, K) → (B, K) lanes."""
     dev = occ_q.device
+    b, k_cand = occ_db.shape[:2]
     half = cfg.refine_span_deg * math.pi / 180.0 / 2.0
     rf = cfg.refine_rotations
     g = cfg.fine_downsample
     fq = _maxpool(occ_q, g) if g > 1 else occ_q
     sf = fq.shape[-1]
-    nf_q = fq.sum()
+    nf_q = fq.sum((-2, -1))[:, None]                         # (B, 1)
     pad_f = _good_fft_size(sf + max(cfg.fine_pad_px // g, 16))
     res_f = res * g
     o_q = o_q0 + res * (g - 1) / 2.0
@@ -336,7 +349,7 @@ def _fine(occ_q: torch.Tensor, o_q0: torch.Tensor, res: torch.Tensor,
     deltas = ((torch.arange(rf, device=dev) - rf // 2)
               * (half / max(rf // 2, 1)))
     fdb = _maxpool(occ_db, g) if g > 1 else occ_db
-    nf_db = fdb.sum(dim=(-2, -1))
+    nf_db = fdb.sum(dim=(-2, -1))                            # (B, K)
     cs = (pad_f, pad_f)
     two_stage = int(cfg.fine_argmax_downsample) > 1
     if two_stage:
@@ -347,50 +360,55 @@ def _fine(occ_q: torch.Tensor, o_q0: torch.Tensor, res: torch.Tensor,
         fq2 = _maxpool(occ_q, g2)
         pad_f2 = _good_fft_size(fq2.shape[-1]
                                 + max(cfg.fine_pad_px // g2, 8))
-        ffan2 = _fan_rfft2(fq2, deltas, pad_f2, float(half))
-        db2 = _rotate_image_shear(_maxpool(occ_db, g2), -theta_c)
+        ffan2 = _fan_rfft2(fq2, deltas, pad_f2, float(half))  # (B, rf, ., .)
+        db2 = _rotate_image_shear(_maxpool(occ_db, g2),
+                                  -theta_c[..., None])[..., 0, :, :]
         corr2 = torch.fft.irfft2(
-            ffan2[None] * torch.fft.rfft2(_embed(db2, pad_f2))[:, None],
-            s=(pad_f2, pad_f2))                              # (K, rf, ., .)
+            ffan2[:, None]
+            * torch.fft.rfft2(_embed(db2, pad_f2))[:, :, None],
+            s=(pad_f2, pad_f2))                              # (B, K, rf, ., .)
         theta_w = theta_c + deltas[corr2.flatten(-2).amax(-1).argmax(-1)]
         f_src = torch.conj(torch.fft.rfft2(_embed(
-            _rotate_image_shear(fq[None], theta_w), pad_f)))
+            _rotate_image_shear(fq, theta_w), pad_f)))       # (B, K, ., .)
         ft_db = torch.fft.rfft2(_embed(fdb, pad_f))
-        corr_f = torch.fft.irfft2(f_src * ft_db, s=cs)[:, None]
-        thetas_r = theta_w[:, None]
+        corr_f = torch.fft.irfft2(f_src * ft_db, s=cs)[:, :, None]
+        thetas_r = theta_w[..., None]
         rot_c = torch.zeros_like(theta_c)
     else:
-        ffan = _fan_rfft2(fq, deltas, pad_f, float(half))
-        ft_db = torch.fft.rfft2(_embed(_rotate_image_shear(fdb, -theta_c),
-                                       pad_f))
-        corr_f = torch.fft.irfft2(ffan[None] * ft_db[:, None], s=cs)
-        thetas_r = theta_c[:, None] + deltas
+        ffan = _fan_rfft2(fq, deltas, pad_f, float(half))    # (B, rf, ., .)
+        ft_db = torch.fft.rfft2(_embed(_rotate_image_shear(
+            fdb, -theta_c[..., None])[..., 0, :, :], pad_f))  # (B, K, ., .)
+        corr_f = torch.fft.irfft2(ffan[:, None] * ft_db[:, :, None], s=cs)
+        thetas_r = theta_c[..., None] + deltas
         rot_c = theta_c
 
     if cfg.overlap_norm:
         # per-shift occupancy masses inside the overlap region: the db's
-        # under the rotated query support, the query's under the db's
+        # under the rotated query support, the query's under the db's; the
+        # supports of all B·K angles rotate as one batch
         ones = torch.ones((sf, sf), device=dev)
         if two_stage:
-            q_sup = _rotate_image_shear(ones[None], theta_w)
+            q_sup = _rotate_image_shear(ones, theta_w.reshape(-1)).reshape(
+                b, k_cand, sf, sf)
             m_q = torch.fft.irfft2(
-                f_src * torch.fft.rfft2(_embed(ones, pad_f)), s=cs)[:, None]
+                f_src * torch.fft.rfft2(_embed(ones, pad_f)), s=cs)[:, :, None]
             m_db = torch.fft.irfft2(torch.conj(torch.fft.rfft2(
-                _embed(q_sup, pad_f))) * ft_db, s=cs)[:, None]
+                _embed(q_sup, pad_f))) * ft_db, s=cs)[:, :, None]
         else:
-            db_sup = _rotate_image_shear(ones[None], -theta_c)
-            m_q = torch.fft.irfft2(ffan[None] * torch.fft.rfft2(
-                _embed(db_sup, pad_f))[:, None], s=cs)
+            db_sup = _rotate_image_shear(ones, -theta_c.reshape(-1)).reshape(
+                b, k_cand, sf, sf)
+            m_q = torch.fft.irfft2(ffan[:, None] * torch.fft.rfft2(
+                _embed(db_sup, pad_f))[:, :, None], s=cs)
             m_db = torch.fft.irfft2(
-                _fan_rfft2(ones, deltas, pad_f, float(half))[None]
-                * ft_db[:, None], s=cs)
+                _fan_rfft2(ones, deltas, pad_f, float(half))
+                * ft_db[:, :, None], s=cs)
         ncc = corr_f * torch.rsqrt(m_q.clamp_min(1.0) * m_db.clamp_min(1.0))
         score_map = torch.where(
             torch.minimum(m_q, m_db) >= float(cfg.min_overlap_pixels),
             ncc, -1.0)
         r_f, dy, dx, score = _peak(score_map, pad_f)
-        peak = corr_f[torch.arange(len(r_f), device=dev), r_f,
-                      dy % pad_f, dx % pad_f]
+        at = (r_f * pad_f + dy % pad_f) * pad_f + dx % pad_f
+        peak = corr_f.flatten(-3).gather(-1, at[..., None])[..., 0]
         ratio_of = score_map
         # score > -1: at least one shift met the mass floor
         success = (score >= cfg.min_score) & (score > -1.0)
@@ -408,16 +426,16 @@ def _fine(occ_q: torch.Tensor, o_q0: torch.Tensor, res: torch.Tensor,
     if cfg.min_peak_ratio > 0.0:
         success = success & (ratio >= cfg.min_peak_ratio)
 
-    theta = thetas_r.gather(-1, r_f[:, None])[:, 0]
+    theta = thetas_r.gather(-1, r_f[..., None])[..., 0]
     ct, st = torch.cos(theta), torch.sin(theta)
     ctc, stc = torch.cos(rot_c), torch.sin(rot_c)
     center = ((sf - 1) / 2.0) * res_f
     sx, sy = dx.float() * res_f, dy.float() * res_f
     shift_x, shift_y = ctc * sx - stc * sy, stc * sx + ctc * sy
     o_db = db_origins + res * (g - 1) / 2.0
-    qx, qy = o_q[0] + center, o_q[1] + center
-    tx = o_db[:, 0] + center + shift_x - (ct * qx - st * qy)
-    ty = o_db[:, 1] + center + shift_y - (st * qx + ct * qy)
+    qx, qy = o_q[:, 0:1] + center, o_q[:, 1:2] + center
+    tx = o_db[..., 0] + center + shift_x - (ct * qx - st * qy)
+    ty = o_db[..., 1] + center + shift_y - (st * qx + ct * qy)
     return MatchResult(
         xy_yaw=torch.stack([tx, ty, torch.atan2(st, ct)], dim=-1),
         score=score, overlap=peak, success=success,
@@ -427,38 +445,51 @@ def _fine(occ_q: torch.Tensor, o_q0: torch.Tensor, res: torch.Tensor,
 def match_bev_topk(query: BEVImage, db_images: torch.Tensor,
                    db_origins: torch.Tensor, cfg, resolution=None
                    ) -> MatchResult:
-    """Register one query against K candidate BEV images.
+    """Register queries against K candidate BEV images each.
 
-    query.image (S, S) and query.origin_xy (2,); db_images (K, S, S) float
-    (free = 1.0); db_origins (K, 2). Returns a MatchResult with a leading K
-    axis; callers take the first success in candidate order."""
+    One query: query.image (S, S) and query.origin_xy (2,), db_images
+    (K, S, S) float (free = 1.0), db_origins (K, 2) → a MatchResult with a
+    leading K axis. A batch of B queries, in one call: query.image
+    (B, S, S), query.origin_xy (B, 2), db_images (B, K, S, S), db_origins
+    (B, K, 2) → (B, K) lanes. Callers take the first success in candidate
+    order."""
     dev = db_images.device
     f32 = dict(dtype=torch.float32, device=dev)
-    res = torch.tensor(float(query.resolution if resolution is None
-                             else resolution), **f32)
+    res = device_constant(float(query.resolution if resolution is None
+                                else resolution), torch.float32, dev)
     occ_q = _occupancy(torch.as_tensor(query.image, **f32))
     o_q0 = torch.as_tensor(query.origin_xy, **f32)
     db_origins = torch.as_tensor(db_origins, **f32)
-    k_cand = db_images.shape[0]
+    one = occ_q.ndim == 2
+    if one:
+        occ_q, o_q0 = occ_q[None], o_q0[None]
+        db_images, db_origins = db_images[None], db_origins[None]
+    b, k_cand = db_images.shape[:2]
     occ_db = _occupancy(db_images)
 
     theta_c, coarse_score = _coarse(occ_q, occ_db, cfg)
     if not 0 < cfg.fine_top_f < k_cand:
-        return _fine(occ_q, o_q0, res, occ_db, db_origins, theta_c, cfg)
-    # the F best by coarse score, ties to the earlier candidate (as
-    # lax.top_k), registered in candidate order
-    best = torch.sort(coarse_score, descending=True, stable=True).indices
-    sel = torch.sort(best[: cfg.fine_top_f]).values
-    fine = _fine(occ_q, o_q0, res, occ_db[sel], db_origins[sel],
-                 theta_c[sel], cfg)
-    out = MatchResult(
-        xy_yaw=torch.zeros((k_cand, 3), **f32),
-        score=torch.zeros(k_cand, **f32), overlap=torch.zeros(k_cand, **f32),
-        success=torch.zeros(k_cand, dtype=torch.bool, device=dev),
-        scale=torch.ones(k_cand, **f32), ratio=torch.zeros(k_cand, **f32))
-    for lane, value in zip(out, fine):
-        lane[sel] = value
-    return out
+        out = _fine(occ_q, o_q0, res, occ_db, db_origins, theta_c, cfg)
+    else:
+        # each query's F best by coarse score, ties to the earlier
+        # candidate (as lax.top_k), registered in candidate order and
+        # written back into its (B, K) lanes
+        best = torch.sort(coarse_score, dim=-1, descending=True,
+                          stable=True).indices
+        sel = torch.sort(best[:, : cfg.fine_top_f], dim=-1).values
+        rows = torch.arange(b, device=dev)[:, None]
+        fine = _fine(occ_q, o_q0, res, occ_db[rows, sel],
+                     db_origins[rows, sel], theta_c.gather(-1, sel), cfg)
+        out = MatchResult(
+            xy_yaw=torch.zeros((b, k_cand, 3), **f32),
+            score=torch.zeros((b, k_cand), **f32),
+            overlap=torch.zeros((b, k_cand), **f32),
+            success=torch.zeros((b, k_cand), dtype=torch.bool, device=dev),
+            scale=torch.ones((b, k_cand), **f32),
+            ratio=torch.zeros((b, k_cand), **f32))
+        for lane, value in zip(out, fine):
+            lane[rows, sel] = value
+    return MatchResult(*(x[0] for x in out)) if one else out
 
 
 def match_bev(query: BEVImage, db: BEVImage, cfg) -> MatchResult:

@@ -6,15 +6,20 @@ matrix → a 10° pitch-angle histogram keeping near-vertical bins → H
 simultaneous RANSAC triplet hypotheses scored by one inlier count → a
 least-squares refit on the best hypothesis's inliers → the rotation taking
 the plane normal to +Z with its yaw removed, lifted by the plane distance.
+``estimate_ground_batch`` runs it over a batch of scans in one call, as
+``jax.vmap(estimate_ground)`` does in the JAX package; ``estimate_ground``
+(one scan) is its B = 1 case.
 
 Differences from the JAX function, each kept to its semantics:
 
 - The random draws cannot be replayed from a JAX key, so they are
-  injectable: ``priority`` (N,) uniforms in [0, 1) rank the subsample and
-  ``sample_triplets(ground_ok, H)`` returns the (3, H) hypothesis rows.
-  By default both come from ``generator``, and the triplets are drawn
-  uniformly over the ground candidates by inverse CDF of (3, H) uniforms,
-  which needs no host sync and gives the same rows on every device.
+  injectable: ``priority`` (B, N) uniforms in [0, 1) rank the subsample
+  and ``sample_triplets(ground_ok (B, M), H)`` returns the (B, 3, H)
+  hypothesis rows. By default both come from ``generator``, scan by scan
+  in the order of one-scan calls (``batch_ground_draws``), and the
+  triplets are drawn uniformly over each scan's ground candidates by
+  inverse CDF of (3, H) uniforms, which needs no host sync and gives the
+  same rows on every device.
 - ``approx_min_k`` (a TPU partial selection) becomes an exact stable sort
   for the subsample and ``torch.topk`` for the neighbours.
 - Everything after the subsample runs in float64 and the outputs are
@@ -39,8 +44,9 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from gloc3d_tpu_torch.core.device import device_constant
 from gloc3d_tpu_torch.core.transforms import (
-    Rigid3, quat_from_two_vectors, quat_identity, remove_yaw,
+    Rigid3, quat_from_two_vectors, remove_yaw,
 )
 
 Tensor = torch.Tensor
@@ -48,6 +54,9 @@ TripletSampler = Callable[[Tensor, int], Tensor]
 
 
 class GroundEstimate(NamedTuple):
+    """One scan's estimate; ``estimate_ground_batch`` gives each field a
+    leading batch axis."""
+
     transform: Rigid3       # T_lidar→ground (apply to points to gravity-align)
     plane: Tensor           # (4,) [a, b, c, d]: ax+by+cz+d=0, ‖(a,b,c)‖=1, c>0
     valid: Tensor           # () bool: a near-vertical normal bin was found
@@ -89,8 +98,8 @@ def _smallest_eigvec_3x3(a: Tensor) -> Tensor:
 
 def _plane_from_triplets(p0: Tensor, p1: Tensor, p2: Tensor
                          ) -> tuple[Tensor, Tensor]:
-    """(H, 3)×3 → (H, 4) unit-normal plane coefficients, and (H,) whether
-    the hypothesis may count inliers.
+    """(..., H, 3)×3 → (..., H, 4) unit-normal plane coefficients, and
+    (..., H) whether the hypothesis may count inliers.
 
     A triplet that repeats p0 has an edge of 0, so its cross product and
     plane are exactly 0 in any arithmetic, and every point lies on it, as
@@ -112,42 +121,153 @@ def _generator_device(generator: Optional[torch.Generator]) -> torch.device:
     return torch.device("cpu") if generator is None else generator.device
 
 
-def _uniform_triplet_sampler(generator: Optional[torch.Generator] = None,
-                             uniforms: Optional[Tensor] = None
-                             ) -> TripletSampler:
-    """(3, H) rows drawn uniformly over ``ground_ok``, by inverse CDF of
-    (3, H) ``uniforms``, by default drawn from ``generator``. With no ground
-    candidate (the estimate is then invalid and discarded) it draws over all
-    rows instead of failing."""
+def triplets_from(uniforms: Tensor) -> TripletSampler:
+    """The default triplet sampler on pre-drawn (B, 3, H) ``uniforms``:
+    (B, 3, H) rows drawn uniformly over each scan's ``ground_ok`` (B, M),
+    by inverse CDF. A scan with no ground candidate (its estimate is then
+    invalid and discarded) draws over all its rows instead of failing."""
 
     def sample(ground_ok: Tensor, h: int) -> Tensor:
-        u = uniforms if uniforms is not None else torch.rand(
-            (3, h), generator=generator, device=_generator_device(generator))
-        w = ground_ok | ~ground_ok.any()
-        cdf = torch.cumsum(w.long(), 0)
-        target = torch.floor(u.to(cdf.device).double() * cdf[-1]).long()
-        idx = torch.searchsorted(cdf, target, right=True)
-        return torch.clamp_max(idx, ground_ok.shape[0] - 1)
+        b, m = ground_ok.shape
+        w = ground_ok | ~ground_ok.any(-1, keepdim=True)
+        cdf = torch.cumsum(w.long(), -1)                       # (B, M)
+        target = torch.floor(uniforms.to(cdf.device).double()
+                             * cdf[:, -1:, None]).long()       # (B, 3, H)
+        idx = torch.searchsorted(cdf, target.reshape(b, -1), right=True)
+        return torch.clamp_max(idx, m - 1).reshape(b, 3, h)
 
     return sample
 
 
-def ground_draws(n: int, cfg, generator: Optional[torch.Generator] = None
-                 ) -> Tuple[Tensor, Tensor]:
-    """The draws one ``estimate_ground`` call on an n-row scan takes from
-    ``generator`` by default, in its order: the (n,) priority and the
-    (3, ``cfg.ransac_iters``) triplet uniforms. Drawn ahead for a batch, and
-    passed back through ``priority`` and ``triplets_from(uniforms)``, they
-    give each scan the numbers of the sequential calls."""
+def batch_ground_draws(b: int, n: int, cfg,
+                       generator: Optional[torch.Generator] = None
+                       ) -> Tuple[Tensor, Tensor]:
+    """The draws that b one-scan ``estimate_ground`` calls on n-row scans
+    take from ``generator`` by default, stacked: (b, n) priorities and
+    (b, 3, ``cfg.ransac_iters``) triplet uniforms, drawn scan by scan, each
+    scan's priority before its uniforms. ``estimate_ground_batch`` takes
+    them by default; drawn ahead and passed back through ``priority`` and
+    ``triplets_from(uniforms)``, they give each scan of a batch, or of any
+    part of it, the numbers of the sequential calls, and the generator ends
+    where those calls leave it."""
     dev = _generator_device(generator)
-    return (torch.rand(n, generator=generator, device=dev),
-            torch.rand((3, cfg.ransac_iters), generator=generator,
-                       device=dev))
+    draws = [(torch.rand(n, generator=generator, device=dev),
+              torch.rand((3, cfg.ransac_iters), generator=generator,
+                         device=dev)) for _ in range(b)]
+    return (torch.stack([d[0] for d in draws]),
+            torch.stack([d[1] for d in draws]))
 
 
-def triplets_from(uniforms: Tensor) -> TripletSampler:
-    """The default triplet sampler on pre-drawn (3, H) ``uniforms``."""
-    return _uniform_triplet_sampler(uniforms=uniforms)
+def estimate_ground_batch(points: Tensor, mask: Tensor, cfg,
+                          generator: Optional[torch.Generator] = None, *,
+                          priority: Optional[Tensor] = None,
+                          sample_triplets: Optional[TripletSampler] = None
+                          ) -> GroundEstimate:
+    """Estimate the ground plane of each scan of a batch and its aligning
+    transform, in one call (the JAX package's ``jax.vmap(estimate_ground)``).
+
+    Args:
+      points: (B, N, 3) padded scans.
+      mask: (B, N) validity.
+      cfg: GroundConfig.
+      generator: source of the default draws (``batch_ground_draws``; any
+        device, the draws are moved to ``points.device``), taken when
+        ``priority`` or ``sample_triplets`` is not given.
+      priority: optional (B, N) uniforms in [0, 1) that rank the subsample.
+      sample_triplets: optional ``(ground_ok (B, M) bool, H) → (B, 3, H)``
+        rows.
+
+    Returns a GroundEstimate whose fields have a leading B axis.
+    """
+    dev, dt = points.device, points.dtype
+    b, n = points.shape[:2]
+    if priority is None or sample_triplets is None:
+        prio, uniforms = batch_ground_draws(b, n, cfg, generator)
+        priority = prio if priority is None else priority
+        sample_triplets = sample_triplets or triplets_from(uniforms)
+    p64 = points.double()
+    cand_ok = (mask > 0) & (torch.sum(p64 * p64, -1)
+                            < cfg.candidate_radius ** 2)
+    rows = torch.arange(b, device=dev)[:, None]
+
+    # random fixed-size subsample of candidates (invalid rows sort last)
+    prio = torch.where(cand_ok, priority.to(dev), 2.0)
+    take = torch.argsort(prio, dim=-1, stable=True)[:, :cfg.num_candidates]
+    pts = p64[rows, take]                              # (B, M, 3)
+    ok = cand_ok[rows, take]                           # (B, M)
+    m = pts.shape[1]
+
+    # --- k-NN PCA normals over the subsample ---
+    sq = torch.sum(pts * pts, -1)
+    d2 = (sq[:, :, None] - 2.0 * torch.bmm(pts, pts.transpose(1, 2))
+          + sq[:, None, :])
+    d2 = torch.where(ok[:, None, :], d2, math.inf)     # exclude invalid cols
+    nn = torch.topk(d2, cfg.knn, dim=-1, largest=False).indices  # incl. self
+    nbr = pts[rows[:, :, None], nn]                    # (B, M, K, 3)
+    c = nbr - nbr.mean(dim=2, keepdim=True)
+    cov = torch.einsum("bmki,bmkj->bmij", c, c) / cfg.knn
+    normal = _smallest_eigvec_3x3(cov)                 # (B, M, 3)
+
+    # --- pitch-angle histogram, 10° bins, one scatter over the batch ---
+    nb = cfg.num_bins
+    nxy = torch.sqrt(normal[..., 0] ** 2 + normal[..., 1] ** 2)
+    theta = (torch.atan2(normal[..., 2], nxy) + math.pi / 2) * (180.0
+                                                                / math.pi)
+    bins = torch.clamp(torch.floor_divide(theta, 10.0).long(), 0, nb - 1)
+    hist = torch.zeros(b * nb, dtype=torch.long, device=dev).scatter_add_(
+        0, (bins + rows * nb).reshape(-1), ok.long().reshape(-1)
+    ).reshape(b, nb)
+    bin_ids = torch.arange(nb, device=dev)
+    near_vertical = (bin_ids <= cfg.vertical_lo) | (bin_ids >= cfg.vertical_hi)
+    masked_hist = torch.where(near_vertical, hist, -1)
+    ground_bin = torch.argmax(masked_hist, dim=-1)     # (B,)
+    valid = masked_hist.gather(-1, ground_bin[:, None])[:, 0] > 0
+    ground_ok = ok & (bins == ground_bin[:, None])     # ground candidates
+
+    # --- vectorized RANSAC plane (H simultaneous triplet hypotheses) ---
+    tri = sample_triplets(ground_ok, cfg.ransac_iters).to(dev)  # (B, 3, H)
+    planes, counts = _plane_from_triplets(pts[rows, tri[:, 0]],
+                                          pts[rows, tri[:, 1]],
+                                          pts[rows, tri[:, 2]])
+    dist = torch.abs(torch.bmm(pts, planes[..., :3].transpose(1, 2))
+                     + planes[:, None, :, 3])          # (B, M, H)
+    # the inlier test of the JAX function, in its fp32: the float64
+    # distance rounded to fp32 against the fp32 threshold
+    inlier = dist.float() < device_constant(cfg.inlier_threshold,
+                                            torch.float32, dev)
+    inl = torch.sum(inlier & ground_ok[:, :, None] & counts[:, None, :], 1)
+    best = torch.argmax(inl, dim=-1)                   # (B,)
+    n_ground = torch.clamp_min(torch.sum(ground_ok, -1), 1)
+    inlier_frac = inl.gather(-1, best[:, None])[:, 0].double() / n_ground
+
+    # --- least-squares refit on the inliers ---
+    w = (inlier.gather(-1, best[:, None, None].expand(b, m, 1))[..., 0]
+         & ground_ok).double()
+    wsum = torch.clamp_min(torch.sum(w, -1), 3.0)      # (B,)
+    mu_i = torch.sum(pts * w[..., None], 1) / wsum[:, None]
+    ci = (pts - mu_i[:, None]) * w[..., None]
+    _, v_i = torch.linalg.eigh(torch.bmm(ci.transpose(1, 2), ci)
+                               / wsum[:, None, None])
+    n_ref = v_i[..., 0]
+    n_ref = n_ref / torch.clamp_min(
+        torch.linalg.vector_norm(n_ref, dim=-1, keepdim=True), 1e-9)
+    plane = torch.cat([n_ref, -torch.sum(n_ref * mu_i, -1, keepdim=True)],
+                      -1)
+
+    # --- alignment transform ---
+    up = plane[:, 2:3] < 0
+    nrm = torch.where(up, -plane[:, :3], plane[:, :3])  # upward normal
+    d_abs = torch.abs(plane[:, 3:])
+    plane = torch.cat([nrm, torch.where(up, -plane[:, 3:], plane[:, 3:])],
+                      -1)
+    ez = device_constant((0.0, 0.0, 1.0), torch.float64, dev)
+    q = remove_yaw(quat_from_two_vectors(nrm, ez.expand(b, 3)))
+    ident = device_constant((1.0, 0.0, 0.0, 0.0), torch.float64, dev)
+    transform = Rigid3(
+        torch.where(valid[:, None], q, ident).to(dt),
+        torch.where(valid[:, None], ez * d_abs, torch.zeros_like(ez)).to(dt))
+    return GroundEstimate(transform, plane.to(dt), valid,
+                          inlier_frac.to(dt))
 
 
 def estimate_ground(points: Tensor, mask: Tensor, cfg,
@@ -155,7 +275,8 @@ def estimate_ground(points: Tensor, mask: Tensor, cfg,
                     priority: Optional[Tensor] = None,
                     sample_triplets: Optional[TripletSampler] = None
                     ) -> GroundEstimate:
-    """Estimate the ground plane of one scan and the aligning transform.
+    """Estimate the ground plane of one scan and the aligning transform:
+    the B = 1 case of ``estimate_ground_batch``.
 
     Args:
       points: (N, 3) padded scan.
@@ -166,81 +287,12 @@ def estimate_ground(points: Tensor, mask: Tensor, cfg,
       priority: optional (N,) uniforms in [0, 1) that rank the subsample.
       sample_triplets: optional ``(ground_ok (M,) bool, H) → (3, H)`` rows.
     """
-    dev, dt = points.device, points.dtype
-    n = points.shape[0]
-    p64 = points.double()
-    cand_ok = (mask > 0) & (torch.sum(p64 * p64, -1)
-                            < cfg.candidate_radius ** 2)
-
-    # random fixed-size subsample of candidates (invalid rows sort last)
-    if priority is None:
-        priority = torch.rand(n, generator=generator,
-                              device=_generator_device(generator))
-    prio = torch.where(cand_ok, priority.to(dev), 2.0)
-    take = torch.argsort(prio, stable=True)[:cfg.num_candidates]
-    pts = p64[take]                                    # (M, 3)
-    ok = cand_ok[take]                                 # (M,)
-
-    # --- k-NN PCA normals over the subsample ---
-    sq = torch.sum(pts * pts, -1)
-    d2 = sq[:, None] - 2.0 * pts @ pts.T + sq[None, :]
-    d2 = torch.where(ok[None, :], d2, math.inf)        # exclude invalid cols
-    nn = torch.topk(d2, cfg.knn, dim=1, largest=False).indices  # incl. self
-    nbr = pts[nn]                                      # (M, K, 3)
-    c = nbr - nbr.mean(dim=1, keepdim=True)
-    cov = torch.einsum("mki,mkj->mij", c, c) / cfg.knn
-    normal = _smallest_eigvec_3x3(cov)                 # (M, 3)
-
-    # --- pitch-angle histogram, 10° bins ---
-    nxy = torch.sqrt(normal[:, 0] ** 2 + normal[:, 1] ** 2)
-    theta = (torch.atan2(normal[:, 2], nxy) + math.pi / 2) * (180.0 / math.pi)
-    bins = torch.clamp(torch.floor_divide(theta, 10.0).long(), 0,
-                       cfg.num_bins - 1)
-    hist = torch.zeros(cfg.num_bins, dtype=torch.long, device=dev
-                       ).scatter_add_(0, bins, ok.long())
-    bin_ids = torch.arange(cfg.num_bins, device=dev)
-    near_vertical = (bin_ids <= cfg.vertical_lo) | (bin_ids >= cfg.vertical_hi)
-    masked_hist = torch.where(near_vertical, hist, -1)
-    ground_bin = torch.argmax(masked_hist)
-    valid = masked_hist[ground_bin] > 0
-    ground_ok = ok & (bins == ground_bin)              # ground candidates
-
-    # --- vectorized RANSAC plane (H simultaneous triplet hypotheses) ---
-    if sample_triplets is None:
-        sample_triplets = _uniform_triplet_sampler(generator)
-    tri = sample_triplets(ground_ok, cfg.ransac_iters).to(dev)  # (3, H)
-    planes, counts = _plane_from_triplets(pts[tri[0]], pts[tri[1]],
-                                          pts[tri[2]])
-    dist = torch.abs(pts @ planes[:, :3].T + planes[None, :, 3])  # (M, H)
-    # the inlier test of the JAX function, in its fp32: the float64
-    # distance rounded to fp32 against the fp32 threshold
-    inlier = dist.float() < torch.tensor(cfg.inlier_threshold,
-                                         dtype=torch.float32, device=dev)
-    inl = torch.sum(inlier & ground_ok[:, None] & counts[None, :], 0)
-    best = torch.argmax(inl)
-    n_ground = torch.clamp_min(torch.sum(ground_ok), 1)
-    inlier_frac = inl[best].double() / n_ground
-
-    # --- least-squares refit on the inliers ---
-    w = (inlier[:, best] & ground_ok).double()
-    wsum = torch.clamp_min(torch.sum(w), 3.0)
-    mu_i = torch.sum(pts * w[:, None], 0) / wsum
-    ci = (pts - mu_i) * w[:, None]
-    _, v_i = torch.linalg.eigh(ci.T @ ci / wsum)
-    n_ref = v_i[:, 0]
-    n_ref = n_ref / torch.clamp_min(torch.linalg.vector_norm(n_ref), 1e-9)
-    plane = torch.cat([n_ref, -torch.sum(n_ref * mu_i)[None]])
-
-    # --- alignment transform ---
-    nrm = plane[:3]
-    d_abs = torch.abs(plane[3])
-    nrm = torch.where(nrm[2] < 0, -nrm, nrm)           # upward normal
-    plane = torch.cat([nrm, torch.where(plane[2] < 0, -plane[3:],
-                                        plane[3:])])
-    ez = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64, device=dev)
-    q = remove_yaw(quat_from_two_vectors(nrm, ez))
-    transform = Rigid3(
-        torch.where(valid, q, quat_identity(torch.float64, dev)).to(dt),
-        torch.where(valid, ez * d_abs, torch.zeros_like(ez)).to(dt))
-    return GroundEstimate(transform, plane.to(dt), valid,
-                          inlier_frac.to(dt))
+    batched = None if sample_triplets is None else (
+        lambda ground_ok, h: sample_triplets(ground_ok[0], h)[None])
+    est = estimate_ground_batch(
+        points[None], mask[None], cfg, generator,
+        priority=None if priority is None else priority[None],
+        sample_triplets=batched)
+    return GroundEstimate(
+        Rigid3(est.transform.rotation[0], est.transform.translation[0]),
+        est.plane[0], est.valid[0], est.inlier_fraction[0])

@@ -18,8 +18,8 @@ channel 0 of an image is its registration BEV. The switches:
   BEV image on the host, and the descriptor forward runs on the sorted rows
   (kernel K1 inside).
 - ``align_ground=True``: each scan is first gravity-aligned on the device
-  (``ops/ground.py::estimate_ground``, one estimate per scan). With host
-  stats the aligned floats go back to the host pass; ``locate`` composes
+  (``ops/ground.py::estimate_ground_batch``, one call for the batch). With
+  host stats the aligned floats go back to the host pass; ``locate`` composes
   roll, pitch and dz from the two ground frames with (dx, dy, yaw) from the
   2-D match, or takes the non-aligned composition when the matched keyframe
   has no ground frame (a mixed-mode map).
@@ -31,10 +31,13 @@ channel 0 of an image is its registration BEV. The switches:
 
 The device runs the descriptor forward, the bank search and the FFT
 registration. Without the device store the keyframe images live on the host
-as uint8 and the candidate stack is uploaded per query. ``locate``
+as uint8 and the candidate stacks are uploaded per batch. ``locate``
 registers the top candidate alone first and falls back to all top-k only
 when it fails (``staged_first``, first success wins). ``locate_batch`` runs
-extraction and search once for a batch of scans; ``locate_fused`` keeps the
+extraction and search once for a batch of scans, and registration once per
+stage: every query's top candidate in one call, then all top-k candidates
+of the queries that failed in one more (``match_bev_topk`` over B queries ×
+K candidates); ``locate`` is its batch of one. ``locate_fused`` keeps the
 search results on the device and reads the host only for the staged
 branch. The ground estimator's random draws come from a CPU
 ``torch.Generator`` seeded by ``seed``, so the same calls draw the same
@@ -65,12 +68,12 @@ parallelism, ``parallel/data.py``): rank r extracts rows [r·B/P,
 images and ground estimates are gathered in rank order, so every rank
 returns the whole batch, as JAX returns a global array; other batches run
 unsharded on every rank. An aligned extraction draws every scan's ground
-samples ahead, in the sequential order (``ops/ground.py::ground_draws``),
-so each scan gets the unsharded call's draws and the generator ends in its
-state. ``shard_keyframes`` spreads the device keyframe store over a
-group's ranks: global row i lives on rank i mod P at local row i // P, so
+samples ahead, in the sequential order (``ops/ground.py::
+batch_ground_draws``), so each scan gets the unsharded call's draws and the
+generator ends in its state. ``shard_keyframes`` spreads the device
+keyframe store over a group's ranks: global row i lives on rank i mod P at local row i // P, so
 the rows stay where they are when the capacity doubles, and each rank
-holds ⌈capacity/P⌉ rows. A candidate gather is one all-reduce of the K
+holds ⌈capacity/P⌉ rows. A candidate gather is one all-reduce of the B·K
 requested rows, each written by the one rank that owns it into zeros, so
 registration reads the same bytes as from the unsharded store.
 ``shard_spatial`` runs every image extraction as the spatial partition
@@ -99,7 +102,7 @@ import torch.distributed as dist
 
 from gloc3d_tpu_torch.core.device import resolve_device
 from gloc3d_tpu_torch.core.transforms import (
-    Rigid3, quat_from_rpy, quat_to_matrix, transform_points,
+    Rigid3, quat_from_rpy, quat_rotate, quat_to_matrix, transform_points,
 )
 from gloc3d_tpu_torch.data import native
 from gloc3d_tpu_torch.eval.registration import compose_6dof
@@ -109,7 +112,7 @@ from gloc3d_tpu_torch.models.encoders import is_image_encoder
 from gloc3d_tpu_torch.ops.bev import BEVImage, batch_scan_to_bev
 from gloc3d_tpu_torch.ops.bev_match import MatchResult, match_bev_topk
 from gloc3d_tpu_torch.ops.ground import (
-    GroundEstimate, estimate_ground, ground_draws, triplets_from,
+    GroundEstimate, batch_ground_draws, estimate_ground_batch, triplets_from,
 )
 from gloc3d_tpu_torch.ops.refine import icp_point_to_point
 from gloc3d_tpu_torch.ops.voxelize import device_pillar_sort_stats
@@ -343,12 +346,6 @@ def _one(points, mask, origin):
             None if origin is None else np.asarray(origin)[None])
 
 
-def _stack(results: List[MatchResult]) -> MatchResult:
-    """Per-query MatchResults (K lanes each) → one with a leading query
-    axis."""
-    return MatchResult(*(torch.stack(x) for x in zip(*results)))
-
-
 def _splice_staged(res1: MatchResult, res2: MatchResult,
                    failed: np.ndarray, b: int, k: int) -> MatchResult:
     """The (b, k) MatchResult of a staged batch on the host: the stage-1
@@ -430,32 +427,28 @@ class GlobalLocalizer:
 
     # ------------------------------------------------------------ extraction
     def _align(self, points: torch.Tensor, mask: torch.Tensor, draws=None):
-        """Per scan: estimate the ground plane and rotate the cloud into the
-        gravity-aligned frame, keeping the intensity column. The rotation
-        runs in float64 and rounds to fp32, so the card and the CPU give
-        the same aligned floats from the same transform. ``draws``: each
-        scan's (priority, triplet uniforms), else drawn from the localizer's
-        generator. Returns (aligned points, GroundEstimate with a leading
+        """Estimate every scan's ground plane in one call of the batched
+        estimator and rotate the clouds into the gravity-aligned frame,
+        keeping the intensity column. The rotation runs in float64 and
+        rounds to fp32, so the card and the CPU give the same aligned
+        floats from the same transform. ``draws``: (priority (B, N), a
+        batched triplet sampler), else the B scans' draws from the
+        localizer's generator in the order of one-scan calls, uploaded in
+        one copy. Returns (aligned points, GroundEstimate with a leading
         batch axis)."""
-        rows, ests = [], []
-        for i in range(points.shape[0]):
-            kw = {} if draws is None else dict(
-                priority=draws[i][0], sample_triplets=triplets_from(
-                    draws[i][1]))
-            est = estimate_ground(points[i, :, :3], mask[i], self.cfg.ground,
-                                  self._gen, **kw)
-            t64 = Rigid3(est.transform.rotation.double(),
-                         est.transform.translation.double())
-            xyz = transform_points(t64, points[i, :, :3].double()).float()
-            rows.append(torch.cat([xyz, points[i, :, 3:]], dim=-1))
-            ests.append(est)
-        ground = GroundEstimate(
-            Rigid3(torch.stack([e.transform.rotation for e in ests]),
-                   torch.stack([e.transform.translation for e in ests])),
-            torch.stack([e.plane for e in ests]),
-            torch.stack([e.valid for e in ests]),
-            torch.stack([e.inlier_fraction for e in ests]))
-        return torch.stack(rows), ground
+        if draws is None:
+            b, n = points.shape[:2]
+            prio, uni = batch_ground_draws(b, n, self.cfg.ground, self._gen)
+            both = torch.cat([prio, uni.reshape(b, -1)], 1).to(points.device)
+            draws = (both[:, :n], triplets_from(both[:, n:].reshape(
+                uni.shape)))
+        ground = estimate_ground_batch(
+            points[..., :3], mask, self.cfg.ground, priority=draws[0],
+            sample_triplets=draws[1])
+        q64 = ground.transform.rotation.double()[:, None]
+        t64 = ground.transform.translation.double()[:, None]
+        xyz = (quat_rotate(q64, points[..., :3].double()) + t64).float()
+        return torch.cat([xyz, points[..., 3:]], dim=-1), ground
 
     def _default_origins(self, n: int) -> np.ndarray:
         """Scan-centred origins for images given without theirs."""
@@ -507,9 +500,9 @@ class GlobalLocalizer:
             if origins is None:
                 origins = self._default_origins(b)
         elif self.align_ground:  # every scan's draws, in the unsharded order
-            n = np.shape(inputs)[1]
-            draws = [ground_draws(n, self.cfg.ground, self._gen)
-                     for _ in range(b)][rows]
+            prio, uni = batch_ground_draws(b, np.shape(inputs)[1],
+                                           self.cfg.ground, self._gen)
+            draws = (prio[rows], triplets_from(uni[rows]))
         desc, bev, ground = self._extract(
             inputs[rows], None if mask is None else mask[rows],
             None if origins is None else np.asarray(origins)[rows], draws)
@@ -853,40 +846,63 @@ class GlobalLocalizer:
         self._spatial_mesh = group
 
     def _candidates(self, rows):
-        """Keyframes ``rows`` (numpy or a device tensor of indices) as a
-        float image stack (K, S, S) and origins (K, 2) on the device: one
-        gather of packed rows from the device store, or the host mirror's
-        images uploaded."""
+        """Keyframes ``rows`` (numpy or a device tensor of indices, any
+        shape, e.g. (B, K)) as a float image stack rows.shape + (S, S) and
+        origins rows.shape + (2,) on the device: one gather of packed rows
+        from the device store, or the host mirror's images stacked and
+        uploaded at once."""
         if self._kf_store is not None:
-            packed, origins = self._store_rows(rows)
-            return _unpack_bits(packed), origins
-        stack = torch.from_numpy(np.stack(
-            [self.keyframes[i].image for i in rows])).to(self.device)
-        origins = torch.from_numpy(np.stack(
-            [self.keyframes[i].origin_xy for i in rows])).to(self.device)
-        return stack.float() / 255.0, origins
+            rows = torch.as_tensor(rows, dtype=torch.long,
+                                   device=self.device)
+            packed, origins = self._store_rows(rows.reshape(-1))
+            images = _unpack_bits(packed)
+            return (images.reshape(rows.shape + images.shape[1:]),
+                    origins.reshape(rows.shape + (2,)))
+        rows = np.asarray(rows)
+        stack = np.stack([self.keyframes[i].image for i in rows.reshape(-1)])
+        origins = np.stack([self.keyframes[i].origin_xy
+                            for i in rows.reshape(-1)])
+        stack = torch.from_numpy(stack.reshape(rows.shape + stack.shape[1:]))
+        return (stack.to(self.device).float() / 255.0,
+                torch.from_numpy(origins.reshape(rows.shape + (2,))).to(
+                    self.device))
 
     @torch.no_grad()
-    def _match(self, q_image, q_origin, rows) -> MatchResult:
-        """Register the query against keyframes ``rows`` on the device."""
+    def _match(self, q_images, q_origins, rows) -> MatchResult:
+        """Register B queries (BEV images (B, S, S), origins (B, 2)) against
+        the keyframes ``rows`` (B, K) on the device in one call → (B, K)
+        lanes."""
         images, origins = self._candidates(rows)
         query = BEVImage(
-            image=torch.as_tensor(q_image, device=self.device),
-            origin_xy=torch.as_tensor(q_origin, device=self.device),
+            image=torch.as_tensor(q_images, device=self.device),
+            origin_xy=torch.as_tensor(q_origins, device=self.device),
             resolution=self.cfg.bev.resolution,
             num_occupied=None)
         return match_bev_topk(query, images, origins, self.cfg.match,
                               resolution=self.cfg.bev.resolution)
 
+    def _register(self, q_images, q_origins, rows) -> MatchResult:
+        """First success wins, for B queries against their candidates
+        ``rows`` (B, K): the top candidate usually succeeds, so with
+        ``staged_first`` register every query's top candidate in one call
+        (reading the successes on the host) and all K candidates of exactly
+        the queries that failed in one more, spliced back by lane (B, K);
+        without it, one call over all (B, K). Every rank of a sharded store
+        makes the same calls: the failed set comes from the same lanes."""
+        if not self.cfg.match.staged_first:
+            return self._match(q_images, q_origins, rows)
+        res1 = self._match(q_images, q_origins, rows[:, :1])
+        failed = np.flatnonzero(~_numpy(res1.success)[:, 0])
+        if not failed.size:
+            return res1
+        res2 = self._match(q_images[failed], q_origins[failed], rows[failed])
+        return _splice_staged(res1, res2, failed, *rows.shape)
+
     def _staged(self, q_image, q_origin, rows) -> MatchResult:
-        """First success wins: the top candidate usually succeeds, so with
-        ``staged_first`` register it alone (reading its success on the
-        host) and fall back to all of ``rows`` only when it fails."""
-        if self.cfg.match.staged_first:
-            res1 = self._match(q_image, q_origin, rows[:1])
-            if bool(res1.success[0]):
-                return res1
-        return self._match(q_image, q_origin, rows)
+        """``_register`` for one query (S, S), (2,) and its candidates (K,):
+        its lanes."""
+        res = self._register(q_image[None], q_origin[None], rows[None])
+        return MatchResult(*(x[0] for x in res))
 
     def _empty_result(self) -> LocalizationResult:
         k = self.cfg.index.top_k
@@ -930,16 +946,8 @@ class GlobalLocalizer:
     def locate(self, points: np.ndarray, mask: Optional[np.ndarray] = None,
                origin: Optional[np.ndarray] = None) -> LocalizationResult:
         """Full pipeline for ONE query: a scan (N, ≥3) with mask (N,), or a
-        BEV image (S, S, 3) with its origin (2,)."""
-        if not self.keyframes:
-            return self._empty_result()
-        d2, idx, bev, ground = self.detect(*_one(points, mask, origin))
-        # a db smaller than top_k returns inf-distance filler candidates:
-        # clamp them to a real keyframe (their inf distance ranks them last)
-        idx0 = np.clip(idx[0], 0, len(self.keyframes) - 1)
-        res = self._staged(bev.image[0], bev.origin_xy[0], idx0)
-        return self._result(res, idx0, d2[0], ground, clouds=(
-            self._query_clouds(*_one(points, mask, None)[:2], ground)))
+        BEV image (S, S, 3) with its origin (2,). ``locate_batch`` of one."""
+        return self.locate_batch(*_one(points, mask, origin))[0]
 
     def locate_batch(self, points: np.ndarray,
                      masks: Optional[np.ndarray] = None,
@@ -947,31 +955,22 @@ class GlobalLocalizer:
                      ) -> List[LocalizationResult]:
         """Localize B query scans (B, N, ≥3) with masks (B, N), or B BEV
         images (B, S, S, 3) with origins (B, 2): extraction and the bank
-        search run once for the batch. With ``staged_first``,
-        stage 1 registers every query's top candidate and stage 2 all top-k
-        candidates of the queries that failed stage 1, spliced back by
-        lane. Each result equals ``locate``'s on the same scan."""
+        search run once for the batch, and registration once per stage
+        (``_register``): with ``staged_first``, stage 1 registers every
+        query's top candidate and stage 2 all top-k candidates of the
+        queries that failed stage 1, spliced back by lane. Each result
+        equals ``locate``'s on the same scan."""
         if not self.keyframes:
             return [self._empty_result() for _ in range(len(points))]
         d2, idx, bev, ground = self.detect(points, masks, origins)
-        b, k = idx.shape
+        # a db smaller than top_k returns inf-distance filler candidates:
+        # clamp them to a real keyframe (their inf distance ranks them last)
         idx = np.clip(idx, 0, len(self.keyframes) - 1)
-
-        def match(q, rows):
-            return self._match(bev.image[q], bev.origin_xy[q], rows)
-
-        if self.cfg.match.staged_first:
-            res = _stack([match(q, idx[q, :1]) for q in range(b)])
-            failed = np.flatnonzero(~_numpy(res.success)[:, 0])
-            if failed.size:
-                res = _splice_staged(
-                    res, _stack([match(q, idx[q]) for q in failed]),
-                    failed, b, k)
-        else:
-            res = _stack([match(q, idx[q]) for q in range(b)])
+        res = self._register(bev.image, bev.origin_xy, idx)
         clouds = self._query_clouds(points, masks, ground)
         return [self._result(MatchResult(*(x[q] for x in res)), idx[q],
-                             d2[q], ground, q, clouds) for q in range(b)]
+                             d2[q], ground, q, clouds)
+                for q in range(len(idx))]
 
     def locate_fused(self, points: np.ndarray,
                      mask: Optional[np.ndarray] = None,
@@ -1113,7 +1112,8 @@ class GlobalLocalizer:
                 raise ValueError("match_keyframe needs points or bev=")
             _, bev, ground = self.extract(*_one(points, mask, origin))
         cand = np.array([db_index])
-        res = self._match(bev.image[0], bev.origin_xy[0], cand)
+        res = self._match(bev.image[:1], bev.origin_xy[:1], cand[None])
+        res = MatchResult(*(x[0] for x in res))
         clouds = (self._query_clouds(*_one(points, mask, None)[:2], ground)
                   if points is not None else None)
         return self._result(res, cand, np.array([np.nan]), ground,

@@ -4,10 +4,14 @@ BEV images.
 
 Tolerances: `success` equal; xy within one cell (0.2 m) and yaw within one
 fine bin (0.6°), since cuFFT/pocketFFT rounding may move a near-tied peak by
-one bin; score within 1e-3 (fp32 FFT correlations of integer counts)."""
+one bin; score within 1e-3 (fp32 FFT correlations of integer counts). The
+batched call (B queries × K candidates) is held lane by lane to
+``jax.vmap(match_bev_topk)`` at the same tolerances, and to the port's own
+one-query calls bit for bit."""
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ from gloc3d_tpu.ops import bev_match as jbm
 from gloc3d_tpu.ops.bev import BEVImage as JaxBEV
 from gloc3d_tpu_torch.ops import bev_match as tbm
 from gloc3d_tpu_torch.ops.bev import BEVImage
+from gloc3d_tpu_torch.ops.bev_match import MatchResult
 from test_pipeline import scan_at
 from test_torch_threads import _two_threads  # noqa: F401
 
@@ -116,7 +121,7 @@ def test_rotation_helpers_match_jax():
     angles = np.asarray([0.0, 0.3, -1.2, 2.0, 3.1, -2.9], np.float32)
     want = np.asarray(jbm._rotate_image_shear(jnp.asarray(img),
                                               jnp.asarray(angles)))
-    got = tbm._rotate_image_shear(torch.from_numpy(img)[None],
+    got = tbm._rotate_image_shear(torch.from_numpy(img),
                                   torch.from_numpy(angles)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4)
     deltas = np.linspace(-0.05, 0.05, 5).astype(np.float32)
@@ -182,3 +187,71 @@ def test_angular_signature_matches_jax():
     for a, b in zip(tbm._polar_weights(32, 180, 3),
                     jbm._polar_weights(32, 180, 3)):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------- batch
+# B = 3 queries × K = 4 candidates; query 0's last two candidates are its
+# own keyframe, so fine_top_f = 2 cuts inside a tie of coarse scores
+BATCH = [((3, -2, 0.35), SERVING_DB[:2] + [(3, -2, 0.35)] * 2),
+         ((25, 5, 1.2), [(25, 5, 1.2), (-30, -30, 0.0), (5, 0, -0.3),
+                         (30, 30, 2.9)]),
+         ((-12, 8, -2.0), [(-10, 10, -1.5), (-14, 5, 3.0), (2, -1, 0.0),
+                           (6, -1, 0.3)])]
+BATCH_CFGS = {
+    "stack": MCFG,
+    "fm": FM_CFG,
+    "fine_top_f with ties": MCFG.replace(fine_top_f=2),
+    "overlap_norm": SERVING["overlap_norm"],
+    "two-stage fine": SERVING["two-stage fine"],
+}
+
+
+@pytest.fixture(scope="module")
+def batch_inputs():
+    """The batch's query images (B, S, S) and origins (B, 2), and its
+    candidates (B, K, S, S) and (B, K, 2), as numpy."""
+    qs = [_bev(q) for q, _ in BATCH]
+    dbs = [[_bev(p) for p in db] for _, db in BATCH]
+    return (np.stack([q[0] for q in qs]), np.stack([q[1] for q in qs]),
+            np.stack([[d[0] for d in db] for db in dbs]),
+            np.stack([[d[1] for d in db] for db in dbs]))
+
+
+def _port(cfg, q_img, q_org, imgs, orgs):
+    return tbm.match_bev_topk(
+        BEVImage(torch.from_numpy(q_img), torch.from_numpy(q_org), RES,
+                 None), torch.from_numpy(imgs), torch.from_numpy(orgs), cfg,
+        resolution=RES)
+
+
+@pytest.mark.parametrize("name", list(BATCH_CFGS))
+def test_batched_matcher_matches_jax_vmap(batch_inputs, name):
+    """One port call over (B, K) against ``jax.vmap(match_bev_topk)``, lane
+    by lane at the tolerances above."""
+    cfg = BATCH_CFGS[name]
+    q_img, q_org, imgs, orgs = batch_inputs
+    got = _port(cfg, q_img, q_org, imgs, orgs)
+    want = jax.jit(jax.vmap(lambda qi, qo, di, do: jbm.match_bev_topk(
+        JaxBEV(qi, qo, jnp.float32(RES), jnp.int32(0)), di, do, cfg,
+        resolution=RES)))(*map(jnp.asarray, batch_inputs))
+    assert got.xy_yaw.shape == (3, 4, 3) and got.success.shape == (3, 4)
+    assert bool(np.asarray(want.success).any())
+    for q in range(len(BATCH)):
+        _assert_close(MatchResult(*(x[q] for x in got)),
+                      MatchResult(*(np.asarray(x[q]) for x in want)))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+    if cfg.fine_top_f:
+        for res in (got.score.numpy(), np.asarray(want.score)):
+            assert list(np.flatnonzero(res[0] != 0)) == [2, 3]
+
+
+@pytest.mark.parametrize("name", list(BATCH_CFGS))
+def test_batched_matcher_equals_one_query_calls(batch_inputs, name):
+    """The batch equals B one-query calls, bit for bit."""
+    cfg = BATCH_CFGS[name]
+    q_img, q_org, imgs, orgs = batch_inputs
+    got = _port(cfg, q_img, q_org, imgs, orgs)
+    for q in range(len(BATCH)):
+        one = _port(cfg, q_img[q], q_org[q], imgs[q], orgs[q])
+        for g, w in zip(got, one):
+            assert torch.equal(g[q], w)

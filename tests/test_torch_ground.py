@@ -1,12 +1,15 @@
 """ops/ground.py: the port's ground estimator against the JAX package.
 
 The JAX function draws from a PRNG key that torch cannot replay, so the
-parity test replays JAX's own draws: the subsample priorities
+parity tests replay JAX's own draws: the subsample priorities
 ``uniform(k_samp)`` and ``categorical(k_tri)`` over the port's ground mask,
 handed to the port through its injectable draws. Plane and transform agree
 to 1e-4 (the port refits in float64, JAX in float32, and the two frameworks'
 kNN distance matrices round differently). The scene tests are those of
-tests/test_ground.py, run on the port with its own seeded draws."""
+tests/test_ground.py, run on the port with its own seeded draws. The
+batched estimator (``estimate_ground_batch``) is held to
+``jax.jit(jax.vmap(estimate_ground))`` on the same replayed draws, and to
+the port's own one-scan calls bit for bit."""
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +24,8 @@ from gloc3d_tpu_torch.core.transforms import (
     get_yaw, quat_from_rpy, quat_rotate, transform_points,
 )
 from gloc3d_tpu_torch.ops.ground import (
-    _plane_from_triplets, _smallest_eigvec_3x3, estimate_ground,
+    _plane_from_triplets, _smallest_eigvec_3x3, batch_ground_draws,
+    estimate_ground, estimate_ground_batch, triplets_from,
 )
 from test_ground import make_scene
 from test_pipeline_ground import CFG as ALIGNED_CFG
@@ -106,6 +110,94 @@ def test_tilted_scans_match_jax_with_replayed_draws(scan, seed):
                                np.asarray(want.transform.translation),
                                atol=1e-5)
     assert float(got.inlier_fraction) == float(want.inlier_fraction)
+
+
+def _batch_scans():
+    """A tilted scan, a flat one and an all-masked one, in one batch."""
+    scans = [tilted_scan(-30, -30, 0.0, roll=0.02, pitch=-0.01, seed=0),
+             tilted_scan(0, -30, 0.4, roll=0.0, pitch=0.0, seed=1),
+             tilted_scan(30, 0, 1.5, roll=0.01, pitch=0.015, seed=2)]
+    pts = np.stack([p for p, _ in scans])
+    mask = np.stack([m for _, m in scans])
+    mask[2] = 0.0
+    return pts, mask
+
+
+def _stacked(draws):
+    """Per-scan (priority, sampler) pairs as the batched estimator's
+    (priority (B, N), sampler over (B, M) rows)."""
+    def sample(ground_ok, h):
+        return torch.stack([smp(ok, h) for (_, smp), ok
+                            in zip(draws, ground_ok)])
+
+    return torch.stack([p for p, _ in draws]), sample
+
+
+def _fields(est):
+    return (est.transform.rotation, est.transform.translation, est.plane,
+            est.valid, est.inlier_fraction)
+
+
+def test_batch_matches_jax_vmap_with_replayed_draws():
+    """B = 3 against ``jax.jit(jax.vmap(estimate_ground))``, each scan on
+    its own key's draws, at the 1e-5 bound of the tilted-scan test above;
+    the all-masked scan is invalid and the identity in both."""
+    pts, mask = _batch_scans()
+    cfg = ALIGNED_CFG.ground
+    keys = jax.random.split(jax.random.PRNGKey(7), 3)
+    prio, sampler = _stacked([_replayed_draws(k, pts.shape[1])
+                              for k in keys])
+    got = estimate_ground_batch(torch.from_numpy(pts),
+                                torch.from_numpy(mask), cfg,
+                                priority=prio, sample_triplets=sampler)
+    want = jax.jit(jax.vmap(lambda p, m, k: jax_estimate(p, m, cfg, k)))(
+        jnp.asarray(pts), jnp.asarray(mask), keys)
+    np.testing.assert_array_equal(got.valid.numpy(), [True, True, False])
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    for g, w in zip(_fields(got)[:3], _fields(want)[:3]):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+    np.testing.assert_array_equal(got.transform.rotation[2].numpy(),
+                                  [1.0, 0.0, 0.0, 0.0])
+    np.testing.assert_array_equal(got.transform.translation[2].numpy(), 0.0)
+    np.testing.assert_array_equal(got.inlier_fraction.numpy(),
+                                  np.asarray(want.inlier_fraction))
+
+
+@pytest.mark.parametrize("draws", ["replayed", "generator"])
+def test_batch_equals_one_scan_calls(draws):
+    """The batch against three one-scan calls, bit for bit: on JAX's
+    replayed draws, and on the default draws of one generator, which the
+    batch takes scan by scan as the one-scan calls do (the generator ends
+    in the same state, and ``batch_ground_draws`` gives the same numbers)."""
+    pts, mask = _batch_scans()
+    pts, mask = torch.from_numpy(pts), torch.from_numpy(mask)
+    cfg = ALIGNED_CFG.ground
+    if draws == "replayed":
+        per_scan = [_replayed_draws(k, pts.shape[1])
+                    for k in jax.random.split(jax.random.PRNGKey(8), 3)]
+        prio, sampler = _stacked(per_scan)
+        got = estimate_ground_batch(pts, mask, cfg, priority=prio,
+                                    sample_triplets=sampler)
+        want = [estimate_ground(pts[i], mask[i], cfg, priority=p,
+                                sample_triplets=smp)
+                for i, (p, smp) in enumerate(per_scan)]
+    else:
+        gen = torch.Generator().manual_seed(9)
+        got = estimate_ground_batch(pts, mask, cfg, gen)
+        gen_one = torch.Generator().manual_seed(9)
+        want = [estimate_ground(pts[i], mask[i], cfg, gen_one)
+                for i in range(3)]
+        assert torch.equal(gen.get_state(), gen_one.get_state())
+        prio, uni = batch_ground_draws(3, pts.shape[1], cfg,
+                                       torch.Generator().manual_seed(9))
+        again = estimate_ground_batch(pts, mask, cfg, priority=prio,
+                                      sample_triplets=triplets_from(uni))
+        for g, a in zip(_fields(got), _fields(again)):
+            assert torch.equal(g, a)
+    for i, one in enumerate(want):
+        for g, w in zip(_fields(got), _fields(one)):
+            assert torch.equal(g[i], w)
 
 
 def test_repeated_point_triplets():

@@ -37,7 +37,6 @@ from gloc3d_tpu_torch.convert import (
 from gloc3d_tpu_torch.models.descriptor import build_model, init_params
 from gloc3d_tpu_torch.models.vgg import VGG16_CFG, VGG16_CONV_IDX, conv_flops
 from gloc3d_tpu_torch.ops.bev import batch_scan_to_bev
-from gloc3d_tpu_torch import pipeline as port_pipeline
 from gloc3d_tpu_torch.pipeline import GlobalLocalizer
 from gloc3d_tpu_torch.train.cluster import init_vlad_from_data
 from test_pipeline import scan_at
@@ -371,27 +370,28 @@ class _JaxDraws:
     """The JAX localizer's ground-estimator draws, replayed into the port:
     each extract splits the localizer's key and then one key per scan
     (``GlobalLocalizer._align_impl``); each scan's estimate takes that
-    key's draws (tests/test_torch_ground.py::_replayed_draws)."""
+    key's draws (tests/test_torch_ground.py::_replayed_draws), fed to the
+    port's one batched estimate through ``_align``'s stacked ``draws``."""
 
     def __init__(self, seed: int):
-        self.key, self.keys = jax.random.PRNGKey(seed), []
+        self.key = jax.random.PRNGKey(seed)
 
     def attach(self, loc, monkeypatch):
-        align, estimate = loc._align, port_pipeline.estimate_ground
+        align = loc._align
 
-        def split_then_align(points, mask):
+        def replayed_align(points, mask):
             self.key, sub = jax.random.split(self.key)
-            self.keys = list(jax.random.split(sub, points.shape[0]))
-            return align(points, mask)
+            draws = [_replayed_draws(k, points.shape[1])
+                     for k in jax.random.split(sub, points.shape[0])]
 
-        def replayed(points, mask, cfg, generator=None):
-            prio, sampler = _replayed_draws(self.keys.pop(0),
-                                            points.shape[0])
-            return estimate(points, mask, cfg, priority=prio,
-                            sample_triplets=sampler)
+            def sample_triplets(ground_ok, h):
+                return torch.stack([sampler(ok, h) for (_, sampler), ok
+                                    in zip(draws, ground_ok)])
 
-        monkeypatch.setattr(loc, "_align", split_then_align)
-        monkeypatch.setattr(port_pipeline, "estimate_ground", replayed)
+            return align(points, mask, (torch.stack([p for p, _ in draws]),
+                                        sample_triplets))
+
+        monkeypatch.setattr(loc, "_align", replayed_align)
 
 
 ALIGNED_DB = [(-30, -30, 0.0), (0, -30, 0.4), (30, 0, 1.5)]

@@ -1,7 +1,9 @@
 """The port's serving path against the JAX package, at S = 128 and 2048
 points: the bit-packed device keyframe store (``device_keyframes``,
 ``host_mirror=False``), ``save`` / ``load`` across the two packages,
-``locate_batch`` and ``locate_fused``.
+``locate_batch`` and ``locate_fused``, and the calls that ``locate_batch``
+and an aligned ``add_keyframes`` make to the matcher and the ground
+estimator (one per stage, whatever the batch).
 
 Within one package the store, the batch and the fused query must give what
 ``locate`` on the host mirror gives: same success, keyframe and candidates,
@@ -19,6 +21,7 @@ import torch
 
 from gloc3d_tpu.pipeline import GlobalLocalizer as JaxLocalizer
 from gloc3d_tpu.pipeline import _pack_bits as jax_pack_bits
+from gloc3d_tpu_torch import pipeline
 from gloc3d_tpu_torch.models.descriptor import build_model, init_params
 from gloc3d_tpu_torch.pipeline import (
     GlobalLocalizer, _pack_bits, _unpack_bits,
@@ -272,3 +275,85 @@ def test_locate_fused_guards(localizers, stored, case):
     with pytest.raises(err, match=match):
         loc.locate_fused(pts, mask)
 
+
+
+# ---------------------------------------------------------------- calls
+def _counted(monkeypatch, name):
+    """Wrap the pipeline's ``name`` so each call logs its batch shape."""
+    calls, fn = [], getattr(pipeline, name)
+
+    def counted(*args, **kw):
+        out = fn(*args, **kw)
+        calls.append(tuple(out[0].shape[:-1]) if name == "match_bev_topk"
+                     else tuple(out.valid.shape))
+        return out
+
+    monkeypatch.setattr(pipeline, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("case", [
+    "every top candidate succeeds", "mixed splice", "unstaged"])
+def test_locate_batch_makes_one_matcher_call_per_stage(
+        localizers, stored, port_results, monkeypatch, case):
+    """``locate_batch`` registers each stage in ONE call: stage 1 at (B, 1),
+    stage 2 at (F, K) over exactly the F queries whose top candidate
+    failed, or one (B, K) call unstaged; each result equals ``locate``'s,
+    and the mixed splice (on the device store) JAX's ``locate_batch``."""
+    ref, port = localizers
+    rows = ([0, 1, 0, 1] if case == "every top candidate succeeds"
+            else list(range(len(QUERY_SCANS))))
+    loc = stored if case == "mixed splice" else port
+    if case == "unstaged":
+        monkeypatch.setattr(loc, "cfg", CFG.replace(
+            match=CFG.match.replace(staged_first=False)))
+    want = [port_results[i] for i in rows]
+    k = CFG.index.top_k
+    # no filler candidates (6 keyframes, top 3): a query failed stage 1
+    # exactly when its top candidate is not its answer
+    failed = sum(not (r.success and r.db_index == r.candidates[0])
+                 for r in want)
+    expected = {"every top candidate succeeds": [(4, 1)],
+                "mixed splice": [(5, 1), (failed, k)],
+                "unstaged": [(5, k)]}[case]
+    assert (failed == 0) == (case == "every top candidate succeeds")
+    pts = np.stack([QUERY_SCANS[i][0] for i in rows])
+    masks = np.stack([QUERY_SCANS[i][1] for i in rows])
+    calls = _counted(monkeypatch, "match_bev_topk")
+    got = loc.locate_batch(pts, masks)
+    assert calls == expected
+    for a, b in zip(got, want):
+        _same(a, b)
+    if case == "mixed splice":
+        for a, b in zip(got, ref.locate_batch(pts, masks)):
+            _same(a, b, xy_tol=1e-3)
+
+
+def test_aligned_add_keyframes_makes_one_estimator_call(monkeypatch):
+    """An aligned ``add_keyframes`` of 4 scans estimates the ground in ONE
+    call, and each keyframe gets the ground frame that one-scan
+    ``estimate_ground`` calls give on the same seed, bit for bit (a map
+    built one scan at a time gets the same transforms)."""
+    from gloc3d_tpu_torch.ops.ground import estimate_ground
+
+    scans = [tilted_scan(x, y, yaw, roll=0.02, pitch=-0.01, seed=i)
+             for i, (x, y, yaw) in enumerate(
+                 [(-30, -30, 0.0), (0, -30, 0.4), (30, 0, 1.5),
+                  (2.5, -31.5, 0.7)])]
+    pts = np.stack([s[0] for s in scans])
+    mask = np.stack([s[1] for s in scans])
+    loc = GlobalLocalizer(ALIGNED_CFG, init_params(build_model(
+        ALIGNED_CFG.model, ALIGNED_CFG.voxel), seed=0), device="cpu",
+        align_ground=True, seed=3)
+    calls = _counted(monkeypatch, "estimate_ground_batch")
+    loc.add_keyframes(pts, mask)
+    assert calls == [(4,)]
+    gen = torch.Generator().manual_seed(3)
+    for kf, p, m in zip(loc.keyframes, pts, mask):
+        one = estimate_ground(torch.from_numpy(p), torch.from_numpy(m),
+                              ALIGNED_CFG.ground, gen)
+        np.testing.assert_array_equal(kf.ground.rotation,
+                                      one.transform.rotation.numpy())
+        np.testing.assert_array_equal(kf.ground.translation,
+                                      one.transform.translation.numpy())
+    assert torch.equal(gen.get_state(), loc._gen.get_state())
