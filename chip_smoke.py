@@ -261,7 +261,8 @@ Phases, each printing its own lines:
      bit-equal, each rank's store bytes beside the unsharded store's, the
      saved map = the unsharded save, a keyframe added after sharding, the
      map loaded into a sharded localizer (world 1), the K1 launches of
-     the sharded store's queries (2 · 8 + 1 on each rank);
+     the sharded store's queries (2 · 8 + 1 on each rank, and one
+     for each capture of locate_fused's program at world 1);
      match_scan_fast_sharded at the Olson count rounded up to a multiple
      of 2 (1 572) on a 512² grid cut from keyframe 0's BEV with
      bench_submap.py's offset query: world 1 = match_scan_fast bit for bit,
@@ -348,6 +349,31 @@ Phases, each printing its own lines:
      keyframe scans in one call against 16 B = 1 calls on the same draws
      (same valid, transforms within 1e-6), with times and kernels; the
      device memory peak of unstaged locate_batch at B = 8, K = 20.
+ 31. [fused-graph], after the fused phases: locate_fused as the JAX
+     package runs it, one captured CUDA graph for the program and one for
+     the full branch of staged_first, on every extraction variant (host
+     stats, host stats aligned, all-device, aligned all-device,
+     device_sort, images) and every bank (flat fp32 and int8, IVF fp32 and
+     int8 at 4 cells, nprobe 4), fp32, the fm preset, on the located and
+     aligned maps (16 keyframes; two of their queries and one 80 m from
+     every keyframe, which takes stage 2) and the i2i one (PipelineConfig.
+     i2i(), the located map's BEVs as images): the capture's seconds;
+     every replay bit-equal to the same programs run eagerly, and = locate
+     (same_results); host syncs per call 1, or 2 with stage 2 (one more on
+     the aligned host-stats variant, its alignment program's fetch), the
+     staging and replays under set_sync_debug_mode("error"); ms per query
+     in the order graph, eager, eager, graph, and locate's; traced device
+     busy / wall and kernels, graph and eager; peak allocated memory; K1 /
+     K2 launches, those inside replays counted as the captured launches
+     times the replays; every K1 / K2 launch of the eager program, which
+     the replays equal bit for bit, against its plain version; a K2
+     status word set bad in the replay's result raising after the fetch;
+     a host read planted in the program failing its capture and
+     locate_fused raising (no eager fallback); a keyframe added after a
+     capture coming back. Times and the eager trace: FUSED_TIMED calls,
+     the eager trace on the flat fp32 bank. [fused-cell] also
+     prints the capture, graph against eager program times, the eager
+     program's trace and the peak with and without the graphs.
 The kernel-only times of phase 17 come from complete traces only (every
 device operation of every traced call, memsets included: K1 launches two
 kernels and a memset a call, K2 four kernels); a timing with none in six
@@ -364,6 +390,8 @@ current one, in the order earlier, current, current, earlier.
 `python3 chip_smoke.py --surface` phases 1, 2, 6 and 29 only;
 `python3 chip_smoke.py --spatial` phases 1, 2 and 27 only;
 `python3 chip_smoke.py --batched` phases 1, 2, 5, 6 and 30 only;
+`python3 chip_smoke.py --fused-graph` phases 1, 2, 31 and [fused-cell]
+only;
 `--i2i-train`, `--pose-train` and `--packed` run phases 1, 2 and the
 phase (or phases) named, alone;
 `--seed N` seeds the map-scale rows (default 0).
@@ -374,6 +402,7 @@ The line before the last is the kernels JSON; the last line is
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -793,6 +822,19 @@ def check_k2_bad_ids(torch, feats, ids, v):
     check(msg.startswith(want), f"K2's out-of-range message: {msg!r}")
 
 
+def reset_launches(*counters) -> None:
+    """Zero a kernel wrapper's launches and the launches replays of its
+    captured CUDA graphs ran."""
+    for c in counters:
+        c.launches = c.replayed = 0
+
+
+def launches_of(counter) -> int:
+    """A kernel's launches: through its wrapper, and inside replays of
+    captured CUDA graphs (the captured launches times the replays)."""
+    return counter.launches + counter.replayed
+
+
 def record_launches(fn):
     """Run fn() and return copies of the arguments of every K1 and K2
     launch it made: {"K1": [(values, starts)], "K2": [(features, ids, V)]},
@@ -1083,10 +1125,10 @@ def phase_located_query(torch, cfg, lq_set, centroids, device="cuda"):
           f"min_overlap_pixels {cfg.match.min_overlap_pixels}")
 
     model = build_serving_model(torch, cfg, "bfloat16", centroids)
-    ss.segment_sum_sorted.launches = 0
+    reset_launches(ss.segment_sum_sorted)
     loc = build_map(torch, cfg, model, kf, device, host_stats=True)
     results = [loc.locate(*q) for q in qs]
-    launches = ss.segment_sum_sorted.launches
+    launches = launches_of(ss.segment_sum_sorted)
     print(f"[locate] K1 launches on the main path: {launches}")
     check(launches >= N_KEYFRAMES // 4 + N_QUERIES,
           f"K1 launched {launches} times on the main path")
@@ -1210,9 +1252,9 @@ def phase_aligned_query(torch, cfg, model, kf_set, q_set):
           f"{HEIGHTS[0]}-{HEIGHTS[1]} m; ground RANSAC "
           f"{cfg.ground.num_candidates} candidates x "
           f"{cfg.ground.ransac_iters} hypotheses")
-    bs.pillar_bin_sums.launches = 0
+    reset_launches(bs.pillar_bin_sums)
     loc, results = run_aligned(torch, cfg, model, kf, qs, host_stats=False)
-    launches = bs.pillar_bin_sums.launches
+    launches = launches_of(bs.pillar_bin_sums)
     need = 2 * (len(kf) // 4 + len(qs))
     print(f"[aligned] K2 launches on the all-device aligned path: "
           f"{launches} (at least {need})")
@@ -1361,10 +1403,10 @@ def phase_aligned_hoststats(torch, cfg, kf_set, q_set, centroids):
     model = build_serving_model(torch, cfg, "float32", centroids)
     _, dev_results = run_aligned(torch, cfg, model, kf_set[2], q_set[2],
                                  host_stats=False)
-    ss.segment_sum_sorted.launches = 0
+    reset_launches(ss.segment_sum_sorted)
     _, results = run_aligned(torch, cfg, model, kf_set[2], q_set[2],
                              host_stats=True)
-    launches = ss.segment_sum_sorted.launches
+    launches = launches_of(ss.segment_sum_sorted)
     worst_t = worst_r = 0.0
     for i, (a, b) in enumerate(zip(results, dev_results)):
         check(a.success and b.success and a.db_index == b.db_index,
@@ -1525,27 +1567,27 @@ def phase_device_sort(torch, cfg, kf_set, q_set, centroids, card):
     # 2. the aligned map both ways, fp32: same answers, K1 only
     model = build_serving_model(torch, cfg, "float32", centroids)
     default = build_map(torch, cfg, model, kf, align_ground=True)
-    ss.segment_sum_sorted.launches = 0
-    bs.pillar_bin_sums.launches = 0
+    reset_launches(ss.segment_sum_sorted)
+    reset_launches(bs.pillar_bin_sums)
     dsorted = build_map(torch, cfg, model, kf, align_ground=True,
                         device_sort=True)
     check(dsorted.device_sort, "[device-sort] the option was dropped")
-    k1_launches = ss.segment_sum_sorted.launches
-    k2_launches = bs.pillar_bin_sums.launches
+    k1_launches = launches_of(ss.segment_sum_sorted)
+    k2_launches = launches_of(bs.pillar_bin_sums)
     times = {"default": [], "device sort": []}
     results = {"default": [], "device sort": []}
     for _ in range(3):
         for q in qs:
             for key, loc in (("default", default), ("device sort", dsorted)):
-                ss.segment_sum_sorted.launches = 0
-                bs.pillar_bin_sums.launches = 0
+                reset_launches(ss.segment_sum_sorted)
+                reset_launches(bs.pillar_bin_sums)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 results[key].append(loc.locate(*q))
                 times[key].append((time.perf_counter() - t0) * 1e3)
                 if key == "device sort":  # the device-sort run's launches
-                    k1_launches += ss.segment_sum_sorted.launches
-                    k2_launches += bs.pillar_bin_sums.launches
+                    k1_launches += launches_of(ss.segment_sum_sorted)
+                    k2_launches += launches_of(bs.pillar_bin_sums)
     extractions = len(kf) // 4 + len(results["device sort"])
     print(f"[device-sort] aligned map, fp32: {len(kf)} keyframes, "
           f"{len(qs)} queries x 3; K1 launches {k1_launches} (2 per "
@@ -1707,10 +1749,10 @@ def phase_fused_query(torch, cfg, lq_set, kf_set, q_set, centroids):
 
     (kf_poses, kf), (q_poses, qs) = lq_set
     model = build_serving_model(torch, cfg, "bfloat16", centroids)
-    ss.segment_sum_sorted.launches = 0
+    reset_launches(ss.segment_sum_sorted)
     loc = serving_localizer(torch, cfg, model, kf, host_stats=True)
     results = fused_results(loc, qs, "host-stats")
-    k1 = ss.segment_sum_sorted.launches
+    k1 = launches_of(ss.segment_sum_sorted)
     print(f"[fused] host-stats locate_fused, fm preset, device store (no "
           f"host mirror): K1 launches {k1}; store {tuple(loc._kf_store.shape)}"
           f" uint8, {loc._kf_store.numel() / 2**20:.1f} MiB")
@@ -1719,10 +1761,10 @@ def phase_fused_query(torch, cfg, lq_set, kf_set, q_set, centroids):
           "host_mirror=False kept images on the host")
     check_located("fused", results, kf_poses, q_poses, cfg.index.top_k)
 
-    bs.pillar_bin_sums.launches = 0
+    reset_launches(bs.pillar_bin_sums)
     a_loc = serving_localizer(torch, cfg, model, kf_set[2], align_ground=True)
     a_results = fused_results(a_loc, q_set[2], "aligned")
-    k2 = bs.pillar_bin_sums.launches
+    k2 = launches_of(bs.pillar_bin_sums)
     need = 2 * (len(kf_set[2]) // 4 + len(q_set[2]))
     print(f"[fused] aligned all-device locate_fused: K2 launches {k2} (at "
           f"least {need})")
@@ -1817,15 +1859,50 @@ def phase_fused_cell(torch, cfg, centroids, card):
             _host(ground.transform.rotation[0]),
             _host(ground.transform.translation[0]))
         loc.keyframes = [Keyframe(None, None, g)] * n_map
+        t0 = time.perf_counter()
         res = loc.locate_fused(pts[0], mask[0])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
         check(res.success and res.db_index == jrow,
               f"{label} fused cell: success {res.success}, db "
               f"{res.db_index} (want {jrow})")
+
         def fused():
             return loc.locate_fused(pts[0], mask[0])
 
+        def eager():
+            return loc._fused_result(*loc._fused_run(pts[0], mask[0], None,
+                                                     captured=False))
+
         def plain():
             return loc.locate(pts[0], mask[0])
+
+        t_e = [host_ms(torch, f, 10) for f in (fused, eager, eager, fused)]
+        e_busy, e_wall, e_k, _ = device_idle_share(torch, eager)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        pool = graph_pool_mib(torch, loc)  # drops the graphs
+        torch.cuda.reset_peak_memory_stats()
+        eager()
+        torch.cuda.synchronize()
+        e_peak = torch.cuda.max_memory_allocated() / 2**20
+        t0 = time.perf_counter()
+        fused()  # captured again
+        torch.cuda.synchronize()
+        again_s = time.perf_counter() - t0
+        print(f"[fused-cell] {label}: locate_fused as captured CUDA graphs: "
+              f"first call (capture included) {first_s:.3f} s, a capture "
+              f"after dropping the graphs {again_s:.3f} s; ms per query "
+              f"(host clock, median of 10, order graph, eager, eager, "
+              f"graph) {t_e[0]:.3f} / {t_e[1]:.3f} / {t_e[2]:.3f} / "
+              f"{t_e[3]:.3f}; the eager program traced: device busy "
+              f"{e_busy:.3f} ms of {e_wall:.3f} ms wall, {e_k} kernels; "
+              f"peak allocated with the graphs {peak:.1f} MiB (their pool "
+              f"{pool:.1f} MiB more), without them (eager program) "
+              f"{e_peak:.1f} MiB; {card}")
 
         # order fused, locate, locate, fused: the host clock drifts
         t = [host_ms(torch, f, 10) for f in (fused, plain, plain, fused)]
@@ -1911,6 +1988,387 @@ def phase_fused_reference(torch, cfg, lq_set, centroids,
               f"{math.degrees(fine_bin):.2f} deg)")
         check(dxy <= cell + 1e-3 and dyaw <= fine_bin + 1e-4,
               "card pose disagrees with the CPU pose")
+
+
+# ---------------------------------------------------------------- [fused-graph]
+FUSED_IVF = dict(backend="ivf", ivf_num_cells=4, ivf_nprobe=4,
+                 ivf_cell_capacity=8, ivf_train_sample=64)
+FUSED_BANKS = {"flat fp32": {}, "flat int8": {"quantize": "int8"},
+               "IVF fp32": FUSED_IVF,
+               "IVF int8": dict(FUSED_IVF, quantize="int8")}
+FUSED_VARIANTS = (  # (variant, map, localizer switches)
+    ("host stats", "located", dict(host_stats=True)),
+    ("host stats, aligned", "aligned", dict(host_stats=True,
+                                            align_ground=True)),
+    ("all-device", "located", {}),
+    ("aligned", "aligned", dict(align_ground=True)),
+    ("device_sort", "located", dict(device_sort=True)),
+    ("images", "images", {}))
+FUSED_FAR = (80.0, 80.0, 0.0)  # no keyframe sees it: stage 1 fails
+FUSED_TIMED = 3                # host-clock calls per timing
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    """Two unpacked fused results hold the same bytes under every name."""
+    return a.keys() == b.keys() and all(
+        np.asarray(a[k]).shape == np.asarray(b[k]).shape
+        and np.array_equal(np.asarray(a[k]).view(np.uint8),
+                           np.asarray(b[k]).view(np.uint8)) for k in a)
+
+
+def fused_graph_sets(torch, cfg, world, lq_set, kf_set, q_set):
+    """Per map: (keyframe batches as add_keyframes takes them, queries as
+    locate_fused takes them; two of the map's queries and one far from
+    every keyframe, last)."""
+    from gloc3d_tpu_torch import PipelineConfig
+
+    n = cfg.voxel.max_points
+    far = scan_at(world, FUSED_FAR, n, seed=300)
+    icfg = PipelineConfig.i2i()
+
+    def scans(kf):
+        return [(np.stack([k[0] for k in kf[i:i + 4]]),
+                 np.stack([k[1] for k in kf[i:i + 4]]))
+                for i in range(0, len(kf), 4)]
+
+    kf_img, kf_org = render_bevs(torch, icfg, lq_set[0][1])
+    q_img, q_org = render_bevs(torch, icfg, lq_set[1][1][:2] + [far])
+    return {
+        "located": (scans(lq_set[0][1]), lq_set[1][1][:2] + [far]),
+        "aligned": (scans(kf_set[2]), q_set[2][:2] + [far]),
+        "images": ([(kf_img[i:i + 4], None, kf_org[i:i + 4])
+                    for i in range(0, len(kf_img), 4)],
+                   [(q_img[i], None, q_org[i]) for i in range(3)])}
+
+
+def swap_bank(loc, index, rows) -> None:
+    """Give ``loc`` a new bank of the configuration ``index`` holding
+    ``rows`` (the map's descriptors), as the localizer builds it."""
+    from gloc3d_tpu_torch.index.bank import DescriptorBank
+    from gloc3d_tpu_torch.pipeline import _IVFBankAdapter
+
+    loc.cfg = loc.cfg.replace(index=index)
+    loc.bank = (_IVFBankAdapter(index, index.dim, loc.device)
+                if index.backend == "ivf"
+                else DescriptorBank(index, dim=index.dim, device=loc.device))
+    loc.bank.add(rows)
+
+
+def strict_launches(torch, graphs) -> None:
+    """Run a captured program's staging and replays under
+    set_sync_debug_mode("error"): any synchronisation there raises."""
+    def strict(fn):
+        def run(*args):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return run
+
+    graphs.launch = strict(graphs.launch)
+    graphs.launch_full = strict(graphs.launch_full)
+
+
+def fused_graph_case(torch, loc, queries, variant, captures,
+                     eager_trace: bool) -> dict:
+    """One variant on one bank: the first call (capture), then for each
+    query the replayed programs against the eager ones bit for bit and
+    against locate, host syncs per call, the K2 status raised after the
+    fetch; timings, traces and peak memory on the first query."""
+    from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import segment_sum as ss
+
+    reset_launches(ss.segment_sum_sorted, bs.pillar_bin_sums)
+
+    def seeded(i):
+        if loc.align_ground:  # the same ground draws on every path
+            loc._gen.manual_seed(1000 + i)
+
+    def fused(i=0):
+        seeded(i)
+        return loc.locate_fused(*queries[i])
+
+    def eager(i=0):
+        seeded(i)
+        return loc._fused_result(*loc._fused_run(*queries[i],
+                                                 captured=False))
+
+    def plain(i=0):
+        seeded(i)
+        return loc.locate(*queries[i])
+
+    n_cap = len(captures)
+    t0 = time.perf_counter()
+    fused()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(len(captures) == n_cap + 1, f"[fused-graph] {variant}: the first "
+          f"call made {len(captures) - n_cap} captures")
+    strict_launches(torch, loc._fused_graphs)
+    rec = {"capture_s": captures[-1], "first_call_s": first_s,
+           "bit_equal": True, "stage2": [], "syncs": []}
+    worst = 0.0
+    for i in range(len(queries)):
+        seeded(i)
+        g = loc._fused_run(*queries[i])
+        seeded(i)
+        e = loc._fused_run(*queries[i], captured=False)
+        same = same_bits(g[0], e[0]) and (g[1] is None) == (e[1] is None) \
+            and (g[1] is None or same_bits(g[1], e[1]))
+        rec["bit_equal"] = rec["bit_equal"] and same
+        check(same, f"[fused-graph] {variant} query {i}: the replayed "
+              f"result differs from the eager program's")
+        worst = max(worst, same_results(
+            f"[fused-graph] {variant} locate vs locate_fused",
+            [plain(i)], [loc._fused_result(*g)]))
+        rec["stage2"].append(g[1] is not None)
+        rec["syncs"].append(count_syncs(torch, lambda: fused(i)))
+        want = 1 + (g[1] is not None) + (variant == "host stats, aligned")
+        check(rec["syncs"][-1] == want, f"[fused-graph] {variant} query "
+              f"{i}: {rec['syncs'][-1]} host syncs per call, want {want}")
+    check(rec["stage2"][-1], f"[fused-graph] {variant}: the far query did "
+          f"not take stage 2")
+    check(len(captures) == n_cap + 1, f"[fused-graph] {variant}: "
+          f"recaptured on an unchanged map")
+    rec["locate_max_diff"] = worst
+
+    def host_side():  # the host pass (and its alignment), before the upload
+        seeded(0)
+        return loc._fused_query(loc._fused_variant(queries[0][0]),
+                                *queries[0])
+
+    rec["ms"] = [host_ms(torch, f, FUSED_TIMED)
+                 for f in (fused, eager, eager, fused)]
+    rec["host_side_ms"] = host_ms(torch, host_side, FUSED_TIMED)
+    rec["locate_ms"] = host_ms(torch, plain, FUSED_TIMED)
+    for name, fn in (("", fused), ("eager_", eager))[:1 + eager_trace]:
+        busy, wall, n_k, _ = device_idle_share(torch, fn)
+        rec[name + "busy_ms"], rec[name + "wall_ms"] = busy, wall
+        rec[name + "kernels"] = n_k
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        rec[name + "peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    rec["graph_pool_mib"] = graph_pool_mib(torch, loc)
+    rec["replayed"] = (ss.segment_sum_sorted.replayed,
+                       bs.pillar_bin_sums.replayed)
+    rec["launches"] = (launches_of(ss.segment_sum_sorted),
+                       launches_of(bs.pillar_bin_sums))
+    return rec
+
+
+def graph_pool_mib(torch, loc) -> float:
+    """Device memory the localizer's captured graphs hold (their pool):
+    the reserved memory that goes when they are dropped."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    loc._fused_graphs = None
+    gc.collect()  # strict_launches' wrappers hold the graphs in a cycle
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return (held - torch.cuda.memory_reserved()) / 2**20
+
+
+def fused_status_fault(torch, loc, query) -> str:
+    """A K2 status word set to one bad id in the captured program's result
+    before the fetch: locate_fused must raise the kernel's error."""
+    loc.locate_fused(*query)  # captured on this bank
+    graphs = loc._fused_graphs
+    at = 0
+    for name, shape, _ in graphs.layout:
+        if name == "k2_status0":
+            break
+        at += int(np.prod(shape))
+    fetch = graphs.fetch
+
+    def faulty():
+        graphs.words[at] = 1
+        return fetch()
+
+    graphs.fetch = faulty
+    try:
+        loc.locate_fused(*query)
+    except ValueError as e:
+        return str(e)
+    finally:
+        graphs.fetch = fetch
+    raise SmokeFailure("[fused-graph] a bad K2 status in the captured "
+                       "program's result did not raise")
+
+
+# a fresh process (a failed capture leaves torch's allocator deferring
+# frees for good): a host read planted in the fused program's stage 1
+FUSED_CAPTURE_FAILURE = textwrap.dedent("""
+    import numpy as np
+    from gloc3d_tpu_torch import PipelineConfig
+    from gloc3d_tpu_torch.models.descriptor import build_model, init_params
+    from gloc3d_tpu_torch.pipeline import GlobalLocalizer, Keyframe
+
+    cfg = PipelineConfig.s2s()
+    loc = GlobalLocalizer(cfg, init_params(build_model(cfg.model, cfg.voxel),
+                                           seed=0),
+                          device="cuda", device_keyframes=True,
+                          host_mirror=False)
+    rng = np.random.RandomState(0)
+    s, n = cfg.bev.image_size, cfg.voxel.max_points
+    loc.bank.add(rng.randn(4, cfg.index.dim).astype(np.float32))
+    loc._store_keyframes((rng.rand(4, s, s) < 0.5).astype(np.float32),
+                         rng.randn(4, 2).astype(np.float32), offset=0)
+    loc.keyframes = [Keyframe(None, None)] * 4
+    match = loc._fused_match
+
+    def planted(q_image, q_origin, rows, store):
+        float(rows.sum())
+        return match(q_image, q_origin, rows, store)
+
+    loc._fused_match = planted
+    try:
+        loc.locate_fused(rng.uniform(-30, 30, (n, 4)).astype(np.float32),
+                         np.ones(n, np.float32))
+    except Exception as e:  # the capture's own error, whatever its type
+        print(type(e).__name__ + ": " + str(e).splitlines()[0][:100])
+    else:
+        raise SystemExit("locate_fused answered with a host read planted")
+""")
+
+
+def fused_capture_failure() -> str:
+    """A host read planted in the program (``float()`` of a device value in
+    stage 1's registration), in a fresh process: the capture must fail and
+    locate_fused raise, with no answer from an eager run."""
+    r = subprocess.run([sys.executable, "-c", FUSED_CAPTURE_FAILURE],
+                       env=dict(os.environ, PYTHONPATH=REPO),
+                       capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0 and r.stdout.strip(), f"[fused-graph] the "
+          f"planted host read: rc {r.returncode}, {r.stdout[-500:]} "
+          f"{r.stderr[-2000:]}")
+    return r.stdout.strip().splitlines()[-1]
+
+
+def fused_add_after_capture(torch, loc, query, captures) -> dict:
+    """A keyframe added after a capture, the first query's own scan: the
+    next locate_fused must return it (the sizes are device inputs)."""
+    loc.locate_fused(*query)
+    n_cap, n_kf = len(captures), len(loc.keyframes)
+    if np.ndim(query[0]) == 3:
+        loc.add_keyframes(query[0][None], origins=query[2][None])
+    else:
+        loc.add_keyframes(query[0][None], query[1][None])
+    res = loc.locate_fused(*query)
+    check(res.success and res.db_index == n_kf, f"[fused-graph] the "
+          f"keyframe added after a capture did not come back: {res}")
+    return {"db_index": res.db_index, "recaptures": len(captures) - n_cap}
+
+
+def phase_fused_graph(torch, cfg, world, centroids, lq_set, kf_set, q_set,
+                      card) -> dict:
+    """[fused-graph]: locate_fused as two captured CUDA graphs on every
+    extraction variant and bank, fp32 with TF32 off, the fm preset."""
+    from gloc3d_tpu_torch import PipelineConfig
+    from gloc3d_tpu_torch import pipeline
+
+    sets = fused_graph_sets(torch, cfg, world, lq_set, kf_set, q_set)
+    captures = []
+    capture = pipeline._FusedGraphs.__init__
+
+    def timed_capture(self, *args):
+        t0 = time.perf_counter()
+        capture(self, *args)
+        torch.cuda.synchronize()
+        captures.append(time.perf_counter() - t0)
+
+    pipeline._FusedGraphs.__init__ = timed_capture
+    out = {}
+    try:
+        for variant, kind, kw in FUSED_VARIANTS:
+            if kind == "images":
+                vcfg = PipelineConfig.i2i().fast_match(fm=True)
+                model = i2i_model(torch, vcfg, "float32",
+                                  i2i_centroids(torch, vcfg, kf_set))
+            else:
+                vcfg = cfg.fast_match(fm=True)
+                model = build_serving_model(torch, cfg, "float32",
+                                            centroids)
+            loc = pipeline.GlobalLocalizer(
+                vcfg, model, device=torch.device("cuda"),
+                device_keyframes=True, host_mirror=False, **kw)
+            batches, queries = sets[kind]
+            for b in batches:
+                loc.add_keyframes(*b)
+            rows = loc.bank.data.clone()
+            out[variant] = {}
+            for bank, over in FUSED_BANKS.items():
+                swap_bank(loc, vcfg.index.replace(**over), rows)
+                rec = fused_graph_case(torch, loc, queries, variant,
+                                       captures, bank == "flat fp32")
+                out[variant][bank] = rec
+                print(f"[fused-graph] {variant}, {bank} bank, "
+                      f"{len(batches) * 4} keyframes, fp32, on {card}: "
+                      f"capture {rec['capture_s']:.3f} s (first call "
+                      f"{rec['first_call_s']:.3f} s); replay = eager program "
+                      f"bit for bit on {len(queries)} queries (stage 2 on "
+                      f"{sum(rec['stage2'])}), = locate (xy_yaw max |diff| "
+                      f"{rec['locate_max_diff']:.2e}); host syncs per call "
+                      f"{rec['syncs']}; ms per query (host clock, median of "
+                      f"{FUSED_TIMED}, order graph, eager, eager, graph) "
+                      + " / ".join(f"{t:.3f}" for t in rec["ms"])
+                      + f", locate {rec['locate_ms']:.3f}; traced: graph "
+                      f"busy {rec['busy_ms']:.3f} of {rec['wall_ms']:.3f} ms "
+                      f"wall, {rec['kernels']} kernels"
+                      + ("" if "eager_kernels" not in rec else
+                         f"; eager busy {rec['eager_busy_ms']:.3f} of "
+                         f"{rec['eager_wall_ms']:.3f} ms, "
+                         f"{rec['eager_kernels']} kernels, peak allocated "
+                         f"{rec['eager_peak_mib']:.1f} MiB")
+                      + f"; the host side before the upload "
+                      f"{rec['host_side_ms']:.3f} ms; peak allocated "
+                      f"{rec['peak_mib']:.1f} MiB, the graphs' pool "
+                      f"{rec['graph_pool_mib']:.1f} MiB; K1 / K2 launches "
+                      f"{rec['launches']} (in replays {rec['replayed']})")
+            if variant in ("all-device", "aligned"):
+                msg = fused_status_fault(torch, loc, queries[0])
+                out[variant]["status_fault"] = msg[:120]
+                print(f"[fused-graph] {variant}: a bad K2 status in the "
+                      f"replay's result raises after the fetch: {msg[:120]}")
+            if variant == "host stats":
+                msg = fused_capture_failure()
+                out[variant]["capture_failure"] = msg
+                print(f"[fused-graph] {variant}: a host read planted in the "
+                      f"program fails the capture and locate_fused raises "
+                      f"({msg})")
+            if variant in ("host stats", "all-device"):
+                calls = record_launches(
+                    lambda: loc._fused_run(*queries[0], captured=False))
+                errs = []
+                for key, launches in calls.items():
+                    for args in launches:
+                        label = f"[fused-graph] {variant} {key}"
+                        rel = (check_k1(torch, label, *args)[0]
+                               if key == "K1"
+                               else check_k2(torch, label, *args)[0])
+                        check(rel < 1e-5, f"{label} disagrees with its "
+                              f"plain version: {rel:.3e}")
+                        errs.append(f"{key} {rel:.2e}")
+                check(errs, f"[fused-graph] {variant}: no kernel launch")
+                print(f"[fused-graph] {variant}: every kernel launch of the "
+                      f"eager program, which the replays equal bit for bit, "
+                      f"against its plain version (1e-5 of L1 mass): "
+                      + ", ".join(errs))
+            swap_bank(loc, vcfg.index, rows)
+            out[variant]["add"] = fused_add_after_capture(
+                torch, loc, queries[0], captures)
+            print(f"[fused-graph] {variant}: a keyframe added after the "
+                  f"capture comes back (db {out[variant]['add']['db_index']}"
+                  f"; recaptures {out[variant]['add']['recaptures']})")
+            del loc, model
+            torch.cuda.empty_cache()
+    finally:
+        pipeline._FusedGraphs.__init__ = capture
+    return out
 
 
 # ---------------------------------------------------------------- [batched]
@@ -2046,9 +2504,10 @@ def batched_map(torch, cfg, tag, loc, loc32, qs, card):
 
     t = [host_ms(torch, f, 5) / b
          for f in (run_batch, run_single, run_single, run_batch)]
-    ss.segment_sum_sorted.launches = bs.pillar_bin_sums.launches = 0
+    reset_launches(ss.segment_sum_sorted, bs.pillar_bin_sums)
     run_batch()
-    k12 = (ss.segment_sum_sorted.launches, bs.pillar_bin_sums.launches)
+    k12 = (launches_of(ss.segment_sum_sorted),
+           launches_of(bs.pillar_bin_sums))
     n_batch = device_idle_share(torch, run_batch)[2]
     n_single = device_idle_share(torch, run_single)[2]
     with torch.no_grad():
@@ -2648,14 +3107,18 @@ def shard_store_world(torch, rank, cfg, state, kf, qs, case, tmp) -> dict:
 def sharded_store_queries(tag, loc, qs):
     """store_queries on a sharded store, its K1 launches counted: one per
     query extraction of locate and locate_fused, one for locate_batch's
-    batch. Returns (results, launches)."""
+    batch, and one for each capture of locate_fused's program (its run
+    before the capture; a store sharded over gloo runs it uncaptured).
+    Returns (results, launches)."""
     from gloc3d_tpu_torch.kernels import segment_sum as ss
 
-    ss.segment_sum_sorted.launches = 0
+    reset_launches(ss.segment_sum_sorted)
+    captured = ss.segment_sum_sorted.captured
     got = store_queries(loc, qs)
-    launches = ss.segment_sum_sorted.launches
-    check(launches == 2 * len(qs) + 1, f"{tag} sharded store: K1 launched "
-          f"{launches} times, not {2 * len(qs) + 1}")
+    launches = launches_of(ss.segment_sum_sorted)
+    want = 2 * len(qs) + 1 + ss.segment_sum_sorted.captured - captured
+    check(launches == want, f"{tag} sharded store: K1 launched {launches} "
+          f"times, not {want}")
     return got, launches
 
 
@@ -3274,9 +3737,10 @@ def dp_step(torch, tr, batch):
     from gloc3d_tpu_torch.kernels import bin_sums as bs
     from gloc3d_tpu_torch.kernels import segment_sum as ss
 
-    ss.segment_sum_sorted.launches = bs.pillar_bin_sums.launches = 0
+    reset_launches(ss.segment_sum_sorted, bs.pillar_bin_sums)
     loss = float(tr.train_step(*batch))
-    launches = (ss.segment_sum_sorted.launches, bs.pillar_bin_sums.launches)
+    launches = (launches_of(ss.segment_sum_sorted),
+                launches_of(bs.pillar_bin_sums))
     grads = {k: p.grad.detach().cpu().clone()
              for k, p in tr.model.named_parameters() if p.grad is not None}
     return loss, grads, launches
@@ -3345,10 +3809,10 @@ def dp_extract(torch, loc, args) -> dict:
     def cpu(x):
         return x.float().cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
 
-    ss.segment_sum_sorted.launches = bs.pillar_bin_sums.launches = 0
+    reset_launches(ss.segment_sum_sorted, bs.pillar_bin_sums)
     desc, bev, ground = loc.extract(*args)
-    out = {"launches": (ss.segment_sum_sorted.launches,
-                        bs.pillar_bin_sums.launches),
+    out = {"launches": (launches_of(ss.segment_sum_sorted),
+                        launches_of(bs.pillar_bin_sums)),
            "desc": cpu(desc), "image": cpu(bev.image),
            "gen": loc._gen.get_state().numpy()}
     if ground is not None:
@@ -4154,10 +4618,10 @@ def phase_refine_polish(torch, cfg, lq_set, centroids):
     model = build_serving_model(torch, cfg, "float32", centroids)
     plain = build_map(torch, cfg, model, kf, host_stats=True)
     plain_res = [plain.locate(*q) for q in qs]
-    ss.segment_sum_sorted.launches = 0
+    reset_launches(ss.segment_sum_sorted)
     mirror = build_map(torch, rcfg, model, kf, host_stats=True)
     results = [mirror.locate(*q) for q in qs]
-    k1 = ss.segment_sum_sorted.launches
+    k1 = launches_of(ss.segment_sum_sorted)
     print(f"[refine] host stats, fp32: {len(kf)} keyframes with "
           f"{mirror.keyframes[0].cloud.shape[0]}-point clouds, "
           f"{len(qs)} queries; K1 launches {k1}")
@@ -4211,10 +4675,10 @@ def phase_refine_aligned(torch, cfg, model, kf_set, q_set, plain_results):
     launches."""
     from gloc3d_tpu_torch.kernels import bin_sums as bs
 
-    bs.pillar_bin_sums.launches = 0
+    reset_launches(bs.pillar_bin_sums)
     loc, results = run_aligned(torch, refine_cfg(cfg), model, kf_set[2],
                                q_set[2], host_stats=False)
-    k2 = bs.pillar_bin_sums.launches
+    k2 = launches_of(bs.pillar_bin_sums)
     need = 2 * (len(kf_set[2]) // 4 + len(q_set[2]))
     print(f"[refine-aligned] clouds in the ground frame; K2 launches {k2} "
           f"(at least {need})")
@@ -4266,12 +4730,12 @@ def phase_refine_slam(torch):
     from gloc3d_tpu_torch.examples import slam_session
     from gloc3d_tpu_torch.kernels import bin_sums as bs
 
-    bs.pillar_bin_sums.launches = 0
+    reset_launches(bs.pillar_bin_sums)
     t0 = time.perf_counter()
     out = slam_session.run(device="cuda",
                            log=lambda m: print(f"[refine-slam] {m}"))
     out["seconds"] = time.perf_counter() - t0
-    out["k2_launches"] = bs.pillar_bin_sums.launches
+    out["k2_launches"] = launches_of(bs.pillar_bin_sums)
     print(f"[refine-slam] {out['closures']}/{out['lap']} closures, worst "
           f"{out['max_pos_err_m']:.3f} m / {out['max_yaw_err_deg']:.2f} deg "
           f"(gates 1 m / 5 deg); {out['seconds']:.1f} s; K2 launches "
@@ -4753,10 +5217,10 @@ def phase_eval(torch, cfg, world, card, dev: str = "cuda"):
                 loc = GlobalLocalizer(cfg, model, device=torch.device(dev),
                                       **kw)
                 rendered.clear()
-                counter.launches = 0
+                reset_launches(counter)
                 run_dir = os.path.join(tmp, tag.replace(" ", "_"))
                 report, _, _ = run_eval(loc, ds, run_dir)
-                launches[tag] = counter.launches
+                launches[tag] = launches_of(counter)
                 need = (ds.num_db // EVAL_BATCH + -(-nq // EVAL_BATCH)) * (
                     1 if kw["host_stats"] else 2)
                 print(f"[eval] {tag}: "
@@ -5053,11 +5517,11 @@ def phase_cli(torch, cfg, world, card):
         for key, flags, counter in (
                 ("idx_hs", hs_flags, ss.segment_sum_sorted),
                 ("idx_al", al_flags, bs.pillar_bin_sums)):
-            counter.launches = 0
+            reset_launches(counter)
             _, times[f"build-index {key}"] = cli_call(
                 ["build-index", "--split", p["split.npz"], "--out", p[key],
                  "--batch", CLI_BATCH, *common, *flags])
-            n = counter.launches
+            n = launches_of(counter)
             need = -(-len(split.db_files) // CLI_BATCH) * (
                 1 if key == "idx_hs" else 2)
             print(f"[cli] 2. build-index {' '.join(flags)}: "
@@ -5114,10 +5578,10 @@ def phase_cli(torch, cfg, world, card):
                                           device_keyframes=True,
                                           host_mirror=False),
                  bs.pillar_bin_sums)):
-            counter.launches = 0
+            reset_launches(counter)
             lines, times[f"query {key}"] = cli_call(
                 ["query", "--index", p[key], "--scan", q0, *common, *flags])
-            n = counter.launches
+            n = launches_of(counter)
             got = json.loads(lines[-1])
             loc = GlobalLocalizer(cfg, served, device=dev, **kw)
             loc.load(p[key])
@@ -5171,11 +5635,11 @@ def phase_cli(torch, cfg, world, card):
         # host-stats map with the device store (fused)
         stream = split.q_files[:5] + [CLI_MISSING] + split.q_files[5:]
         stdin, stdout = _Lines(stream), _Stamped()
-        ss.segment_sum_sorted.launches = 0
+        reset_launches(ss.segment_sum_sorted)
         lines, times["serve"] = cli_call(
             ["serve", "--index", p["idx_hs"], *common, *hs_flags],
             stdin=stdin, stdout=stdout)
-        k1 += ss.segment_sum_sorted.launches
+        k1 += launches_of(ss.segment_sum_sorted)
         out = [json.loads(ln) for ln in lines]
         check(out[0]["ready"] and out[0]["fused"] is True
               and out[0]["db_size"] == len(split.db_files),
@@ -5205,7 +5669,8 @@ def phase_cli(torch, cfg, world, card):
                                     "warm_median": float(np.median(warm)),
                                     "warm_max": max(warm)}
         err_line = out[stream.index(CLI_MISSING) + 1]["error"][:60]
-        print(f"[cli] 5. serve (fused {out[0]['fused']}): "
+        print(f"[cli] 5. serve (fused {out[0]['fused']}, captured CUDA "
+              f"graphs: the first line includes the capture): "
               f"{len(stream) - 1} lines = each scan's locate on the loaded "
               f"map (translations within {worst:.2e} m), the missing file "
               f"an error line ({err_line}...) and the stream went on; ms "
@@ -5237,9 +5702,9 @@ def phase_cli(torch, cfg, world, card):
             check(n_op == 2 and not plain, f"[cli] 6. {key}: "
                   f"{n_op} gloc3d::pillar_bin_sums nodes, plain {plain}")
             fn = load_exported(blob)
-            bs.pillar_bin_sums.launches = 0
+            reset_launches(bs.pillar_bin_sums)
             got = fn(pts, mask).cpu().numpy()
-            n = bs.pillar_bin_sums.launches
+            n = launches_of(bs.pillar_bin_sums)
             k2_export += n
             err = float(np.abs(got - want).max())
             check(n == 2 and err <= 1e-5, f"[cli] 6. {key} on the card: "
@@ -5275,14 +5740,14 @@ def phase_cli(torch, cfg, world, card):
         for key, flags in (("live", ["--checkpoint", p["ckpt.pt"]]),
                            ("export", ["--from-export",
                                        p["blob_cpu.pt2"]])):
-            bs.pillar_bin_sums.launches = 0
+            reset_launches(bs.pillar_bin_sums)
             lines, times[f"query {key}"] = cli_call(
                 ["query", "--index", p["idx_al"], "--scan", q0,
                  "--config", p["cfg32.json"], *flags, *al_flags])
             if key == "export":
-                k2_export += bs.pillar_bin_sums.launches
+                k2_export += launches_of(bs.pillar_bin_sums)
             else:
-                k2 += bs.pillar_bin_sums.launches
+                k2 += launches_of(bs.pillar_bin_sums)
             res[key] = json.loads(lines[-1])
         d = same_json("[cli] 7. query --from-export", res["export"],
                       res["live"])
@@ -5387,12 +5852,12 @@ def phase_cli(torch, cfg, world, card):
                                            cfg.model.encoder_dim)
                   and d["descriptors"].shape == (800, cfg.model.encoder_dim),
                   "[cli] 10. cluster file shapes")
-        ss.segment_sum_sorted.launches = 0
+        reset_launches(ss.segment_sum_sorted)
         lines, times["train"] = cli_call(
             ["train", "--split", p["split.npz"], "--workdir", p["train"],
              "--config", p["cfg_train.json"], "--init-centroids",
              p["cents.npz"], "--host-stats"])
-        n = ss.segment_sum_sorted.launches
+        n = launches_of(ss.segment_sum_sorted)
         k1 += n
         got = json.loads(lines[-1])
         ckpts = sorted(f for f in os.listdir(p["train"])
@@ -5408,11 +5873,11 @@ def phase_cli(torch, cfg, world, card):
         # 11. eval --registration --host-stats = evaluate_split
         from gloc3d_tpu_torch.eval.evaluator import evaluate_split
 
-        ss.segment_sum_sorted.launches = 0
+        reset_launches(ss.segment_sum_sorted)
         lines, times["eval"] = cli_call(
             ["eval", "--split", p["split.npz"], *common, "--registration",
              "--host-stats", "--workdir", p["eval"], "--batch", CLI_BATCH])
-        k1 += ss.segment_sum_sorted.launches
+        k1 += launches_of(ss.segment_sum_sorted)
         got = json.loads("\n".join(lines))
         want = json.loads(evaluate_split(
             GlobalLocalizer(cfg, served, device=dev, host_stats=True),
@@ -6244,13 +6709,13 @@ def phase_training(torch, cfg, ds, card):
             before = {k: p.detach().clone()
                       for k, p in model.named_parameters()}
             torch.cuda.reset_peak_memory_stats()
-            ss.segment_sum_sorted.launches = 0
-            bs.pillar_bin_sums.launches = 0
+            reset_launches(ss.segment_sum_sorted)
+            reset_launches(bs.pillar_bin_sums)
             ss.segment_sum_sorted_grad.backward_calls = 0
             bs.pillar_bin_sums_grad.backward_calls = 0
             loss = tr.train_epoch(1)
-            k1 = ss.segment_sum_sorted.launches
-            k2 = bs.pillar_bin_sums.launches
+            k1 = launches_of(ss.segment_sum_sorted)
+            k2 = launches_of(bs.pillar_bin_sums)
             k1_bwd = ss.segment_sum_sorted_grad.backward_calls
             k2_bwd = bs.pillar_bin_sums_grad.backward_calls
             n_steps = tr.step
@@ -6795,7 +7260,7 @@ def phase_pose_train(torch, world, card, steps: int = 25):
                                  generator=torch.Generator().manual_seed(0),
                                  device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    bs.pillar_bin_sums.launches = 0
+    reset_launches(bs.pillar_bin_sums)
     bs.pillar_bin_sums_grad.backward_calls = 0
     losses, ms = [], []
     for _ in range(steps):
@@ -6807,7 +7272,7 @@ def phase_pose_train(torch, world, card, steps: int = 25):
         torch.cuda.synchronize()
         ms.append(e0.elapsed_time(e1))
         losses.append(float(loss))
-    k2 = bs.pillar_bin_sums.launches
+    k2 = launches_of(bs.pillar_bin_sums)
     k2_bwd = bs.pillar_bin_sums_grad.backward_calls
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_ms = float(np.median(ms[3:]))
@@ -6988,12 +7453,12 @@ def phase_packed(torch, world, card):
     with torch.no_grad():
         for name, fn in calls.items():
             seen = capture_pillars(models[name])
-            ss.segment_sum_sorted.launches = 0
-            bs.pillar_bin_sums.launches = 0
+            reset_launches(ss.segment_sum_sorted)
+            reset_launches(bs.pillar_bin_sums)
             outs[name] = fn()
             torch.cuda.synchronize()
-            launches[name] = (ss.segment_sum_sorted.launches,
-                              bs.pillar_bin_sums.launches)
+            launches[name] = (launches_of(ss.segment_sum_sorted),
+                              launches_of(bs.pillar_bin_sums))
             pillars[name] = seen[0]
             del models[name].bev_heads
         ref_p, ref_o = pillars["PointPillar"], outs["PointPillar"]
@@ -7135,6 +7600,16 @@ def main(argv) -> int:
             torch, cfg, centroids, lq_set, kf_set, q_set, loc, a_loc,
             card)}))
         return 0
+    if "--fused-graph" in argv:
+        kf_set, q_set = aligned_world_scans(world, cfg.voxel.max_points)
+        phase_build()
+        centroids = vlad_centroids(torch, cfg, kf_set[2][:4])
+        lq_set = located_world_scans(world, cfg.voxel.max_points)
+        fused_graph = phase_fused_graph(torch, cfg, world, centroids, lq_set,
+                                        kf_set, q_set, card)
+        phase_fused_cell(torch, cfg, centroids, card)
+        print(json.dumps({"card": card, "fused_graph": fused_graph}))
+        return 0
     if "--dp" in argv:
         phase_build()
         lq_set = located_world_scans(world, cfg.voxel.max_points)
@@ -7182,6 +7657,12 @@ def main(argv) -> int:
                                            centroids)
     flat_ms = phase_fused_cell(torch, cfg, centroids, card)
     phase_fused_reference(torch, cfg, lq_set, centroids)
+    fused_graph = phase_fused_graph(torch, cfg, world, centroids, lq_set,
+                                    kf_set, q_set, card)
+    print(json.dumps({"card": card, "fused_graph": fused_graph}))
+    fg_k1, fg_k2 = (sum(rec[bank]["launches"][i] for bank in FUSED_BANKS
+                        for rec in fused_graph.values())
+                    for i in (0, 1))
     map_scale = phase_map_scale(torch, card, seed)
     city = phase_city(torch, cfg, centroids, card, flat_ms)
     shard = phase_shard(torch, card, cfg, loc, kf, qs, seed)
@@ -7231,7 +7712,8 @@ def main(argv) -> int:
                     shard["store"]["k1_launches"],
                 "sharded store, host-stats, world 2 rank 0": int(
                     shard["store world 2"]["store_k1_launches"]),
-                "device sort, aligned all-device": k1_dsort}
+                "device sort, aligned all-device": k1_dsort,
+                "fused graph, every variant and bank": fg_k1}
     k2_paths = {"aligned query": k2_launches,
                 "fused query, aligned all-device": k2_fused,
                 "training, all-device": train_counts["all-device"][1],
@@ -7243,7 +7725,8 @@ def main(argv) -> int:
                 "packed": packed["PointPillarPacked"]["K2"],
                 "dp step + extraction, all-device, world 1":
                     dp_k["dp step world 1, all-device"][1]
-                    + dp_k["dp extraction world 1, all-device"][1]}
+                    + dp_k["dp extraction world 1, all-device"][1],
+                "fused graph, every variant and bank": fg_k2}
     print(json.dumps({"kernels": [
         {"name": "segment_sum_sorted", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": sum(k1_paths.values()),

@@ -4,7 +4,8 @@ Port of ``gloc3d_tpu/index/bank.py::DescriptorBank``: a ``(capacity, D)``
 tensor on the device that doubles on overflow, a ``size`` watermark, exact
 top-k queries (ops/topk.py) with the SLAM-mode ``exclude_recent`` window,
 their results on the host (``query``) or left on the device
-(``query_device``, the search of ``locate_fused``), ``detect_loop``, and
+(``query_device``; ``search`` over ``arrays()`` with the size a device
+scalar is the search of ``locate_fused``'s program), ``detect_loop``, and
 ``save``/``load`` in the JAX bank's npz format (a bank written by either
 package loads in the other).
 
@@ -26,6 +27,21 @@ from gloc3d_tpu_torch.core.device import resolve_device
 from gloc3d_tpu_torch.ops.topk import (
     l2_distances, l2_distances_int8, quantize_rows, select_topk,
 )
+
+
+def search(arrays: Tuple[torch.Tensor, ...], queries: torch.Tensor, k: int,
+           size) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k search of a bank's arrays at full capacity
+    (``DescriptorBank.arrays``: fp32 rows, or int8 codes, scales and norms)
+    → (dists² (Q, k), indices (Q, k) int64), rows from ``size`` on masked.
+    ``size`` is an int or a device int32 scalar: a captured program reads
+    the bank's size as it is at each replay, as the JAX package passes it
+    traced."""
+    ids = torch.arange(arrays[0].shape[0], device=arrays[0].device)
+    valid = ids < size
+    if len(arrays) == 3:
+        return select_topk(l2_distances_int8(queries, *arrays, valid), k)
+    return select_topk(l2_distances(queries, arrays[0], valid), k)
 
 
 class DescriptorBank:
@@ -60,6 +76,13 @@ class DescriptorBank:
             return (self._bank[: self._size].float()
                     * self._scales[: self._size, None])
         return self._bank[: self._size]
+
+    def arrays(self) -> Tuple[torch.Tensor, ...]:
+        """The bank at full capacity, as ``search`` takes it: ``(rows,)``
+        fp32, or ``(codes, scales, norms)`` in int8 mode."""
+        if self._quantized:
+            return self._bank, self._scales, self._bsq
+        return (self._bank,)
 
     def truncate(self, n: int) -> None:
         """Drop entries beyond n (e.g. padded batch tails from a db build)."""
@@ -118,9 +141,8 @@ class DescriptorBank:
             queries, dtype=torch.float32, device=self.device))
         limit = (self._size - self.cfg.num_exclude_recent
                  if exclude_recent else self._size)
-        ids = torch.arange(self._capacity, device=self.device)
-        valid = (ids < self._size) & (ids < max(limit, 0))
-        return select_topk(self.distances(queries, valid), k)
+        return search(self.arrays(), queries, k,
+                      min(self._size, max(limit, 0)))
 
     def query(self, queries, k: Optional[int] = None,
               exclude_recent: bool = False

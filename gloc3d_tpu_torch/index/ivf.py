@@ -152,6 +152,18 @@ def _ivf_query_int8(centroids: torch.Tensor, cells_q: torch.Tensor,
                                   queries, nprobe, limit, scales), k)
 
 
+def ivf_search(arrays: tuple, queries: torch.Tensor, k: int, nprobe: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``IVFBank.query_device`` as a function of the index's device arrays
+    (``IVFBank.search_arrays``: centroids, cells, norms, scales or None,
+    ids), for a program that takes them as inputs: (dists² (Q, k), ids
+    (Q, k) int64, -1 for inf-distance filler)."""
+    cents, cells, bsq, scales, ids = arrays
+    return select_ids(*_ivf_dists(cents, cells, bsq, ids, queries,
+                                  min(nprobe, cells.shape[0]),
+                                  scales=scales), k)
+
+
 class IVFBank:
     """Partitioned descriptor index (train → add → query) on ``device``
     (default ``cuda``; without a card, pass ``device="cpu"``)."""
@@ -318,6 +330,12 @@ class IVFBank:
                          else None, dev(self._ids))
             self._dev_stamp = stamp
         return self._dev
+
+    def search_arrays(self) -> tuple:
+        """(centroids, cells, bsq, scales or None, ids) on the device, as
+        ``ivf_search`` takes them (uploaded again only when the index
+        changed)."""
+        return (self.centroids,) + self.device_arrays()
 
     def distances(self, queries, nprobe: Optional[int] = None,
                   exclude_after: Optional[int] = None

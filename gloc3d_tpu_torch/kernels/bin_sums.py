@@ -29,6 +29,20 @@ once per call and raises ``ValueError`` if it is not clean, with the host's
 own reading of the ids beside it (``status_message``). On a CPU tensor
 ``_check`` reads the range on the host.
 
+Within ``deferred_status()`` the wrapper reads nothing on the host: it
+calls the op ``gloc3d::pillar_bin_sums_status``, which returns the status
+block beside the sums (the kernel's on a CUDA tensor, the same words from
+tensor operations on a CPU tensor, which then also leave the bad rows out),
+and notes each launch's status, ids and V for its caller, which checks them
+once the status has come to the host with its other results
+(``check_deferred``, which raises the same ``ValueError``). That is how a
+captured CUDA graph runs K2 (``pipeline.py::GlobalLocalizer.locate_fused``):
+capture forbids the copy inside the op.
+
+A launch inside a CUDA graph capture is recorded, not run: it is counted in
+``pillar_bin_sums.captured``, and a graph's replays in
+``pillar_bin_sums.replayed`` (by whoever replays it), not in ``launches``.
+
 The ctypes launch leaves no autograd history: ``pillar_bin_sums_grad`` wraps
 the binning in an autograd Function for the PointNet feature mean, with the
 backward of the JAX package's XLA scatter (``ops/voxelize.py::
@@ -42,7 +56,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -74,6 +88,28 @@ def pillar_bin_sums_plain(features: torch.Tensor, ids: torch.Tensor,
     counts = torch.bincount(flat, minlength=b * num_voxels).float()
     return (sums.float().reshape(lead + (num_voxels, c)),
             counts.reshape(lead + (num_voxels,)))
+
+
+def pillar_bin_sums_status_plain(features: torch.Tensor, ids: torch.Tensor,
+                                 num_voxels: int
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """``pillar_bin_sums_plain`` with the kernel's status block, in tensor
+    operations (no host read): ids outside ``[0, V)`` are left out of the
+    sums and the counts, as the kernel leaves them, and each item's status
+    is (bad ids, the first such row, its id, rows placed), zeros for the
+    row and id of a clean item."""
+    n = ids.shape[-1]
+    flat = ids.reshape(-1, n)
+    bad = (flat < 0) | (flat >= num_voxels)
+    n_bad = bad.sum(-1)
+    first = bad.int().argmax(-1)
+    value = torch.where(n_bad > 0, flat.gather(-1, first[:, None])[:, 0], 0)
+    status = torch.stack([n_bad, first, value, n - n_bad], -1).int()
+    safe = torch.where(bad, num_voxels, flat).reshape(ids.shape).int()
+    sums, counts = pillar_bin_sums_plain(features, safe, num_voxels + 1)
+    return (sums[..., :-1, :].contiguous(), counts[..., :-1].contiguous(),
+            status)
 
 
 def _check(features: torch.Tensor, ids: torch.Tensor, num_voxels: int
@@ -138,16 +174,50 @@ def _check_status(status: torch.Tensor, ids: torch.Tensor, num_voxels: int
         raise ValueError(status_message(st, ids.cpu(), num_voxels))
 
 
+_DEFERRED: Optional[List[tuple]] = None
+
+
+@contextlib.contextmanager
+def deferred_status():
+    """Within: every ``pillar_bin_sums`` call leaves its status on the
+    device and appends ``(status (B, 4) int32, ids, num_voxels)`` to the
+    list this yields, for ``check_deferred`` once the status words are on
+    the host."""
+    global _DEFERRED
+    outer, _DEFERRED = _DEFERRED, []
+    try:
+        yield _DEFERRED
+    finally:
+        _DEFERRED = outer
+
+
+def check_deferred(statuses, launches) -> None:
+    """Raise ``_check_status``'s ``ValueError`` for the first launch whose
+    status, read back to the host (``statuses``: one (B, 4) block per
+    launch), counts a bad id; ``launches``: their ``(status, ids,
+    num_voxels)`` from ``deferred_status``, whose ids are read to the host
+    only then."""
+    for st, (_, ids, num_voxels) in zip(statuses, launches):
+        if int(st[:, 0].sum()):
+            raise ValueError(status_message(st, ids.cpu(), num_voxels))
+
+
 def pillar_bin_sums(features: torch.Tensor, ids: torch.Tensor,
                     num_voxels: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(..., N, C)`` fp32 rows binned by ``(..., N)`` int32 ids →
     ``(sums (..., V, C), counts (..., V))``, through the custom op
-    ``gloc3d::pillar_bin_sums`` (``ops.py``).
+    ``gloc3d::pillar_bin_sums`` (``ops.py``), or within
+    ``deferred_status()`` ``gloc3d::pillar_bin_sums_status``.
 
     CUDA tensors launch the hand-written kernel (counted in
     ``pillar_bin_sums.launches``); CPU tensors take the plain version.
     """
-    return torch.ops.gloc3d.pillar_bin_sums(features, ids, num_voxels)
+    if _DEFERRED is None:
+        return torch.ops.gloc3d.pillar_bin_sums(features, ids, num_voxels)
+    sums, counts, status = torch.ops.gloc3d.pillar_bin_sums_status(
+        features, ids, num_voxels)
+    _DEFERRED.append((status, ids, num_voxels))
+    return sums, counts
 
 
 _fns = None
@@ -200,11 +270,16 @@ def _launch(features: torch.Tensor, ids: torch.Tensor, num_voxels: int
     if rc != 0:
         raise RuntimeError(f"pillar_bin_sums kernel launch failed: CUDA "
                            f"error {rc}")
-    pillar_bin_sums.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        pillar_bin_sums.captured += 1
+    else:
+        pillar_bin_sums.launches += 1
     return sums, counts, scratch[:16 * b].view(torch.int32).view(b, 4)
 
 
 pillar_bin_sums.launches = 0
+pillar_bin_sums.captured = 0  # launches recorded into a CUDA graph
+pillar_bin_sums.replayed = 0  # launches run by replays of such graphs
 
 
 class _PillarBinSumsGrad(torch.autograd.Function):

@@ -2,18 +2,22 @@
 
 ``gloc3d::segment_sum_sorted(values, starts)`` (K1, ``segment_sum.py``)
 and ``gloc3d::pillar_bin_sums(features, ids, num_voxels)`` (K2,
-``bin_sums.py``) are the only route to either kernel. The dispatcher picks
+``bin_sums.py``; also ``gloc3d::pillar_bin_sums_status``, below) are the
+only route to either kernel. The dispatcher picks
 the implementation from the tensors' device: on CUDA tensors the
 hand-written kernel (the wrapper's checks, then its ctypes launch, counted
 in ``segment_sum_sorted.launches`` / ``pillar_bin_sums.launches``, and for
 K2 the kernel's own id-range status read back), on CPU
 tensors the plain version; any other device has no implementation and
-raises. Each op also has a fake implementation, which gives the output
-shapes from the arguments alone (V from ``starts.shape[-1] - 1`` or from
-``num_voxels``), so ``torch.export`` and ``torch.compile`` trace the op as
-one node: an exported program carries the op and runs the kernel wherever
-it is loaded onto a card, never the plain version that the tracing device
-happened to run.
+raises. ``gloc3d::pillar_bin_sums_status`` is K2 returning its status
+block instead of reading it (``bin_sums.py::deferred_status``), for a
+program that must not synchronise. Each op also has a fake
+implementation, which gives the output shapes from the arguments alone
+(V from ``starts.shape[-1] - 1`` or from ``num_voxels``), so
+``torch.export`` and ``torch.compile`` trace the op as one node: an
+exported program carries the op and runs the kernel wherever it is loaded
+onto a card, never the plain version that the tracing device happened to
+run.
 
 A process that only runs an exported program imports this module (which
 registers both ops) and nothing of the models or the pipeline.
@@ -21,6 +25,7 @@ registers both ops) and nothing of the models or the pipeline.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -69,3 +74,26 @@ def _pillar_bin_sums_fake(features, ids, num_voxels):
     return (features.new_empty(lead + (num_voxels, features.shape[-1]),
                                dtype=torch.float32),
             features.new_empty(lead + (num_voxels,), dtype=torch.float32))
+
+
+@torch.library.custom_op("gloc3d::pillar_bin_sums_status", mutates_args=(),
+                         device_types="cpu")
+def pillar_bin_sums_status(features: torch.Tensor, ids: torch.Tensor,
+                           num_voxels: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    return _bs.pillar_bin_sums_status_plain(features, ids, num_voxels)
+
+
+@pillar_bin_sums_status.register_kernel("cuda")
+def _pillar_bin_sums_status_cuda(features, ids, num_voxels):
+    _bs._check(features, ids, num_voxels)
+    sums, counts, status = _bs._launch(features, ids, num_voxels)
+    return sums, counts, status.clone()
+
+
+@pillar_bin_sums_status.register_fake
+def _pillar_bin_sums_status_fake(features, ids, num_voxels):
+    sums, counts = _pillar_bin_sums_fake(features, ids, num_voxels)
+    b = math.prod(features.shape[:-2])
+    return sums, counts, features.new_empty((b, 4), dtype=torch.int32)

@@ -24,6 +24,11 @@ history: ``segment_sum_sorted_grad`` (the port of the JAX custom VJP
 ``segment_sum_sorted_grad``) wraps it in an autograd Function whose
 backward is the exact row gather ``d_values[i] = g[ids[i]]``. Without it
 the gradient would stop at the kernel on the card and only there.
+
+A launch inside a CUDA graph capture is recorded, not run: it is counted in
+``segment_sum_sorted.captured``, and a graph's replays in
+``segment_sum_sorted.replayed`` (by whoever replays it), not in
+``launches``.
 """
 
 from __future__ import annotations
@@ -138,11 +143,16 @@ def _launch(values: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"segment_sum_sorted kernel launch failed: CUDA "
                            f"error {rc}")
-    segment_sum_sorted.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        segment_sum_sorted.captured += 1
+    else:
+        segment_sum_sorted.launches += 1
     return out
 
 
 segment_sum_sorted.launches = 0
+segment_sum_sorted.captured = 0  # launches recorded into a CUDA graph
+segment_sum_sorted.replayed = 0  # launches run by replays of such graphs
 
 
 class _SegmentSumSortedGrad(torch.autograd.Function):

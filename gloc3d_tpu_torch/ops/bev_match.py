@@ -32,7 +32,6 @@ chunking are XLA workarounds and are not ported.
 from __future__ import annotations
 
 import contextlib
-import functools
 import math
 from typing import NamedTuple
 
@@ -204,13 +203,22 @@ def _polar_weights(s: int, t_bins: int, r_min: int):
     return row_w, col_w, len(radii)
 
 
-@functools.lru_cache(maxsize=8)
 def _polar_weights_on(s: int, t_bins: int, r_min: int,
                       device: torch.device):
-    """``_polar_weights`` as tensors on ``device``, built once per shape."""
-    row_w, col_w, n_rad = _polar_weights(s, t_bins, r_min)
-    return (torch.from_numpy(row_w).to(device),
-            torch.from_numpy(col_w).to(device), n_rad)
+    """``_polar_weights`` as tensors on ``device``, built once per shape
+    (a copy made under a fake tensor mode is not kept)."""
+    key = (s, t_bins, r_min, torch.device(device))
+    out = _POLAR_WEIGHTS.get(key)
+    if out is None:
+        row_w, col_w, n_rad = _polar_weights(s, t_bins, r_min)
+        out = (torch.from_numpy(row_w).to(device),
+               torch.from_numpy(col_w).to(device), n_rad)
+        if all(type(t) is torch.Tensor for t in out[:2]):
+            _POLAR_WEIGHTS[key] = out
+    return out
+
+
+_POLAR_WEIGHTS: dict = {}
 
 
 @contextlib.contextmanager

@@ -30,6 +30,11 @@ Differences from the JAX function, each kept to its semantics:
   and hence the same aligned cloud and BEV image. The RANSAC inlier test
   rounds the float64 distance to fp32 and compares it with the fp32
   threshold, as the JAX function compares.
+- The refit's smallest eigenvector comes in closed form
+  (``_least_eigvec_sym3``) where JAX calls ``eigh``: the card's eigh reads
+  its convergence flags back on the host, which a captured CUDA graph
+  cannot, and one function on every device keeps the card and the CPU on
+  the same transform.
 - A hypothesis that draws p1 and p2 at one point away from p0 counts no
   inliers (``_plane_from_triplets``): in JAX's fp32 its normal is a
   rounding residue with few inliers, in float64 it was 0, a plane through
@@ -94,6 +99,51 @@ def _smallest_eigvec_3x3(a: Tensor) -> Tensor:
     degenerate = (p2 < 1e-16) | (n[..., 0] < 1e-12)
     return torch.where(degenerate[..., None], up,
                        v / torch.clamp_min(n, 1e-20))
+
+
+def _det3(m: Tensor) -> Tensor:
+    """Determinants of (…, 3, 3) by cofactors (elementwise, no LU)."""
+    return (m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2]
+                            - m[..., 1, 2] * m[..., 2, 1])
+            - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2]
+                              - m[..., 1, 2] * m[..., 2, 0])
+            + m[..., 0, 2] * (m[..., 1, 0] * m[..., 2, 1]
+                              - m[..., 1, 1] * m[..., 2, 0]))
+
+
+def _least_eigvec_sym3(a: Tensor) -> Tensor:
+    """Unit eigenvector of the smallest eigenvalue of batched symmetric
+    (…, 3, 3) matrices, with no host read: ``torch.linalg.eigh`` reads its
+    convergence flags back on the card, which a captured program cannot.
+    The smallest eigenvalue λ in closed form (trigonometric; it stays
+    accurate when the two larger ones coincide, as a round scan's ground
+    has them), then the longest cross product of two rows of A − λI, which
+    depends on λ alone. With no such product (λ of multiplicity 2 or 3, a
+    zero matrix) the result is (1, 0, 0), eigh's first column for a zero
+    matrix. The sign is arbitrary, as eigh's."""
+    diag = a.diagonal(dim1=-2, dim2=-1)
+    q = diag.sum(-1) / 3.0
+    dq = diag - q[..., None]
+    p2 = (dq * dq).sum(-1) + 2.0 * (a[..., 0, 1] ** 2 + a[..., 0, 2] ** 2
+                                    + a[..., 1, 2] ** 2)
+    p = torch.sqrt(p2 / 6.0)
+    eye = torch.eye(3, dtype=a.dtype, device=a.device)
+    shifted = a - q[..., None, None] * eye
+    r = torch.clamp(_det3(shifted) / (2.0 * p.clamp_min(1e-300) ** 3),
+                    -1.0, 1.0)
+    lam = q + 2.0 * p * torch.cos(torch.acos(r) / 3.0 + 2.0 * math.pi / 3.0)
+    m = a - lam[..., None, None] * eye
+    rows = m.unbind(-2)
+    c = torch.stack([torch.linalg.cross(rows[i], rows[j], dim=-1)
+                     for i, j in ((0, 1), (0, 2), (1, 2))], -2)
+    norms = torch.linalg.vector_norm(c, dim=-1)                # (…, 3)
+    best = torch.argmax(norms, dim=-1, keepdim=True)
+    v = torch.gather(c, -2, best[..., None].expand(c.shape[:-2] + (1, 3)))
+    n = norms.gather(-1, best)
+    ex = torch.zeros_like(v)
+    ex[..., 0] = 1.0
+    return torch.where(n[..., None] > 0, v / n.clamp_min(1e-300)[..., None],
+                       ex)[..., 0, :]
 
 
 def _plane_from_triplets(p0: Tensor, p1: Tensor, p2: Tensor
@@ -246,9 +296,8 @@ def estimate_ground_batch(points: Tensor, mask: Tensor, cfg,
     wsum = torch.clamp_min(torch.sum(w, -1), 3.0)      # (B,)
     mu_i = torch.sum(pts * w[..., None], 1) / wsum[:, None]
     ci = (pts - mu_i[:, None]) * w[..., None]
-    _, v_i = torch.linalg.eigh(torch.bmm(ci.transpose(1, 2), ci)
+    n_ref = _least_eigvec_sym3(torch.bmm(ci.transpose(1, 2), ci)
                                / wsum[:, None, None])
-    n_ref = v_i[..., 0]
     n_ref = n_ref / torch.clamp_min(
         torch.linalg.vector_norm(n_ref, dim=-1, keepdim=True), 1e-9)
     plane = torch.cat([n_ref, -torch.sum(n_ref * mu_i, -1, keepdim=True)],

@@ -37,11 +37,14 @@ when it fails (``staged_first``, first success wins). ``locate_batch`` runs
 extraction and search once for a batch of scans, and registration once per
 stage: every query's top candidate in one call, then all top-k candidates
 of the queries that failed in one more (``match_bev_topk`` over B queries ×
-K candidates); ``locate`` is its batch of one. ``locate_fused`` keeps the
-search results on the device and reads the host only for the staged
-branch. The ground estimator's random draws come from a CPU
-``torch.Generator`` seeded by ``seed``, so the same calls draw the same
-numbers on every device.
+K candidates); ``locate`` is its batch of one. ``locate_fused`` is one
+device program a query, as JAX jits it (``_fused_program``; on a card a
+captured CUDA graph), with the full branch of ``staged_first`` a second
+program that runs only when the top candidate failed (``_fused_full``,
+JAX's ``lax.cond``): the host uploads the query and fetches one packed
+result, two when stage 2 ran. The ground estimator's random draws come
+from a CPU ``torch.Generator`` seeded by ``seed``, so the same calls draw
+the same numbers on every device.
 
 The bank is the flat ``DescriptorBank`` (fp32, or int8 with
 ``IndexConfig(quantize="int8")``) or, with ``IndexConfig(backend="ivf")``,
@@ -93,6 +96,7 @@ takes it, ``shard_extraction``'s ranks too. The bucket padding of JAX's
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -100,14 +104,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from gloc3d_tpu_torch.core.device import resolve_device
+from gloc3d_tpu_torch.core.device import device_constant, resolve_device
 from gloc3d_tpu_torch.core.transforms import (
     Rigid3, quat_from_rpy, quat_rotate, quat_to_matrix, transform_points,
 )
 from gloc3d_tpu_torch.data import native
 from gloc3d_tpu_torch.eval.registration import compose_6dof
-from gloc3d_tpu_torch.index.bank import DescriptorBank
-from gloc3d_tpu_torch.index.ivf import IVFBank, ShardedIVF
+from gloc3d_tpu_torch.index.bank import DescriptorBank, search
+from gloc3d_tpu_torch.index.ivf import IVFBank, ShardedIVF, ivf_search
+from gloc3d_tpu_torch.kernels import bin_sums, segment_sum
 from gloc3d_tpu_torch.models.encoders import is_image_encoder
 from gloc3d_tpu_torch.ops.bev import BEVImage, batch_scan_to_bev
 from gloc3d_tpu_torch.ops.bev_match import MatchResult, match_bev_topk
@@ -326,8 +331,8 @@ def _pack_bits(images: torch.Tensor) -> torch.Tensor:
     endian within each byte, as the JAX package packs them."""
     occ = (images < 0.5).to(torch.uint8)
     b, s, _ = occ.shape
-    w = torch.tensor([1 << i for i in range(8)], dtype=torch.uint8,
-                     device=images.device)
+    w = device_constant([1 << i for i in range(8)], torch.uint8,
+                        images.device)
     return (occ.reshape(b, s, s // 8, 8) * w).sum(-1).to(torch.uint8)
 
 
@@ -362,6 +367,163 @@ def _splice_staged(res1: MatchResult, res2: MatchResult,
         return out
 
     return MatchResult(*(leaf(a, c) for a, c in zip(res1, res2)))
+
+
+def _packed(parts) -> Tuple[torch.Tensor, tuple]:
+    """Named tensors (fp32, integer or bool) as one int32 tensor, fp32
+    bit-cast and the others converted, and its layout: a program's results
+    come to the host in one copy, bit for bit."""
+    words, layout = [], []
+    for name, t in parts:
+        kind = ("f" if t.dtype == torch.float32
+                else "b" if t.dtype == torch.bool else "i")
+        flat = t.reshape(-1)
+        words.append(flat.view(torch.int32) if kind == "f"
+                     else flat.to(torch.int32))
+        layout.append((name, tuple(t.shape), kind))
+    return torch.cat(words), tuple(layout)
+
+
+def _unpacked(words: np.ndarray, layout) -> dict:
+    """``_packed``'s tensors back from its words on the host, by name."""
+    out, at = {}, 0
+    for name, shape, kind in layout:
+        n = int(np.prod(shape))
+        w = words[at:at + n].reshape(shape)
+        out[name] = (w.view(np.float32) if kind == "f"
+                     else w.astype(bool) if kind == "b" else w)
+        at += n
+    return out
+
+
+def _host_ground(rotation, translation) -> GroundEstimate:
+    """A query's ground transform from its host copy (its other fields are
+    not read after the program)."""
+    return GroundEstimate(
+        Rigid3(torch.as_tensor(np.asarray(rotation))[None],
+               torch.as_tensor(np.asarray(translation))[None]),
+        None, None, None)
+
+
+def _launches(field: str) -> Tuple[int, int]:
+    """K1's and K2's counts ``field`` (captured or replayed launches)."""
+    return (getattr(segment_sum.segment_sum_sorted, field),
+            getattr(bin_sums.pillar_bin_sums, field))
+
+
+class _FusedEager:
+    """``locate_fused``'s two programs run as they are (the CPU; a program
+    with a gloo collective): ``first(query)`` uploads the query, runs
+    ``_fused_program`` and fetches its packed result in one copy;
+    ``second()`` runs ``_fused_full`` on the first's carry."""
+
+    def __init__(self, loc, variant: str, bank, store):
+        self.loc, self.variant = loc, variant
+        self.bank, self.store = bank, store
+
+    def first(self, query) -> dict:
+        *q, sizes = [torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.loc.device) for a in query]
+        words, layout, self.carry, self.k2 = self.loc._fused_program(
+            self.variant, q, self.bank, sizes, self.store)
+        return _unpacked(words.cpu().numpy(), layout)
+
+    def second(self) -> dict:
+        words, layout = _packed(zip(MatchResult._fields, self.loc._fused_full(
+            *self.carry, self.store)))
+        return _unpacked(words.cpu().numpy(), layout)
+
+
+class _FusedGraphs:
+    """``locate_fused``'s two programs captured as CUDA graphs that share
+    one memory pool: ``_fused_program`` and, with ``staged_first``,
+    ``_fused_full`` on its carry. ``first(query)`` copies the query into
+    the static input buffers through pinned staging, replays the program
+    and fetches its packed result in one copy; ``second()`` replays the
+    full branch and fetches once more. Before capture both programs run
+    once on a side stream, so that cuFFT's plans, the int8 GEMM's
+    workspace, the device constants and the allocator are settled.
+
+    The kernels' wrappers count a capture's launches in ``.captured``;
+    each replay adds the launches it recorded to ``.replayed`` (K1's and
+    K2's), which ``launches`` does not see. ``k2`` holds the K2 launches'
+    (status, ids, V) from the capture, their buffers kept alive with the
+    graphs, so a fault reads the replay's ids."""
+
+    def __init__(self, loc, key, variant: str, query, bank, store):
+        self.key = key
+        dev = loc.device
+        self.inputs = [torch.empty(a.shape, dtype=torch.from_numpy(
+            np.asarray(a)).dtype, device=dev) for a in query]
+        self.staging = [torch.empty(t.shape, dtype=t.dtype).pin_memory()
+                        for t in self.inputs]
+        self.stage(query)
+        *q, sizes = self.inputs
+        staged = loc.cfg.match.staged_first
+        stream = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            _, _, carry, _ = loc._fused_program(variant, q, bank, sizes,
+                                                store)
+            if staged:
+                loc._fused_full(*carry, store)
+        stream.wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        before = _launches("captured")
+        self.program = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.program, pool=pool):
+            self.words, self.layout, carry, self.k2 = loc._fused_program(
+                variant, q, bank, sizes, store)
+        mid = _launches("captured")
+        self.program_launches = (mid[0] - before[0], mid[1] - before[1])
+        self.full = None
+        if staged:
+            self.full = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.full, pool=pool):
+                self.full_words, self.full_layout = _packed(zip(
+                    MatchResult._fields, loc._fused_full(*carry, store)))
+        after = _launches("captured")
+        self.full_launches = (after[0] - mid[0], after[1] - mid[1])
+        self.carry = carry  # the full branch's inputs: the program's outputs
+
+    def stage(self, query) -> None:
+        """The query's arrays into the static inputs, through pinned
+        memory (asynchronous copies; the previous call's fetch has
+        synchronised, so the staging buffers are free)."""
+        for buf, pin, a in zip(self.inputs, self.staging, query):
+            pin.numpy()[...] = a
+            buf.copy_(pin, non_blocking=True)
+
+    def launch(self, query) -> None:
+        """Stage the query and replay the program: no synchronisation."""
+        self.stage(query)
+        self.program.replay()
+        _count_replay(self.program_launches)
+
+    def fetch(self) -> dict:
+        """The program's packed result on the host: one copy."""
+        return _unpacked(self.words.cpu().numpy(), self.layout)
+
+    def first(self, query) -> dict:
+        self.launch(query)
+        return self.fetch()
+
+    def launch_full(self) -> None:
+        self.full.replay()
+        _count_replay(self.full_launches)
+
+    def fetch_full(self) -> dict:
+        return _unpacked(self.full_words.cpu().numpy(), self.full_layout)
+
+    def second(self) -> dict:
+        self.launch_full()
+        return self.fetch_full()
+
+
+def _count_replay(launches: Tuple[int, int]) -> None:
+    segment_sum.segment_sum_sorted.replayed += launches[0]
+    bin_sums.pillar_bin_sums.replayed += launches[1]
 
 
 class GlobalLocalizer:
@@ -460,17 +622,22 @@ class GlobalLocalizer:
         descriptor, and channel 0 as the registration BEV."""
         if origins is None:
             origins = self._default_origins(len(images))
-        images = torch.as_tensor(np.asarray(images, np.float32),
-                                 device=self.device)
+        return self._images_forward(
+            torch.as_tensor(np.asarray(images, np.float32),
+                            device=self.device),
+            torch.as_tensor(np.asarray(origins, np.float32),
+                            device=self.device)) + (None,)
+
+    def _images_forward(self, images: torch.Tensor, origins: torch.Tensor):
+        """(descriptors, BEVImage) of images (B, S, S, 3) and their origins
+        (B, 2) on the device: channel 0 is the registration BEV."""
         img2d = images[..., 0]
         bev = BEVImage(
-            image=img2d,
-            origin_xy=torch.as_tensor(np.asarray(origins, np.float32),
-                                      device=self.device),
+            image=img2d, origin_xy=origins,
             resolution=np.float32(self.cfg.bev.resolution),
             num_occupied=(img2d < 0.5).sum(dim=(1, 2)).int())
         forward = self.model if self._spatial is None else self._spatial
-        return forward(images), bev, None
+        return forward(images), bev
 
     @torch.no_grad()
     def extract(self, inputs: np.ndarray, mask: Optional[np.ndarray] = None,
@@ -530,51 +697,70 @@ class GlobalLocalizer:
                                  f"this model's is {self.cfg.model.encoder!r}")
             return self._extract_images(inputs, origins)
         pts = _xyzi(inputs)
-        ground = None
-        if self.align_ground or not self.host_stats:
-            pts_d = torch.from_numpy(pts).to(self.device)
-            mask_d = torch.from_numpy(
-                np.asarray(mask, np.float32)).to(self.device)
-        if self.align_ground:  # _align(points, mask) is the seam that
-            # tests/test_torch_i2i.py replays JAX's draws through
-            pts_d, ground = (self._align(pts_d, mask_d) if draws is None
-                             else self._align(pts_d, mask_d, draws))
         if not self.host_stats:
-            bev = batch_scan_to_bev(pts_d[..., :3], mask_d, self.cfg.bev)
-            if self.i2i:  # the BEV, repeated to 3 channels, is the input
-                desc = self.model(bev.image[..., None].repeat(1, 1, 1, 3))
-            elif self.device_sort:  # the host pass's contract, on the device
-                vc = self.cfg.voxel
-                ps, vs, ids, starts, counts, cents = (
-                    device_pillar_sort_stats(pts_d, mask_d, vc.xbound,
-                                             vc.ybound, vc.zbound))
-                desc = self.model(ps, vs,
-                                  voxel_stats=(ids, counts, cents, starts))
-            else:
-                desc = self.model(pts_d, mask_d)
-            return desc, bev, ground
-        if ground is not None:  # the host pass bins the aligned floats
+            return self._extract_device(*self._upload(pts, mask), draws)
+        ground = None
+        if self.align_ground:  # the host pass bins the aligned floats
+            pts_d, ground = self._aligned(*self._upload(pts, mask), draws)
             pts = pts_d.cpu().numpy()
-
-        vc = self.cfg.voxel
-        counts = np.asarray(np.asarray(mask).sum(axis=1), np.int64)
-        s_p, s_v, s_i, s_c, s_g, s_s, s_pp = (
-            native.compute_voxel_stats_host_sorted(
-                pts, counts, vc.xbound, vc.ybound, vc.zbound, crop=False,
-                per_point=True))
-        # BEV from the ORIGINAL row order (sorted rows are not prefix-padded)
-        imgs, origins, nocc = native.compute_bev_host(pts, counts,
-                                                      self.cfg.bev)
-
-        def dev(a):
-            return torch.from_numpy(a).to(self.device, non_blocking=True)
-
-        desc = self.model(dev(s_p), dev(s_v), voxel_stats=(
-            dev(s_i), dev(s_c), dev(s_g), dev(s_s), dev(s_pp)))
+        stats, imgs, origins, nocc = self._host_pass(pts, mask)
+        desc = self._stats_forward([
+            torch.from_numpy(a).to(self.device, non_blocking=True)
+            for a in stats])
         bev = BEVImage(image=imgs, origin_xy=origins,
                        resolution=np.float32(self.cfg.bev.resolution),
                        num_occupied=nocc)
         return desc, bev, ground
+
+    def _upload(self, pts: np.ndarray, mask):
+        """Scans (B, N, 4) and masks (B, N) on the device, fp32."""
+        return (torch.from_numpy(pts).to(self.device),
+                torch.from_numpy(np.asarray(mask, np.float32)).to(
+                    self.device))
+
+    def _aligned(self, pts_d, mask_d, draws):
+        # _align(points, mask) is the seam that tests/test_torch_i2i.py
+        # replays JAX's draws through
+        return (self._align(pts_d, mask_d) if draws is None
+                else self._align(pts_d, mask_d, draws))
+
+    def _extract_device(self, pts_d: torch.Tensor, mask_d: torch.Tensor,
+                        draws=None):
+        """The all-device extraction of scans (B, N, 4) with masks (B, N)
+        on the device: the ground alignment (``draws`` as in ``_align``),
+        the BEV image and the descriptors, with no host read."""
+        ground = None
+        if self.align_ground:
+            pts_d, ground = self._aligned(pts_d, mask_d, draws)
+        bev = batch_scan_to_bev(pts_d[..., :3], mask_d, self.cfg.bev)
+        if self.i2i:  # the BEV, repeated to 3 channels, is the input
+            desc = self.model(bev.image[..., None].repeat(1, 1, 1, 3))
+        elif self.device_sort:  # the host pass's contract, on the device
+            vc = self.cfg.voxel
+            ps, vs, ids, starts, counts, cents = device_pillar_sort_stats(
+                pts_d, mask_d, vc.xbound, vc.ybound, vc.zbound)
+            desc = self.model(ps, vs, voxel_stats=(ids, counts, cents, starts))
+        else:
+            desc = self.model(pts_d, mask_d)
+        return desc, bev, ground
+
+    def _host_pass(self, pts: np.ndarray, mask):
+        """The native host pass of scans (B, N, 4): the seven arrays of the
+        sorted pillar statistics, and the BEV images, origins and occupied
+        counts (from the ORIGINAL row order: sorted rows are not
+        prefix-padded)."""
+        vc = self.cfg.voxel
+        counts = np.asarray(np.asarray(mask).sum(axis=1), np.int64)
+        stats = native.compute_voxel_stats_host_sorted(
+            pts, counts, vc.xbound, vc.ybound, vc.zbound, crop=False,
+            per_point=True)
+        return (stats,) + tuple(native.compute_bev_host(pts, counts,
+                                                        self.cfg.bev))
+
+    def _stats_forward(self, stats):
+        """Descriptors from the host pass's seven arrays on the device."""
+        s_p, s_v, s_i, s_c, s_g, s_s, s_pp = stats
+        return self.model(s_p, s_v, voxel_stats=(s_i, s_c, s_g, s_s, s_pp))
 
     # ------------------------------------------------------------ db build
     def add_keyframes(self, points: np.ndarray,
@@ -655,32 +841,35 @@ class GlobalLocalizer:
         self._kf_origins[lo : lo + m] = torch.as_tensor(
             origins, dtype=torch.float32, device=self.device)[mine]
 
-    def _gather_store(self, rows: torch.Tensor):
+    def _gather_store(self, rows: torch.Tensor, store):
         """Packed rows and origins of the global rows ``rows`` (a device
-        tensor, the same on every rank) from a sharded store: each rank
-        writes the rows it owns into zeros, and one SUM all-reduce of the
-        bytes gives every rank the rows bit for bit."""
+        tensor, the same on every rank) from a sharded store (this rank's
+        (rows, origins)): each rank writes the rows it owns into zeros, and
+        one SUM all-reduce of the bytes gives every rank the rows bit for
+        bit."""
         world, rank = self._kf_shape()
-        k, s = rows.shape[0], self._kf_store.shape[1]
+        k, s = rows.shape[0], store[0].shape[1]
         local = torch.where(rows % world == rank, rows // world, -1)
         nb = s * (s // 8)
         found = torch.cat([
-            self._kf_store.index_select(0, local.clamp(min=0)).view(k, nb),
-            self._kf_origins.index_select(0, local.clamp(min=0)).view(
+            store[0].index_select(0, local.clamp(min=0)).view(k, nb),
+            store[1].index_select(0, local.clamp(min=0)).view(
                 torch.uint8)], 1)
         both = torch.where((local >= 0)[:, None], found, 0)
         dist.all_reduce(both, group=self._kf_mesh)
         return (both[:, :nb].view(k, s, s // 8),
                 both[:, nb:].contiguous().view(torch.float32))
 
-    def _store_rows(self, rows):
+    def _store_rows(self, rows, store=None):
         """Packed rows (K, S, S/8) and origins (K, 2) of the device store
-        at the global indices ``rows`` (numpy or a device tensor)."""
-        rows = torch.as_tensor(rows, dtype=torch.long, device=self.device)
+        (``store``: its (rows, origins), by default the localizer's) at the
+        global indices ``rows`` (numpy or a device tensor)."""
+        if store is None:
+            store = (self._kf_store, self._kf_origins)
+        rows = torch.as_tensor(rows, dtype=torch.long, device=store[0].device)
         if self._kf_mesh is not None:
-            return self._gather_store(rows)
-        return (self._kf_store.index_select(0, rows),
-                self._kf_origins.index_select(0, rows))
+            return self._gather_store(rows, store)
+        return store[0].index_select(0, rows), store[1].index_select(0, rows)
 
     # ------------------------------------------------------------ ICP polish
     def _downsample_cloud(self, points: np.ndarray, mask: np.ndarray
@@ -883,12 +1072,16 @@ class GlobalLocalizer:
 
     def _register(self, q_images, q_origins, rows) -> MatchResult:
         """First success wins, for B queries against their candidates
-        ``rows`` (B, K): the top candidate usually succeeds, so with
-        ``staged_first`` register every query's top candidate in one call
-        (reading the successes on the host) and all K candidates of exactly
-        the queries that failed in one more, spliced back by lane (B, K);
-        without it, one call over all (B, K). Every rank of a sharded store
-        makes the same calls: the failed set comes from the same lanes."""
+        ``rows`` (B, K) (``locate`` and ``locate_batch``): the top candidate
+        usually succeeds, so with ``staged_first`` register every query's
+        top candidate in one call, read the B successes on the host (one
+        synchronisation, which picks the failed set's shape), and register
+        all K candidates of exactly the queries that failed in one more,
+        spliced back by lane (B, K); without it, one call over all (B, K).
+        ``locate_fused`` takes the same two stages as two programs
+        (``_fused_program``, ``_fused_full``) and reads stage 1's success
+        in its one fetch. Every rank of a sharded store makes the same
+        calls: the failed set comes from the same lanes."""
         if not self.cfg.match.staged_first:
             return self._match(q_images, q_origins, rows)
         res1 = self._match(q_images, q_origins, rows[:, :1])
@@ -976,16 +1169,36 @@ class GlobalLocalizer:
                      mask: Optional[np.ndarray] = None,
                      origin: Optional[np.ndarray] = None
                      ) -> LocalizationResult:
-        """``locate`` for ONE query, a scan or a BEV image (S, S, 3), with
-        the search results kept on the device: the top-k ids are clamped
-        there and the candidates gathered from the device keyframe store by
-        them, so the host reads only the staged branch's success and the
-        final lanes. Host stats, all-device, aligned and image extraction
-        as the localizer is built; the search runs on the flat bank (fp32
-        or int8) or the IVF index, whose device copy of the cells is
-        uploaded once per change of the map. Results equal ``locate``'s.
-        Needs ``device_keyframes=True`` and a built store;
-        ``match.refine_icp`` is not supported."""
+        """``locate`` for ONE query, a scan or a BEV image (S, S, 3), as one
+        device program (``_fused_program``, JAX's jitted
+        ``_locate_fused_impl`` and its two variants): extraction, the bank
+        search, the candidates clamped and gathered from the device
+        keyframe store, and stage 1 of ``staged_first``. The host uploads
+        the query and fetches one packed result; only when the top
+        candidate failed does a second program (``_fused_full``, the full
+        branch of JAX's ``lax.cond``) register all K candidates, with one
+        more fetch. On a card both are CUDA graphs (``_FusedGraphs``),
+        captured on the first call and again whenever the model, the
+        configuration, the TF32 flags or the storage of the bank, the IVF
+        cells or the store change; the bank's and the store's sizes are
+        inputs, so adds that fit need no capture. A capture or replay that
+        fails raises (torch's allocator then holds device memory it does
+        not reuse: restart the process). The one exception, by rule: a
+        program that would run a collective over a gloo group (a store
+        sharded over gloo, the spatial forward of an image query over
+        gloo), which CUDA cannot capture, runs eagerly, as every program
+        does on the CPU.
+
+        The host keeps JAX's host work: the native host pass of the host
+        stats variant (with its alignment as a program of its own and one
+        fetch when aligned), the aligned variant's ground draws from the
+        localizer's generator, the IVF flush and upload, and the 6-DoF
+        composition. K2's id-range status words come back with the result
+        and raise ``ValueError`` there. Host stats, all-device (scatter or
+        ``device_sort``), aligned and image extraction as the localizer is
+        built; the flat bank (fp32 or int8) or the IVF index. Results equal
+        ``locate``'s. Needs ``device_keyframes=True`` and a built store;
+        ``match.refine_icp`` and a sharded bank are not supported."""
         if not self.keyframes:
             return self._empty_result()
         if self._kf_store is None:
@@ -997,13 +1210,212 @@ class GlobalLocalizer:
         if getattr(self.bank, "sharded", False):
             raise RuntimeError("locate_fused does not search a sharded bank "
                                "(shard_bank); use locate or locate_batch")
-        desc, bev, ground = self.extract(*_one(points, mask, origin))
-        d2, idx = self.bank.query_device(desc, k=self.cfg.index.top_k)
-        rows = idx[0].clamp(0, max(len(self.bank) - 1, 0))
-        res = self._staged(bev.image[0], bev.origin_xy[0], rows)
-        idx0 = np.clip(_numpy(idx[0]).astype(np.int32), 0,
-                       len(self.keyframes) - 1)
-        return self._result(res, idx0, _numpy(d2[0]), ground)
+        return self._fused_result(*self._fused_run(points, mask, origin))
+
+    def _fused_run(self, points, mask=None, origin=None, captured=None):
+        """``locate_fused`` up to the result: (stage 1's host dict, the full
+        branch's or None, the host stats variant's ground or None). The
+        programs run captured as the rule of ``_fused_captures`` says, or as
+        ``captured`` says (the eager run that a captured one is held to)."""
+        variant = self._fused_variant(points)
+        query, ground = self._fused_query(variant, points, mask, origin)
+        query += (np.array([len(self.bank), len(self.keyframes)], np.int32),)
+        bank = self._fused_bank()
+        store = (self._kf_store, self._kf_origins)
+        if captured is None:
+            captured = self._fused_captures(variant)
+        if captured:
+            run = self._fused_graphs_for(variant, query, bank, store)
+        else:
+            run = _FusedEager(self, variant, bank, store)
+        out = run.first(query)
+        bin_sums.check_deferred(
+            [out[f"k2_status{i}"] for i in range(len(run.k2))], run.k2)
+        stage2 = self.cfg.match.staged_first and not out["success"][0]
+        return out, run.second() if stage2 else None, ground
+
+    def _fused_variant(self, points) -> str:
+        """Which program a query takes: ``images``, ``host stats`` (aligned
+        or not), ``aligned`` (all-device) or ``device``."""
+        if np.ndim(points) == 3:
+            return "images"
+        if self.host_stats:
+            return "host stats"
+        return "aligned" if self.align_ground else "device"
+
+    def _fused_query(self, variant: str, points, mask=None, origin=None):
+        """The host side before the program: the query as the program's
+        input arrays (numpy), and the ground estimate of the aligned host
+        stats variant, whose alignment is a program of its own with one
+        fetch of the aligned scan and its transform (else None)."""
+        if variant == "images":
+            org = self._default_origins(1) if origin is None else origin
+            return (np.asarray(points, np.float32)[None],
+                    np.asarray(org, np.float32).reshape(1, 2)), None
+        pts = _xyzi(np.asarray(points)[None])
+        mask = np.asarray(mask, np.float32)[None]
+        if variant == "device":
+            return (pts, mask), None
+        if variant == "aligned":  # the draws _align would take
+            prio, uni = batch_ground_draws(1, pts.shape[1], self.cfg.ground,
+                                           self._gen)
+            return (pts, mask, prio.numpy(), uni.numpy()), None
+        ground = None
+        if self.align_ground:  # _align's draws, uploaded without a sync
+            prio, uni = batch_ground_draws(1, pts.shape[1], self.cfg.ground,
+                                           self._gen)
+            pts_d, mask_d, prio, uni = (self._staged_upload(a) for a in (
+                pts, mask, prio.numpy(), uni.numpy()))
+            pts_d, est = self._aligned(pts_d, mask_d,
+                                       (prio, triplets_from(uni)))
+            host = torch.cat([pts_d.reshape(-1),
+                              est.transform.rotation.reshape(-1),
+                              est.transform.translation.reshape(-1)]).cpu()
+            n = pts_d.numel()
+            pts = host[:n].reshape(pts_d.shape).numpy()
+            ground = _host_ground(host[n:n + 4], host[n + 4:n + 7])
+        stats, imgs, origins, _ = self._host_pass(pts, mask)
+        return tuple(stats) + (imgs, origins), ground
+
+    def _staged_upload(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the device, copied from pinned memory on a card (an
+        asynchronous copy: no synchronisation)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _fused_bank(self) -> tuple:
+        """The bank's arrays as the program searches them: the flat bank at
+        full capacity, or the IVF index flushed and its cells uploaded."""
+        if isinstance(self.bank, _IVFBankAdapter):
+            self.bank._flush()
+            return self.bank._ivf.search_arrays()
+        return self.bank.arrays()
+
+    def _fused_program(self, variant: str, query, bank: tuple,
+                       sizes: torch.Tensor, store):
+        """ONE device program for a located query: the extraction of the
+        uploaded ``query`` (``variant``), the top-k search of ``bank``
+        with rows from ``sizes[0]`` (the bank's size, a device int32) on
+        masked, the candidates clamped below the bank's and the store's
+        (``sizes[1]``) sizes, gathered from ``store`` and registered: the
+        top candidate alone with ``staged_first`` (the full branch is
+        ``_fused_full``), else all K. Static shapes and no host read: K2's
+        status words come out with the results (``bin_sums.
+        deferred_status``). Returns (int32 words, their layout, the
+        (q_image, q_origin, rows) that ``_fused_full`` takes, K2's
+        launches)."""
+        with bin_sums.deferred_status() as k2:
+            desc, q_image, q_origin, ground = self._fused_extract(variant,
+                                                                  query)
+        k = self.cfg.index.top_k
+        if len(bank) == 5:
+            d2, idx = ivf_search(bank, desc.float(), k, self.bank._ivf.nprobe)
+        else:
+            d2, idx = search(bank, desc.float(), k, sizes[0])
+        last = (torch.minimum(sizes[0], sizes[1]) - 1).clamp_min(0)
+        rows = torch.minimum(idx[0].clamp_min(0), last)
+        if self.cfg.match.staged_first:
+            res = self._fused_match(q_image, q_origin, rows[:1], store)
+        else:
+            res = self._fused_full(q_image, q_origin, rows, store)
+        parts = [("d2", d2[0]), ("idx", idx[0])]
+        parts += zip(MatchResult._fields, res)
+        if ground is not None:
+            parts += [("ground_q", ground.transform.rotation[0]),
+                      ("ground_t", ground.transform.translation[0])]
+        parts += [(f"k2_status{i}", st) for i, (st, _, _) in enumerate(k2)]
+        words, layout = _packed(parts)
+        return words, layout, (q_image, q_origin, rows), k2
+
+    def _fused_extract(self, variant: str, query):
+        """(descriptor (1, D), query BEV (S, S), its origin (2,), ground
+        estimate or None) of the uploaded query."""
+        if variant == "images":
+            desc, bev = self._images_forward(*query)
+            return desc, bev.image[0], bev.origin_xy[0], None
+        if variant == "host stats":
+            *stats, imgs, origins = query
+            return self._stats_forward(stats), imgs[0], origins[0], None
+        draws = None
+        if variant == "aligned":
+            draws = (query[2], triplets_from(query[3]))
+        desc, bev, ground = self._extract_device(query[0], query[1], draws)
+        return desc, bev.image[0], bev.origin_xy[0], ground
+
+    def _fused_match(self, q_image, q_origin, rows, store) -> MatchResult:
+        """The query (S, S), (2,) against the store's rows ``rows`` (R,)
+        → (R,) lanes, as ``_match`` registers a batch of one."""
+        packed, origins = self._store_rows(rows, store)
+        query = BEVImage(image=q_image[None], origin_xy=q_origin[None],
+                         resolution=self.cfg.bev.resolution,
+                         num_occupied=None)
+        res = match_bev_topk(query, _unpack_bits(packed)[None],
+                             origins[None], self.cfg.match,
+                             resolution=self.cfg.bev.resolution)
+        return MatchResult(*(x[0] for x in res))
+
+    def _fused_full(self, q_image, q_origin, rows, store) -> MatchResult:
+        """The full branch of ``staged_first`` (JAX's ``full(_)`` of its
+        ``lax.cond``): the query against all K candidates ``rows`` → (K,)
+        lanes; run only when stage 1 failed (or as the only stage without
+        ``staged_first``)."""
+        return self._fused_match(q_image, q_origin, rows, store)
+
+    def _fused_captures(self, variant: str) -> bool:
+        """Whether ``locate_fused`` runs its programs as CUDA graphs: on a
+        card, unless the program would run a collective over a gloo group
+        (the sharded store's gather; the spatial forward of an image
+        query), which CUDA cannot capture."""
+        if self.device.type != "cuda":
+            return False
+        groups = [self._kf_mesh]
+        if variant == "images":
+            groups.append(self._spatial_mesh)
+        return not any(g is not None and dist.get_backend(g) == "gloo"
+                       for g in groups)
+
+    def _fused_key(self, variant: str, query, bank, store) -> tuple:
+        """What a captured program bakes in: the variant, the configuration,
+        the model and forward objects and the addresses of the model's
+        tensors, the query's shapes, the TF32 flags, and the address and
+        shape of every bank, IVF and store tensor."""
+        tensors = [t for t in bank + store if t is not None]
+        weights = ()
+        if isinstance(self.model, torch.nn.Module):
+            weights = tuple(t.data_ptr() for t in itertools.chain(
+                self.model.parameters(), self.model.buffers()))
+        return (variant, self.cfg, self.model, weights, self._spatial,
+                self._kf_mesh, tuple((a.shape, a.dtype.str) for a in query),
+                tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                      for t in tensors),
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+
+    def _fused_graphs_for(self, variant: str, query, bank, store
+                          ) -> "_FusedGraphs":
+        """The captured programs for this state, captured anew (the stale
+        ones freed first) when their key changed."""
+        key = self._fused_key(variant, query, bank, store)
+        graphs = getattr(self, "_fused_graphs", None)
+        if graphs is None or graphs.key != key:
+            self._fused_graphs = None
+            self._fused_graphs = _FusedGraphs(self, key, variant, query,
+                                              bank, store)
+        return self._fused_graphs
+
+    def _fused_result(self, out: dict, full: Optional[dict],
+                      ground) -> LocalizationResult:
+        """The LocalizationResult from the host copy alone: stage 1's lanes
+        or, when it failed, the full branch's; the aligned program's ground
+        transform, or the one of the host stats variant's alignment."""
+        lanes = out if full is None else full
+        res = MatchResult(*(lanes[f] for f in MatchResult._fields))
+        if "ground_q" in out:
+            ground = _host_ground(out["ground_q"], out["ground_t"])
+        idx0 = np.clip(out["idx"], 0, len(self.keyframes) - 1)
+        return self._result(res, idx0, out["d2"], ground)
 
     # ------------------------------------------------------------ persistence
     def save(self, out_dir: str) -> None:
