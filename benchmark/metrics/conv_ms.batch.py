@@ -1,0 +1,7 @@
+"""conv_ms.batch: Device ms of convolution kernels per query in the traced slice (naming rule in lbench/readers.py)."""
+
+from lbench import readers
+
+
+def read(ctx):
+    return readers.ms_per_query(ctx, readers.is_conv)

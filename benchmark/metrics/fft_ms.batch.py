@@ -1,0 +1,7 @@
+"""fft_ms.batch: Device ms of cuFFT kernels per query in the traced slice."""
+
+from lbench import readers
+
+
+def read(ctx):
+    return readers.ms_per_query(ctx, readers.is_fft)
