@@ -7,7 +7,11 @@ device), and s2s triplet training; ``eval/evaluator.py::evaluate_split``
 evaluates a localizer over a split read from disk (``data/kitti.py``,
 ``nclt.py``, ``nuscenes.py``). ``cli.py`` is the command line
 (``python -m gloc3d_tpu_torch.cli``), ``export.py`` the serialized-model
-hand-off and ``profiling.py`` the stage timers, traces and metrics log.
+hand-off and ``profiling.py`` the registry of spans and counters that
+``locate_fused`` and ``locate_batch`` record while a ``torch.profiler``
+profile records, or within ``profiling.record()`` (host spans on the
+profiler's clock, device spans timed by CUDA events, inside the captured
+graphs too), and the profiler trace.
 ``parallel/`` runs the JAX package's mesh paths over the ranks of a
 ``torch.distributed`` process group: the sharded search, the sharded
 keyframe store and matcher, data parallelism and the i2i spatial

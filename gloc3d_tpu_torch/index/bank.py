@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from gloc3d_tpu_torch import config as _config
+from gloc3d_tpu_torch import profiling
 from gloc3d_tpu_torch.core.device import resolve_device
 from gloc3d_tpu_torch.ops.topk import (
     l2_distances, l2_distances_int8, quantize_rows, select_topk,
@@ -150,7 +151,8 @@ class DescriptorBank:
         """``query_device`` with the results on the host: (dists² (Q, k),
         indices (Q, k) int32)."""
         d2, idx = self.query_device(queries, k, exclude_recent)
-        return d2.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
+        return (profiling.to_host(d2).numpy(),
+                profiling.to_host(idx.to(torch.int32)).numpy())
 
     def detect_loop(self, query) -> Optional[Tuple[int, float]]:
         """SLAM loop detection against the non-recent database: (db_index,

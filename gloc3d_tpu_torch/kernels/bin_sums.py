@@ -60,6 +60,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from gloc3d_tpu_torch import profiling
 from gloc3d_tpu_torch.kernels import build
 from gloc3d_tpu_torch.ops.gather import row_gather
 
@@ -169,7 +170,7 @@ def _check_status(status: torch.Tensor, ids: torch.Tensor, num_voxels: int
     """Raise ``ValueError`` if the kernel read ids outside ``[0, V)``: one
     copy of the status block to the host (a synchronisation), and on a
     fault a second, host copy of the ids."""
-    st = status.cpu()
+    st = profiling.to_host(status)
     if int(st[:, 0].sum()):
         raise ValueError(status_message(st, ids.cpu(), num_voxels))
 

@@ -104,6 +104,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from gloc3d_tpu_torch import profiling
 from gloc3d_tpu_torch.core.device import device_constant, resolve_device
 from gloc3d_tpu_torch.core.transforms import (
     Rigid3, quat_from_rpy, quat_rotate, quat_to_matrix, transform_points,
@@ -157,6 +158,14 @@ class LocalizationResult(NamedTuple):
 
 def _numpy(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _read(x) -> np.ndarray:
+    """``_numpy`` on a located query's path: a tensor's copy is a ``wait``
+    span (on a card, a host synchronisation)."""
+    if isinstance(x, torch.Tensor):
+        return profiling.to_host(x).numpy()
+    return np.asarray(x)
 
 
 class _ShardedBankAdapter:
@@ -360,7 +369,7 @@ def _splice_staged(res1: MatchResult, res2: MatchResult,
     first-success-wins never consults."""
 
     def leaf(l1, l2):
-        l1, l2 = _numpy(l1), _numpy(l2)
+        l1, l2 = _read(l1), _read(l2)
         out = np.zeros((b, k) + l1.shape[2:], l1.dtype)
         out[:, :1] = l1
         out[failed] = l2[: len(failed)]
@@ -397,11 +406,10 @@ def _unpacked(words: np.ndarray, layout) -> dict:
 
 
 def _host_ground(rotation, translation) -> GroundEstimate:
-    """A query's ground transform from its host copy (its other fields are
-    not read after the program)."""
+    """A query's ground transform from its host copy, as numpy (its other
+    fields are not read after the program)."""
     return GroundEstimate(
-        Rigid3(torch.as_tensor(np.asarray(rotation))[None],
-               torch.as_tensor(np.asarray(translation))[None]),
+        Rigid3(np.asarray(rotation)[None], np.asarray(translation)[None]),
         None, None, None)
 
 
@@ -422,16 +430,20 @@ class _FusedEager:
         self.bank, self.store = bank, store
 
     def first(self, query) -> dict:
-        *q, sizes = [torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.loc.device) for a in query]
-        words, layout, self.carry, self.k2 = self.loc._fused_program(
-            self.variant, q, self.bank, sizes, self.store)
-        return _unpacked(words.cpu().numpy(), layout)
+        with profiling.span("stage"):
+            *q, sizes = [torch.from_numpy(np.ascontiguousarray(a)).to(
+                self.loc.device) for a in query]
+        with profiling.span("replay"):
+            words, layout, self.carry, self.k2 = self.loc._fused_program(
+                self.variant, q, self.bank, sizes, self.store)
+        return _unpacked(_read(words), layout)
 
     def second(self) -> dict:
-        words, layout = _packed(zip(MatchResult._fields, self.loc._fused_full(
-            *self.carry, self.store)))
-        return _unpacked(words.cpu().numpy(), layout)
+        with profiling.span("replay"):
+            words, layout = _packed(zip(
+                MatchResult._fields,
+                self.loc._fused_full(*self.carry, self.store)))
+        return _unpacked(_read(words), layout)
 
 
 class _FusedGraphs:
@@ -448,7 +460,9 @@ class _FusedGraphs:
     each replay adds the launches it recorded to ``.replayed`` (K1's and
     K2's), which ``launches`` does not see. ``k2`` holds the K2 launches'
     (status, ids, V) from the capture, their buffers kept alive with the
-    graphs, so a fault reads the replay's ids."""
+    graphs, so a fault reads the replay's ids. ``marks`` and
+    ``full_marks`` hold the device spans' timing events that each capture
+    recorded (``profiling.graph_marks``): the fetches read them."""
 
     def __init__(self, loc, key, variant: str, query, bank, store):
         self.key = key
@@ -472,7 +486,8 @@ class _FusedGraphs:
         pool = torch.cuda.graph_pool_handle()
         before = _launches("captured")
         self.program = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.program, pool=pool):
+        with profiling.graph_marks() as self.marks, torch.cuda.graph(
+                self.program, pool=pool):
             self.words, self.layout, carry, self.k2 = loc._fused_program(
                 variant, q, bank, sizes, store)
         mid = _launches("captured")
@@ -480,9 +495,11 @@ class _FusedGraphs:
         self.full = None
         if staged:
             self.full = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.full, pool=pool):
+            with profiling.graph_marks() as self.full_marks, torch.cuda.graph(
+                    self.full, pool=pool):
                 self.full_words, self.full_layout = _packed(zip(
                     MatchResult._fields, loc._fused_full(*carry, store)))
+        profiling.count_capture()
         after = _launches("captured")
         self.full_launches = (after[0] - mid[0], after[1] - mid[1])
         self.carry = carry  # the full branch's inputs: the program's outputs
@@ -491,34 +508,49 @@ class _FusedGraphs:
         """The query's arrays into the static inputs, through pinned
         memory (asynchronous copies; the previous call's fetch has
         synchronised, so the staging buffers are free)."""
-        for buf, pin, a in zip(self.inputs, self.staging, query):
-            pin.numpy()[...] = a
-            buf.copy_(pin, non_blocking=True)
+        with profiling.span("stage"):
+            for buf, pin, a in zip(self.inputs, self.staging, query):
+                pin.numpy()[...] = a
+                buf.copy_(pin, non_blocking=True)
 
     def launch(self, query) -> None:
         """Stage the query and replay the program: no synchronisation."""
         self.stage(query)
-        self.program.replay()
+        with profiling.span("replay"):
+            self.program.replay()
         _count_replay(self.program_launches)
 
     def fetch(self) -> dict:
-        """The program's packed result on the host: one copy."""
-        return _unpacked(self.words.cpu().numpy(), self.layout)
+        """The program's packed result on the host: one copy, after which
+        the replay's device spans are read."""
+        out = _unpacked(_read(self.words), self.layout)
+        profiling.read_marks(self.marks)
+        return out
 
     def first(self, query) -> dict:
         self.launch(query)
         return self.fetch()
 
     def launch_full(self) -> None:
-        self.full.replay()
+        with profiling.span("replay"):
+            self.full.replay()
         _count_replay(self.full_launches)
 
     def fetch_full(self) -> dict:
-        return _unpacked(self.full_words.cpu().numpy(), self.full_layout)
+        out = _unpacked(_read(self.full_words), self.full_layout)
+        profiling.read_marks(self.full_marks)
+        return out
 
     def second(self) -> dict:
         self.launch_full()
         return self.fetch_full()
+
+
+# the device spans of a registration stage: the candidates' gather from the
+# store, then the matcher; stage 1 registers the top candidate, the full
+# stage all K
+_STAGE1 = ("store_gather", "register")
+_STAGE_FULL = ("store_gather_full", "register_full")
 
 
 def _count_replay(launches: Tuple[int, int]) -> None:
@@ -600,17 +632,21 @@ class GlobalLocalizer:
         batch axis)."""
         if draws is None:
             b, n = points.shape[:2]
-            prio, uni = batch_ground_draws(b, n, self.cfg.ground, self._gen)
-            both = torch.cat([prio, uni.reshape(b, -1)], 1).to(points.device)
+            with profiling.span("draws"):
+                prio, uni = batch_ground_draws(b, n, self.cfg.ground,
+                                               self._gen)
+                both = torch.cat([prio, uni.reshape(b, -1)], 1).to(
+                    points.device)
             draws = (both[:, :n], triplets_from(both[:, n:].reshape(
                 uni.shape)))
-        ground = estimate_ground_batch(
-            points[..., :3], mask, self.cfg.ground, priority=draws[0],
-            sample_triplets=draws[1])
-        q64 = ground.transform.rotation.double()[:, None]
-        t64 = ground.transform.translation.double()[:, None]
-        xyz = (quat_rotate(q64, points[..., :3].double()) + t64).float()
-        return torch.cat([xyz, points[..., 3:]], dim=-1), ground
+        with profiling.device_span("ground", self.device):
+            ground = estimate_ground_batch(
+                points[..., :3], mask, self.cfg.ground, priority=draws[0],
+                sample_triplets=draws[1])
+            q64 = ground.transform.rotation.double()[:, None]
+            t64 = ground.transform.translation.double()[:, None]
+            xyz = (quat_rotate(q64, points[..., :3].double()) + t64).float()
+            return torch.cat([xyz, points[..., 3:]], dim=-1), ground
 
     def _default_origins(self, n: int) -> np.ndarray:
         """Scan-centred origins for images given without theirs."""
@@ -637,7 +673,8 @@ class GlobalLocalizer:
             resolution=np.float32(self.cfg.bev.resolution),
             num_occupied=(img2d < 0.5).sum(dim=(1, 2)).int())
         forward = self.model if self._spatial is None else self._spatial
-        return forward(images), bev
+        with profiling.device_span("encoder", self.device):
+            return forward(images), bev
 
     @torch.no_grad()
     def extract(self, inputs: np.ndarray, mask: Optional[np.ndarray] = None,
@@ -714,9 +751,10 @@ class GlobalLocalizer:
 
     def _upload(self, pts: np.ndarray, mask):
         """Scans (B, N, 4) and masks (B, N) on the device, fp32."""
-        return (torch.from_numpy(pts).to(self.device),
-                torch.from_numpy(np.asarray(mask, np.float32)).to(
-                    self.device))
+        with profiling.span("stage"):
+            return (torch.from_numpy(pts).to(self.device),
+                    torch.from_numpy(np.asarray(mask, np.float32)).to(
+                        self.device))
 
     def _aligned(self, pts_d, mask_d, draws):
         # _align(points, mask) is the seam that tests/test_torch_i2i.py
@@ -732,16 +770,19 @@ class GlobalLocalizer:
         ground = None
         if self.align_ground:
             pts_d, ground = self._aligned(pts_d, mask_d, draws)
-        bev = batch_scan_to_bev(pts_d[..., :3], mask_d, self.cfg.bev)
-        if self.i2i:  # the BEV, repeated to 3 channels, is the input
-            desc = self.model(bev.image[..., None].repeat(1, 1, 1, 3))
-        elif self.device_sort:  # the host pass's contract, on the device
-            vc = self.cfg.voxel
-            ps, vs, ids, starts, counts, cents = device_pillar_sort_stats(
-                pts_d, mask_d, vc.xbound, vc.ybound, vc.zbound)
-            desc = self.model(ps, vs, voxel_stats=(ids, counts, cents, starts))
-        else:
-            desc = self.model(pts_d, mask_d)
+        with profiling.device_span("bev", self.device):
+            bev = batch_scan_to_bev(pts_d[..., :3], mask_d, self.cfg.bev)
+        with profiling.device_span("encoder", self.device):
+            if self.i2i:  # the BEV, repeated to 3 channels, is the input
+                desc = self.model(bev.image[..., None].repeat(1, 1, 1, 3))
+            elif self.device_sort:  # the host pass's contract, on the device
+                vc = self.cfg.voxel
+                ps, vs, ids, starts, counts, cents = device_pillar_sort_stats(
+                    pts_d, mask_d, vc.xbound, vc.ybound, vc.zbound)
+                desc = self.model(ps, vs,
+                                  voxel_stats=(ids, counts, cents, starts))
+            else:
+                desc = self.model(pts_d, mask_d)
         return desc, bev, ground
 
     def _host_pass(self, pts: np.ndarray, mask):
@@ -760,7 +801,9 @@ class GlobalLocalizer:
     def _stats_forward(self, stats):
         """Descriptors from the host pass's seven arrays on the device."""
         s_p, s_v, s_i, s_c, s_g, s_s, s_pp = stats
-        return self.model(s_p, s_v, voxel_stats=(s_i, s_c, s_g, s_s, s_pp))
+        with profiling.device_span("encoder", self.device):
+            return self.model(s_p, s_v,
+                              voxel_stats=(s_i, s_c, s_g, s_s, s_pp))
 
     # ------------------------------------------------------------ db build
     def add_keyframes(self, points: np.ndarray,
@@ -950,7 +993,8 @@ class GlobalLocalizer:
                origins: Optional[np.ndarray] = None):
         """Top-k place candidates for a batch of query scans or images."""
         desc, bev, ground = self.extract(points, mask, origins)
-        d2, idx = self.bank.query(desc, k=self.cfg.index.top_k)
+        with profiling.device_span("search", self.device):
+            d2, idx = self.bank.query(desc, k=self.cfg.index.top_k)
         return d2, idx, bev, ground
 
     def shard_bank(self, mesh=None) -> None:
@@ -1057,18 +1101,22 @@ class GlobalLocalizer:
                     self.device))
 
     @torch.no_grad()
-    def _match(self, q_images, q_origins, rows) -> MatchResult:
+    def _match(self, q_images, q_origins, rows, spans=_STAGE1
+               ) -> MatchResult:
         """Register B queries (BEV images (B, S, S), origins (B, 2)) against
         the keyframes ``rows`` (B, K) on the device in one call → (B, K)
-        lanes."""
-        images, origins = self._candidates(rows)
+        lanes; ``spans`` names the gather's and the matcher's device
+        spans."""
+        with profiling.device_span(spans[0], self.device):
+            images, origins = self._candidates(rows)
         query = BEVImage(
             image=torch.as_tensor(q_images, device=self.device),
             origin_xy=torch.as_tensor(q_origins, device=self.device),
             resolution=self.cfg.bev.resolution,
             num_occupied=None)
-        return match_bev_topk(query, images, origins, self.cfg.match,
-                              resolution=self.cfg.bev.resolution)
+        with profiling.device_span(spans[1], self.device):
+            return match_bev_topk(query, images, origins, self.cfg.match,
+                                  resolution=self.cfg.bev.resolution)
 
     def _register(self, q_images, q_origins, rows) -> MatchResult:
         """First success wins, for B queries against their candidates
@@ -1083,12 +1131,14 @@ class GlobalLocalizer:
         in its one fetch. Every rank of a sharded store makes the same
         calls: the failed set comes from the same lanes."""
         if not self.cfg.match.staged_first:
-            return self._match(q_images, q_origins, rows)
+            return self._match(q_images, q_origins, rows, _STAGE_FULL)
         res1 = self._match(q_images, q_origins, rows[:, :1])
-        failed = np.flatnonzero(~_numpy(res1.success)[:, 0])
+        failed = np.flatnonzero(~_read(res1.success)[:, 0])
         if not failed.size:
             return res1
-        res2 = self._match(q_images[failed], q_origins[failed], rows[failed])
+        profiling.count("stage2_runs", failed.size)
+        res2 = self._match(q_images[failed], q_origins[failed], rows[failed],
+                           _STAGE_FULL)
         return _splice_staged(res1, res2, failed, *rows.shape)
 
     def _staged(self, q_image, q_origin, rows) -> MatchResult:
@@ -1113,22 +1163,22 @@ class GlobalLocalizer:
         (candidate order ``idx0``): the first success wins, polished with
         ICP against its keyframe when ``clouds`` (``_query_clouds``) holds
         the query's."""
-        succ = _numpy(res.success)
-        scores = _numpy(res.score)
+        succ = _read(res.success)
+        scores = _read(res.score)
         if not succ.any():
             return LocalizationResult(False, -1, None, idx0, d2,
                                       float(scores.max()), None)
         k_star = int(np.argmax(succ))
         db_idx = int(idx0[k_star])
-        xy_yaw = _numpy(res.xy_yaw)[k_star]
+        xy_yaw = _read(res.xy_yaw)[k_star]
         if clouds is not None:
             xy_yaw = self._maybe_refine(clouds[0][q], clouds[1][q], db_idx,
                                         xy_yaw)
         xy_yaw = torch.as_tensor(xy_yaw)
         t_q = t_db = None
         if self.align_ground and ground is not None:
-            t_q = Rigid3(ground.transform.rotation[q],
-                         ground.transform.translation[q])
+            t_q = Rigid3(_read(ground.transform.rotation[q]),
+                         _read(ground.transform.translation[q]))
             t_db = self._db_ground(db_idx)
         pose = compose_6dof(xy_yaw, t_q, t_db)
         return LocalizationResult(
@@ -1153,17 +1203,20 @@ class GlobalLocalizer:
         query's top candidate and stage 2 all top-k candidates of the
         queries that failed stage 1, spliced back by lane. Each result
         equals ``locate``'s on the same scan."""
-        if not self.keyframes:
-            return [self._empty_result() for _ in range(len(points))]
-        d2, idx, bev, ground = self.detect(points, masks, origins)
-        # a db smaller than top_k returns inf-distance filler candidates:
-        # clamp them to a real keyframe (their inf distance ranks them last)
-        idx = np.clip(idx, 0, len(self.keyframes) - 1)
-        res = self._register(bev.image, bev.origin_xy, idx)
-        clouds = self._query_clouds(points, masks, ground)
-        return [self._result(MatchResult(*(x[q] for x in res)), idx[q],
-                             d2[q], ground, q, clouds)
-                for q in range(len(idx))]
+        with profiling.entry("locate_batch", len(points)):
+            if not self.keyframes:
+                return [self._empty_result() for _ in range(len(points))]
+            d2, idx, bev, ground = self.detect(points, masks, origins)
+            # a db smaller than top_k returns inf-distance filler
+            # candidates: clamp them to a real keyframe (their inf distance
+            # ranks them last)
+            idx = np.clip(idx, 0, len(self.keyframes) - 1)
+            res = self._register(bev.image, bev.origin_xy, idx)
+            with profiling.span("compose"):
+                clouds = self._query_clouds(points, masks, ground)
+                return [self._result(MatchResult(*(x[q] for x in res)),
+                                     idx[q], d2[q], ground, q, clouds)
+                        for q in range(len(idx))]
 
     def locate_fused(self, points: np.ndarray,
                      mask: Optional[np.ndarray] = None,
@@ -1199,6 +1252,10 @@ class GlobalLocalizer:
         built; the flat bank (fp32 or int8) or the IVF index. Results equal
         ``locate``'s. Needs ``device_keyframes=True`` and a built store;
         ``match.refine_icp`` and a sharded bank are not supported."""
+        with profiling.entry("locate_fused", 1):
+            return self._locate_fused(points, mask, origin)
+
+    def _locate_fused(self, points, mask, origin) -> LocalizationResult:
         if not self.keyframes:
             return self._empty_result()
         if self._kf_store is None:
@@ -1210,7 +1267,9 @@ class GlobalLocalizer:
         if getattr(self.bank, "sharded", False):
             raise RuntimeError("locate_fused does not search a sharded bank "
                                "(shard_bank); use locate or locate_batch")
-        return self._fused_result(*self._fused_run(points, mask, origin))
+        out, full, ground = self._fused_run(points, mask, origin)
+        with profiling.span("compose"):
+            return self._fused_result(out, full, ground)
 
     def _fused_run(self, points, mask=None, origin=None, captured=None):
         """``locate_fused`` up to the result: (stage 1's host dict, the full
@@ -1232,6 +1291,8 @@ class GlobalLocalizer:
         bin_sums.check_deferred(
             [out[f"k2_status{i}"] for i in range(len(run.k2))], run.k2)
         stage2 = self.cfg.match.staged_first and not out["success"][0]
+        if stage2:
+            profiling.count("stage2_runs")
         return out, run.second() if stage2 else None, ground
 
     def _fused_variant(self, points) -> str:
@@ -1257,20 +1318,22 @@ class GlobalLocalizer:
         if variant == "device":
             return (pts, mask), None
         if variant == "aligned":  # the draws _align would take
-            prio, uni = batch_ground_draws(1, pts.shape[1], self.cfg.ground,
-                                           self._gen)
-            return (pts, mask, prio.numpy(), uni.numpy()), None
+            with profiling.span("draws"):
+                prio, uni = batch_ground_draws(1, pts.shape[1],
+                                               self.cfg.ground, self._gen)
+                return (pts, mask, prio.numpy(), uni.numpy()), None
         ground = None
         if self.align_ground:  # _align's draws, uploaded without a sync
-            prio, uni = batch_ground_draws(1, pts.shape[1], self.cfg.ground,
-                                           self._gen)
+            with profiling.span("draws"):
+                prio, uni = batch_ground_draws(1, pts.shape[1],
+                                               self.cfg.ground, self._gen)
             pts_d, mask_d, prio, uni = (self._staged_upload(a) for a in (
                 pts, mask, prio.numpy(), uni.numpy()))
             pts_d, est = self._aligned(pts_d, mask_d,
                                        (prio, triplets_from(uni)))
-            host = torch.cat([pts_d.reshape(-1),
-                              est.transform.rotation.reshape(-1),
-                              est.transform.translation.reshape(-1)]).cpu()
+            host = profiling.to_host(torch.cat([
+                pts_d.reshape(-1), est.transform.rotation.reshape(-1),
+                est.transform.translation.reshape(-1)]))
             n = pts_d.numel()
             pts = host[:n].reshape(pts_d.shape).numpy()
             ground = _host_ground(host[n:n + 4], host[n + 4:n + 7])
@@ -1310,10 +1373,12 @@ class GlobalLocalizer:
             desc, q_image, q_origin, ground = self._fused_extract(variant,
                                                                   query)
         k = self.cfg.index.top_k
-        if len(bank) == 5:
-            d2, idx = ivf_search(bank, desc.float(), k, self.bank._ivf.nprobe)
-        else:
-            d2, idx = search(bank, desc.float(), k, sizes[0])
+        with profiling.device_span("search", self.device):
+            if len(bank) == 5:
+                d2, idx = ivf_search(bank, desc.float(), k,
+                                     self.bank._ivf.nprobe)
+            else:
+                d2, idx = search(bank, desc.float(), k, sizes[0])
         last = (torch.minimum(sizes[0], sizes[1]) - 1).clamp_min(0)
         rows = torch.minimum(idx[0].clamp_min(0), last)
         if self.cfg.match.staged_first:
@@ -1345,15 +1410,25 @@ class GlobalLocalizer:
         return desc, bev.image[0], bev.origin_xy[0], ground
 
     def _fused_match(self, q_image, q_origin, rows, store) -> MatchResult:
+        """Stage 1 of ``staged_first``: ``_fused_register`` of the top
+        candidate ``rows`` (1,)."""
+        return self._fused_register(q_image, q_origin, rows, store, _STAGE1)
+
+    def _fused_register(self, q_image, q_origin, rows, store, spans
+                        ) -> MatchResult:
         """The query (S, S), (2,) against the store's rows ``rows`` (R,)
-        → (R,) lanes, as ``_match`` registers a batch of one."""
-        packed, origins = self._store_rows(rows, store)
+        → (R,) lanes, as ``_match`` registers a batch of one; ``spans``
+        names the gather's and the matcher's device spans."""
+        with profiling.device_span(spans[0], self.device):
+            packed, origins = self._store_rows(rows, store)
+            images = _unpack_bits(packed)
         query = BEVImage(image=q_image[None], origin_xy=q_origin[None],
                          resolution=self.cfg.bev.resolution,
                          num_occupied=None)
-        res = match_bev_topk(query, _unpack_bits(packed)[None],
-                             origins[None], self.cfg.match,
-                             resolution=self.cfg.bev.resolution)
+        with profiling.device_span(spans[1], self.device):
+            res = match_bev_topk(query, images[None], origins[None],
+                                 self.cfg.match,
+                                 resolution=self.cfg.bev.resolution)
         return MatchResult(*(x[0] for x in res))
 
     def _fused_full(self, q_image, q_origin, rows, store) -> MatchResult:
@@ -1361,7 +1436,8 @@ class GlobalLocalizer:
         ``lax.cond``): the query against all K candidates ``rows`` → (K,)
         lanes; run only when stage 1 failed (or as the only stage without
         ``staged_first``)."""
-        return self._fused_match(q_image, q_origin, rows, store)
+        return self._fused_register(q_image, q_origin, rows, store,
+                                    _STAGE_FULL)
 
     def _fused_captures(self, variant: str) -> bool:
         """Whether ``locate_fused`` runs its programs as CUDA graphs: on a
