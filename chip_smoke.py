@@ -11,8 +11,9 @@ once on one NVIDIA card.
 
 Phases, each printing its own lines:
   1. the card (torch's name, and nvidia-smi's name and power limit);
-  2. build kernels K1 (csrc/segment_sum.cu) and K2 (csrc/pillar_bin_sums.cu)
-     from the checkout, one nvcc each, started together, and the port's host
+  2. build kernels K1 (csrc/segment_sum.cu), K2 (csrc/pillar_bin_sums.cu)
+     and the ground estimate's k-NN normals (csrc/knn_normals.cu) from the
+     checkout, one nvcc each, started together, and the port's host
      pass (gloc3d_tpu_torch/native/scan_loader.cpp, g++); any build failure
      fails the smoke;
   3. K1 against its plain PyTorch version on the card: the main-path shape
@@ -374,13 +375,30 @@ Phases, each printing its own lines:
      the eager trace on the flat fp32 bank. [fused-cell] also
      prints the capture, graph against eager program times, the eager
      program's trace and the peak with and without the graphs.
+ 32. [knn], after phase 17: the ground estimate's k-NN normals kernel
+     (csrc/knn_normals.cu) on the arguments estimate_ground_batch passes
+     it for real tilted scans at (1, 4096, 3) and (8, 4096, 3)
+     (record_launches): against its plain version (each row within the
+     perturbation bound of its eigenvector, check_knn)
+     and the chain it replaced, bit-equal over launches and in a graph
+     replay; its kernel-only time ([kernel-times], L2-flushed and warm)
+     beside the float64 bound, and the wrapper's, the plain version's and
+     the replaced chain's times (CUDA events). Phases 6, 30 and 31 check
+     its launches on the main paths: one a map-build batch and one a
+     query on the aligned map, one a locate_batch, one a locate_fused
+     query on the aligned variants (inside the replayed graph, or the
+     host-stats variant's own alignment) and none on the others; the
+     last line's kernels entry sums them. Every k-NN launch that
+     record_launches catches (fused graph, eval) is held to the plain
+     version too.
 The kernel-only times of phase 17 come from complete traces only (every
 device operation of every traced call, memsets included: K1 launches two
 kernels and a memset a call, K2 four kernels); a timing with none in six
 traces prints that it was not measured. `--k2-compare FILE.cu` also times
 K2 v3's source (same C entry; built here, called through ctypes) beside the
 current one, in the order earlier, current, current, earlier.
-`python3 chip_smoke.py --kernels` runs phases 1-4 and 17 only;
+`python3 chip_smoke.py --kernels` runs phases 1-4, 17 and 32 only;
+`python3 chip_smoke.py --knn` phases 1, 2 and 32 only;
 `python3 chip_smoke.py --submap` phases 1 and 19 only;
 `python3 chip_smoke.py --eval` phases 1, 2 and 23 only;
 `python3 chip_smoke.py --cli` phases 1, 2 and 24 only;
@@ -421,6 +439,8 @@ K1_SOURCE = "gloc3d_tpu_torch/csrc/segment_sum.cu"
 K1_REPLACES = "gloc3d_tpu/ops/pallas_scatter.py:106"
 K2_SOURCE = "gloc3d_tpu_torch/csrc/pillar_bin_sums.cu"
 K2_REPLACES = "gloc3d_tpu/ops/pallas_scatter.py:45"
+KNN_SOURCE = "gloc3d_tpu_torch/csrc/knn_normals.cu"
+KNN_REPLACES = "gloc3d_tpu/ops/ground.py:117 (no Pallas kernel)"
 # device operations a call of K2 v3 makes (a memset and four kernels), for
 # timing it beside the current version with --k2-compare
 K2_V3_OPS = 5
@@ -620,13 +640,14 @@ def phase_build():
     build.load_all()
     took = time.perf_counter() - t0
     for name, source in (("segment_sum", K1_SOURCE),
-                         ("pillar_bin_sums", K2_SOURCE)):
+                         ("pillar_bin_sums", K2_SOURCE),
+                         ("knn_normals", KNN_SOURCE)):
         regs = [ln.split(":", 1)[1].strip() for ln in build.build_log.get(
             name, "").splitlines() if "registers" in ln]
         print(f"[build] {source}: nvcc "
               f"{build.build_seconds.get(name, 0.0):.2f} s; ptxas: "
               f"{' | '.join(regs) or 'cached build'}")
-    print(f"[build] both kernels built and loaded in {took:.2f} s "
+    print(f"[build] the kernels built and loaded in {took:.2f} s "
           f"(one nvcc each, started together)")
     t0 = time.perf_counter()
     try:
@@ -836,13 +857,15 @@ def launches_of(counter) -> int:
 
 
 def record_launches(fn):
-    """Run fn() and return copies of the arguments of every K1 and K2
-    launch it made: {"K1": [(values, starts)], "K2": [(features, ids, V)]},
-    whether through a plain wrapper or an autograd Function (the kernels
-    still run; outside any counted window)."""
-    from gloc3d_tpu_torch.kernels import bin_sums, segment_sum
+    """Run fn() and return copies of the arguments of every K1, K2 and k-NN
+    normals launch it made: {"K1": [(values, starts)], "K2": [(features,
+    ids, V)], "KNN": [(points, ok, k)]}, whether through a plain wrapper or
+    an autograd Function (the kernels still run; outside any counted
+    window)."""
+    from gloc3d_tpu_torch.kernels import bin_sums, knn_normals, segment_sum
 
-    targets = {"K1": (segment_sum, "_launch"), "K2": (bin_sums, "_launch")}
+    targets = {"K1": (segment_sum, "_launch"), "K2": (bin_sums, "_launch"),
+               "KNN": (knn_normals, "_launch")}
     calls = {key: [] for key in targets}
     real = {key: getattr(mod, attr) for key, (mod, attr) in targets.items()}
 
@@ -862,6 +885,49 @@ def record_launches(fn):
         for key, (mod, attr) in targets.items():
             setattr(mod, attr, real[key])
     return calls
+
+
+# The k-NN normals against their plain version, each row within the
+# perturbation bound of its smallest eigenvector: the two versions sum each
+# covariance entry over the k neighbours in another order (each within
+# k eps lambda_max of the exact sum), three entries bound the 2-norm of a
+# row of the difference, and Davis-Kahan divides by the eigenvalue gap:
+# |diff| <= KNN_ULPS_PER_K k eps lambda_max / (lambda_mid - lambda_min).
+# On the ground estimate's scans the worst row reads 24 of the 60 (k = 10).
+KNN_ULPS_PER_K = 6
+
+
+def check_knn(torch, label, pts, ok, k):
+    """Launch the k-NN normals on (points, ok, k) through the wrapper and
+    hold each row to the plain version within its bound (KNN_ULPS_PER_K).
+    Returns (max |kernel - plain|, the worst row's share of its bound)."""
+    from gloc3d_tpu_torch.kernels import knn_normals as kn
+
+    got = kn.knn_normals(pts, ok, k)
+    cov = kn.knn_covariance_plain(pts, ok, k)
+    diff = (got - kn._smallest_eigvec_3x3(cov)).abs().amax(-1).cpu()
+    lam = torch.linalg.eigvalsh(cov.cpu())  # ascending
+    bound = (KNN_ULPS_PER_K * k * float(np.finfo(np.float64).eps)
+             * lam[..., 2] / (lam[..., 1] - lam[..., 0]))
+    share = float(torch.where(diff == 0, 0.0, diff / bound).max())
+    err = float(diff.max())
+    check(share <= 1.0, f"{label}: the k-NN normals {err:.3e} from their "
+          f"plain version, {share:.2f} of a row's bound "
+          f"({KNN_ULPS_PER_K} k eps lambda_max / eigenvalue gap)")
+    return err, share
+
+
+def check_recorded(torch, label, key, args) -> float:
+    """A launch that record_launches caught, against its plain version:
+    K1 and K2 by the error relative to L1 mass (bound 1e-5), the k-NN
+    normals row by row (check_knn). Returns the error."""
+    if key == "KNN":
+        return check_knn(torch, label, *args)[0]
+    rel = (check_k1(torch, label, *args)[0] if key == "K1"
+           else check_k2(torch, label, *args)[0])
+    check(rel < 1e-5, f"{label} disagrees with its plain version: "
+          f"{rel:.3e}")
+    return rel
 
 
 def phase_k2(torch, cfg, world, card, centroids):
@@ -1244,6 +1310,7 @@ def check_aligned(torch, tag, results, kf_set, q_set):
 
 def phase_aligned_query(torch, cfg, model, kf_set, q_set):
     from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import knn_normals as kn
 
     kf_poses, kf_att, kf = kf_set
     q_poses, q_att, qs = q_set
@@ -1252,13 +1319,19 @@ def phase_aligned_query(torch, cfg, model, kf_set, q_set):
           f"{HEIGHTS[0]}-{HEIGHTS[1]} m; ground RANSAC "
           f"{cfg.ground.num_candidates} candidates x "
           f"{cfg.ground.ransac_iters} hypotheses")
-    reset_launches(bs.pillar_bin_sums)
+    reset_launches(bs.pillar_bin_sums, kn.knn_normals)
     loc, results = run_aligned(torch, cfg, model, kf, qs, host_stats=False)
     launches = launches_of(bs.pillar_bin_sums)
+    knn = launches_of(kn.knn_normals)
     need = 2 * (len(kf) // 4 + len(qs))
+    # the ground estimate: one k-NN launch a map-build batch and a query
+    want_knn = -(-len(kf) // 4) + len(qs)
     print(f"[aligned] K2 launches on the all-device aligned path: "
-          f"{launches} (at least {need})")
+          f"{launches} (at least {need}); k-NN normals launches {knn} "
+          f"(want {want_knn}: one a batch of 4 keyframes and one a query)")
     check(launches >= need, f"K2 launched {launches} times, < {need}")
+    check(knn == want_knn, f"[aligned] the k-NN normals launched {knn} "
+          f"times, want {want_knn}")
 
     worst_h = 0.0
     for i, (k, att) in enumerate(zip(loc.keyframes, kf_att)):
@@ -1269,7 +1342,7 @@ def phase_aligned_query(torch, cfg, model, kf_set, q_set):
     check(worst_h < HEIGHT_TOL_M, f"keyframe height error {worst_h:.3f} m")
 
     check_aligned(torch, "aligned", results, kf_set, q_set)
-    return loc, results, launches
+    return loc, results, launches, knn
 
 
 SURFACE_CARD_TOL_M = 1e-5  # pose @ card points against the same fp32 host call
@@ -2078,9 +2151,10 @@ def fused_graph_case(torch, loc, queries, variant, captures,
     against locate, host syncs per call, the K2 status raised after the
     fetch; timings, traces and peak memory on the first query."""
     from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import knn_normals as kn
     from gloc3d_tpu_torch.kernels import segment_sum as ss
 
-    reset_launches(ss.segment_sum_sorted, bs.pillar_bin_sums)
+    reset_launches(ss.segment_sum_sorted, bs.pillar_bin_sums, kn.knn_normals)
 
     def seeded(i):
         if loc.align_ground:  # the same ground draws on every path
@@ -2133,6 +2207,15 @@ def fused_graph_case(torch, loc, queries, variant, captures,
     check(len(captures) == n_cap + 1, f"[fused-graph] {variant}: "
           f"recaptured on an unchanged map")
     rec["locate_max_diff"] = worst
+    # the k-NN normals: one launch a query where the localizer aligns (in
+    # the replayed graph, or the host-stats variant's own alignment)
+    n_knn = launches_of(kn.knn_normals)
+    fused()
+    torch.cuda.synchronize()
+    rec["knn_per_query"] = launches_of(kn.knn_normals) - n_knn
+    check(rec["knn_per_query"] == int(loc.align_ground), f"[fused-graph] "
+          f"{variant}: {rec['knn_per_query']} k-NN normals launches a "
+          f"query, want {int(loc.align_ground)}")
 
     def host_side():  # the host pass (and its alignment), before the upload
         seeded(0)
@@ -2154,9 +2237,10 @@ def fused_graph_case(torch, loc, queries, variant, captures,
         rec[name + "peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
     rec["graph_pool_mib"] = graph_pool_mib(torch, loc)
     rec["replayed"] = (ss.segment_sum_sorted.replayed,
-                       bs.pillar_bin_sums.replayed)
+                       bs.pillar_bin_sums.replayed, kn.knn_normals.replayed)
     rec["launches"] = (launches_of(ss.segment_sum_sorted),
-                       launches_of(bs.pillar_bin_sums))
+                       launches_of(bs.pillar_bin_sums),
+                       launches_of(kn.knn_normals))
     return rec
 
 
@@ -2327,8 +2411,10 @@ def phase_fused_graph(torch, cfg, world, centroids, lq_set, kf_set, q_set,
                       + f"; the host side before the upload "
                       f"{rec['host_side_ms']:.3f} ms; peak allocated "
                       f"{rec['peak_mib']:.1f} MiB, the graphs' pool "
-                      f"{rec['graph_pool_mib']:.1f} MiB; K1 / K2 launches "
-                      f"{rec['launches']} (in replays {rec['replayed']})")
+                      f"{rec['graph_pool_mib']:.1f} MiB; K1 / K2 / k-NN "
+                      f"normals launches "
+                      f"{rec['launches']} (in replays {rec['replayed']}; "
+                      f"k-NN a query {rec['knn_per_query']})")
             if variant in ("all-device", "aligned"):
                 msg = fused_status_fault(torch, loc, queries[0])
                 out[variant]["status_fault"] = msg[:120]
@@ -2346,12 +2432,9 @@ def phase_fused_graph(torch, cfg, world, centroids, lq_set, kf_set, q_set,
                 errs = []
                 for key, launches in calls.items():
                     for args in launches:
-                        label = f"[fused-graph] {variant} {key}"
-                        rel = (check_k1(torch, label, *args)[0]
-                               if key == "K1"
-                               else check_k2(torch, label, *args)[0])
-                        check(rel < 1e-5, f"{label} disagrees with its "
-                              f"plain version: {rel:.3e}")
+                        rel = check_recorded(
+                            torch, f"[fused-graph] {variant} {key}", key,
+                            args)
                         errs.append(f"{key} {rel:.2e}")
                 check(errs, f"[fused-graph] {variant}: no kernel launch")
                 print(f"[fused-graph] {variant}: every kernel launch of the "
@@ -2481,6 +2564,7 @@ def batched_map(torch, cfg, tag, loc, loc32, qs, card):
     descriptors apart and reorder near-tied candidates, as phases 9 and 23
     found), and per-query times, kernels and host syncs of both (bf16)."""
     from gloc3d_tpu_torch.kernels import bin_sums as bs
+    from gloc3d_tpu_torch.kernels import knn_normals as kn
     from gloc3d_tpu_torch.kernels import segment_sum as ss
 
     b = len(qs)
@@ -2504,10 +2588,14 @@ def batched_map(torch, cfg, tag, loc, loc32, qs, card):
 
     t = [host_ms(torch, f, 5) / b
          for f in (run_batch, run_single, run_single, run_batch)]
-    reset_launches(ss.segment_sum_sorted, bs.pillar_bin_sums)
+    reset_launches(ss.segment_sum_sorted, bs.pillar_bin_sums, kn.knn_normals)
     run_batch()
     k12 = (launches_of(ss.segment_sum_sorted),
            launches_of(bs.pillar_bin_sums))
+    knn = launches_of(kn.knn_normals)
+    check(knn == int(loc.align_ground), f"[batched] {tag}: one locate_batch "
+          f"launched the k-NN normals {knn} times, want "
+          f"{int(loc.align_ground)}")
     n_batch = device_idle_share(torch, run_batch)[2]
     n_single = device_idle_share(torch, run_single)[2]
     with torch.no_grad():
@@ -2535,15 +2623,15 @@ def batched_map(torch, cfg, tag, loc, loc32, qs, card):
           f"registration alone: one _register over the batch {reg_batch}, "
           f"{b} _staged calls {reg_single}; host syncs "
           f"(set_sync_debug_mode): locate_batch {syncs[0]}, {b} locate "
-          f"calls {syncs[1]}; K1 / K2 launches of one locate_batch "
-          f"{k12[0]} / {k12[1]}")
+          f"calls {syncs[1]}; K1 / K2 / k-NN normals launches of one "
+          f"locate_batch {k12[0]} / {k12[1]} / {knn}")
     return dict(queries=b, localized=n_ok, max_diff_entry=d_entry,
                 max_diff_registration=d_reg, bf16_desc_diff=d_desc,
                 bf16_rank_swaps=swaps, ms_per_query_batch=[t[0], t[3]],
                 ms_per_query_single=[t[1], t[2]], kernels_batch=n_batch,
                 kernels_single=n_single, kernels_register_batch=reg_batch,
                 kernels_staged_single=reg_single, syncs_batch=syncs[0],
-                syncs_single=syncs[1], k1_k2_batch=list(k12))
+                syncs_single=syncs[1], k1_k2_batch=list(k12), knn_batch=knn)
 
 
 def unstaged_peak(torch, cfg, loc, qs, card):
@@ -5149,23 +5237,23 @@ def check_eval_report(tag, report, nq: int, far: int, out_dir: str,
 
 
 def check_eval_launches(torch, tag, loc, ds):
-    """Every K1 / K2 launch of one evaluator batch (locate_batch of the
-    first EVAL_BATCH queries) against its plain version."""
+    """Every K1 / K2 / k-NN normals launch of one evaluator batch
+    (locate_batch of the first EVAL_BATCH queries) against its plain
+    version."""
     calls = record_launches(lambda: loc.locate_batch(
         ds.q_inputs[:EVAL_BATCH], ds.q_masks[:EVAL_BATCH]))
     parts = []
     for key, launches in calls.items():
         for args in launches:
-            label = f"[eval] {tag} {key} {tuple(args[0].shape)}"
-            rel = (check_k1(torch, label, *args)[0] if key == "K1"
-                   else check_k2(torch, label, *args)[0])
-            check(rel < 1e-5, f"{label} disagrees with its plain version: "
-                  f"{rel:.3e}")
+            rel = check_recorded(
+                torch, f"[eval] {tag} {key} {tuple(args[0].shape)}", key,
+                args)
             parts.append(f"{key} {tuple(args[0].shape)} {rel:.2e}")
     check(parts, f"[eval] {tag}: no kernel launch recorded")
     print(f"[eval] {tag}: every kernel launch of one evaluator batch "
-          f"against its plain version, error relative to L1 mass (bound "
-          f"1e-5): " + ", ".join(parts))
+          f"against its plain version, K1 / K2 error relative to L1 mass "
+          f"(bound 1e-5), KNN max |diff| (within each row's bound): "
+          + ", ".join(parts))
 
 
 def run_eval(loc, ds, out_dir=None, batch: int = EVAL_BATCH):
@@ -6597,6 +6685,133 @@ def phase_kernel_times(torch, card, k1_cases, k2_cases, k2_earlier=None):
     return out
 
 
+# ------------------------------------------------------------------ [knn]
+# H100 SXM float64 outside the tensor cores: 64 lanes a clock on each of
+# 132 SMs at 1.98 GHz, one instruction a lane (the data sheet's 34 TFLOP/s
+# counts a fused multiply-add as two). The float64 tensor cores are not
+# counted: their product rounds in an order of its own, and the selection
+# needs the plain version's distances bit for bit (csrc/knn_normals.cu).
+FP64_INSTR_PER_S = 132 * 64 * 1.98e9
+# a product, three fused multiply-adds, an add, the threshold comparison
+KNN_PAIR_OPS = 6
+KNN_SCANS = ((0.0, 0.0, 0.3), (10.0, -5.0, 1.2), (-20.0, 30.0, -0.7),
+             (40.0, 10.0, 2.0), (-35.0, -25.0, 0.1), (5.0, 45.0, -1.5),
+             (25.0, -40.0, 0.9), (-10.0, 15.0, 2.8))
+
+
+def knn_inputs(torch, world, cfg, b: int, seed: int = 0):
+    """The k-NN normals' arguments (points (B, M, 3) float64, ok (B, M),
+    k) as the ground estimate passes them for b tilted scans of the world:
+    recorded from ``estimate_ground_batch``, the call the localizer's
+    ``_align`` makes, on the card."""
+    from gloc3d_tpu_torch.ops.ground import estimate_ground_batch
+
+    scans = [tilted_scan_at(world, pose, (0.03 * (i % 3 - 1), 0.02, 1.7),
+                            cfg.voxel.max_points, seed + i)
+             for i, pose in enumerate(KNN_SCANS[:b])]
+    pts = torch.from_numpy(np.stack([s[0][:, :3] for s in scans])).cuda()
+    mask = torch.from_numpy(np.stack([s[1] for s in scans])).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    calls = record_launches(lambda: estimate_ground_batch(
+        pts, mask, cfg.ground, gen))["KNN"]
+    check(len(calls) == 1, f"[knn] the ground estimate of {b} scans "
+          f"launched the k-NN normals {len(calls)} times")
+    return calls[0]
+
+
+def knn_chain(torch, pts, ok, k):
+    """The k-NN PCA normals as the ground estimate ran them before the
+    kernel (a (B, M, M) float64 matrix and torch.topk), for their time."""
+    from gloc3d_tpu_torch.kernels.knn_normals import _smallest_eigvec_3x3
+
+    rows = torch.arange(pts.shape[0], device=pts.device)[:, None]
+    sq = torch.sum(pts * pts, -1)
+    d2 = (sq[:, :, None] - 2.0 * torch.bmm(pts, pts.transpose(1, 2))
+          + sq[:, None, :])
+    d2 = torch.where(ok[:, None, :], d2, math.inf)
+    nn = torch.topk(d2, k, dim=-1, largest=False).indices
+    nbr = pts[rows[:, :, None], nn]
+    c = nbr - nbr.mean(dim=2, keepdim=True)
+    return _smallest_eigvec_3x3(
+        torch.einsum("bmki,bmkj->bmij", c, c) / k)
+
+
+def phase_knn(torch, cfg, world, card) -> dict:
+    """[knn]: the k-NN normals kernel (csrc/knn_normals.cu) on the
+    arguments the ground estimate passes it for real tilted scans at B = 1
+    and 8 (record_launches): against its plain version (each row within
+    its bound, check_knn), bit-equal over launches and a graph replay; then
+    its kernel-only time (torch.profiler, L2-flushed / L2-warm, mean of
+    20) beside the float64 bound, the wrapper's, the plain version's and
+    the replaced chain's times (CUDA events)."""
+    from gloc3d_tpu_torch.kernels import knn_normals as kn
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for b in (1, 8):
+        pts, ok, k = knn_inputs(torch, world, cfg, b, seed=b)
+        m = pts.shape[1]
+        before = kn.knn_normals.launches
+        err, share = check_knn(torch, f"[knn] ({b}, {m}, 3)", pts, ok, k)
+        check(kn.knn_normals.launches == before + 1,
+              "[knn] the wrapper did not launch the kernel")
+        got = kn.knn_normals(pts, ok, k)
+        chain_err = float((got - knn_chain(torch, pts, ok, k)).abs().max())
+        again = {"launch": kn._launch(pts, ok, k)}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            again["graph replay"] = kn.knn_normals(pts, ok, k)
+        graph.replay()
+        torch.cuda.synchronize()
+        diffs = {name: float((t - got).abs().max())
+                 for name, t in again.items() if not torch.equal(t, got)}
+        same = not diffs
+        check(same, f"[knn] ({b}, {m}, 3): launches differ in their bits "
+              f"(max |diff| {diffs})")
+        ops = KNN_PAIR_OPS * b * m * m
+        r = {"shape": [b, m, 3], "k": k, "max_abs_err": err,
+             "worst_share_of_row_bound": share,
+             "chain_max_abs_err": chain_err, "bit_equal": same,
+             "bound_ms": ops / FP64_INSTR_PER_S * 1e3,
+             "bound_by": "float64 operations",
+             "bytes": 32 * b * m + 24 * b * m}
+        frag = "knn_normals"
+        warm = kernel_device_ms(torch, lambda: kn._launch(pts, ok, k), frag,
+                                20, per_call=1)
+        cold = kernel_device_ms(torch, lambda: kn._launch(pts, ok, k), frag,
+                                20, flush, per_call=1)
+        r["kernel_only_ms"], r["kernel_only_warm_ms"] = cold[0], warm[0]
+        r["wrapper_ms"] = cuda_ms(torch, lambda: kn.knn_normals(pts, ok, k),
+                                  50)
+        r["plain_warm_ms"] = cuda_ms(
+            torch, lambda: kn.knn_normals_plain(pts, ok, k), 5)
+        r["chain_ms"] = cuda_ms(torch, lambda: knn_chain(torch, pts, ok, k),
+                                20, flush)
+        r["chain_warm_ms"] = cuda_ms(
+            torch, lambda: knn_chain(torch, pts, ok, k), 20)
+        of_bound = ("" if cold[0] is None else
+                    f", {r['bound_ms'] / cold[0]:.1%} of the bound")
+        print(f"[knn] ({b}, {m}, 3), k = {k}, the ground estimate's "
+              f"arguments, on {card}: kernel against the plain version max "
+              f"|diff| {err:.2e}, the worst row at {share:.2f} of its bound "
+              f"({KNN_ULPS_PER_K} k eps lambda_max / eigenvalue gap), "
+              f"against the replaced chain {chain_err:.2e}; bit-equal over "
+              f"launches and a graph replay: {same}")
+        print(f"[kernel-times] knn_normals ({b}, {m}, 3) on {card}: kernel "
+              f"only {fmt_ms(cold[0])} L2-flushed / {fmt_ms(warm[0])} "
+              f"L2-warm (torch.profiler, mean of 20){of_bound}; bound "
+              f"{r['bound_ms']:.4f} ms (float64 operations: {KNN_PAIR_OPS} "
+              f"a pair at {FP64_INSTR_PER_S / 1e12:.1f} T a second; "
+              f"{r['bytes']} bytes); wrapper {r['wrapper_ms']:.4f} ms "
+              f"L2-warm; plain version {r['plain_warm_ms']:.4f} ms L2-warm "
+              f"(with its host read); the replaced chain (DGEMM, "
+              f"elementwise passes, torch.topk) {r['chain_ms']:.4f} ms "
+              f"L2-flushed / {r['chain_warm_ms']:.4f} ms L2-warm (CUDA "
+              f"events)")
+        out[f"B={b}"] = r
+    return out
+
+
 # -------------------------------------------------------------- training
 def training_dataset(world, n: int):
     """A synthetic TripletDataset in the walled world: 24 db scans on a 6×4
@@ -6664,17 +6879,15 @@ def timed(torch, fn, log):
 def check_train_launches(torch, path, launches, host_stats):
     """Hold every K1 / K2 launch recorded from one cache batch of 8 and one
     train step of 24 scans to the plain versions (record_launches)."""
-    want = {"K1": 2, "K2": 0} if host_stats else {"K1": 0, "K2": 4}
+    want = ({"K1": 2, "K2": 0, "KNN": 0} if host_stats
+            else {"K1": 0, "K2": 4, "KNN": 0})
     got = {key: len(calls) for key, calls in launches.items()}
     check(got == want, f"{path}: recorded launches {got}, expected {want}")
     parts = []
     for key, calls in launches.items():
         for args in calls:
-            label = f"{path} {key} {tuple(args[0].shape)}"
-            rel = (check_k1(torch, label, *args)[0] if key == "K1"
-                   else check_k2(torch, label, *args)[0])
-            check(rel < 1e-5, f"{label} disagrees with its plain version: "
-                  f"{rel:.3e}")
+            rel = check_recorded(
+                torch, f"{path} {key} {tuple(args[0].shape)}", key, args)
             parts.append(f"{key} {tuple(args[0].shape)} {rel:.2e}")
     print(f"[train] {path}: every kernel launch of one cache batch and one "
           f"train step against its plain version, error relative to L1 "
@@ -7583,8 +7796,8 @@ def main(argv) -> int:
         kf_set, q_set = aligned_world_scans(world, cfg.voxel.max_points)
         centroids = vlad_centroids(torch, cfg, kf_set[2][:4])
         model = build_serving_model(torch, cfg, "bfloat16", centroids)
-        _, a_results, _ = phase_aligned_query(torch, cfg, model, kf_set,
-                                              q_set)
+        _, a_results, _, _ = phase_aligned_query(torch, cfg, model, kf_set,
+                                                 q_set)
         print(json.dumps({"card": card, "surface": phase_surface(
             torch, a_results, q_set[2], card)}))
         return 0
@@ -7595,10 +7808,16 @@ def main(argv) -> int:
         lq_set = located_world_scans(world, cfg.voxel.max_points)
         loc, _, _, _ = phase_located_query(torch, cfg, lq_set, centroids)
         model = build_serving_model(torch, cfg, "bfloat16", centroids)
-        a_loc, _, _ = phase_aligned_query(torch, cfg, model, kf_set, q_set)
+        a_loc, _, _, _ = phase_aligned_query(torch, cfg, model, kf_set,
+                                             q_set)
         print(json.dumps({"card": card, "batched": phase_batched(
             torch, cfg, centroids, lq_set, kf_set, q_set, loc, a_loc,
             card)}))
+        return 0
+    if "--knn" in argv:
+        phase_build()
+        print(json.dumps({"card": card, "knn": phase_knn(torch, cfg, world,
+                                                         card)}))
         return 0
     if "--fused-graph" in argv:
         kf_set, q_set = aligned_world_scans(world, cfg.voxel.max_points)
@@ -7633,6 +7852,7 @@ def main(argv) -> int:
         ds = training_dataset(world, cfg.voxel.max_points)
         times = phase_kernel_times(torch, card, *kernel_time_cases(
             torch, cfg, ds, k1_main, k2_main), k2_earlier=k2_earlier)
+        times["knn_normals"] = phase_knn(torch, cfg, world, card)
         print(json.dumps({"card": card, "kernel_times": times}))
         return 0
     lq_set = located_world_scans(world, cfg.voxel.max_points)
@@ -7641,7 +7861,7 @@ def main(argv) -> int:
     phase_reference(torch, cfg, kf, qs, centroids)
 
     model = build_serving_model(torch, cfg, "bfloat16", centroids)
-    a_loc, a_results, k2_launches = phase_aligned_query(
+    a_loc, a_results, k2_launches, knn_aligned = phase_aligned_query(
         torch, cfg, model, kf_set, q_set)
     print(json.dumps({"card": card, "surface": phase_surface(
         torch, a_results, q_set[2], card)}))
@@ -7651,8 +7871,9 @@ def main(argv) -> int:
                                         centroids, card)
     print(json.dumps({"card": card, "device_sort": dsort}))
 
-    print(json.dumps({"card": card, "batched": phase_batched(
-        torch, cfg, centroids, lq_set, kf_set, q_set, loc, a_loc, card)}))
+    batched = phase_batched(torch, cfg, centroids, lq_set, kf_set, q_set,
+                            loc, a_loc, card)
+    print(json.dumps({"card": card, "batched": batched}))
     k1_fused, k2_fused = phase_fused_query(torch, cfg, lq_set, kf_set, q_set,
                                            centroids)
     flat_ms = phase_fused_cell(torch, cfg, centroids, card)
@@ -7660,9 +7881,10 @@ def main(argv) -> int:
     fused_graph = phase_fused_graph(torch, cfg, world, centroids, lq_set,
                                     kf_set, q_set, card)
     print(json.dumps({"card": card, "fused_graph": fused_graph}))
-    fg_k1, fg_k2 = (sum(rec[bank]["launches"][i] for bank in FUSED_BANKS
-                        for rec in fused_graph.values())
-                    for i in (0, 1))
+    fg_k1, fg_k2, fg_knn = (sum(rec[bank]["launches"][i]
+                                for bank in FUSED_BANKS
+                                for rec in fused_graph.values())
+                            for i in (0, 1, 2))
     map_scale = phase_map_scale(torch, card, seed)
     city = phase_city(torch, cfg, centroids, card, flat_ms)
     shard = phase_shard(torch, card, cfg, loc, kf, qs, seed)
@@ -7698,6 +7920,8 @@ def main(argv) -> int:
                       "pose_train": pose_train, "packed": packed}))
     times = phase_kernel_times(torch, card, *kernel_time_cases(
         torch, cfg, ds, k1_main, k2_main), k2_earlier=k2_earlier)
+    knn = phase_knn(torch, cfg, world, card)
+    print(json.dumps({"card": card, "knn": knn}))
     k1_paths = {"located query": k1_launches,
                 "fused query, host-stats": k1_fused,
                 "training, host-stats": train_counts["host-stats"][0],
@@ -7727,6 +7951,9 @@ def main(argv) -> int:
                     dp_k["dp step world 1, all-device"][1]
                     + dp_k["dp extraction world 1, all-device"][1],
                 "fused graph, every variant and bank": fg_k2}
+    knn_paths = {"aligned map build and queries": knn_aligned,
+                 "locate_batch, aligned": batched["aligned"]["knn_batch"],
+                 "fused graph, every variant and bank": fg_knn}
     print(json.dumps({"kernels": [
         {"name": "segment_sum_sorted", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": sum(k1_paths.values()),
@@ -7743,7 +7970,19 @@ def main(argv) -> int:
          "bit_equal": k2_bit_equal,
          **kernel_entry("K2", times, "main path, features"),
          "backward_max_abs_err": bwd["K2"][0], "backward_ms": bwd["K2"][1],
-         "plain_backward_ms": bwd["K2"][2]}]}))
+         "plain_backward_ms": bwd["K2"][2]},
+        {"name": "knn_normals", "route": "cuda", "source": KNN_SOURCE,
+         "replaces": KNN_REPLACES, "launches": sum(knn_paths.values()),
+         "launches_by_path": knn_paths,
+         "max_abs_err": max(r["max_abs_err"] for r in knn.values()),
+         "bit_equal": all(r["bit_equal"] for r in knn.values()),
+         "ms": knn["B=1"]["wrapper_ms"],
+         "kernel_only_ms": knn["B=1"]["kernel_only_ms"],
+         "bound_ms": knn["B=1"]["bound_ms"],
+         "bound_by": knn["B=1"]["bound_by"],
+         "wrapper_ms": knn["B=1"]["wrapper_ms"],
+         "plain_ms": knn["B=1"]["plain_warm_ms"],
+         "replaced_chain_ms": knn["B=1"]["chain_ms"], "cases": knn}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

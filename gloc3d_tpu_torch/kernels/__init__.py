@@ -1,4 +1,4 @@
-"""The hand-written kernels. Importing the package registers both as
-``gloc3d::`` custom ops (``ops.py``)."""
+"""The hand-written kernels. Importing the package registers each as a
+``gloc3d::`` custom op (``ops.py``)."""
 
 from gloc3d_tpu_torch.kernels import ops  # noqa: F401

@@ -25,7 +25,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("segment_sum", "pillar_bin_sums")
+KERNELS = ("segment_sum", "pillar_bin_sums", "knn_normals")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,26 +1,28 @@
-"""Kernels K1 and K2 as ``torch.library`` custom ops.
+"""The hand-written kernels as ``torch.library`` custom ops.
 
-``gloc3d::segment_sum_sorted(values, starts)`` (K1, ``segment_sum.py``)
-and ``gloc3d::pillar_bin_sums(features, ids, num_voxels)`` (K2,
-``bin_sums.py``; also ``gloc3d::pillar_bin_sums_status``, below) are the
-only route to either kernel. The dispatcher picks
-the implementation from the tensors' device: on CUDA tensors the
-hand-written kernel (the wrapper's checks, then its ctypes launch, counted
-in ``segment_sum_sorted.launches`` / ``pillar_bin_sums.launches``, and for
-K2 the kernel's own id-range status read back), on CPU
-tensors the plain version; any other device has no implementation and
-raises. ``gloc3d::pillar_bin_sums_status`` is K2 returning its status
-block instead of reading it (``bin_sums.py::deferred_status``), for a
-program that must not synchronise. Each op also has a fake
-implementation, which gives the output shapes from the arguments alone
-(V from ``starts.shape[-1] - 1`` or from ``num_voxels``), so
-``torch.export`` and ``torch.compile`` trace the op as one node: an
-exported program carries the op and runs the kernel wherever it is loaded
-onto a card, never the plain version that the tracing device happened to
-run.
+``gloc3d::segment_sum_sorted(values, starts)`` (K1, ``segment_sum.py``),
+``gloc3d::pillar_bin_sums(features, ids, num_voxels)`` (K2,
+``bin_sums.py``; also ``gloc3d::pillar_bin_sums_status``, below) and
+``gloc3d::knn_normals(points, ok, k)`` (the ground estimate's k-NN PCA
+normals, ``knn_normals.py``) are the only route to each kernel. The
+dispatcher picks the implementation from the tensors' device: on CUDA
+tensors the hand-written kernel (the wrapper's checks, then its ctypes
+launch, counted in ``segment_sum_sorted.launches`` /
+``pillar_bin_sums.launches`` / ``knn_normals.launches``, and for K2 the
+kernel's own id-range status read back), on CPU tensors the plain version;
+any other device has no implementation and raises.
+``gloc3d::pillar_bin_sums_status`` is K2 returning its status block
+instead of reading it (``bin_sums.py::deferred_status``), for a program
+that must not synchronise. Each op also has a fake implementation, which
+gives the output shapes from the arguments alone (V from
+``starts.shape[-1] - 1`` or from ``num_voxels``; the normals take the
+points' shape), so ``torch.export`` and ``torch.compile`` trace the op as
+one node: an exported program carries the op and runs the kernel wherever
+it is loaded onto a card, never the plain version that the tracing device
+happened to run.
 
 A process that only runs an exported program imports this module (which
-registers both ops) and nothing of the models or the pipeline.
+registers the ops) and nothing of the models or the pipeline.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Tuple
 import torch
 
 from gloc3d_tpu_torch.kernels import bin_sums as _bs
+from gloc3d_tpu_torch.kernels import knn_normals as _kn
 from gloc3d_tpu_torch.kernels import segment_sum as _ss
 
 
@@ -97,3 +100,33 @@ def _pillar_bin_sums_status_fake(features, ids, num_voxels):
     sums, counts = _pillar_bin_sums_fake(features, ids, num_voxels)
     b = math.prod(features.shape[:-2])
     return sums, counts, features.new_empty((b, 4), dtype=torch.int32)
+
+
+# The k-NN normals run on every aligned path, also where no other of these
+# ops runs (the i2i cells): defined through ``torch.library.Library``,
+# whose kernels the dispatcher calls as they are, and not through
+# ``custom_op``, whose backend wrapper imports ``torch._dynamo`` on the
+# first call (2-4 s of a process's set-up). K1 and K2 above still pay that
+# import on the s2s paths; defining them the same way, and measuring the
+# s2s set-up it saves, is ROADMAP Queue 4's set-up item.
+_lib = torch.library.Library("gloc3d", "FRAGMENT")
+_lib.define("knn_normals(Tensor points, Tensor ok, int k) -> Tensor")
+
+
+def _knn_normals_cpu(points, ok, k):
+    return _kn.knn_normals_plain(points, ok, k)
+
+
+def _knn_normals_cuda(points, ok, k):
+    _kn._check(points, ok, k)
+    return _kn._launch(points, ok, k)
+
+
+def _knn_normals_fake(points, ok, k):
+    return points.new_empty(points.shape)
+
+
+_lib.impl("knn_normals", _knn_normals_cpu, "CPU")
+_lib.impl("knn_normals", _knn_normals_cuda, "CUDA")
+torch.library.register_fake("gloc3d::knn_normals", _knn_normals_fake,
+                            lib=_lib)

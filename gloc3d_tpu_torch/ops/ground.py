@@ -1,11 +1,13 @@
 """Ground-plane estimation → gravity alignment, on the device.
 
 Port of ``gloc3d_tpu/ops/ground.py``: candidates within the candidate radius
-→ a random fixed-size subsample → k-NN PCA normals from one (M, M) distance
-matrix → a 10° pitch-angle histogram keeping near-vertical bins → H
-simultaneous RANSAC triplet hypotheses scored by one inlier count → a
-least-squares refit on the best hypothesis's inliers → the rotation taking
-the plane normal to +Z with its yaw removed, lifted by the plane distance.
+→ a random fixed-size subsample → k-NN PCA normals (the op
+``gloc3d::knn_normals``: one hand-written kernel on the card, the (M, M)
+distance matrix on the CPU) → a 10° pitch-angle histogram keeping
+near-vertical bins → H simultaneous RANSAC triplet hypotheses scored by
+one inlier count → a least-squares refit on the best hypothesis's inliers
+→ the rotation taking the plane normal to +Z with its yaw removed, lifted
+by the plane distance.
 ``estimate_ground_batch`` runs it over a batch of scans in one call, as
 ``jax.vmap(estimate_ground)`` does in the JAX package; ``estimate_ground``
 (one scan) is its B = 1 case.
@@ -21,7 +23,8 @@ Differences from the JAX function, each kept to its semantics:
   inverse CDF of (3, H) uniforms, which needs no host sync and gives the
   same rows on every device.
 - ``approx_min_k`` (a TPU partial selection) becomes an exact stable sort
-  for the subsample and ``torch.topk`` for the neighbours.
+  for the subsample and an exact k-NN for the neighbours, the earliest
+  index first at equal distances (``kernels/knn_normals.py``).
 - Everything after the subsample runs in float64 and the outputs are
   rounded to the input dtype. The kNN distances ``|a|² - 2a·b + |b|²``
   cancel badly in fp32 (0.2 % of a 0.1 m neighbour distance at 20 m), so
@@ -53,6 +56,7 @@ from gloc3d_tpu_torch.core.device import device_constant
 from gloc3d_tpu_torch.core.transforms import (
     Rigid3, quat_from_two_vectors, remove_yaw,
 )
+from gloc3d_tpu_torch.kernels.knn_normals import knn_normals
 
 Tensor = torch.Tensor
 TripletSampler = Callable[[Tensor, int], Tensor]
@@ -66,39 +70,6 @@ class GroundEstimate(NamedTuple):
     plane: Tensor           # (4,) [a, b, c, d]: ax+by+cz+d=0, ‖(a,b,c)‖=1, c>0
     valid: Tensor           # () bool: a near-vertical normal bin was found
     inlier_fraction: Tensor  # () RANSAC inliers / ground candidates
-
-
-def _smallest_eigvec_3x3(a: Tensor) -> Tensor:
-    """Closed-form smallest eigenvector of batched symmetric (…, 3, 3):
-    trigonometric (Cardano) eigenvalues, then the column of (A−λ1)(A−λ2)
-    with the largest norm. Degenerate (isotropic) inputs return +Z."""
-    diag = a.diagonal(dim1=-2, dim2=-1)
-    q = diag.sum(-1) / 3.0
-    a01, a02, a12 = a[..., 0, 1], a[..., 0, 2], a[..., 1, 2]
-    p1 = a01 ** 2 + a02 ** 2 + a12 ** 2
-    dq = diag - q[..., None]
-    p2 = torch.sum(dq * dq, -1) + 2.0 * p1
-    p = torch.sqrt(torch.clamp_min(p2 / 6.0, 1e-20))
-    eye = torch.eye(3, dtype=a.dtype, device=a.device)
-    b = (a - q[..., None, None] * eye) / p[..., None, None]
-    detb = torch.linalg.det(b)
-    r = torch.clamp(detb / 2.0, -1.0, 1.0)
-    phi = torch.acos(r) / 3.0
-    lam1 = q + 2.0 * p * torch.cos(phi)                        # largest
-    lam3 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)  # smallest
-    lam2 = 3.0 * q - lam1 - lam3
-    c = torch.matmul(a - lam1[..., None, None] * eye,
-                     a - lam2[..., None, None] * eye)
-    norms = torch.linalg.vector_norm(c, dim=-2)                # column norms
-    best = torch.argmax(norms, dim=-1)
-    v = torch.gather(c, -1, best[..., None, None].expand(
-        c.shape[:-1] + (1,)))[..., 0]
-    n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
-    up = torch.zeros_like(v)
-    up[..., 2] = 1.0
-    degenerate = (p2 < 1e-16) | (n[..., 0] < 1e-12)
-    return torch.where(degenerate[..., None], up,
-                       v / torch.clamp_min(n, 1e-20))
 
 
 def _det3(m: Tensor) -> Tensor:
@@ -247,16 +218,8 @@ def estimate_ground_batch(points: Tensor, mask: Tensor, cfg,
     ok = cand_ok[rows, take]                           # (B, M)
     m = pts.shape[1]
 
-    # --- k-NN PCA normals over the subsample ---
-    sq = torch.sum(pts * pts, -1)
-    d2 = (sq[:, :, None] - 2.0 * torch.bmm(pts, pts.transpose(1, 2))
-          + sq[:, None, :])
-    d2 = torch.where(ok[:, None, :], d2, math.inf)     # exclude invalid cols
-    nn = torch.topk(d2, cfg.knn, dim=-1, largest=False).indices  # incl. self
-    nbr = pts[rows[:, :, None], nn]                    # (B, M, K, 3)
-    c = nbr - nbr.mean(dim=2, keepdim=True)
-    cov = torch.einsum("bmki,bmkj->bmij", c, c) / cfg.knn
-    normal = _smallest_eigvec_3x3(cov)                 # (B, M, 3)
+    # --- k-NN PCA normals over the subsample (op gloc3d::knn_normals) ---
+    normal = knn_normals(pts, ok, cfg.knn)             # (B, M, 3)
 
     # --- pitch-angle histogram, 10° bins, one scatter over the batch ---
     nb = cfg.num_bins

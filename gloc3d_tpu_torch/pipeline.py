@@ -113,7 +113,7 @@ from gloc3d_tpu_torch.data import native
 from gloc3d_tpu_torch.eval.registration import compose_6dof
 from gloc3d_tpu_torch.index.bank import DescriptorBank, search
 from gloc3d_tpu_torch.index.ivf import IVFBank, ShardedIVF, ivf_search
-from gloc3d_tpu_torch.kernels import bin_sums, segment_sum
+from gloc3d_tpu_torch.kernels import bin_sums, knn_normals, segment_sum
 from gloc3d_tpu_torch.models.encoders import is_image_encoder
 from gloc3d_tpu_torch.ops.bev import BEVImage, batch_scan_to_bev
 from gloc3d_tpu_torch.ops.bev_match import MatchResult, match_bev_topk
@@ -413,10 +413,15 @@ def _host_ground(rotation, translation) -> GroundEstimate:
         None, None, None)
 
 
-def _launches(field: str) -> Tuple[int, int]:
-    """K1's and K2's counts ``field`` (captured or replayed launches)."""
-    return (getattr(segment_sum.segment_sum_sorted, field),
-            getattr(bin_sums.pillar_bin_sums, field))
+# the hand-written kernels whose launch counters a replay advances
+_KERNELS = (segment_sum.segment_sum_sorted, bin_sums.pillar_bin_sums,
+            knn_normals.knn_normals)
+
+
+def _launches(field: str) -> Tuple[int, int, int]:
+    """K1's, K2's and the k-NN normals' counts ``field`` (captured or
+    replayed launches)."""
+    return tuple(getattr(kernel, field) for kernel in _KERNELS)
 
 
 class _FusedEager:
@@ -457,10 +462,10 @@ class _FusedGraphs:
     workspace, the device constants and the allocator are settled.
 
     The kernels' wrappers count a capture's launches in ``.captured``;
-    each replay adds the launches it recorded to ``.replayed`` (K1's and
-    K2's), which ``launches`` does not see. ``k2`` holds the K2 launches'
-    (status, ids, V) from the capture, their buffers kept alive with the
-    graphs, so a fault reads the replay's ids. ``marks`` and
+    each replay adds the launches it recorded to ``.replayed`` (K1's, K2's
+    and the k-NN normals'), which ``launches`` does not see. ``k2`` holds
+    the K2 launches' (status, ids, V) from the capture, their buffers kept
+    alive with the graphs, so a fault reads the replay's ids. ``marks`` and
     ``full_marks`` hold the device spans' timing events that each capture
     recorded (``profiling.graph_marks``): the fetches read them."""
 
@@ -491,7 +496,7 @@ class _FusedGraphs:
             self.words, self.layout, carry, self.k2 = loc._fused_program(
                 variant, q, bank, sizes, store)
         mid = _launches("captured")
-        self.program_launches = (mid[0] - before[0], mid[1] - before[1])
+        self.program_launches = tuple(b - a for a, b in zip(before, mid))
         self.full = None
         if staged:
             self.full = torch.cuda.CUDAGraph()
@@ -501,7 +506,7 @@ class _FusedGraphs:
                     MatchResult._fields, loc._fused_full(*carry, store)))
         profiling.count_capture()
         after = _launches("captured")
-        self.full_launches = (after[0] - mid[0], after[1] - mid[1])
+        self.full_launches = tuple(b - a for a, b in zip(mid, after))
         self.carry = carry  # the full branch's inputs: the program's outputs
 
     def stage(self, query) -> None:
@@ -553,9 +558,9 @@ _STAGE1 = ("store_gather", "register")
 _STAGE_FULL = ("store_gather_full", "register_full")
 
 
-def _count_replay(launches: Tuple[int, int]) -> None:
-    segment_sum.segment_sum_sorted.replayed += launches[0]
-    bin_sums.pillar_bin_sums.replayed += launches[1]
+def _count_replay(launches: Tuple[int, int, int]) -> None:
+    for kernel, n in zip(_KERNELS, launches):
+        kernel.replayed += n
 
 
 class GlobalLocalizer:

@@ -244,13 +244,15 @@ def to_host(t: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_counts() -> dict:
-    """K1's and K2's launch counters, read where they live."""
-    from gloc3d_tpu_torch.kernels import bin_sums, segment_sum
+    """The kernels' launch counters (K1, K2, the k-NN normals), read where
+    they live."""
+    from gloc3d_tpu_torch.kernels import bin_sums, knn_normals, segment_sum
 
     return {name: {f: getattr(fn, f) for f in ("launches", "captured",
                                                 "replayed")}
             for name, fn in (("k1", segment_sum.segment_sum_sorted),
-                             ("k2", bin_sums.pillar_bin_sums))}
+                             ("k2", bin_sums.pillar_bin_sums),
+                             ("knn_normals", knn_normals.knn_normals))}
 
 
 def _totals(items) -> dict:

@@ -23,9 +23,10 @@ from gloc3d_tpu.ops.ground import estimate_ground as jax_estimate
 from gloc3d_tpu_torch.core.transforms import (
     get_yaw, quat_from_rpy, quat_rotate, transform_points,
 )
+from gloc3d_tpu_torch.kernels.knn_normals import _smallest_eigvec_3x3
 from gloc3d_tpu_torch.ops.ground import (
-    _plane_from_triplets, _smallest_eigvec_3x3, batch_ground_draws,
-    estimate_ground, estimate_ground_batch, triplets_from,
+    _plane_from_triplets, batch_ground_draws, estimate_ground,
+    estimate_ground_batch, triplets_from,
 )
 from test_ground import make_scene
 from test_pipeline_ground import CFG as ALIGNED_CFG

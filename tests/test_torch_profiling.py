@@ -281,12 +281,15 @@ def test_record_nests_and_records_nothing_after_it(loc, clean):
 
 
 def test_summary_reads_the_kernels_launch_counters(clean):
-    from gloc3d_tpu_torch.kernels import bin_sums, segment_sum
+    from gloc3d_tpu_torch.kernels import bin_sums, knn_normals, segment_sum
 
     k = profiling.summary()["kernels"]
     assert k["k2"] == {f: getattr(bin_sums.pillar_bin_sums, f)
                        for f in ("launches", "captured", "replayed")}
     assert k["k1"]["launches"] == segment_sum.segment_sum_sorted.launches
+    assert k["knn_normals"] == {f: getattr(knn_normals.knn_normals, f)
+                                for f in ("launches", "captured",
+                                          "replayed")}
 
 
 @pytest.mark.cuda
